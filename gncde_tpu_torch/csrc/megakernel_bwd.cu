@@ -1,0 +1,442 @@
+// K2: the fused backward of one vector-field eval of the undirected
+// perm-equiv field.
+//
+// Replaces gncde_tpu/ops/pallas/megakernel_bwd.py (_make_bwd_kernel /
+// bwd_call / bwd_call_batched), which holds about 38 n^2 bytes per eval in
+// one TensorCore's VMEM. Here the forward is recomputed on the row tiling
+// of K1 (megakernel_common.cuh), keeping each layer's M and input x in
+// device memory ((L, B, n, H) floats of scratch), then one row pass per
+// layer walks the stack in reverse. For its BM rows a CTA regenerates the
+// row and column tiles of A and dA (and ddA when tau needs a gradient) from
+// the planes and accumulates, in one sweep over k,
+//
+//   C^T g  (the dM operand),  A M, dA M, A g, dA g  (the basis dots),
+//   ddA M, ddA g                                     (only for dtau),
+//
+// so the basis cotangents <A, g M^T>, <A, M g^T>, ... come out as row dots
+// instead of n x n products. dW, dlin_b, dnorm and the basis terms are
+// written as per-CTA partial sums and reduced over CTAs in a second pass
+// (deterministic, no atomics). The per-element parameter cotangents are
+// summed over the batch by the wrapper, as the JAX side does.
+//
+// What bounds it on the card: bytes, as in K1 -- 8 plane reads per tile
+// element per layer (12 with ddA), about 32 n^2 bytes per element and layer
+// against 10 n H FLOPs per element; the planes mostly hit L2.
+#include "megakernel_common.cuh"
+
+using namespace mk;
+
+template <bool TAU>
+__global__ void __launch_bounds__(NT)
+bwd_rows_kernel(Planes P, const int* __restrict__ idx,
+                const float* __restrict__ tau, int n,
+                const float* __restrict__ stats, Layer lp,
+                const float* __restrict__ X, int ldx,
+                const float* __restrict__ Mc, int ldm,
+                const float* __restrict__ G, int ldg, float* __restrict__ Gp,
+                int ldgp, int mask_prev, float* __restrict__ part, int ptot,
+                int poff) {
+  __shared__ float Ar[BM][BK + 1];
+  __shared__ float dAr[BM][BK + 1];
+  __shared__ float ddAr[TAU ? BM : 1][BK + 1];
+  __shared__ float Cop[BM][BK + 1];
+  __shared__ float Ms[BK][MAXH];
+  __shared__ float Gs[BK][MAXH];
+  __shared__ float dMs[BM][MAXH];
+  __shared__ float znS[BM][MAXH];
+  __shared__ float dznS[BM][MAXH];
+  __shared__ float invS[BM];
+  __shared__ float colS[MAXH], colG[MAXH], colU[MAXH];
+  __shared__ float red[3][NT];
+  __shared__ float scratch[NW];
+  __shared__ float wred[NW][10];
+
+  const int b = blockIdx.y, r0 = blockIdx.x * BM, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int H = lp.hout, hin = lp.hin;
+  const float fn = (float)n, fn2 = fn * fn;
+  const long long base = plane_base(P, idx, b, n);
+  const float t = __ldg(tau + b);
+  const float* st = stats + (long long)b * 6 * n;
+  const float* rA = st + RA * n;
+  const float* rdA = st + RDA * n;
+  const float* Mb = Mc + (long long)b * n * ldm;
+  const float* Gb = G + (long long)b * n * ldg;
+  float q[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) q[k] = __ldg(lp.basis + k);
+
+  // Global sums every CTA needs: sA, sdA, sddA; s = 1^T M, gcol = 1^T g,
+  // utg = u^T g.
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  for (int k = tid; k < n; k += NT) {
+    a0 += rA[k];
+    a1 += rdA[k];
+    if (TAU) a2 += st[RDDA * n + k];
+  }
+  const float sA = block_sum(a0, scratch);
+  const float sdA = block_sum(a1, scratch);
+  const float sddA = TAU ? block_sum(a2, scratch) : 0.f;
+  {
+    const int nsl = NT / H, h = tid % H, sl = tid / H;
+    float s_ = 0.f, g_ = 0.f, u_ = 0.f;
+    if (sl < nsl) {
+      for (int k = sl; k < n; k += nsl) {
+        const float m = Mb[(long long)k * ldm + h];
+        const float g = Gb[(long long)k * ldg + h];
+        const float u = (q[6] * rA[k] + q[7] * rdA[k]) / fn;
+        s_ += m;
+        g_ += g;
+        u_ += u * g;
+      }
+    }
+    red[0][tid] = s_;
+    red[1][tid] = g_;
+    red[2][tid] = u_;
+    __syncthreads();
+    if (tid < H) {
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+      for (int s2 = 0; s2 < nsl; ++s2) {
+        x0 += red[0][s2 * H + tid];
+        x1 += red[1][s2 * H + tid];
+        x2 += red[2][s2 * H + tid];
+      }
+      colS[tid] = x0;
+      colG[tid] = x1;
+      colU[tid] = x2;
+    }
+    __syncthreads();
+  }
+
+  const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
+  float aDM[PPT], aAM[PPT], adAM[PPT], aAg[PPT], adAg[PPT], addAM[PPT],
+      addAg[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j)
+    aDM[j] = aAM[j] = adAM[j] = aAg[j] = adAg[j] = addAM[j] = addAg[j] = 0.f;
+
+  for (int k0 = 0; k0 < n; k0 += BK) {
+    // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+      float A = 0.f, dA = 0.f, ddA = 0.f;
+      if (gi < n && gk < n) {
+        const long long off = base + (long long)gi * n + gk;
+        if (TAU)
+          herm3(P, off, t, A, dA, ddA);
+        else
+          herm(P, off, t, A, dA);
+      }
+      Ar[i][kk] = A;
+      dAr[i][kk] = dA;
+      if (TAU) ddAr[i][kk] = ddA;
+      Cop[i][kk] = b20 * A + b21 * dA;
+    }
+    for (int e = tid; e < BK * H; e += NT) {
+      const int kk = e / H, h = e % H, gk = k0 + kk;
+      const bool ok = gk < n;
+      Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h] : 0.f;
+      Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h] : 0.f;
+    }
+    __syncthreads();
+    // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+      if (gi < n && gk < n) {
+        float A, dA;
+        herm(P, base + (long long)gk * n + gi, t, A, dA);
+        Cop[i][kk] += b10 * A + b11 * dA;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int pp = tid + j * NT;
+      if (pp < BM * H) {
+        const int i = pp / H, h = pp % H;
+        float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
+        float x5 = addAM[j], x6 = addAg[j];
+#pragma unroll 4
+        for (int kk = 0; kk < BK; ++kk) {
+          const float g = Gs[kk][h], m = Ms[kk][h];
+          const float ar = Ar[i][kk], dar = dAr[i][kk];
+          x0 += Cop[i][kk] * g;
+          x1 += ar * m;
+          x2 += dar * m;
+          x3 += ar * g;
+          x4 += dar * g;
+          if (TAU) {
+            const float ddar = ddAr[i][kk];
+            x5 += ddar * m;
+            x6 += ddar * g;
+          }
+        }
+        aDM[j] = x0;
+        aAM[j] = x1;
+        adAM[j] = x2;
+        aAg[j] = x3;
+        adAg[j] = x4;
+        addAM[j] = x5;
+        addAg[j] = x6;
+      }
+    }
+    __syncthreads();
+  }
+
+  // dM rows and the matmul-part basis dots.
+  const float c7 = (q[12] + q[13]) * sA / fn2;
+  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  float tp1a = 0.f, tp1b = 0.f, tp2a = 0.f, tp2b = 0.f, tddP = 0.f, tddQ = 0.f;
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int pp = tid + j * NT;
+    if (pp < BM * H) {
+      const int i = pp / H, h = pp % H, gi = r0 + i;
+      float dm = 0.f;
+      if (gi < n) {
+        const float g = Gb[(long long)gi * ldg + h];
+        const float m = Mb[(long long)gi * ldm + h];
+        tp1a += g * aAM[j];
+        tp1b += g * adAM[j];
+        tp2a += m * aAg[j];
+        tp2b += m * adAg[j];
+        if (TAU) {
+          tddP += g * addAM[j];
+          tddQ += m * addAg[j];
+        }
+        const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+                           (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
+        const float v = (q[8] * rA[gi] + q[9] * rdA[gi]) / fn;
+        dm = aDM[j] + dvec * g + colU[h] + v * colG[h] + c7 * colG[h];
+      }
+      dMs[i][h] = dm;
+    }
+  }
+  tp1a = block_sum(tp1a, scratch);
+  tp1b = block_sum(tp1b, scratch);
+  tp2a = block_sum(tp2a, scratch);
+  tp2b = block_sum(tp2b, scratch);
+  if (TAU) {
+    tddP = block_sum(tddP, scratch);
+    tddQ = block_sum(tddQ, scratch);
+  }
+  // (block_sum's barriers also publish dMs.)
+
+  // One warp per row: rank-term dots, RMSNorm -> Linear backward, g_prev.
+  float w[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) w[k] = 0.f;
+  for (int i = warp; i < BM; i += NW) {
+    const int gi = r0 + i;
+    if (gi >= n) {
+      for (int j = lane; j < MAXH; j += 32) {
+        znS[i][j] = 0.f;
+        dznS[i][j] = 0.f;
+      }
+      if (lane == 0) invS[i] = 0.f;
+      continue;
+    }
+    float gm = 0.f, du = 0.f, dv = 0.f;
+    for (int h = lane; h < H; h += 32) {
+      const float g = Gb[(long long)gi * ldg + h];
+      const float m = Mb[(long long)gi * ldm + h];
+      gm += g * m;
+      du += g * colS[h];
+      dv += m * colG[h];
+    }
+    gm = warp_sum(gm);
+    du = warp_sum(du);
+    dv = warp_sum(dv);
+    const float rAi = rA[gi], rdAi = rdA[gi];
+    const float dgA = st[DGA * n + gi], dgdA = st[DGDA * n + gi];
+    w[0] += gm;
+    w[1] += gm * dgA;
+    w[2] += gm * dgdA;
+    w[3] += du * rAi;
+    w[4] += du * rdAi;
+    w[5] += dv * rAi;
+    w[6] += dv * rdAi;
+    w[7] += gm * rAi;
+    w[8] += gm * rdAi;
+    if (TAU) {
+      const float rddAi = st[RDDA * n + gi], dgddA = st[DGDDA * n + gi];
+      const float ddvec = q[4] * dgdA + q[5] * dgddA +
+                          (q[10] * rdAi + q[11] * rddAi) / fn +
+                          (q[14] * sdA + q[15] * sddA) / fn2;
+      const float du_dt = (q[6] * rdAi + q[7] * rddAi) / fn;
+      const float dv_dt = (q[8] * rdAi + q[9] * rddAi) / fn;
+      w[9] += gm * ddvec + du * du_dt + dv * dv_dt;
+    }
+
+    const float* x = X + ((long long)b * n + gi) * ldx;
+    float ss = 0.f;
+    for (int j = lane; j < hin; j += 32) ss += x[j] * x[j];
+    ss = warp_sum(ss);
+    const float inv = rsqrtf(ss / (float)hin + EPS);
+    float hx = 0.f;
+    for (int j = lane; j < hin; j += 32) {
+      const float xj = x[j], nwj = __ldg(lp.nw + j);
+      znS[i][j] = xj * inv * nwj + __ldg(lp.nb + j);
+      float dz = 0.f;
+      for (int h = 0; h < H; ++h) dz += dMs[i][h] * __ldg(lp.W + (long long)h * hin + j);
+      dznS[i][j] = dz;
+      hx += dz * nwj * xj;
+    }
+    hx = warp_sum(hx);
+    const float k3 = inv * inv * inv / (float)hin;
+    for (int j = lane; j < hin; j += 32) {
+      const float xj = x[j];
+      float gp = dznS[i][j] * __ldg(lp.nw + j) * inv - xj * k3 * hx;
+      if (mask_prev && !(xj > 0.f)) gp = 0.f;
+      Gp[((long long)b * n + gi) * ldgp + j] = gp;
+    }
+    if (lane == 0) invS[i] = inv;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) wred[warp][k] = w[k];
+  }
+  __syncthreads();
+
+  // Per-CTA partials: [dnorm_w (hin) | dnorm_b (hin) | dW (H*hin) |
+  //                    dlin_b (H) | dbasis (16) | dtau (1)].
+  float* pout = part + ((long long)b * gridDim.x + blockIdx.x) * ptot + poff;
+  const int rend = min(BM, n - r0);
+  for (int j = tid; j < hin; j += NT) {
+    float dw = 0.f, db = 0.f;
+    for (int i = 0; i < rend; ++i) {
+      const float xj = X[((long long)b * n + r0 + i) * ldx + j];
+      dw += dznS[i][j] * xj * invS[i];
+      db += dznS[i][j];
+    }
+    pout[j] = dw;
+    pout[hin + j] = db;
+  }
+  for (int e = tid; e < H * hin; e += NT) {
+    const int h = e / hin, j = e % hin;
+    float acc = 0.f;
+    for (int i = 0; i < rend; ++i) acc += dMs[i][h] * znS[i][j];
+    pout[2 * hin + e] = acc;
+  }
+  for (int h = tid; h < H; h += NT) {
+    float acc = 0.f;
+    for (int i = 0; i < rend; ++i) acc += dMs[i][h];
+    pout[2 * hin + H * hin + h] = acc;
+  }
+  if (tid == 0) {
+    float tot[10];
+    for (int k = 0; k < 10; ++k) {
+      tot[k] = 0.f;
+      for (int ww = 0; ww < NW; ++ww) tot[k] += wred[ww][k];
+    }
+    float dc7 = 0.f;
+    for (int h = 0; h < H; ++h) dc7 += colG[h] * colS[h];
+    const bool first = blockIdx.x == 0;
+    float* db = pout + 2 * hin + H * hin + H;
+    db[0] = tp1a;
+    db[1] = tp1b;
+    db[2] = tp2a;
+    db[3] = tp2b;
+    db[4] = tot[1];
+    db[5] = tot[2];
+    db[6] = tot[3] / fn;
+    db[7] = tot[4] / fn;
+    db[8] = tot[5] / fn;
+    db[9] = tot[6] / fn;
+    db[10] = tot[7] / fn;
+    db[11] = tot[8] / fn;
+    const float p7 = first ? dc7 * sA / fn2 : 0.f;
+    db[12] = p7;
+    db[13] = p7;
+    db[14] = tot[0] * sA / fn2;
+    db[15] = tot[0] * sdA / fn2;
+    float dtau = 0.f;
+    if (TAU) {
+      dtau = (1.f + q[0]) * tp1b + (1.f + q[1]) * tddP + q[2] * tp2b +
+             q[3] * tddQ + tot[9];
+      if (first) dtau += dc7 * (q[12] + q[13]) * sdA / fn2;
+    }
+    db[16] = dtau;
+  }
+}
+
+__global__ void reduce_blocks_kernel(const float* __restrict__ part, int nblk,
+                                     int ptot, float* __restrict__ out) {
+  const int b = blockIdx.y, p = blockIdx.x * NT + threadIdx.x;
+  if (p >= ptot) return;
+  float acc = 0.f;
+  for (int k = 0; k < nblk; ++k) acc += part[((long long)b * nblk + k) * ptot + p];
+  out[(long long)b * ptot + p] = acc;
+}
+
+// Layer l's partial block has 2*hin + hout*hin + hout + 17 floats.
+static int layer_ptot(const int* dims, int l) {
+  const int hin = dims[2 * l], hout = dims[2 * l + 1];
+  return 2 * hin + hout * hin + hout + 17;
+}
+
+// Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward (Xbuf[0]
+// unused: layer 0 reads Z). gbuf: two (B, n, ldm) cotangent buffers.
+// part: (B, nblk, ptot) partials; red: (B, ptot) reduced per-element
+// grads, layer blocks in order. dZ: (B, n, hin0).
+extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
+                            const float* a, long long plane_bstride,
+                            const int* idx, const float* tau, const float* Z,
+                            const float* G, int B, int n, int L,
+                            const int* dims, const void* const* ptrs,
+                            int need_tau, float* stats, float* Mbuf,
+                            float* Xbuf, float* gbuf, int ldm, float* dZ,
+                            float* part, int ptot, float* red,
+                            cudaStream_t stream) {
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L) || ldm < MAXH)
+    return (int)cudaErrorInvalidValue;
+  int want = 0;
+  for (int l = 0; l < L; ++l) want += layer_ptot(dims, l);
+  if (want != ptot) return (int)cudaErrorInvalidValue;
+  Planes P{d, c, b, a, plane_bstride};
+  const int nblk = (n + BM - 1) / BM;
+  const dim3 grid(nblk, B);
+  const long long lstride = (long long)B * n * ldm;
+  cudaError_t err;
+
+  // Forward recompute: M_l for every layer, x_l for l >= 1.
+  prep_kernel<<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
+                                       layer_from(ptrs, dims, 0), Mbuf, ldm,
+                                       stats);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int l = 0; l + 1 < L; ++l) {
+    fwd_rows_kernel<<<grid, NT, 0, stream>>>(
+        P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
+        ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
+        Mbuf + (l + 1) * lstride, ldm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+
+  // Reverse sweep.
+  int poff = ptot;
+  const float* g_in = G;
+  int ldg = dims[2 * (L - 1) + 1];
+  for (int l = L - 1; l >= 0; --l) {
+    poff -= layer_ptot(dims, l);
+    const Layer lp = layer_from(ptrs, dims, l);
+    const float* X = l == 0 ? Z : Xbuf + l * lstride;
+    const int ldx = l == 0 ? dims[0] : ldm;
+    float* Gp = l == 0 ? dZ : gbuf + (l % 2) * lstride;
+    const int ldgp = l == 0 ? dims[0] : ldm;
+    if (need_tau)
+      bwd_rows_kernel<true><<<grid, NT, 0, stream>>>(
+          P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
+          Gp, ldgp, l > 0, part, ptot, poff);
+    else
+      bwd_rows_kernel<false><<<grid, NT, 0, stream>>>(
+          P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
+          Gp, ldgp, l > 0, part, ptot, poff);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    g_in = Gp;
+    ldg = ldgp;
+  }
+  reduce_blocks_kernel<<<dim3((ptot + NT - 1) / NT, B), NT, 0, stream>>>(
+      part, nblk, ptot, red);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return 0;
+}

@@ -1,0 +1,143 @@
+"""The port stands alone: no jax, pydantic or optax anywhere in
+gncde_tpu_torch, and no pyyaml or networkx on the flagship path. Also the
+YAML-subset reader, the config schemas, the CLI smoke of the port and
+chip_smoke.py's refusal to run without a card.
+"""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import yaml
+
+from gncde_tpu_torch.configs import ConfigError
+from gncde_tpu_torch.run import common
+from gncde_tpu_torch.train.trainer import Trainer
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FLAGSHIP = ROOT / "configs" / "dyn" / "perm_equiv_gncde.yaml"
+
+# Makes the named top-level packages unimportable (a None entry in
+# sys.modules: ``import`` raises ImportError, ``find_spec`` finds nothing),
+# so the code after it proves it does not need them.
+BLOCKER = """
+import sys
+for _name in {names!r}:
+    sys.modules[_name] = None
+"""
+NEVER = ("jax", "jaxlib", "pydantic", "optax")
+FLAGSHIP_PATH_FREE = NEVER + ("yaml", "networkx")
+
+
+def _run(code, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_every_module_imports_without_jax_pydantic_optax():
+    code = BLOCKER.format(names=set(NEVER)) + """
+import importlib, pkgutil, gncde_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(gncde_tpu_torch.__path__, "gncde_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in {names!r}]
+assert not bad, bad
+assert sys.modules["jax"] is None
+print("imported", len(mods))
+""".format(names=set(NEVER))
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "imported" in res.stdout
+
+
+def test_cli_smoke_without_yaml_or_networkx(tmp_path):
+    """SKILL.md section 1 smoke under the port, at n=16, with pyyaml and
+    networkx blocked as well: the flagship path needs neither."""
+    code = BLOCKER.format(names=set(FLAGSHIP_PATH_FREE)) + """
+import runpy
+sys.argv = ["dyn", "--config", {cfg!r}, "epochs=2", "eval_freq=1", "log_freq=1",
+            "min_epochs=0", "dataset.num_nodes=16", "dataset.batch_size=2",
+            "dataset.time_tick=10", "model.max_steps=64",
+            "dataset.cache_dir={tmp}/cache", "checkpoint_dir={tmp}/ckpt/",
+            "device=cpu", "wandb.mode=disabled"]
+runpy.run_module("gncde_tpu_torch.run.dyn", run_name="__main__")
+assert sys.modules["jax"] is None and sys.modules["yaml"] is None
+""".format(cfg=str(FLAGSHIP), tmp=str(tmp_path))
+    res = _run(code, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    log = res.stderr
+    for line in ("Data loading done", "Train Loss", "Model saved", "Best validation loss"):
+        assert line in log, line
+    assert list((tmp_path / "cache").glob("torch_cache_*_default_train.pkl"))
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "configs" / "dyn").glob("*.yaml")),
+                         ids=lambda p: p.name)
+def test_yaml_subset_reader_matches_safe_load(path):
+    text = path.read_text()
+    assert common.read_yaml_subset(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", ["1", "-3", "1.0e-4", "1e-4", "0.5", ".5", "true",
+                                  "False", "null", "~", "cubic", "'a b'", "[0.8, 0.2]",
+                                  "[1, two, 3.0]", ".checkpoints/", "1_000"])
+def test_scalar_parsing_matches_safe_load(text):
+    assert common.parse_scalar(text) == yaml.safe_load(text)
+
+
+def _flagship():
+    return yaml.safe_load(FLAGSHIP.read_text())
+
+
+def test_trainer_schema_reads_the_flagship_config():
+    tr = Trainer.from_dict(_flagship())
+    assert tr.model.vector_field.hidden_dim == 16 and tr.dataset.num_nodes == 400
+    assert tr.optimiser.schedule.value == 0.1 and tr.optimiser.weight_decay == 1e-4
+    assert tr.dataset.split_ratio == [0.8, 0.2] and tr.dataset.amp_range == (1.0, 1.0)
+
+
+def test_schema_rejections():
+    cfg = _flagship()
+    cfg["model"]["hiden_dim"] = 3  # typo: unknown keys are rejected
+    with pytest.raises(ConfigError, match="hiden_dim"):
+        Trainer.from_dict(cfg)
+    cfg = _flagship()
+    del cfg["dataset"]["dynamic_graph"]
+    with pytest.raises(ConfigError, match="dynamic_graph"):
+        Trainer.from_dict(cfg)
+    cfg = _flagship()
+    cfg["loss"]["name"] = "L2"
+    with pytest.raises(ConfigError, match="L2"):
+        Trainer.from_dict(cfg)
+    cfg = _flagship()
+    cfg["fusion_precision"] = "bf16"  # no bf16 kernel path yet: refuse early
+    with pytest.raises(NotImplementedError, match="bf16"):
+        Trainer.from_dict(cfg)
+    cfg = _flagship()
+    cfg["model"]["method"] = "Kvaerno5"
+    with pytest.raises(NotImplementedError, match="Kvaerno5"):
+        Trainer.from_dict(cfg)
+    cfg = _flagship()
+    cfg["optimiser"]["name"] = "sgd"  # in the schema, not ported yet
+    with pytest.raises(NotImplementedError, match="sgd"):
+        Trainer.from_dict(cfg)
+    assert common.apply_overrides(_flagship(), ["dataset.num_nodes=16"])[
+        "dataset"]["num_nodes"] == 16
+    with pytest.raises(ValueError):
+        common.apply_overrides({}, ["no_equals_sign"])
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok": true' not in res.stdout
+    # Alone in a directory (no package beside it) it fails too.
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok": true' not in res.stdout

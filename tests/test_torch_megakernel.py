@@ -1,0 +1,103 @@
+"""Port parity for K1 and K2 (gncde_tpu_torch/ops/megakernel*.py).
+
+On the CPU the wrappers run their plain PyTorch versions; they are held
+against the JAX megakernels ``megakernel_vf_eval`` / ``megakernel_vf_bwd`` in
+Pallas interpret mode, batched with distinct per-element planes, interval
+indices and offsets (the batch-grid kernels ``_forward_batched`` /
+``bwd_call_batched``). The CUDA kernels themselves are compared with the
+plain versions by ``tests/test_torch_kernels_cuda.py`` and by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import jax.random as jr
+import numpy as np
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from gncde_tpu.interp import backward_hermite_coefficients as j_bhc
+from gncde_tpu.models.vector_fields import PermEquivGraphVectorField as JVF
+from gncde_tpu.ops.pallas import megakernel as jmk
+from gncde_tpu.ops.pallas import megakernel_bwd as jmkb
+from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
+from gncde_tpu_torch.ops import megakernel as mk
+from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+from torch_parity_utils import copy_jax_to_torch, hermite_path
+
+N, H, L, B, T = 20, 8, 2, 3, 6
+
+
+def _setup(seed=0):
+    rng = np.random.default_rng(seed)
+    ts, A = hermite_path(rng, B, T, N)
+    coeffs_j = jax.vmap(j_bhc)(jnp.asarray(ts), jnp.asarray(A))
+    # Per-element query times in different intervals.
+    t = np.array([ts[b, 1 + b] + 0.37 * (ts[b, 2 + b] - ts[b, 1 + b]) for b in range(B)],
+                 np.float32)
+    Z = rng.normal(size=(B, N, H)).astype(np.float32)
+    G = rng.normal(size=(B, N, H)).astype(np.float32)
+    vf_j = JVF(input_dim=H, hidden_dim=H, output_dim=H, num_layers=L,
+               data_embed_dim=1, num_nodes=N, key=jr.PRNGKey(seed + 8))
+    vf_t = TVF(H, H, H, L, 1, N, generator=torch.Generator().manual_seed(0))
+    copy_jax_to_torch(vf_j, vf_t)
+    planes = tuple(torch.tensor(np.asarray(c)) for c in coeffs_j)
+    idx, tau = mk.interval(torch.as_tensor(ts), torch.as_tensor(t))
+    assert len(set(idx.tolist())) == B  # distinct interval per element
+    return dict(ts=ts, t=t, Z=Z, G=G, coeffs_j=coeffs_j, vf_j=vf_j, vf_t=vf_t,
+                planes=planes, idx=idx, tau=tau)
+
+
+def _close(got, ref, rtol):
+    """rtol against the array's own scale (entries near 0 get scale-relative
+    slack: sums over n^2 products reduce in different orders)."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=rtol,
+                               atol=rtol * max(np.abs(ref).max(), 1e-30))
+
+
+def test_plain_k1_matches_jax_megakernel_interpret():
+    s = _setup()
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.vmap(lambda c, ts_, t_, z: jmk.megakernel_vf_eval(c, ts_, t_, z, s["vf_j"]))(
+            s["coeffs_j"], jnp.asarray(s["ts"]), jnp.asarray(s["t"]), jnp.asarray(s["Z"]))
+    before = mk.megakernel_vf_eval.launches
+    got = mk.megakernel_vf_eval(s["planes"], s["idx"], s["tau"], torch.as_tensor(s["Z"]),
+                                mk.layer_params(s["vf_t"]))
+    assert mk.megakernel_vf_eval.launches == before  # CPU: plain version, no launch
+    # f32 on both sides; the kernel's matmul and n-sums round differently.
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_plain_k2_matches_jax_megakernel_bwd_interpret():
+    s = _setup(seed=1)
+    with pltpu.force_tpu_interpret_mode():
+        d_t, d_Z, d_vf = jax.vmap(
+            lambda c, ts_, t_, z, g: jmkb.megakernel_vf_bwd(c, ts_, t_, z, s["vf_j"], g,
+                                                            need_t=True))(
+            s["coeffs_j"], jnp.asarray(s["ts"]), jnp.asarray(s["t"]), jnp.asarray(s["Z"]),
+            jnp.asarray(s["G"]))
+    dtau, dZ, per_layer = mkb.megakernel_vf_bwd(
+        s["planes"], s["idx"], s["tau"], torch.as_tensor(s["Z"]),
+        mk.layer_params(s["vf_t"]), torch.as_tensor(s["G"]), need_tau=True)
+    rtol = 1e-4  # cotangents reduce over n^2 products in a different order
+    _close(dZ, d_Z, rtol)
+    _close(dtau, d_t, rtol)
+    for l, (dnw, dnb, dW, dlb, dbasis) in enumerate(per_layer):
+        jl = d_vf.gnn_layers[l]
+        _close(dnw, jl.conv_layer.norm.weight, rtol)
+        _close(dnb, jl.conv_layer.norm.bias, rtol)
+        _close(dW, jl.conv_layer.linear.weight, rtol)
+        _close(dlb, jl.conv_layer.linear.bias, rtol)
+        _close(dbasis, jnp.stack(jl.params, axis=1), rtol)
+
+
+def test_plain_k2_without_tau_leaves_dtau_zero():
+    s = _setup(seed=2)
+    args = (s["planes"], s["idx"], s["tau"], torch.as_tensor(s["Z"]),
+            mk.layer_params(s["vf_t"]), torch.as_tensor(s["G"]))
+    with_tau = mkb.megakernel_vf_bwd(*args, need_tau=True)
+    no_tau = mkb.megakernel_vf_bwd(*args, need_tau=False)
+    assert float(no_tau[0].abs().max()) == 0.0
+    np.testing.assert_array_equal(no_tau[1].numpy(), with_tau[1].numpy())
+
