@@ -17,12 +17,10 @@ Phases, each printing one line before the last:
      have launched.
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA device the script fails before phase 1.
-``--skip-train`` runs phases 1-4 only (kernel iteration).
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
@@ -209,11 +207,7 @@ def phase_train(torch):
     return {"K1": k1, "K2": k2}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--skip-train", action="store_true")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -222,9 +216,7 @@ def main(argv=None) -> int:
     results = {}
     phase_k1(torch, results)
     phase_k2(torch, results)
-    launches = {"K1": 0, "K2": 0}
-    if not args.skip_train:
-        launches = phase_train(torch)
+    launches = phase_train(torch)
 
     kernels = []
     for name, src, rep in (

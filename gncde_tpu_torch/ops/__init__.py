@@ -32,10 +32,14 @@ _PRECISION = "f32"
 _VALID_PRECISION = ("f32",)
 
 
-def set_fusion_backend(name: str) -> None:
-    global _BACKEND
+def check_fusion_backend(name: str) -> None:
     if name not in _VALID:
         raise ValueError(f"backend must be one of {_VALID}; got {name!r}")
+
+
+def set_fusion_backend(name: str) -> None:
+    global _BACKEND
+    check_fusion_backend(name)
     _BACKEND = name
 
 
@@ -48,8 +52,7 @@ def get_fusion_backend(device: torch.device | str | None = None) -> str:
     return "dense"
 
 
-def set_fusion_precision(name: str) -> None:
-    global _PRECISION
+def check_fusion_precision(name: str) -> None:
     if name == "bf16":
         raise NotImplementedError(
             "fusion_precision 'bf16' is not implemented in the Hopper kernels "
@@ -57,6 +60,11 @@ def set_fusion_precision(name: str) -> None:
         )
     if name not in _VALID_PRECISION:
         raise ValueError(f"precision must be one of {_VALID_PRECISION}")
+
+
+def set_fusion_precision(name: str) -> None:
+    global _PRECISION
+    check_fusion_precision(name)
     _PRECISION = name
 
 

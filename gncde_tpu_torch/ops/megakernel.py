@@ -40,23 +40,6 @@ LayerParams = tp.Dict[str, torch.Tensor]
 _LAYER_KEYS = ("norm_w", "norm_b", "W", "lin_b", "basis")
 
 
-def layer_params(vf) -> tp.List[LayerParams]:
-    """Per-layer parameters of a PermEquivGraphVectorField, basis as (8, 2)."""
-    out = []
-    for layer in vf.gnn_layers:
-        conv = layer.conv_layer
-        out.append(
-            dict(
-                norm_w=conv.norm.weight,
-                norm_b=conv.norm.bias,
-                W=conv.linear.weight,
-                lin_b=conv.linear.bias,
-                basis=torch.stack(list(layer.params)),
-            )
-        )
-    return out
-
-
 def interval(ts: torch.Tensor, t: torch.Tensor):
     """Per-element interval index and offset: ``ts`` (B, T), ``t`` (B,)."""
     idx = torch.searchsorted(ts, t[:, None].to(ts.dtype), right=True)[:, 0] - 1
@@ -279,6 +262,11 @@ def _unflatten(flat) -> tp.List[LayerParams]:
         layers.append(dict(norm_w=nw, norm_b=nb, W=W, lin_b=lb,
                            basis=torch.stack(basis)))
     return layers
+
+
+def layer_params(vf) -> tp.List[LayerParams]:
+    """Per-layer parameters of a PermEquivGraphVectorField, basis as (8, 2)."""
+    return _unflatten(flatten_params(vf))
 
 
 def megakernel_vf(planes: Planes, ts, t, Z, vf):

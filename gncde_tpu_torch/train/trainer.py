@@ -106,9 +106,9 @@ class Trainer(Schema):
             if getattr(self, knob):
                 raise NotImplementedError(f"{knob} is not ported yet (see ROADMAP)")
         if self.fusion_precision is not None:
-            ops_config.set_fusion_precision(self.fusion_precision)
+            ops_config.check_fusion_precision(self.fusion_precision)
         if self.fusion_backend is not None:
-            ops_config.set_fusion_backend(self.fusion_backend)
+            ops_config.check_fusion_backend(self.fusion_backend)
 
     def resolve_device(self) -> torch.device:
         if self.device == "auto":

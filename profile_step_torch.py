@@ -1,0 +1,169 @@
+"""Profile one flagship training step of the PyTorch port on a CUDA card.
+
+    python3 profile_step_torch.py [--num-nodes 400] [--trace step_trace.json]
+
+Builds ``configs/dyn/perm_equiv_gncde.yaml`` at full width (hidden 16, 2
+layers, batch 4; ``--num-nodes`` cuts the graph), generates its training
+data, and times the forward + backward of the training loss: the Tsit5 solve
+under the checkpointed adjoint, without the optimiser update, so that every
+run repeats the same computation. Runs are timed on the host clock, ended by
+``torch.cuda.synchronize()``, in the order kernel path (fusion backend
+``megakernel``: K1 forward, K2 backward), plain path (``dense``), plain,
+kernel. One more kernel-path run is traced with ``torch.profiler``; from the
+trace's device events (kernels, copies, memsets) it reports:
+
+* ``device_busy_ms``: the union of the device events' intervals;
+* ``device_span_ms``: first device event's start to last device event's end;
+* ``busy_share_of_unprofiled_wall``: busy time over the mean unprofiled
+  kernel-path wall time (the profiler stretches the host, not the kernels);
+* ``busy_share_of_span``: busy time over the traced span;
+* the kernels with the most device time, and the K1/K2 launch counts.
+
+Prints the card (``nvidia-smi`` name and power limit) and then one JSON
+object. Fails without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "configs", "dyn", "perm_equiv_gncde.yaml")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(trace_path: str):
+    """(name, start_us, dur_us) of every device event of a Chrome trace."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [(e.get("name", ""), float(e["ts"]), float(e["dur"]))
+            for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS]
+
+
+def busy_and_span(events):
+    """Union length of the events' intervals and their span, in us."""
+    iv = sorted((s, s + d) for _, s, d in events)
+    busy, cur_s, cur_e = 0.0, iv[0][0], iv[0][1]
+    for s, e in iv[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, max(e for _, e in iv) - iv[0][0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--num-nodes", type=int, default=400)
+    ap.add_argument("--trace", help="also keep the Chrome trace at this path")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step_torch: no CUDA device visible")
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.models.continuous import make_control
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+    from gncde_tpu_torch.run.common import apply_overrides, safe_load
+    from gncde_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(CONFIG) as f:
+            cfg = apply_overrides(safe_load(f.read()), [
+                f"dataset.cache_dir={tmp}", f"dataset.num_nodes={args.num_nodes}",
+                "device=cuda", "wandb.mode=disabled"])
+        tr = Trainer.from_dict(cfg)
+        t0 = time.perf_counter()
+        d = tr.dataset.get_training_data()
+        data_s = time.perf_counter() - t0
+        ctrl = make_control("cubic", d["train_t"], d["train_graph_path_coeffs"]).to(dev)
+        data = (d["train_t"].to(dev), ctrl, d["train_true_y"].to(dev),
+                d["true_y0"].to(dev))
+        loss_fn = tr.loss.build()
+        model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+
+        def fwd_bwd():
+            model.zero_grad()
+            loss = loss_fn(model, data)
+            loss.backward()
+            torch.cuda.synchronize()
+            return float(loss)
+
+        def timed(backend):
+            ops.set_fusion_backend(backend)
+            t = time.perf_counter()
+            loss = fwd_bwd()
+            wall = time.perf_counter() - t
+            return {"wall_s": wall, "loss": loss,
+                    "attempts": (model.last_stats["num_accepted_steps"]
+                                 + model.last_stats["num_rejected_steps"]).tolist()}
+
+        ops.set_fusion_backend("megakernel")
+        fwd_bwd()  # warm-up: kernel build and first launches
+        runs = {"megakernel": [], "dense": []}
+        for backend in ("megakernel", "dense", "dense", "megakernel"):
+            runs[backend].append(timed(backend))
+
+        ops.set_fusion_backend("megakernel")
+        mk.megakernel_vf_eval.launches = 0
+        mkb.megakernel_vf_bwd.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fwd_bwd()
+            prof_wall = time.perf_counter() - t
+        trace = args.trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        events = device_events(trace)
+
+    if not events:
+        raise RuntimeError("the trace holds no device events")
+    busy_us, span_us = busy_and_span(events)
+    by_name = {}
+    for name, _, dur in events:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + dur, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    mk_wall = sum(r["wall_s"] for r in runs["megakernel"]) / len(runs["megakernel"])
+    print(json.dumps({
+        "nvidia_smi": smi, "num_nodes": args.num_nodes, "data_gen_s": data_s,
+        "fwd_bwd": runs,
+        "profiled": {
+            "wall_s": prof_wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_span_ms": span_us / 1e3,
+            "busy_share_of_unprofiled_wall": busy_us / 1e6 / mk_wall,
+            "busy_share_of_span": busy_us / span_us,
+            "device_events": len(events),
+            "k1_launches": mk.megakernel_vf_eval.launches,
+            "k2_launches": mkb.megakernel_vf_bwd.launches,
+            "top_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
+                            for k, v in top],
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
