@@ -4,7 +4,8 @@
 
 Phases, each printing one line before the last:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. build K1 and K2 from gncde_tpu_torch/csrc with nvcc (build seconds);
+  2. build K1, K2 and the tiled kernels K3-K5b from gncde_tpu_torch/csrc,
+     one nvcc per source, all started together (nvcc seconds per source);
   3. K1 (forward vf kernel) against its plain PyTorch version at the
      flagship shape (n=400, B=4, H=16, L=2) and the bench shape (H=32, L=3),
      per-element planes and (idx, tau); max abs err <= 1e-4 * max|ref|;
@@ -14,19 +15,39 @@ Phases, each printing one line before the last:
   5. the main path: ``gncde_tpu_torch.run.dyn.main`` trains the flagship
      config configs/dyn/perm_equiv_gncde.yaml for 3 epochs at full width
      on the card; every train loss must be finite and both kernels must
-     have launched.
-The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; without a CUDA device the script fails before phase 1.
+     have launched;
+  6. the tiled kernels K3 (fwd2), K4 (bwd2), K5a (dw2) and K5b (dw) against
+     their plain versions at the tgbn-genre shape (n=1505, H 8 and 128,
+     B=1) and one small odd shape (n=300, H=5, B=2); max abs err <= 1e-4 *
+     max|ref| (the same bf16 operands and B1/B2 roundings on both sides; only
+     the order of the f32 sums differs); for K3 also the time of two cuBLAS
+     bf16 products on pre-formed B1, B2 as a yardstick (not one call for the
+     same function);
+  7. the TGB main path: ``gncde_tpu_torch.run.tgb.main`` trains
+     configs/tgb/genre_perm_equiv_gncde.yaml for one epoch at full width
+     (n=1505, hidden 8, 3 layers) on a tgbn-genre-scale surrogate written by
+     tools/fetch_tgb.py (gravity model, seed 2, 1505 nodes, 130,000 edges
+     per snapshot) cut from 133 snapshots to 50: 5 windows of 10, 3 train, 1
+     validation, 1 test; every train loss and the validation NDCG@10 must be
+     finite and K3 and K4 must have launched.
+Then one JSON line of every kernel (launches on its main path, error, times
+and the bound: the larger of the bytes its function must move at 3.35 TB/s
+and the products that function needs at the card's peak for their operands'
+type). The last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device the script fails before phase 1.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 SHAPES = {
     "flagship": dict(n=400, B=4, H=16, L=2),
@@ -34,6 +55,24 @@ SHAPES = {
 }
 K1_TOL = 1e-4
 K2_TOL = 1e-3
+TILED_TOL = 1e-4
+#: tgbn-genre shapes of the tiled kernels (the config's layer widths 8, 8,
+#: and the CDE wrapper's 8 * 8 * 2 = 128) and one small odd shape.
+TILED_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H=128, B=1),
+                "odd": dict(n=300, H=5, B=2)}
+GENRE_SNAPSHOTS = 50
+# Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes, *ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations, given as (count, peak) pairs, each over the peak
+    for its type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, sum(f / peak for f, peak in ops)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def emit(obj) -> None:
@@ -63,8 +102,7 @@ def phase_build():
     from gncde_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    for name in ("megakernel_fwd", "megakernel_bwd"):
-        _build.load(name)
+    _build.build(["megakernel_fwd", "megakernel_bwd", "tiled"])
     emit({"phase": 2, "build_s": time.perf_counter() - t0,
           "nvcc_s": dict(_build.BUILD_SECONDS)})
 
@@ -207,6 +245,149 @@ def phase_train(torch):
     return {"K1": k1, "K2": k2}
 
 
+def make_tiled_inputs(torch, n, H, B, seed=0):
+    """bf16 planes (B, n, n), bf16 vectors (B, n, H), four f32 slabs
+    (B, n, n) and the coefficient vector, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def bf16(x):
+        return torch.tensor(x.astype(np.float32), device=dev).to(torch.bfloat16)
+
+    A = bf16(rng.uniform(0.0, 1.0, (B, n, n)))
+    dA = bf16(rng.normal(0.0, 1.0, (B, n, n)))
+    M, G = bf16(rng.normal(size=(B, n, H))), bf16(rng.normal(size=(B, n, H)))
+    slabs = tuple(torch.tensor(rng.normal(0.0, 0.1, (B, n, n)).astype(np.float32), device=dev)
+                  for _ in range(4))
+    cvec = torch.tensor([1.03, 0.071, -0.044, 0.052], device=dev)
+    return A, dA, M, G, slabs, cvec
+
+
+def tiled_bound(name, n, H, B):
+    """(bound_ms, bound_by) of one tiled kernel call: each input read once,
+    each output written once, and the products the function needs (not the
+    kernel's own algorithm) at the peak for their operands' type: bf16
+    matrix products on bf16 operands, f32 inner products with f32 planes."""
+    nn, nh = n * n * B, n * H * B  # plane and vector elements
+    if name == "K3":  # bf16 A, dA, M -> f32 rowpart, colpart: B1 M and B2^T M
+        return bound(2 * 2 * nn + 2 * nh + 2 * 4 * nh + 16, (4 * nn * H, BF16_FLOPS))
+    if name == "K4":  # bf16 A, dA, G, M -> f32 dM parts and dw4: (c_col.(A, dA)) g,
+        # (c_row.(A, dA))^T g and P = G M^T, then <A|dA, P>, <A|dA, P^T>
+        return bound(2 * 2 * nn + 2 * 2 * nh + 2 * 4 * nh + 16 + 4 * 4 * B,
+                     (6 * nn * H, BF16_FLOPS), (8 * nn, F32_FLOPS))
+    if name == "K5a":  # bf16 A, dA, G, M -> dw4: P = G M^T, four inner products
+        return bound(2 * 2 * nn + 2 * 2 * nh + 4 * 4 * B,
+                     (2 * nn * H, BF16_FLOPS), (8 * nn, F32_FLOPS))
+    # K5b: four f32 slabs, bf16 G, M -> dw8: P = G M^T, eight inner products
+    return bound(4 * 4 * nn + 2 * 2 * nh + 8 * 4 * B,
+                 (2 * nn * H, BF16_FLOPS), (16 * nn, F32_FLOPS))
+
+
+def phase_tiled(torch, results):
+    from gncde_tpu_torch.ops import tiled as tt
+
+    for label, s in TILED_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        A, dA, M, G, slabs, cvec = make_tiled_inputs(torch, n, H, B)
+        calls = {
+            "K3": (lambda: tt.fwd2_call(A, dA, cvec, M),
+                   lambda: tt.plain_fwd2(A, dA, cvec, M)),
+            "K4": (lambda: tt.bwd2_call(A, dA, cvec, G, M),
+                   lambda: tt.plain_bwd2(A, dA, cvec, G, M)),
+            "K5a": (lambda: (tt.dw2_call(A, dA, G, M),),
+                    lambda: (tt.plain_dw2(A, dA, G, M),)),
+            "K5b": (lambda: (tt.dw_call(slabs, G, M),),
+                    lambda: (tt.plain_dw(slabs, G, M),)),
+        }
+        for name, (kernel, plain) in calls.items():
+            got, ref, again = kernel(), plain(), kernel()
+            torch.cuda.synchronize()
+            errs, worst_abs = [], 0.0
+            for a, b, c in zip(got, ref, again):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise RuntimeError(f"{name} {label}: bad output {tuple(a.shape)}")
+                if not torch.equal(a, c):
+                    raise RuntimeError(f"{name} {label}: two launches differ")
+                err, _ = rel_err(torch, a, b)
+                errs.append(err)
+                worst_abs = max(worst_abs, float((a - b).abs().max()))
+            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            bms, by = tiled_bound(name, n, H, B)
+            line = {"phase": 6, "kernel": name, "shape": label, **s,
+                    "max_abs_err": worst_abs, "max_rel_err": max(errs), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+            if name == "K3":
+                c = cvec.to(torch.bfloat16)
+                B1 = c[0] * A + c[1] * dA
+                B2t = (c[2] * A + c[3] * dA).transpose(-2, -1)
+                line["yardstick_two_cublas_bf16_products_ms"] = time_ms(
+                    torch, lambda: (torch.matmul(B1, M), torch.matmul(B2t, M)))
+            emit(line)
+            if not max(errs) <= TILED_TOL:
+                raise RuntimeError(f"{name} {label}: rel err {max(errs):.3e} > {TILED_TOL}")
+            results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by)
+
+
+def write_genre_surrogate(out: Path) -> None:
+    """tools/fetch_tgb.py's tgbn-genre surrogate cut to GENRE_SNAPSHOTS
+    snapshots (the tool is numpy-only, loaded by path). Seed 2 is the first
+    whose 50 snapshots touch all 1505 nodes, the config's n (seed 0's pair
+    pool misses a node; seed 1's first 50 snapshots miss one)."""
+    tool = Path(__file__).resolve().parent / "tools" / "fetch_tgb.py"
+    spec = importlib.util.spec_from_file_location("fetch_tgb", tool)
+    fetch_tgb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fetch_tgb)
+    fetch_tgb.SCALES["tgbn-genre"]["num_years"] = GENRE_SNAPSHOTS
+    fetch_tgb.synthetic("tgbn-genre", out, seed=2)
+
+
+def counters():
+    from gncde_tpu_torch.ops import megakernel, megakernel_bwd, tiled
+
+    return {"K1": megakernel.megakernel_vf_eval, "K2": megakernel_bwd.megakernel_vf_bwd,
+            "K3": tiled.fwd2_call, "K4": tiled.bwd2_call, "K5a": tiled.dw2_call,
+            "K5b": tiled.dw_call}
+
+
+def phase_tgb(torch):
+    from gncde_tpu_torch.run import tgb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_genre_surrogate(Path(tmp) / "data")
+        data_s = time.perf_counter() - t0
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = tgb.main([
+            "--config", "configs/tgb/genre_perm_equiv_gncde.yaml",
+            "dataset.name=tgbn-genre-synth", "dataset.frequency=None",
+            f"dataset.data_dir={tmp}/data", f"dataset.cache_dir={tmp}/cache",
+            f"checkpoint_dir={tmp}/ckpt/", "epochs=1", "eval_freq=1", "min_epochs=0",
+            "device=cuda", "wandb.mode=disabled",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters().items()}
+    losses = res["train_losses"]
+    ndcg = res["validation_metrics"].get("validation_ndcg@10", float("nan"))
+    emit({"phase": 7, "train_losses": losses, "train_step_s": res["train_step_s"],
+          "validation_metrics": res["validation_metrics"],
+          "best_epoch": res["best_epoch"], "device": res["device"],
+          "launches": launches, "surrogate_write_s": data_s, "wall_s": wall})
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite or missing TGB train losses: {losses}")
+    if not math.isfinite(ndcg):
+        raise RuntimeError(f"validation NDCG@10 is not finite: {ndcg}")
+    if not res["device"].startswith("cuda"):
+        raise RuntimeError(f"TGB path ran on {res['device']}, not cuda")
+    if launches["K3"] <= 0 or launches["K4"] <= 0:
+        raise RuntimeError(f"tiled kernels not launched on the TGB path: {launches}")
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,19 +397,41 @@ def main() -> int:
     results = {}
     phase_k1(torch, results)
     phase_k2(torch, results)
-    launches = phase_train(torch)
+    dyn_launches = phase_train(torch)
+    phase_tiled(torch, results)
+    tgb_launches = phase_tgb(torch)
 
+    s = SHAPES["flagship"]
+    n, B, H, L = s["n"], s["B"], s["H"], s["L"]
+    planes = 4 * 4 * n * n * B  # four f32 interval planes per element
     kernels = []
-    for name, src, rep in (
+    for name, src, rep, (bms, by) in (
+        # K1: Z -> output, one product C M per layer.
         ("K1", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
-         "gncde_tpu/ops/pallas/megakernel.py:277"),
+         "gncde_tpu/ops/pallas/megakernel.py:277",
+         bound(planes + 2 * 4 * n * H * B, (2 * n * n * H * L * B, F32_FLOPS))),
+        # K2: Z, G -> dZ; per layer the forward recompute C M, C^T g and
+        # P = g M^T, then the four basis dots <A|dA, P>, <A|dA, P^T>.
         ("K2", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
-         "gncde_tpu/ops/pallas/megakernel_bwd.py:412"),
+         "gncde_tpu/ops/pallas/megakernel_bwd.py:412",
+         bound(planes + 3 * 4 * n * H * B, ((6 * H + 8) * n * n * L * B, F32_FLOPS))),
     ):
         _, err, ms, plain_ms = results[name][0]  # flagship shape
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": rep, "launches": dyn_launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": None,
+                        "shape": "flagship"})
+    for name, rep in (("K3", "gncde_tpu/ops/pallas/tiled.py:345"),
+                      ("K4", "gncde_tpu/ops/pallas/tiled.py:476"),
+                      ("K5a", "gncde_tpu/ops/pallas/tiled.py:748"),
+                      ("K5b", "gncde_tpu/ops/pallas/tiled.py:275")):
+        err, ms, plain_ms, bms, by = results[name]["genre-H128"]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gncde_tpu_torch/csrc/tiled.cu", "replaces": rep,
+                        "launches": tgb_launches[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None, "shape": "genre-H128"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 from ._schema import ConfigError, Schema
-from .dataset_configs import ODEDataSetCfg
+from .dataset_configs import ODEDataSetCfg, TGBDataSetCfg
 from .vector_field_configs import VectorFieldCfg
 from .optimiser_configs import (
     ConstantScheduleCfg,
@@ -8,10 +8,11 @@ from .optimiser_configs import (
 )
 from .loss_configs import MSELossCfg
 from .wandb_configs import WandBConfig
-from .model_configs import GraphNeuralCDECfg
+from .model_configs import GraphNeuralCDECfg, TGBGraphNeuralCDECfg
 
 __all__ = [
-    "ConfigError", "Schema", "ODEDataSetCfg", "VectorFieldCfg",
+    "ConfigError", "Schema", "ODEDataSetCfg", "TGBDataSetCfg", "VectorFieldCfg",
     "ConstantScheduleCfg", "OptimiserCfg",
     "clip_by_global_norm", "MSELossCfg", "WandBConfig", "GraphNeuralCDECfg",
+    "TGBGraphNeuralCDECfg",
 ]

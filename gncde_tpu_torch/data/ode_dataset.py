@@ -3,10 +3,11 @@
 Counterpart of ``gncde_tpu/data/ode_dataset.py``. The random draws are
 numpy's (``np.random.default_rng(spec.seed)``) in the same order as the JAX
 package, so both packages build the same time grids, initial states and
-graph events; the jax-free helpers for events and rectangles are imported
-from ``gncde_tpu.data``. The ground truth is a constant-step solve with the
-port's solver on the host CPU in float32 (``adjoint="none"``), one batched
-solve per graph segment -- preprocessing, not the training hot path.
+graph events; the numpy helpers for events and rectangles are the port's
+own copies (``data/events.py``, ``data/misc_rect.py``). The ground truth is
+a constant-step solve with the port's solver on the host CPU in float32
+(``adjoint="none"``), one batched solve per graph segment -- preprocessing,
+not the training hot path.
 """
 
 from __future__ import annotations
@@ -17,11 +18,10 @@ import typing as tp
 import numpy as np
 import torch
 
-from gncde_tpu.data.events import gen_events_happen_time, gen_events_happen_graph
-from gncde_tpu.data.misc_rect import sample_non_overlapping_rect
-
 from ..solve import ODETerm, SaveAt, ConstantStepSize, diffeqsolve
 from . import ode_systems
+from .events import gen_events_happen_time, gen_events_happen_graph
+from .misc_rect import sample_non_overlapping_rect
 from .graph_gen import generate_graphs, degree_laplacian
 
 

@@ -188,12 +188,15 @@ class MatrixControl:
 
     Holds only the adjacency (value) channel of reference-layout stacked
     ``[time, value]`` coefficients; vector fields probe ``tgrad_is_unit``.
+    ``red`` optionally carries the per-trajectory plane reductions of the
+    tiled regime (``ops/tiled.py`` ``PlaneReductions``).
     """
 
     tgrad_is_unit = True
 
-    def __init__(self, path):
+    def __init__(self, path, red=None):
         self.path = path
+        self.red = red
 
     @classmethod
     def from_stacked(cls, interpolation: str, ts, coeffs):
@@ -204,10 +207,11 @@ class MatrixControl:
 
     def to(self, device) -> "MatrixControl":
         p = self.path
+        red = None if self.red is None else type(self.red)(*(r.to(device) for r in self.red))
         if isinstance(p, CubicInterpolation):
             return MatrixControl(CubicInterpolation(
-                p.ts.to(device), tuple(c.to(device) for c in p.coeffs)))
-        return MatrixControl(LinearInterpolation(p.ts.to(device), p.ys.to(device)))
+                p.ts.to(device), tuple(c.to(device) for c in p.coeffs)), red)
+        return MatrixControl(LinearInterpolation(p.ts.to(device), p.ys.to(device)), red)
 
     def adj(self, t):
         return self.path.evaluate(t)

@@ -12,9 +12,24 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..interp import MatrixControl
+from .. import ops as ops_config
+from ..interp import CubicInterpolation, MatrixControl
 from ..nn import Linear
+from ..ops import megakernel as _mk
+from ..ops import tiled as _tiled
 from ..solve import ODETerm, SaveAt, PIDController, diffeqsolve
+
+
+def with_reductions(ctrl: MatrixControl) -> MatrixControl:
+    """Under the megakernel backend with ``MEGAKERNEL_MAX_N < n <=
+    TILED_MAX_N`` (the tiled regime), attach the per-trajectory plane
+    reductions once, so each vf eval's rank terms are O(n) reads."""
+    path = ctrl.path
+    if (isinstance(path, CubicInterpolation)
+            and ops_config.get_fusion_backend(path.coeffs[0].device) == "megakernel"
+            and _mk.MEGAKERNEL_MAX_N < path.coeffs[0].shape[-1] <= _tiled.TILED_MAX_N):
+        ctrl.red = _tiled.cubic_plane_reductions(path.coeffs)
+    return ctrl
 
 
 def make_control(interpolation: str, ts: torch.Tensor, coeffs):
@@ -23,7 +38,7 @@ def make_control(interpolation: str, ts: torch.Tensor, coeffs):
     (anything exposing ``adj``) passes through unchanged."""
     if hasattr(coeffs, "adj"):
         return coeffs
-    return MatrixControl.from_stacked(interpolation, ts, coeffs)
+    return with_reductions(MatrixControl.from_stacked(interpolation, ts, coeffs))
 
 
 class GraphNeuralCDE(nn.Module):

@@ -15,6 +15,7 @@ from torch import nn
 from ... import ops as ops_config
 from ...interp import CubicInterpolation
 from ...ops import megakernel as _mk
+from ...ops import tiled as _tiled
 from .layers import ConvEquivFusionLayer
 
 
@@ -71,13 +72,15 @@ class PermEquivGraphVectorField(nn.Module):
         t = t.expand(y.shape[0]) if t.dim() == 0 else t
         if _pallas_plane_dispatch_ok(control_adj, y.device):
             n = y.shape[-2]
-            if n > _mk.MEGAKERNEL_MAX_N:
-                raise NotImplementedError(
-                    f"n={n} > {_mk.MEGAKERNEL_MAX_N} needs the tiled kernel "
-                    "regime (ROADMAP slice 2), which is not ported yet"
-                )
             path = control_adj.path
-            return _mk.megakernel_vf(path.coeffs, path.ts, t, y, self)
+            if n <= _mk.MEGAKERNEL_MAX_N:
+                return _mk.megakernel_vf(path.coeffs, path.ts, t, y, self)
+            if n <= _tiled.TILED_MAX_N:
+                # K1/K2 serve n <= 640; above it the tiled kernels (twitter
+                # n=1000, tgbn-genre n=1505 and beyond).
+                return _tiled.tiled_vf_eval(path.coeffs, path.ts, t, y, self,
+                                            red=getattr(control_adj, "red", None))
+            # Beyond the tiled cap the dense layer stack below runs.
 
         adj, adj_derivative, tgrad = control_terms(control_adj, t)
         out = y

@@ -9,8 +9,13 @@ weights are ``(out, in)`` on both sides, and each fusion layer keeps its
 basis as eight 2-vectors ``param1 .. param8``.
 
 ``save_weights`` of the JAX package writes the leaves as ``leaf_<i>`` in
-flatten order; the port registers its parameters in the JAX field order, so
-``named_parameters()`` order is that flatten order.
+flatten order: the field order of each module, a module shared by two
+fields appearing once per field (the TGB model's vector field also sits
+inside its CDE wrapper). :func:`jax_leaf_names` lists the port's parameters
+in that order: a module's own parameters, then its children, in
+registration order, unless the module names its JAX field order in
+``JAX_FIELDS``. A parameter listed twice takes the later array, as the JAX
+model's forward reads the wrapper's copy.
 """
 
 from __future__ import annotations
@@ -37,14 +42,30 @@ def from_state_dict(sd: tp.Mapping[str, torch.Tensor]) -> tp.Dict[str, np.ndarra
     return {k.replace(".", "/"): v.detach().cpu().numpy() for k, v in sd.items()}
 
 
+def jax_leaf_names(model: nn.Module, prefix: str = "") -> tp.List[str]:
+    """``state_dict`` names of ``model``'s parameters in JAX flatten order."""
+    fields = getattr(model, "JAX_FIELDS", None)
+    if fields is None:
+        fields = list(model._parameters) + list(model._modules)
+    names = []
+    for f in fields:
+        v = getattr(model, f)
+        if isinstance(v, nn.Parameter):
+            names.append(prefix + f)
+        elif isinstance(v, nn.Module):
+            names += jax_leaf_names(v, f"{prefix}{f}.")
+    return names
+
+
 def load_leaves(model: nn.Module, leaves: tp.Sequence[np.ndarray]) -> None:
     """Load arrays given in JAX flatten order (``leaf_0, leaf_1, ...``)."""
-    params = list(model.named_parameters())
-    if len(params) != len(leaves):
-        raise ValueError(f"{len(leaves)} leaves for {len(params)} parameters")
+    names = jax_leaf_names(model)
+    if len(names) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for {len(names)} parameters")
+    params = model.state_dict(keep_vars=True)
     with torch.no_grad():
-        for (name, p), arr in zip(params, leaves):
-            arr = np.asarray(arr)
+        for name, arr in zip(names, leaves):
+            p, arr = params[name], np.asarray(arr)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
             p.copy_(torch.as_tensor(arr, dtype=p.dtype))
@@ -60,6 +81,7 @@ def load_jax_npz(model: nn.Module, path: str) -> None:
 
 def save_jax_npz(model: nn.Module, path: str) -> None:
     """Write ``model``'s parameters as a ``gncde_tpu`` ``save_weights`` file."""
-    arrays = {f"leaf_{i}": p.detach().cpu().numpy()
-              for i, (_, p) in enumerate(model.named_parameters())}
+    params = model.state_dict()
+    arrays = {f"leaf_{i}": params[name].cpu().numpy()
+              for i, name in enumerate(jax_leaf_names(model))}
     np.savez(path, **arrays)

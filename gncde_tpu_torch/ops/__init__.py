@@ -5,11 +5,13 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
   * ``"auto"``       -- (default) ``"megakernel"`` when the tensors of the
                         call lie on a CUDA device, ``"dense"`` otherwise.
                         Resolved per call from the device of the node state.
-  * ``"megakernel"`` -- the vector-field-level fast path: one forward
-                        kernel (K1, ``ops/megakernel.py``) and one backward
-                        kernel (K2, ``ops/megakernel_bwd.py``) per vf eval.
-                        Applies to the undirected perm-equiv field with a
-                        slim cubic control and ``n <= MEGAKERNEL_MAX_N``.
+  * ``"megakernel"`` -- the vector-field-level fast path for the undirected
+                        perm-equiv field with a slim cubic control: for
+                        ``n <= MEGAKERNEL_MAX_N`` one forward kernel (K1,
+                        ``ops/megakernel.py``) and one backward kernel (K2,
+                        ``ops/megakernel_bwd.py``) per vf eval; above it,
+                        up to ``TILED_MAX_N``, the tiled regime
+                        (``ops/tiled.py``: K3 per layer, K4 backward).
                         On CPU tensors the kernels' plain versions run.
   * ``"dense"``      -- the reference formulation: materialise the fused
                         operator and multiply once.

@@ -8,10 +8,11 @@ shared library with a plain C interface and loaded with :mod:`ctypes`
          -Xcompiler -fPIC -o build/gncde_tpu_torch/<name>_<hash>.so <name>.cu
 
 The build runs at first use, inside the process that launches the kernel,
-never at import. The library's file name carries a hash of its sources
-(the ``.cu`` file and every ``.cuh`` header beside it), so an edited source
-rebuilds and a stale library is never loaded. Every C entry point returns a
-``cudaError_t``; :func:`check` raises on anything but 0.
+never at import; :func:`build` compiles several sources at once, one
+``nvcc`` each, all started together. The library's file name carries a hash
+of its sources (the ``.cu`` file and every ``.cuh`` header beside it), so an
+edited source rebuilds and a stale library is never loaded. Every C entry
+point returns a ``cudaError_t``; :func:`check` raises on anything but 0.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import subprocess
 import threading
 import time
 import typing as tp
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -59,34 +61,52 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    return BUILD_DIR / f"{name}_{_source_hash(src)}.so"
+
+
+def _compile(name: str, lib_path: Path) -> None:
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    src = CSRC / f"{name}.cu"
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}",
+        "-o", str(tmp), str(src),
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    (BUILD_DIR / f"{name}.ptxas.log").write_text(proc.stderr)
+    os.replace(tmp, lib_path)
+
+
+def build(names: tp.Sequence[str]) -> None:
+    """Compile the named ``csrc/<name>.cu`` that are not built yet, one
+    ``nvcc`` process each, all started together."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [(n, _lib_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not p.exists()]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            for fut in [pool.submit(_compile, n, p) for n, p in todo]:
+                fut.result()
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        if not src.exists():
-            raise FileNotFoundError(src)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"{name}_{_source_hash(src)}.so"
-        if not lib_path.exists():
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}",
-                "-o", str(tmp), str(src),
-            ]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            (BUILD_DIR / f"{name}.ptxas.log").write_text(proc.stderr)
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
         return lib
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``gncde_tpu/train/trainer.py``: the epoch loop, the metric
 names and log lines, inter/extra validation, the best-validation weight save
-and patience early stop. The device is explicit (``device: auto`` picks
-``cuda`` when a card is visible) and every tensor of the run lives there.
+and patience early stop. The device is explicit and every tensor of the run
+lives there: ``device: cuda`` by default, which raises when no card is
+visible; the CPU runs only when asked for (``device=cpu``).
 Not ported yet (ROADMAP): resume, ``nan_guard``, the async full-state
 checkpointer and the sparse-control knobs.
 """
@@ -37,6 +38,17 @@ from . import checkpoints
 from .logging import MetricLogger
 
 logging.basicConfig(level=logging.INFO)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device. A CUDA device that is not visible raises: the
+    trainers never fall back to the CPU on their own."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but no CUDA device is visible; pass "
+            "the override device=cpu to run on the CPU")
+    return device
 
 
 def make_step_fn(optimiser: torch.optim.Optimizer, schedule, loss: tp.Callable,
@@ -98,8 +110,8 @@ class Trainer(Schema):
     fusion_precision: tp.Optional[str] = None
     fusion_backend: tp.Optional[str] = None
     nan_guard: bool = False
-    #: "auto" (cuda when visible, else cpu), "cpu", "cuda" or "cuda:<i>".
-    device: str = "auto"
+    #: "cuda" (the default: raises without a card), "cuda:<i>" or "cpu".
+    device: str = "cuda"
 
     def validate(self) -> None:
         for knob in ("resume", "nan_guard", "sparse_control"):
@@ -111,9 +123,7 @@ class Trainer(Schema):
             ops_config.check_fusion_backend(self.fusion_backend)
 
     def resolve_device(self) -> torch.device:
-        if self.device == "auto":
-            return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-        return torch.device(self.device)
+        return resolve_device(self.device)
 
     def _hash_config(self) -> str:
         config_str = json.dumps(self.to_dict(), sort_keys=True, default=str)

@@ -1,23 +1,30 @@
-"""Profile one flagship training step of the PyTorch port on a CUDA card.
+"""Profile one training step of the PyTorch port on a CUDA card.
 
     python3 profile_step_torch.py [--num-nodes 400] [--trace step_trace.json]
+    python3 profile_step_torch.py --task tgb [--window 3]
 
-Builds ``configs/dyn/perm_equiv_gncde.yaml`` at full width (hidden 16, 2
-layers, batch 4; ``--num-nodes`` cuts the graph), generates its training
-data, and times the forward + backward of the training loss: the Tsit5 solve
-under the checkpointed adjoint, without the optimiser update, so that every
-run repeats the same computation. Runs are timed on the host clock, ended by
+``--task dyn`` (the default) builds ``configs/dyn/perm_equiv_gncde.yaml`` at
+full width (hidden 16, 2 layers, batch 4; ``--num-nodes`` cuts the graph)
+and generates its training data. ``--task tgb`` builds
+``configs/tgb/genre_perm_equiv_gncde.yaml`` at full width (n=1505, hidden 8,
+3 layers) on one window of ``chip_smoke.py``'s tgbn-genre surrogate, cut to
+``--window`` snapshots (3: a 2-knot body, 100 of the config's 800 constant
+steps, so the trace stays small; every step does the same work). It times
+the forward + backward of the training loss: the solve under the
+checkpointed adjoint, without the optimiser update, so that every run
+repeats the same computation. Runs are timed on the host clock, ended by
 ``torch.cuda.synchronize()``, in the order kernel path (fusion backend
-``megakernel``: K1 forward, K2 backward), plain path (``dense``), plain,
-kernel. One more kernel-path run is traced with ``torch.profiler``; from the
-trace's device events (kernels, copies, memsets) it reports:
+``megakernel``: K1 forward and K2 backward for dyn, K3 forward and K4
+backward for tgb), plain path (``dense``), plain, kernel. One more
+kernel-path run is traced with ``torch.profiler``; from the trace's device
+events (kernels, copies, memsets) it reports:
 
 * ``device_busy_ms``: the union of the device events' intervals;
 * ``device_span_ms``: first device event's start to last device event's end;
 * ``busy_share_of_unprofiled_wall``: busy time over the mean unprofiled
   kernel-path wall time (the profiler stretches the host, not the kernels);
 * ``busy_share_of_span``: busy time over the traced span;
-* the kernels with the most device time, and the K1/K2 launch counts.
+* the kernels with the most device time, and the kernels' launch counts.
 
 Prints the card (``nvidia-smi`` name and power limit) and then one JSON
 object. Fails without a CUDA device.
@@ -33,8 +40,9 @@ import sys
 import tempfile
 import time
 
-CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "configs", "dyn", "perm_equiv_gncde.yaml")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIGS = {"dyn": os.path.join(ROOT, "configs", "dyn", "perm_equiv_gncde.yaml"),
+           "tgb": os.path.join(ROOT, "configs", "tgb", "genre_perm_equiv_gncde.yaml")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -62,10 +70,58 @@ def busy_and_span(events):
     return busy, max(e for _, e in iv) - iv[0][0]
 
 
+def dyn_setup(args, tmp, dev):
+    """(model, loss closure, data seconds) of the flagship dyn step."""
+    from gncde_tpu_torch.models.continuous import make_control
+    from gncde_tpu_torch.run.common import apply_overrides, safe_load
+    from gncde_tpu_torch.train.trainer import Trainer
+    import torch
+
+    with open(CONFIGS["dyn"]) as f:
+        cfg = apply_overrides(safe_load(f.read()), [
+            f"dataset.cache_dir={tmp}", f"dataset.num_nodes={args.num_nodes}",
+            "device=cuda", "wandb.mode=disabled"])
+    tr = Trainer.from_dict(cfg)
+    t0 = time.perf_counter()
+    d = tr.dataset.get_training_data()
+    data_s = time.perf_counter() - t0
+    ctrl = make_control("cubic", d["train_t"], d["train_graph_path_coeffs"]).to(dev)
+    data = (d["train_t"].to(dev), ctrl, d["train_true_y"].to(dev), d["true_y0"].to(dev))
+    loss_fn = tr.loss.build()
+    model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+    return model, lambda: loss_fn(model, data), data_s
+
+
+def tgb_setup(args, tmp, dev):
+    """(model, loss closure, data seconds) of one genre TGB step on the
+    first ``args.window`` snapshots of the surrogate."""
+    from pathlib import Path
+
+    import torch
+    import chip_smoke
+    from gncde_tpu_torch.data import tgb, windows
+    from gncde_tpu_torch.run.common import apply_overrides, safe_load
+    from gncde_tpu_torch.train.windowed import TGBTrainer, _to_device
+
+    t0 = time.perf_counter()
+    chip_smoke.write_genre_surrogate(Path(tmp) / "data")
+    edges = tgb.load_tgb_edgelist("tgbn-genre-synth", os.path.join(tmp, "data"))
+    snaps = tgb.process_snapshots(edges, "None")[:args.window]
+    window = _to_device(windows.process_window_tgb(snaps, "cubic"), dev)
+    data_s = time.perf_counter() - t0
+    with open(CONFIGS["tgb"]) as f:
+        cfg = apply_overrides(safe_load(f.read()), ["device=cuda", "wandb.mode=disabled"])
+    tr = TGBTrainer.from_dict(cfg)
+    model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+    return model, lambda: tr._loss(model, tr._data_tuple(window)), data_s
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--num-nodes", type=int, default=400)
+    ap.add_argument("--task", choices=("dyn", "tgb"), default="dyn")
+    ap.add_argument("--num-nodes", type=int, default=400, help="dyn: graph size")
+    ap.add_argument("--window", type=int, default=3, help="tgb: snapshots per window")
     ap.add_argument("--trace", help="also keep the Chrome trace at this path")
     args = ap.parse_args()
 
@@ -75,12 +131,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step_torch: no CUDA device visible")
     from gncde_tpu_torch import ops
-    from gncde_tpu_torch.models.continuous import make_control
     from gncde_tpu_torch.ops import megakernel as mk
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
-    from gncde_tpu_torch.run.common import apply_overrides, safe_load
-    from gncde_tpu_torch.train.trainer import Trainer
+    from gncde_tpu_torch.ops import tiled
 
+    counters = {"K1": mk.megakernel_vf_eval, "K2": mkb.megakernel_vf_bwd,
+                "K3": tiled.fwd2_call, "K4": tiled.bwd2_call}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -90,23 +146,12 @@ def main() -> int:
     dev = torch.device("cuda")
 
     with tempfile.TemporaryDirectory() as tmp:
-        with open(CONFIG) as f:
-            cfg = apply_overrides(safe_load(f.read()), [
-                f"dataset.cache_dir={tmp}", f"dataset.num_nodes={args.num_nodes}",
-                "device=cuda", "wandb.mode=disabled"])
-        tr = Trainer.from_dict(cfg)
-        t0 = time.perf_counter()
-        d = tr.dataset.get_training_data()
-        data_s = time.perf_counter() - t0
-        ctrl = make_control("cubic", d["train_t"], d["train_graph_path_coeffs"]).to(dev)
-        data = (d["train_t"].to(dev), ctrl, d["train_true_y"].to(dev),
-                d["true_y0"].to(dev))
-        loss_fn = tr.loss.build()
-        model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+        setup = dyn_setup if args.task == "dyn" else tgb_setup
+        model, loss_of, data_s = setup(args, tmp, dev)
 
         def fwd_bwd():
             model.zero_grad()
-            loss = loss_fn(model, data)
+            loss = loss_of()
             loss.backward()
             torch.cuda.synchronize()
             return float(loss)
@@ -116,9 +161,10 @@ def main() -> int:
             t = time.perf_counter()
             loss = fwd_bwd()
             wall = time.perf_counter() - t
-            return {"wall_s": wall, "loss": loss,
-                    "attempts": (model.last_stats["num_accepted_steps"]
-                                 + model.last_stats["num_rejected_steps"]).tolist()}
+            stats = getattr(model, "last_stats", None)
+            return {"wall_s": wall, "loss": loss, "attempts": (
+                (stats["num_accepted_steps"] + stats["num_rejected_steps"]).tolist()
+                if stats else None)}
 
         ops.set_fusion_backend("megakernel")
         fwd_bwd()  # warm-up: kernel build and first launches
@@ -127,8 +173,8 @@ def main() -> int:
             runs[backend].append(timed(backend))
 
         ops.set_fusion_backend("megakernel")
-        mk.megakernel_vf_eval.launches = 0
-        mkb.megakernel_vf_bwd.launches = 0
+        for f in counters.values():
+            f.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fwd_bwd()
@@ -147,8 +193,9 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     mk_wall = sum(r["wall_s"] for r in runs["megakernel"]) / len(runs["megakernel"])
     print(json.dumps({
-        "nvidia_smi": smi, "num_nodes": args.num_nodes, "data_gen_s": data_s,
-        "fwd_bwd": runs,
+        "nvidia_smi": smi, "task": args.task,
+        **({"num_nodes": args.num_nodes} if args.task == "dyn" else {"window": args.window}),
+        "data_s": data_s, "fwd_bwd": runs,
         "profiled": {
             "wall_s": prof_wall,
             "device_busy_ms": busy_us / 1e3,
@@ -156,8 +203,7 @@ def main() -> int:
             "busy_share_of_unprofiled_wall": busy_us / 1e6 / mk_wall,
             "busy_share_of_span": busy_us / span_us,
             "device_events": len(events),
-            "k1_launches": mk.megakernel_vf_eval.launches,
-            "k2_launches": mkb.megakernel_vf_bwd.launches,
+            "launches": {k: f.launches for k, f in counters.items()},
             "top_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
                             for k, v in top],
         },

@@ -28,6 +28,7 @@ from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models import GraphNeuralCDE
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
 from gncde_tpu_torch.nn import convert
+from gncde_tpu_torch.ops import megakernel
 
 from torch_parity_utils import copy_jax_to_torch, hermite_path, jax_leaves
 
@@ -81,17 +82,30 @@ def test_vector_field_value_and_grads(backend, name):
         _close(p.grad, jgrads[name_.replace(".", "/")])
 
 
-def test_megakernel_gate_refuses_large_n(backend):
-    """Above the kernels' n cap the megakernel backend raises (the tiled
-    regime is ROADMAP slice 2) instead of silently running dense."""
+def test_megakernel_gate_refuses_large_n(backend, monkeypatch):
+    """Above the megakernel cap (n > 640) K1 refuses the shape and the
+    megakernel backend sends the field to the tiled regime
+    (ops/tiled.py) instead of K1, or of silently running dense."""
+    from gncde_tpu_torch.ops import tiled
+
     n = 641
     vf = TVF(4, 4, 4, 2, 1, n, generator=torch.Generator().manual_seed(0))
     ts = torch.tensor([[0.0, 1.0]])
     planes = tuple(torch.zeros(1, 1, n, n) for _ in range(4))
+    layers = megakernel.layer_params(vf)
+    with pytest.raises(ValueError, match="MEGAKERNEL_MAX_N"):
+        megakernel._check_inputs(planes, torch.zeros(1, dtype=torch.long),
+                                 torch.zeros(1), torch.zeros(1, n, 4), layers)
+    calls = []
+    real = tiled.tiled_vf_eval
+    monkeypatch.setattr(tiled, "tiled_vf_eval",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(megakernel, "megakernel_vf",
+                        lambda *a, **k: pytest.fail("K1 reached for n > 640"))
     backend("megakernel")
-    with pytest.raises(NotImplementedError, match="tiled"):
-        vf(torch.tensor([0.5]), torch.zeros(1, n, 4),
-           MatrixControl(CubicInterpolation(ts, planes)))
+    out = vf(torch.tensor([0.5]), torch.zeros(1, n, 4),
+             MatrixControl(CubicInterpolation(ts, planes)))
+    assert calls == [1] and out.shape == (1, n, 4)
 
 
 def test_convert_round_trips_jax_weights(tmp_path):

@@ -1,7 +1,7 @@
-"""The port stands alone: no jax, pydantic or optax anywhere in
-gncde_tpu_torch, and no pyyaml or networkx on the flagship path. Also the
-YAML-subset reader, the config schemas, the CLI smoke of the port and
-chip_smoke.py's refusal to run without a card.
+"""The port stands alone: no jax, pydantic, optax or module of the JAX
+package (gncde_tpu) anywhere in gncde_tpu_torch, and no pyyaml or networkx on
+the dyn and TGB paths. Also the YAML-subset reader, the config schemas, the
+CLI smokes of the port and chip_smoke.py's refusal to run without a card.
 """
 
 import os
@@ -10,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import yaml
 
@@ -28,7 +29,9 @@ import sys
 for _name in {names!r}:
     sys.modules[_name] = None
 """
-NEVER = ("jax", "jaxlib", "pydantic", "optax")
+# Top-level names: "gncde_tpu" blocks the JAX package and not the port,
+# whose top-level name is gncde_tpu_torch.
+NEVER = ("jax", "jaxlib", "pydantic", "optax", "gncde_tpu")
 FLAGSHIP_PATH_FREE = NEVER + ("yaml", "networkx")
 
 
@@ -75,11 +78,47 @@ assert sys.modules["jax"] is None and sys.modules["yaml"] is None
     assert list((tmp_path / "cache").glob("torch_cache_*_default_train.pkl"))
 
 
-@pytest.mark.parametrize("path", sorted((ROOT / "configs" / "dyn").glob("*.yaml")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((ROOT / "configs" / "dyn").glob("*.yaml"))
+                         + sorted((ROOT / "configs" / "tgb").glob("*.yaml")),
+                         ids=lambda p: p.name if p.parent.name == "dyn" else f"tgb/{p.name}")
 def test_yaml_subset_reader_matches_safe_load(path):
     text = path.read_text()
     assert common.read_yaml_subset(text) == yaml.safe_load(text)
+
+
+def _write_tgb_csv(root, n_nodes=12, n_snap=10, seed=0):
+    rng = np.random.default_rng(seed)
+    rows = ["timestamp,source,destination,weight"]
+    for t in range(n_snap):
+        for _ in range(30):
+            s, d = rng.integers(0, n_nodes, 2)
+            rows.append(f"{t},{s},{d},{rng.uniform(0.1, 2.0):.4f}")
+    (root / "tgbn-trade").mkdir(parents=True)
+    (root / "tgbn-trade" / "tgbn-trade_edgelist.csv").write_text("\n".join(rows))
+
+
+def test_tgb_cli_smoke_without_yaml_or_networkx(tmp_path):
+    """python -m gncde_tpu_torch.run.tgb on the genre config cut to n=12
+    (a TGB-format CSV written here), on the CPU, with pyyaml, networkx and
+    the JAX package blocked."""
+    _write_tgb_csv(tmp_path / "data")
+    code = BLOCKER.format(names=set(FLAGSHIP_PATH_FREE)) + """
+import runpy
+sys.argv = ["tgb", "--config", {cfg!r}, "epochs=1", "eval_freq=1", "log_freq=1",
+            "min_epochs=0", "dataset.name=tgbn-trade", "dataset.frequency=None",
+            "dataset.window_size=3", "dataset.stride=3", "dataset.data_dir={tmp}/data",
+            "dataset.cache_dir={tmp}/cache", "checkpoint_dir={tmp}/ckpt/",
+            "model.dt0=0.25", "model.hidden_dim=4", "model.vector_field.hidden_dim=4",
+            "model.vector_field.data_embed_dim=2", "model.vector_field.num_nodes=12",
+            "device=cpu", "wandb.mode=disabled"]
+runpy.run_module("gncde_tpu_torch.run.tgb", run_name="__main__")
+assert sys.modules["gncde_tpu"] is None and sys.modules["yaml"] is None
+""".format(cfg=str(ROOT / "configs" / "tgb" / "genre_perm_equiv_gncde.yaml"), tmp=str(tmp_path))
+    res = _run(code, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for line in ("Data loading done: 1/0/2 windows", "Train Loss", "Final:"):
+        assert line in res.stderr, line
+    assert list((tmp_path / "cache").glob("torch_cache_*_default_train.pkl"))
 
 
 @pytest.mark.parametrize("text", ["1", "-3", "1.0e-4", "1e-4", "0.5", ".5", "true",

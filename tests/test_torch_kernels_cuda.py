@@ -1,4 +1,6 @@
-"""The port's CUDA kernels K1 and K2 against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions: K1 and K2
+(the vector-field kernels, n <= 640) and K3, K4, K5a, K5b (the tiled
+regime's plane sweeps, ``csrc/tiled.cu``).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -13,6 +15,10 @@ CPU by ``tests/test_torch_megakernel.py``.
 Tolerances: f32 on both sides; the kernels sum over n (forward) and over
 n and the batch (cotangents) in another order than the dense version, so
 the forward is held to 1e-4 and every cotangent to 1e-3 of its own scale.
+The tiled kernels and their plain versions take the same bf16 operands and
+form B1/B2 with the same roundings; only the order of the f32 sums differs,
+so they are held to 1e-4 of each output's scale, and the field's tiled path
+(kernels on the card against the plain versions on the CPU) to 1e-3.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import megakernel_bwd as mkb
+from gncde_tpu_torch.ops import tiled as tt
 
 # n = 40 is neither a multiple of the 16-row CTA block nor of the 32-wide
 # k-tile, so every edge tile is exercised.
@@ -150,3 +157,144 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         mk.megakernel_vf_eval(planes, idx, tau, Z.double(), layers)
     with pytest.raises(ValueError):
         mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G[..., :4], True)
+
+
+# n = 70, 130 and 100 are ragged against the owned blocks and the 32-deep
+# reduce tiles; the widths reach each compiled chunk width of csrc/tiled.cu:
+# H = 5 (8, not a multiple of 8), H = 16 (32) and H = 130 (128, two sweeps).
+TILED_CASES = [(70, 5, 2), (130, 16, 1), (100, 130, 1)]
+TILED_IDS = ["n70-H5-B2", "n130-H16", "n100-H130"]
+
+
+def _tiled_inputs(dev, n, H, B, seed=0):
+    """bf16 planes (B, n, n) and vectors (B, n, H), f32 slabs, cvec."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(x):
+        return torch.tensor(x.astype(np.float32), device=dev).to(torch.bfloat16)
+
+    def plane(scale, loc=0.0):
+        return bf16(rng.normal(loc, scale, (B, n, n)))
+
+    def vec():
+        return bf16(rng.normal(size=(B, n, H)))
+
+    A, dA, M, G = plane(0.1, 0.05), plane(0.5), vec(), vec()
+    slabs = tuple(torch.tensor(rng.normal(0.0, 0.1, (B, n, n)).astype(np.float32),
+                               device=dev) for _ in range(4))
+    cvec = torch.tensor([1.03, 0.071, -0.044, 0.052], device=dev)
+    return A, dA, M, G, slabs, cvec
+
+
+def _tiled_pair(kernel, A, dA, M, G, slabs, cvec):
+    """(kernel outputs, plain outputs) as tuples of tensors."""
+    if kernel == "K3":
+        return tt.fwd2_call(A, dA, cvec, M), tt.plain_fwd2(A, dA, cvec, M)
+    if kernel == "K4":
+        return tt.bwd2_call(A, dA, cvec, G, M), tt.plain_bwd2(A, dA, cvec, G, M)
+    if kernel == "K5a":
+        return (tt.dw2_call(A, dA, G, M),), (tt.plain_dw2(A, dA, G, M),)
+    return (tt.dw_call(slabs, G, M),), (tt.plain_dw(slabs, G, M),)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,H,B", TILED_CASES, ids=TILED_IDS)
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K5a", "K5b"])
+def test_cuda_tiled_kernel_matches_plain(cuda, kernel, n, H, B):
+    ins = _tiled_inputs(cuda, n, H, B)
+    wrapper = {"K3": tt.fwd2_call, "K4": tt.bwd2_call, "K5a": tt.dw2_call,
+               "K5b": tt.dw_call}[kernel]
+    before = wrapper.launches
+    got, ref = _tiled_pair(kernel, *ins)
+    again, _ = _tiled_pair(kernel, *ins)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert torch.isfinite(a).all()
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("time_grad", [False, True], ids=["train-grads", "with-t-grad"])
+def test_cuda_tiled_vf_eval_matches_plain(cuda, time_grad):
+    """tiled_vf_eval through the autograd Function: the kernels on the card
+    (K3 forward; K4, or K3 + K5b with a time gradient, backward) against the
+    plain versions on the CPU from the same inputs, value and gradients."""
+    n, H, L, B, T = 200, 5, 2, 2, 5
+    rng = np.random.default_rng(4)
+    ts = np.cumsum(rng.uniform(0.1, 0.3, (B, T)), axis=1).astype(np.float32)
+    planes = [rng.normal(0.0, 0.05, (B, T - 1, n, n)).astype(np.float32) for _ in range(4)]
+    Z = rng.normal(size=(B, n, H)).astype(np.float32)
+    t = (ts[:, 1] + 0.07).astype(np.float32)
+    vf = TVF(H, H, H, L, 1, n, generator=torch.Generator().manual_seed(0))
+    res = {}
+    for dev in ("cpu", cuda):
+        vf_d = vf.to(dev)
+        vf_d.zero_grad()
+        Zd = torch.tensor(Z, device=dev).requires_grad_(True)
+        td = torch.tensor(t, device=dev).requires_grad_(time_grad)
+        launches = tt.fwd2_call.launches, tt.bwd2_call.launches, tt.dw_call.launches
+        out = tt.tiled_vf_eval(tuple(torch.tensor(p, device=dev) for p in planes),
+                               torch.tensor(ts, device=dev), td, Zd, vf_d)
+        (out * out).sum().backward()
+        ran = tuple(c.launches - b for c, b in zip(
+            (tt.fwd2_call, tt.bwd2_call, tt.dw_call), launches))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert ran == ((2 * L, 0, L) if time_grad else (L, L, 0))
+        else:
+            assert ran == (0, 0, 0)
+        res[str(dev)] = [out.detach().cpu(), Zd.grad.cpu()] + [
+            p.grad.cpu().clone() for p in vf_d.parameters()] + (
+            [td.grad.cpu()] if time_grad else [])
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _assert_close(a, b, 1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_field_tiled_regime_matches_dense(cuda):
+    """The field at n=648 on the card (the auto backend): K3 forward and K4
+    backward against the dense backend, at the tolerances the JAX package
+    holds its tiled path to its dense one (bf16 operands)."""
+    n, H, L, T = 648, 8, 2, 4
+    rng = np.random.default_rng(3)
+    ts = torch.tensor(np.cumsum(rng.uniform(0.1, 0.3, (1, T)), axis=1).astype(np.float32),
+                      device=cuda)
+    planes = tuple(torch.tensor(rng.uniform(0.0, 0.3, (1, T - 1, n, n)).astype(np.float32),
+                                device=cuda) for _ in range(4))
+    ctrl = MatrixControl(CubicInterpolation(ts, planes))
+    vf = TVF(H, H, H, L, 1, n, generator=torch.Generator().manual_seed(3)).to(cuda)
+    Z = torch.tensor(rng.normal(size=(1, n, H)).astype(np.float32), device=cuda)
+    t = ts[:, 1] + 0.05
+    results = {}
+    try:
+        for name in ("dense", "auto"):
+            ops.set_fusion_backend(name)
+            vf.zero_grad()
+            Zr = Z.clone().requires_grad_(True)
+            launches = tt.fwd2_call.launches, tt.bwd2_call.launches
+            out = vf(t, Zr, ctrl)
+            (out * out).sum().backward()
+            torch.cuda.synchronize()
+            ran = (tt.fwd2_call.launches - launches[0], tt.bwd2_call.launches - launches[1])
+            assert ran == ((L, L) if name == "auto" else (0, 0))
+            results[name] = [out.detach(), Zr.grad] + [p.grad.clone() for p in vf.parameters()]
+    finally:
+        ops.set_fusion_backend("auto")
+    _assert_close(results["auto"][0], results["dense"][0], 2e-2)
+    for a, b in zip(results["auto"][1:], results["dense"][1:]):
+        _assert_close(a, b, 5e-2)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tiled_wrappers_raise_instead_of_falling_back(cuda):
+    A, dA, M, G, slabs, cvec = _tiled_inputs(cuda, 70, 5, 1)
+    with pytest.raises(ValueError):
+        tt.fwd2_call(A.float(), dA, cvec, M)  # f32 planes
+    with pytest.raises(ValueError):
+        tt.bwd2_call(A, dA, cvec, G[..., :4].contiguous(), M)  # widths differ
+    with pytest.raises(ValueError):
+        tt.dw2_call(A, dA, G[:, :60].contiguous(), M[:, :60].contiguous())  # n differs
+    with pytest.raises(ValueError):
+        tt.dw_call(tuple(s.to(torch.bfloat16) for s in slabs), G, M)  # bf16 slabs
