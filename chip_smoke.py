@@ -4,11 +4,14 @@
 
 Phases, each printing one line before the last:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. build K1, K2 and the tiled kernels K3-K5b from gncde_tpu_torch/csrc,
+  2. build K1, K2, the tiled kernels K3-K6b and K7 from gncde_tpu_torch/csrc,
      one nvcc per source, all started together (nvcc seconds per source);
   3. K1 (forward vf kernel) against its plain PyTorch version at the
-     flagship shape (n=400, B=4, H=16, L=2) and the bench shape (H=32, L=3),
-     per-element planes and (idx, tau); max abs err <= 1e-4 * max|ref|;
+     flagship shape (n=400, B=4, widths 16 -> 16 -> 16), the bench shape
+     (widths 32 x 4) and the trade shape (n=255, B=4, widths 32 -> 32 -> 32
+     -> 32 -> 512: the CDE-wrapper field of configs/tgb/trade_*, whose last
+     layer the kernels sweep in chunks of 64 columns), per-element planes
+     and (idx, tau); max abs err <= 1e-4 * max|ref|;
   4. K2 (backward vf kernel) against the plain autograd version at the same
      shapes, with and without the tau cotangent; every cotangent within
      1e-3 * max|ref|;
@@ -29,7 +32,20 @@ Phases, each printing one line before the last:
      tools/fetch_tgb.py (gravity model, seed 2, 1505 nodes, 130,000 edges
      per snapshot) cut from 133 snapshots to 50: 5 windows of 10, 3 train, 1
      validation, 1 test; every train loss and the validation NDCG@10 must be
-     finite and K3 and K4 must have launched.
+     finite and K3 and K4 must have launched;
+  8. the enc_idx kernels K7 (modulate_pair), K6a (pair) and K6b (pair_dw)
+     against their plain versions at the tgbn-genre shape (n=1505, H 8 and
+     128, B=1) and n=300, H=5, B=2; max abs err <= 1e-5 * max|ref| for K7
+     (no reductions), <= 1e-4 for K6a/K6b (f32 sums in another order); for
+     K6a also the time of two cuBLAS f32 products on pre-formed B1, B2 as a
+     yardstick;
+  9. the enc_idx main path: ``gncde_tpu_torch.run.tgb.main`` trains
+     configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml for one epoch at full
+     width (n=1505, vf hidden 8, 3 layers, idx_dim 8, two modulation MLPs of
+     width 8 and depth 2) on the same surrogate cut to 16 snapshots, in
+     windows of 3 (5 windows: 3 train, 1 validation, 1 test); every train
+     loss and the validation NDCG@10 must be finite, K7, K6a and K6b must
+     have launched, and K3 and K4 must not have (enc_idx bypasses them).
 Then one JSON line of every kernel (launches on its main path, error, times
 and the bound: the larger of the bytes its function must move at 3.35 TB/s
 and the products that function needs at the card's peak for their operands'
@@ -50,8 +66,9 @@ import time
 from pathlib import Path
 
 SHAPES = {
-    "flagship": dict(n=400, B=4, H=16, L=2),
-    "bench": dict(n=400, B=4, H=32, L=3),
+    "flagship": dict(n=400, B=4, widths=(16, 16, 16)),
+    "bench": dict(n=400, B=4, widths=(32, 32, 32, 32)),
+    "trade": dict(n=255, B=4, widths=(32, 32, 32, 32, 512)),
 }
 K1_TOL = 1e-4
 K2_TOL = 1e-3
@@ -60,7 +77,11 @@ TILED_TOL = 1e-4
 #: and the CDE wrapper's 8 * 8 * 2 = 128) and one small odd shape.
 TILED_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H=128, B=1),
                 "odd": dict(n=300, H=5, B=2)}
+MODULATE_TOL = 1e-5
+PAIR_TOL = 1e-4
 GENRE_SNAPSHOTS = 50
+#: Phase 9's cut: 16 snapshots in windows of 3 (the trade configs' window).
+ENC_IDX_SNAPSHOTS = 16
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -102,13 +123,14 @@ def phase_build():
     from gncde_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(["megakernel_fwd", "megakernel_bwd", "tiled"])
+    _build.build(["megakernel_fwd", "megakernel_bwd", "tiled", "modulate"])
     emit({"phase": 2, "build_s": time.perf_counter() - t0,
           "nvcc_s": dict(_build.BUILD_SECONDS)})
 
 
-def make_inputs(torch, n, B, H, L, seed=0, T=8):
-    """Per-element planes and (idx, tau), node state and layer params."""
+def make_inputs(torch, n, B, widths, seed=0, T=8):
+    """Per-element planes and (idx, tau), node state and layer params of
+    the given widths (input, then each layer's output)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -120,18 +142,18 @@ def make_inputs(torch, n, B, H, L, seed=0, T=8):
     planes = tuple(t(rng.uniform(-0.05, 0.1, (B, T - 1, n, n))) for _ in range(4))
     idx = torch.tensor(rng.permutation(T - 1)[:B], device=dev)
     tau = t(rng.uniform(0.0, 0.2, B))
-    Z = t(rng.normal(size=(B, n, H)))
+    Z = t(rng.normal(size=(B, n, widths[0])))
     layers = []
-    for _ in range(L):
-        lim = 1.0 / np.sqrt(H)
+    for hin, hout in zip(widths[:-1], widths[1:]):
+        lim = 1.0 / np.sqrt(hin)
         layers.append(dict(
-            norm_w=t(1.0 + 0.1 * rng.normal(size=H)),
-            norm_b=t(0.1 * rng.normal(size=H)),
-            W=t(rng.uniform(-lim, lim, (H, H))),
-            lin_b=t(rng.uniform(-lim, lim, H)),
+            norm_w=t(1.0 + 0.1 * rng.normal(size=hin)),
+            norm_b=t(0.1 * rng.normal(size=hin)),
+            W=t(rng.uniform(-lim, lim, (hout, hin))),
+            lin_b=t(rng.uniform(-lim, lim, hout)),
             basis=t(rng.uniform(-1 / 15, 1 / 15, (8, 2))),
         ))
-    G = t(rng.normal(size=(B, n, H)))
+    G = t(rng.normal(size=(B, n, widths[-1])))
     return planes, idx, tau, Z, layers, G
 
 
@@ -330,62 +352,179 @@ def phase_tiled(torch, results):
             results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by)
 
 
-def write_genre_surrogate(out: Path) -> None:
-    """tools/fetch_tgb.py's tgbn-genre surrogate cut to GENRE_SNAPSHOTS
+def write_genre_surrogate(out: Path, snapshots: int = GENRE_SNAPSHOTS) -> None:
+    """tools/fetch_tgb.py's tgbn-genre surrogate cut to ``snapshots``
     snapshots (the tool is numpy-only, loaded by path). Seed 2 is the first
-    whose 50 snapshots touch all 1505 nodes, the config's n (seed 0's pair
-    pool misses a node; seed 1's first 50 snapshots miss one)."""
+    whose first 16 and 50 snapshots touch all 1505 nodes, the config's n
+    (seed 0's pair pool misses a node; seed 1's first 50 snapshots miss
+    one). The generator is sequential, so a cut keeps the first snapshots."""
     tool = Path(__file__).resolve().parent / "tools" / "fetch_tgb.py"
     spec = importlib.util.spec_from_file_location("fetch_tgb", tool)
     fetch_tgb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fetch_tgb)
-    fetch_tgb.SCALES["tgbn-genre"]["num_years"] = GENRE_SNAPSHOTS
+    fetch_tgb.SCALES["tgbn-genre"]["num_years"] = snapshots
     fetch_tgb.synthetic("tgbn-genre", out, seed=2)
 
 
 def counters():
-    from gncde_tpu_torch.ops import megakernel, megakernel_bwd, tiled
+    from gncde_tpu_torch.ops import megakernel, megakernel_bwd, modulate, pair, tiled
 
     return {"K1": megakernel.megakernel_vf_eval, "K2": megakernel_bwd.megakernel_vf_bwd,
             "K3": tiled.fwd2_call, "K4": tiled.bwd2_call, "K5a": tiled.dw2_call,
-            "K5b": tiled.dw_call}
+            "K5b": tiled.dw_call, "K6a": pair.pair_call, "K6b": pair.pair_dw_call,
+            "K7": modulate.modulate_pair}
 
 
-def phase_tgb(torch):
+def run_tgb(torch, phase, config, snapshots, extra=()):
+    """One epoch of a TGB config on the genre surrogate through the CLI's
+    entry point; returns its result and the launch counts of that run."""
     from gncde_tpu_torch.run import tgb
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        write_genre_surrogate(Path(tmp) / "data")
+        write_genre_surrogate(Path(tmp) / "data", snapshots)
         data_s = time.perf_counter() - t0
         for f in counters().values():
             f.launches = 0
         t0 = time.perf_counter()
         res = tgb.main([
-            "--config", "configs/tgb/genre_perm_equiv_gncde.yaml",
+            "--config", config,
             "dataset.name=tgbn-genre-synth", "dataset.frequency=None",
             f"dataset.data_dir={tmp}/data", f"dataset.cache_dir={tmp}/cache",
             f"checkpoint_dir={tmp}/ckpt/", "epochs=1", "eval_freq=1", "min_epochs=0",
-            "device=cuda", "wandb.mode=disabled",
+            "device=cuda", "wandb.mode=disabled", *extra,
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters().items()}
     losses = res["train_losses"]
     ndcg = res["validation_metrics"].get("validation_ndcg@10", float("nan"))
-    emit({"phase": 7, "train_losses": losses, "train_step_s": res["train_step_s"],
+    emit({"phase": phase, "config": config, "train_losses": losses,
+          "train_step_s": res["train_step_s"],
           "validation_metrics": res["validation_metrics"],
           "best_epoch": res["best_epoch"], "device": res["device"],
           "launches": launches, "surrogate_write_s": data_s, "wall_s": wall})
     if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
-        raise RuntimeError(f"non-finite or missing TGB train losses: {losses}")
+        raise RuntimeError(f"phase {phase}: non-finite or missing train losses: {losses}")
     if not math.isfinite(ndcg):
-        raise RuntimeError(f"validation NDCG@10 is not finite: {ndcg}")
+        raise RuntimeError(f"phase {phase}: validation NDCG@10 is not finite: {ndcg}")
     if not res["device"].startswith("cuda"):
-        raise RuntimeError(f"TGB path ran on {res['device']}, not cuda")
+        raise RuntimeError(f"phase {phase}: ran on {res['device']}, not cuda")
+    return launches
+
+
+def phase_tgb(torch):
+    launches = run_tgb(torch, 7, "configs/tgb/genre_perm_equiv_gncde.yaml", GENRE_SNAPSHOTS)
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise RuntimeError(f"tiled kernels not launched on the TGB path: {launches}")
     return launches
+
+
+def phase_enc_idx(torch):
+    launches = run_tgb(torch, 9, "configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml",
+                       ENC_IDX_SNAPSHOTS, ("dataset.window_size=3", "dataset.stride=3"))
+    if min(launches["K7"], launches["K6a"], launches["K6b"]) <= 0:
+        raise RuntimeError(f"enc_idx kernels not launched on the enc_idx path: {launches}")
+    if launches["K3"] or launches["K4"]:
+        raise RuntimeError(f"the enc_idx path launched the Hermite tiled kernels: {launches}")
+    return launches
+
+
+def make_pair_inputs(torch, n, H, B, seed=0):
+    """f32 planes (B, n, n), f32 vectors (B, n, H), the coefficient vector,
+    a node embedding (n, 8) and the two modulation MLPs of the enc_idx
+    config (width 8, depth 2), from ``seed``."""
+    import numpy as np
+
+    from gncde_tpu_torch.nn import MLP
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def f(*shape, loc=0.0, scale=1.0):
+        return torch.tensor(rng.normal(loc, scale, shape).astype(np.float32), device=dev)
+
+    gen = torch.Generator().manual_seed(seed)
+    mlps = [MLP(17, 1, 8, 2, generator=gen).to(dev) for _ in range(2)]
+    return dict(A=f(B, n, n, loc=0.1, scale=0.3), dA=f(B, n, n, scale=0.5),
+                Mk=f(B, n, H), Mi=f(B, n, H), Gr=f(B, n, H), Gc=f(B, n, H),
+                cvec=torch.tensor([1.03, 0.071, -0.044, 0.052], device=dev),
+                emb=f(n, 8), mlps=mlps)
+
+
+def pair_bound(name, n, H, B, w=8, depth=2):
+    """(bound_ms, bound_by) of one enc_idx kernel call: each input read once,
+    each output written once (f32), and the f32 operations the function
+    needs at 67 TFLOP/s."""
+    nn, nh = n * n * B, n * H * B
+    if name == "K6a":  # A, dA, Mk, Mi -> rowpart, colpart: form B1, B2, two products
+        return bound(2 * 4 * nn + 2 * 4 * nh + 2 * 4 * nh + 16,
+                     (6 * nn + 4 * nn * H, F32_FLOPS))
+    if name == "K6b":  # A, dA, Gr, Mk, Mi, Gc -> dw4: Gr Mk^T, Mi Gc^T, four inner products
+        return bound(2 * 4 * nn + 4 * 4 * nh + 4 * 4 * B,
+                     (4 * nn * H + 8 * nn, F32_FLOPS))
+    # K7: A, dA -> A_m, dA_m; per element and plane: first layer 4w (mul, two
+    # adds, relu), (depth-1) hidden layers 2w^2 + w, head 2w.
+    per = 4 * w + (depth - 1) * (2 * w * w + w) + 2 * w
+    return bound(4 * 4 * nn + 2 * 2 * 4 * n * w, (2 * per * nn, F32_FLOPS))
+
+
+def phase_pair(torch, results):
+    from gncde_tpu_torch.ops import modulate as tmod
+    from gncde_tpu_torch.ops import pair as tp
+
+    for label, s in TILED_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        x = make_pair_inputs(torch, n, H, B)
+        ma, md = x["mlps"]
+        pair_args = (x["A"], x["dA"], x["cvec"], x["Mk"], x["Mi"])
+        dw_args = tuple(x[k] for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+        calls = {
+            "K6a": (lambda: tp.pair_call(*pair_args), lambda: tp.plain_pair(*pair_args),
+                    PAIR_TOL),
+            "K6b": (lambda: (tp.pair_dw_call(*dw_args),),
+                    lambda: (tp.plain_pair_dw(*dw_args),), PAIR_TOL),
+        }
+        if label != "genre-H8":  # K7 does not depend on H
+            calls["K7"] = (
+                lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
+                lambda: tmod.plain_modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
+                MODULATE_TOL)
+        for name, (kernel, plain, tol) in calls.items():
+            with torch.no_grad():
+                got, ref, again = kernel(), plain(), kernel()
+                torch.cuda.synchronize()
+                errs, worst_abs = [], 0.0
+                for a, b, c in zip(got, ref, again):
+                    if a.shape != b.shape or not torch.isfinite(a).all():
+                        raise RuntimeError(f"{name} {label}: bad output {tuple(a.shape)}")
+                    if not torch.equal(a, c):
+                        raise RuntimeError(f"{name} {label}: two launches differ")
+                    err, _ = rel_err(torch, a, b)
+                    errs.append(err)
+                    worst_abs = max(worst_abs, float((a - b).abs().max()))
+                ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            bms, by = pair_bound(name, n, H, B)
+            line = {"phase": 8, "kernel": name, "shape": label, **s,
+                    "max_abs_err": worst_abs, "max_rel_err": max(errs), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+            extra = {}
+            if name == "K6a":
+                c = x["cvec"]
+                B1 = c[0] * x["A"] + c[1] * x["dA"]
+                B2t = (c[2] * x["A"] + c[3] * x["dA"]).transpose(-2, -1)
+                extra["yardstick_two_cublas_f32_products_ms"] = time_ms(
+                    torch, lambda: (torch.matmul(B1, x["Mk"]), torch.matmul(B2t, x["Mi"])))
+            if name == "K7":
+                # The wrapper's input preparation is a dozen small torch ops;
+                # the launch alone on prepared inputs, for comparison.
+                inputs = tmod.kernel_inputs(ma, md, x["emb"])
+                extra["launch_only_ms"] = time_ms(
+                    torch, lambda: tmod.launch(x["A"], x["dA"], *inputs))
+            emit({**line, **extra})
+            if not max(errs) <= tol:
+                raise RuntimeError(f"{name} {label}: rel err {max(errs):.3e} > {tol}")
+            results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by, extra)
 
 
 def main() -> int:
@@ -400,21 +539,25 @@ def main() -> int:
     dyn_launches = phase_train(torch)
     phase_tiled(torch, results)
     tgb_launches = phase_tgb(torch)
+    phase_pair(torch, results)
+    enc_launches = phase_enc_idx(torch)
 
     s = SHAPES["flagship"]
-    n, B, H, L = s["n"], s["B"], s["H"], s["L"]
+    n, B, w = s["n"], s["B"], s["widths"]
     planes = 4 * 4 * n * n * B  # four f32 interval planes per element
     kernels = []
     for name, src, rep, (bms, by) in (
         # K1: Z -> output, one product C M per layer.
         ("K1", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
          "gncde_tpu/ops/pallas/megakernel.py:277",
-         bound(planes + 2 * 4 * n * H * B, (2 * n * n * H * L * B, F32_FLOPS))),
+         bound(planes + 4 * n * B * (w[0] + w[-1]),
+               (sum(2 * n * n * h * B for h in w[1:]), F32_FLOPS))),
         # K2: Z, G -> dZ; per layer the forward recompute C M, C^T g and
         # P = g M^T, then the four basis dots <A|dA, P>, <A|dA, P^T>.
         ("K2", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
          "gncde_tpu/ops/pallas/megakernel_bwd.py:412",
-         bound(planes + 3 * 4 * n * H * B, ((6 * H + 8) * n * n * L * B, F32_FLOPS))),
+         bound(planes + 4 * n * B * (2 * w[0] + w[-1]),
+               (sum((6 * h + 8) * n * n * B for h in w[1:]), F32_FLOPS))),
     ):
         _, err, ms, plain_ms = results[name][0]  # flagship shape
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -432,6 +575,20 @@ def main() -> int:
                         "launches": tgb_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None, "shape": "genre-H128"})
+    for name, src, rep, label in (
+        ("K6a", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:572",
+         "genre-H128"),
+        ("K6b", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:638",
+         "genre-H128"),
+        ("K7", "gncde_tpu_torch/csrc/modulate.cu", "gncde_tpu/ops/pallas/modulate.py:146",
+         "genre-H128"),
+    ):
+        err, ms, plain_ms, bms, by, extra = results[name][label]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": enc_launches[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None, "shape": "genre (n=1505, B=1)" if name == "K7"
+                        else label, **extra})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,13 @@
 """Vector-field factory config (counterpart of
 ``gncde_tpu/configs/vector_field_configs.py``). Every name of the JAX
-schema validates; only ``PermEquivGraphVectorField`` without ``enc_idx``
-builds in the port."""
+schema validates; only ``PermEquivGraphVectorField`` (with or without
+``enc_idx``) builds in the port.
+
+One rule differs from the JAX package: a controlled enc_idx field emits
+``H * E * 2`` entries like every other controlled field, so that the CDE
+wrapper can contract it with the data path. The JAX rule gives it ``H``
+entries, and ``TGBGraphNeuralCDE`` then fails the wrapper's reshape
+(ROADMAP Queue 3)."""
 
 from __future__ import annotations
 
@@ -39,11 +45,13 @@ class VectorFieldCfg(Schema):
     idx_dim: int = 512
 
     def validate(self) -> None:
+        if self.name == "PermEquivDirGraphVectorField":
+            raise NotImplementedError(
+                f"vector field {self.name!r} (enc_idx={self.enc_idx}) needs the directed "
+                "basis, which is not ported yet (ROADMAP Queue 1 item 4)")
         if self.name not in _PORTED:
             raise NotImplementedError(
                 f"vector field {self.name!r} is not ported yet (see ROADMAP)")
-        if self.use_control and self.enc_idx:
-            raise NotImplementedError("enc_idx is not ported yet (ROADMAP slice 4)")
 
     def _output_dim(self) -> int:
         """Reference rule: a controlled field emits H * E * 2 entries."""
@@ -62,6 +70,9 @@ class VectorFieldCfg(Schema):
             num_layers=self.num_layers,
             data_embed_dim=self.data_embed_dim,
             num_nodes=self.num_nodes,
+            enc_idx=self.use_control and self.enc_idx,
+            enc_type=self.enc_type,
+            idx_dim=self.idx_dim,
             generator=generator,
             device=device,
         )

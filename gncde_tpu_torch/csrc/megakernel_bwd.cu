@@ -14,7 +14,10 @@
 //   ddA M, ddA g                                     (only for dtau),
 //
 // so the basis cotangents <A, g M^T>, <A, M g^T>, ... come out as row dots
-// instead of n x n products. dW, dlin_b, dnorm and the basis terms are
+// instead of n x n products. A wide layer (output > HC = 64) repeats the
+// sweep per chunk of HC output columns, summing dz = dM W, the row dots and
+// the basis dots over the chunks and writing its chunk's rows of dW and
+// dlin_b; up to 64 columns it is one chunk, in the unchunked order. dW, dlin_b, dnorm and the basis terms are
 // written as per-CTA partial sums and reduced over CTAs in a second pass
 // (deterministic, no atomics). The per-element parameter cotangents are
 // summed over the batch by the wrapper, as the JAX side does.
@@ -40,13 +43,14 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   __shared__ float dAr[BM][BK + 1];
   __shared__ float ddAr[TAU ? BM : 1][BK + 1];
   __shared__ float Cop[BM][BK + 1];
-  __shared__ float Ms[BK][MAXH];
-  __shared__ float Gs[BK][MAXH];
-  __shared__ float dMs[BM][MAXH];
-  __shared__ float znS[BM][MAXH];
-  __shared__ float dznS[BM][MAXH];
+  __shared__ float Ms[BK][HC];
+  __shared__ float Gs[BK][HC];
+  __shared__ float dMs[BM][HC];
+  __shared__ float znS[BM][MAXIN];
+  __shared__ float dznS[BM][MAXIN];
   __shared__ float invS[BM];
-  __shared__ float colS[MAXH], colG[MAXH], colU[MAXH];
+  __shared__ float rowd[BM][3];  // per row: g . m, g . colS, m . colG
+  __shared__ float colS[HC], colG[HC], colU[HC];
   __shared__ float red[3][NT];
   __shared__ float scratch[NW];
   __shared__ float wred[NW][10];
@@ -66,8 +70,7 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
 #pragma unroll
   for (int k = 0; k < 16; ++k) q[k] = __ldg(lp.basis + k);
 
-  // Global sums every CTA needs: sA, sdA, sddA; s = 1^T M, gcol = 1^T g,
-  // utg = u^T g.
+  // Global sums every CTA needs: sA, sdA, sddA.
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
   for (int k = tid; k < n; k += NT) {
     a0 += rA[k];
@@ -77,141 +80,224 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   const float sA = block_sum(a0, scratch);
   const float sdA = block_sum(a1, scratch);
   const float sddA = TAU ? block_sum(a2, scratch) : 0.f;
-  {
-    const int nsl = NT / H, h = tid % H, sl = tid / H;
-    float s_ = 0.f, g_ = 0.f, u_ = 0.f;
-    if (sl < nsl) {
-      for (int k = sl; k < n; k += nsl) {
-        const float m = Mb[(long long)k * ldm + h];
-        const float g = Gb[(long long)k * ldg + h];
-        const float u = (q[6] * rA[k] + q[7] * rdA[k]) / fn;
-        s_ += m;
-        g_ += g;
-        u_ += u * g;
+
+  // One warp per row: the row's normalised input zn and 1/rms; dz and the
+  // row dots start at zero and are summed over the output chunks.
+  for (int i = warp; i < BM; i += NW) {
+    const int gi = r0 + i;
+    if (lane < 3) rowd[i][lane] = 0.f;
+    if (gi >= n) {
+      for (int j = lane; j < MAXIN; j += 32) {
+        znS[i][j] = 0.f;
+        dznS[i][j] = 0.f;
       }
+      if (lane == 0) invS[i] = 0.f;
+      continue;
     }
-    red[0][tid] = s_;
-    red[1][tid] = g_;
-    red[2][tid] = u_;
-    __syncthreads();
-    if (tid < H) {
-      float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-      for (int s2 = 0; s2 < nsl; ++s2) {
-        x0 += red[0][s2 * H + tid];
-        x1 += red[1][s2 * H + tid];
-        x2 += red[2][s2 * H + tid];
-      }
-      colS[tid] = x0;
-      colG[tid] = x1;
-      colU[tid] = x2;
+    const float* x = X + ((long long)b * n + gi) * ldx;
+    float ss = 0.f;
+    for (int j = lane; j < hin; j += 32) ss += x[j] * x[j];
+    ss = warp_sum(ss);
+    const float inv = rsqrtf(ss / (float)hin + EPS);
+    for (int j = lane; j < hin; j += 32) {
+      znS[i][j] = x[j] * inv * __ldg(lp.nw + j) + __ldg(lp.nb + j);
+      dznS[i][j] = 0.f;
     }
-    __syncthreads();
+    if (lane == 0) invS[i] = inv;
   }
 
   const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
-  float aDM[PPT], aAM[PPT], adAM[PPT], aAg[PPT], adAg[PPT], addAM[PPT],
-      addAg[PPT];
-#pragma unroll
-  for (int j = 0; j < PPT; ++j)
-    aDM[j] = aAM[j] = adAM[j] = aAg[j] = adAg[j] = addAM[j] = addAg[j] = 0.f;
+  const float c7 = (q[12] + q[13]) * sA / fn2;
+  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  float* pout = part + ((long long)b * gridDim.x + blockIdx.x) * ptot + poff;
+  const int rend = min(BM, n - r0);
+  float tp1a = 0.f, tp1b = 0.f, tp2a = 0.f, tp2b = 0.f, tddP = 0.f, tddQ = 0.f;
+  float dc7 = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-      float A = 0.f, dA = 0.f, ddA = 0.f;
-      if (gi < n && gk < n) {
-        const long long off = base + (long long)gi * n + gk;
-        if (TAU)
-          herm3(P, off, t, A, dA, ddA);
-        else
-          herm(P, off, t, A, dA);
-      }
-      Ar[i][kk] = A;
-      dAr[i][kk] = dA;
-      if (TAU) ddAr[i][kk] = ddA;
-      Cop[i][kk] = b20 * A + b21 * dA;
-    }
-    for (int e = tid; e < BK * H; e += NT) {
-      const int kk = e / H, h = e % H, gk = k0 + kk;
-      const bool ok = gk < n;
-      Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h] : 0.f;
-      Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h] : 0.f;
-    }
+  for (int h0 = 0; h0 < H; h0 += HC) {
+    const int hc = min(HC, H - h0);
+    // The chunk's column sums: s = 1^T M, gcol = 1^T g, utg = u^T g (the
+    // previous chunk has read colS/colG/dMs before this barrier).
     __syncthreads();
-    // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-      if (gi < n && gk < n) {
-        float A, dA;
-        herm(P, base + (long long)gk * n + gi, t, A, dA);
-        Cop[i][kk] += b10 * A + b11 * dA;
+    {
+      const int nsl = NT / hc, h = tid % hc, sl = tid / hc;
+      float s_ = 0.f, g_ = 0.f, u_ = 0.f;
+      if (sl < nsl) {
+        for (int k = sl; k < n; k += nsl) {
+          const float m = Mb[(long long)k * ldm + h0 + h];
+          const float g = Gb[(long long)k * ldg + h0 + h];
+          const float u = (q[6] * rA[k] + q[7] * rdA[k]) / fn;
+          s_ += m;
+          g_ += g;
+          u_ += u * g;
+        }
       }
+      red[0][tid] = s_;
+      red[1][tid] = g_;
+      red[2][tid] = u_;
+      __syncthreads();
+      if (tid < hc) {
+        float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+        for (int s2 = 0; s2 < nsl; ++s2) {
+          x0 += red[0][s2 * hc + tid];
+          x1 += red[1][s2 * hc + tid];
+          x2 += red[2][s2 * hc + tid];
+        }
+        colS[tid] = x0;
+        colG[tid] = x1;
+        colU[tid] = x2;
+      }
+      __syncthreads();
     }
-    __syncthreads();
+
+    float aDM[PPT], aAM[PPT], adAM[PPT], aAg[PPT], adAg[PPT], addAM[PPT],
+        addAg[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j)
+      aDM[j] = aAM[j] = adAM[j] = aAg[j] = adAg[j] = addAM[j] = addAg[j] = 0.f;
+
+    for (int k0 = 0; k0 < n; k0 += BK) {
+      // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+        float A = 0.f, dA = 0.f, ddA = 0.f;
+        if (gi < n && gk < n) {
+          const long long off = base + (long long)gi * n + gk;
+          if (TAU)
+            herm3(P, off, t, A, dA, ddA);
+          else
+            herm(P, off, t, A, dA);
+        }
+        Ar[i][kk] = A;
+        dAr[i][kk] = dA;
+        if (TAU) ddAr[i][kk] = ddA;
+        Cop[i][kk] = b20 * A + b21 * dA;
+      }
+      for (int e = tid; e < BK * hc; e += NT) {
+        const int kk = e / hc, h = e % hc, gk = k0 + kk;
+        const bool ok = gk < n;
+        Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
+        Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h0 + h] : 0.f;
+      }
+      __syncthreads();
+      // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+        if (gi < n && gk < n) {
+          float A, dA;
+          herm(P, base + (long long)gk * n + gi, t, A, dA);
+          Cop[i][kk] += b10 * A + b11 * dA;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const int pp = tid + j * NT;
+        if (pp < BM * hc) {
+          const int i = pp / hc, h = pp % hc;
+          float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
+          float x5 = addAM[j], x6 = addAg[j];
+#pragma unroll 4
+          for (int kk = 0; kk < BK; ++kk) {
+            const float g = Gs[kk][h], m = Ms[kk][h];
+            const float ar = Ar[i][kk], dar = dAr[i][kk];
+            x0 += Cop[i][kk] * g;
+            x1 += ar * m;
+            x2 += dar * m;
+            x3 += ar * g;
+            x4 += dar * g;
+            if (TAU) {
+              const float ddar = ddAr[i][kk];
+              x5 += ddar * m;
+              x6 += ddar * g;
+            }
+          }
+          aDM[j] = x0;
+          aAM[j] = x1;
+          adAM[j] = x2;
+          aAg[j] = x3;
+          adAg[j] = x4;
+          addAM[j] = x5;
+          addAg[j] = x6;
+        }
+      }
+      __syncthreads();
+    }
+
+    // The chunk's dM rows and matmul-part basis dots.
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       const int pp = tid + j * NT;
-      if (pp < BM * H) {
-        const int i = pp / H, h = pp % H;
-        float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
-        float x5 = addAM[j], x6 = addAg[j];
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-          const float g = Gs[kk][h], m = Ms[kk][h];
-          const float ar = Ar[i][kk], dar = dAr[i][kk];
-          x0 += Cop[i][kk] * g;
-          x1 += ar * m;
-          x2 += dar * m;
-          x3 += ar * g;
-          x4 += dar * g;
+      if (pp < BM * hc) {
+        const int i = pp / hc, h = pp % hc, gi = r0 + i;
+        float dm = 0.f;
+        if (gi < n) {
+          const long long o = (long long)gi * ldm + h0 + h;
+          const float g = Gb[(long long)gi * ldg + h0 + h];
+          const float m = Mb[o];
+          tp1a += g * aAM[j];
+          tp1b += g * adAM[j];
+          tp2a += m * aAg[j];
+          tp2b += m * adAg[j];
           if (TAU) {
-            const float ddar = ddAr[i][kk];
-            x5 += ddar * m;
-            x6 += ddar * g;
+            tddP += g * addAM[j];
+            tddQ += m * addAg[j];
           }
+          const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+                             (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
+          const float v = (q[8] * rA[gi] + q[9] * rdA[gi]) / fn;
+          dm = aDM[j] + dvec * g + colU[h] + v * colG[h] + c7 * colG[h];
         }
-        aDM[j] = x0;
-        aAM[j] = x1;
-        adAM[j] = x2;
-        aAg[j] = x3;
-        adAg[j] = x4;
-        addAM[j] = x5;
-        addAg[j] = x6;
+        dMs[i][h] = dm;
       }
     }
     __syncthreads();
-  }
 
-  // dM rows and the matmul-part basis dots.
-  const float c7 = (q[12] + q[13]) * sA / fn2;
-  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
-  float tp1a = 0.f, tp1b = 0.f, tp2a = 0.f, tp2b = 0.f, tddP = 0.f, tddQ = 0.f;
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int pp = tid + j * NT;
-    if (pp < BM * H) {
-      const int i = pp / H, h = pp % H, gi = r0 + i;
-      float dm = 0.f;
-      if (gi < n) {
-        const float g = Gb[(long long)gi * ldg + h];
-        const float m = Mb[(long long)gi * ldm + h];
-        tp1a += g * aAM[j];
-        tp1b += g * adAM[j];
-        tp2a += m * aAg[j];
-        tp2b += m * adAg[j];
-        if (TAU) {
-          tddP += g * addAM[j];
-          tddQ += m * addAg[j];
-        }
-        const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
-                           (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
-        const float v = (q[8] * rA[gi] + q[9] * rdA[gi]) / fn;
-        dm = aDM[j] + dvec * g + colU[h] + v * colG[h] + c7 * colG[h];
+    // One warp per row: the chunk's part of the row dots and of
+    // dz = dM W (Linear backward).
+    for (int i = warp; i < BM; i += NW) {
+      const int gi = r0 + i;
+      if (gi >= n) continue;
+      float gm = 0.f, du = 0.f, dv = 0.f;
+      for (int h = lane; h < hc; h += 32) {
+        const float g = Gb[(long long)gi * ldg + h0 + h];
+        const float m = Mb[(long long)gi * ldm + h0 + h];
+        gm += g * m;
+        du += g * colS[h];
+        dv += m * colG[h];
       }
-      dMs[i][h] = dm;
+      gm = warp_sum(gm);
+      du = warp_sum(du);
+      dv = warp_sum(dv);
+      if (lane == 0) {
+        rowd[i][0] += gm;
+        rowd[i][1] += du;
+        rowd[i][2] += dv;
+      }
+      for (int j = lane; j < hin; j += 32) {
+        float dz = dznS[i][j];
+        for (int h = 0; h < hc; ++h)
+          dz += dMs[i][h] * __ldg(lp.W + (long long)(h0 + h) * hin + j);
+        dznS[i][j] = dz;
+      }
     }
+
+    // Per-CTA partials of this chunk's rows of dW (hout x hin) and dlin_b.
+    for (int e = tid; e < hc * hin; e += NT) {
+      const int h = e / hin, j = e % hin;
+      float acc = 0.f;
+      for (int i = 0; i < rend; ++i) acc += dMs[i][h] * znS[i][j];
+      pout[2 * hin + h0 * hin + e] = acc;
+    }
+    for (int h = tid; h < hc; h += NT) {
+      float acc = 0.f;
+      for (int i = 0; i < rend; ++i) acc += dMs[i][h];
+      pout[2 * hin + H * hin + h0 + h] = acc;
+    }
+    if (tid == 0)
+      for (int h = 0; h < hc; ++h) dc7 += colG[h] * colS[h];
   }
+  __syncthreads();
   tp1a = block_sum(tp1a, scratch);
   tp1b = block_sum(tp1b, scratch);
   tp2a = block_sum(tp2a, scratch);
@@ -220,33 +306,15 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     tddP = block_sum(tddP, scratch);
     tddQ = block_sum(tddQ, scratch);
   }
-  // (block_sum's barriers also publish dMs.)
 
-  // One warp per row: rank-term dots, RMSNorm -> Linear backward, g_prev.
+  // One warp per row: rank-term dots, RMSNorm backward, g_prev.
   float w[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) w[k] = 0.f;
   for (int i = warp; i < BM; i += NW) {
     const int gi = r0 + i;
-    if (gi >= n) {
-      for (int j = lane; j < MAXH; j += 32) {
-        znS[i][j] = 0.f;
-        dznS[i][j] = 0.f;
-      }
-      if (lane == 0) invS[i] = 0.f;
-      continue;
-    }
-    float gm = 0.f, du = 0.f, dv = 0.f;
-    for (int h = lane; h < H; h += 32) {
-      const float g = Gb[(long long)gi * ldg + h];
-      const float m = Mb[(long long)gi * ldm + h];
-      gm += g * m;
-      du += g * colS[h];
-      dv += m * colG[h];
-    }
-    gm = warp_sum(gm);
-    du = warp_sum(du);
-    dv = warp_sum(dv);
+    if (gi >= n) continue;
+    const float gm = rowd[i][0], du = rowd[i][1], dv = rowd[i][2];
     const float rAi = rA[gi], rdAi = rdA[gi];
     const float dgA = st[DGA * n + gi], dgdA = st[DGDA * n + gi];
     w[0] += gm;
@@ -269,19 +337,9 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     }
 
     const float* x = X + ((long long)b * n + gi) * ldx;
-    float ss = 0.f;
-    for (int j = lane; j < hin; j += 32) ss += x[j] * x[j];
-    ss = warp_sum(ss);
-    const float inv = rsqrtf(ss / (float)hin + EPS);
+    const float inv = invS[i];
     float hx = 0.f;
-    for (int j = lane; j < hin; j += 32) {
-      const float xj = x[j], nwj = __ldg(lp.nw + j);
-      znS[i][j] = xj * inv * nwj + __ldg(lp.nb + j);
-      float dz = 0.f;
-      for (int h = 0; h < H; ++h) dz += dMs[i][h] * __ldg(lp.W + (long long)h * hin + j);
-      dznS[i][j] = dz;
-      hx += dz * nwj * xj;
-    }
+    for (int j = lane; j < hin; j += 32) hx += dznS[i][j] * __ldg(lp.nw + j) * x[j];
     hx = warp_sum(hx);
     const float k3 = inv * inv * inv / (float)hin;
     for (int j = lane; j < hin; j += 32) {
@@ -290,7 +348,6 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
       if (mask_prev && !(xj > 0.f)) gp = 0.f;
       Gp[((long long)b * n + gi) * ldgp + j] = gp;
     }
-    if (lane == 0) invS[i] = inv;
   }
   if (lane == 0) {
 #pragma unroll
@@ -298,10 +355,8 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   }
   __syncthreads();
 
-  // Per-CTA partials: [dnorm_w (hin) | dnorm_b (hin) | dW (H*hin) |
-  //                    dlin_b (H) | dbasis (16) | dtau (1)].
-  float* pout = part + ((long long)b * gridDim.x + blockIdx.x) * ptot + poff;
-  const int rend = min(BM, n - r0);
+  // Per-CTA partials: [dnorm_w (hin) | dnorm_b (hin) | dW (H*hin, written
+  // above) | dlin_b (H, above) | dbasis (16) | dtau (1)].
   for (int j = tid; j < hin; j += NT) {
     float dw = 0.f, db = 0.f;
     for (int i = 0; i < rend; ++i) {
@@ -312,25 +367,12 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     pout[j] = dw;
     pout[hin + j] = db;
   }
-  for (int e = tid; e < H * hin; e += NT) {
-    const int h = e / hin, j = e % hin;
-    float acc = 0.f;
-    for (int i = 0; i < rend; ++i) acc += dMs[i][h] * znS[i][j];
-    pout[2 * hin + e] = acc;
-  }
-  for (int h = tid; h < H; h += NT) {
-    float acc = 0.f;
-    for (int i = 0; i < rend; ++i) acc += dMs[i][h];
-    pout[2 * hin + H * hin + h] = acc;
-  }
   if (tid == 0) {
     float tot[10];
     for (int k = 0; k < 10; ++k) {
       tot[k] = 0.f;
       for (int ww = 0; ww < NW; ++ww) tot[k] += wred[ww][k];
     }
-    float dc7 = 0.f;
-    for (int h = 0; h < H; ++h) dc7 += colG[h] * colS[h];
     const bool first = blockIdx.x == 0;
     float* db = pout + 2 * hin + H * hin + H;
     db[0] = tp1a;
@@ -376,7 +418,8 @@ static int layer_ptot(const int* dims, int l) {
 }
 
 // Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward (Xbuf[0]
-// unused: layer 0 reads Z). gbuf: two (B, n, ldm) cotangent buffers.
+// unused: layer 0 reads Z), ldm >= every layer's width. gbuf: two
+// (B, n, ldm) cotangent buffers.
 // part: (B, nblk, ptot) partials; red: (B, ptot) reduced per-element
 // grads, layer blocks in order. dZ: (B, n, hin0).
 extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
@@ -388,7 +431,7 @@ extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
                             float* Xbuf, float* gbuf, int ldm, float* dZ,
                             float* part, int ptot, float* red,
                             cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L) || ldm < MAXH)
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm))
     return (int)cudaErrorInvalidValue;
   int want = 0;
   for (int l = 0; l < L; ++l) want += layer_ptot(dims, l);

@@ -15,8 +15,15 @@
 // into dvec). Layout: CTAs own BM rows of one batch element (grid
 // (ceil(n/BM), B)); the n x n operands never reach device memory -- each
 // CTA regenerates its (BM x BK) tiles of C from the planes, in shared
-// memory, once per layer. All reductions are in a fixed order, so results
-// are bitwise reproducible run to run.
+// memory, once per layer and chunk of HC output columns. All reductions are
+// in a fixed order, so results are bitwise reproducible run to run.
+//
+// Widths: a layer's input is at most MAXIN = 64 wide; its output any width
+// up to MAXOUT, swept in chunks of HC = 64 columns (one chunk, and the
+// arithmetic of the unchunked kernel, for outputs up to 64). The configs'
+// wide layers are CDE-wrapper outputs, H * E * 2 columns (512 for the trade
+// configs, 1024 for england), and always last, so a layer that feeds
+// another is at most 64 wide.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,8 +34,10 @@ constexpr int BM = 16;     // rows per CTA
 constexpr int BK = 32;     // k-tile width
 constexpr int NT = 256;    // threads per CTA
 constexpr int NW = NT / 32;
-constexpr int MAXH = 64;   // widest feature dimension served
-constexpr int PPT = (BM * MAXH + NT - 1) / NT;  // (row, col) pairs per thread
+constexpr int MAXIN = 64;    // widest layer input
+constexpr int HC = 64;       // output columns per sweep
+constexpr int MAXOUT = 4096; // widest layer output
+constexpr int PPT = (BM * HC + NT - 1) / NT;  // (row, col) pairs per thread
 constexpr float EPS = 1e-6f;
 
 struct Planes {
@@ -96,7 +105,8 @@ __device__ __forceinline__ float block_sum(float v, float* scratch /*[NW]*/) {
 }
 
 // One warp: RMSNorm (eps 1e-6, with bias) then Linear of one node row.
-// x: hin features (global or shared); zn: per-warp scratch of MAXH floats.
+// x: hin features (global or shared); zn: per-warp scratch of MAXIN floats;
+// any hout.
 __device__ __forceinline__ void transform_row(const float* x, const Layer& lp,
                                               float* zn, float* out) {
   const int lane = threadIdx.x % 32;
@@ -125,7 +135,7 @@ __global__ void __launch_bounds__(NT)
 prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau,
             int n, const float* __restrict__ Z, int ldz, Layer l0,
             float* __restrict__ M0, int ldm, float* __restrict__ stats) {
-  __shared__ float zn[NW][MAXH];
+  __shared__ float zn[NW][MAXIN];
   const int b = blockIdx.y, r0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long base = plane_base(P, idx, b, n);
@@ -167,7 +177,8 @@ prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau
 }
 
 // Pass 2 (one per layer): out rows = C M + rank terms (+ relu), optionally
-// stored to F, and -- when a next layer exists -- that layer's M rows.
+// stored to F, and -- when a next layer exists (then H <= HC) -- that
+// layer's M rows. The output columns are swept in chunks of HC.
 __global__ void __launch_bounds__(NT)
 fwd_rows_kernel(Planes P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
@@ -176,12 +187,12 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
                 int ldf, int relu, int has_next, Layer ln,
                 float* __restrict__ Mn, int ldmn) {
   __shared__ float Cs[BM][BK + 1];
-  __shared__ float Ms[BK][MAXH];
-  __shared__ float Fs[BM][MAXH];
-  __shared__ float colS[MAXH], colW[MAXH];
+  __shared__ float Ms[BK][HC];
+  __shared__ float Fs[BM][HC];
+  __shared__ float colS[HC], colW[HC];
   __shared__ float red[2][NT];
   __shared__ float scratch[NW];
-  __shared__ float zn[NW][MAXH];
+  __shared__ float zn[NW][MAXIN];
 
   const int b = blockIdx.y, r0 = blockIdx.x * BM, tid = threadIdx.x;
   const int warp = tid / 32;
@@ -197,7 +208,7 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
 #pragma unroll
   for (int k = 0; k < 16; ++k) q[k] = __ldg(lp.basis + k);
 
-  // Global sums every CTA needs: sA, sdA and the column sums s, w of M.
+  // Global sums every CTA needs: sA, sdA.
   float a0 = 0.f, a1 = 0.f;
   for (int k = tid; k < n; k += NT) {
     a0 += rA[k];
@@ -205,96 +216,103 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
   }
   const float sA = block_sum(a0, scratch);
   const float sdA = block_sum(a1, scratch);
-  {
-    const int nsl = NT / H, h = tid % H, sl = tid / H;
-    float s_ = 0.f, w_ = 0.f;
-    if (sl < nsl) {
-      for (int k = sl; k < n; k += nsl) {
-        const float m = Mb[(long long)k * ldm + h];
-        const float v = (q[8] * rA[k] + q[9] * rdA[k]) / fn;
-        s_ += m;
-        w_ += v * m;
-      }
-    }
-    red[0][tid] = s_;
-    red[1][tid] = w_;
-    __syncthreads();
-    if (tid < H) {
-      float ss = 0.f, ww = 0.f;
-      for (int s2 = 0; s2 < nsl; ++s2) {
-        ss += red[0][s2 * H + tid];
-        ww += red[1][s2 * H + tid];
-      }
-      colS[tid] = ss;
-      colW[tid] = ww;
-    }
-    __syncthreads();
-  }
-
   const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
-  float acc[PPT];
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) acc[j] = 0.f;
+  const float c7 = (q[12] + q[13]) * sA / fn2;
+  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    // Row part: B1[i, k] for the CTA's rows (coalesced along k).
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-      float v = 0.f;
-      if (gi < n && gk < n) {
-        float A, dA;
-        herm(P, base + (long long)gi * n + gk, t, A, dA);
-        v = b10 * A + b11 * dA;
-      }
-      Cs[i][kk] = v;
-    }
-    for (int e = tid; e < BK * H; e += NT) {
-      const int kk = e / H, h = e % H, gk = k0 + kk;
-      Ms[kk][h] = gk < n ? Mb[(long long)gk * ldm + h] : 0.f;
-    }
+  for (int h0 = 0; h0 < H; h0 += HC) {
+    const int hc = min(HC, H - h0);
+    // The chunk's column sums s, w of M (the previous chunk's epilogue has
+    // read colS/colW before this barrier).
     __syncthreads();
-    // Column part: B2[k, i] (coalesced along i).
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-      if (gi < n && gk < n) {
-        float A, dA;
-        herm(P, base + (long long)gk * n + gi, t, A, dA);
-        Cs[i][kk] += b20 * A + b21 * dA;
+    {
+      const int nsl = NT / hc, h = tid % hc, sl = tid / hc;
+      float s_ = 0.f, w_ = 0.f;
+      if (sl < nsl) {
+        for (int k = sl; k < n; k += nsl) {
+          const float m = Mb[(long long)k * ldm + h0 + h];
+          const float v = (q[8] * rA[k] + q[9] * rdA[k]) / fn;
+          s_ += m;
+          w_ += v * m;
+        }
       }
+      red[0][tid] = s_;
+      red[1][tid] = w_;
+      __syncthreads();
+      if (tid < hc) {
+        float ss = 0.f, ww = 0.f;
+        for (int s2 = 0; s2 < nsl; ++s2) {
+          ss += red[0][s2 * hc + tid];
+          ww += red[1][s2 * hc + tid];
+        }
+        colS[tid] = ss;
+        colW[tid] = ww;
+      }
+      __syncthreads();
     }
-    __syncthreads();
+
+    float acc[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) acc[j] = 0.f;
+
+    for (int k0 = 0; k0 < n; k0 += BK) {
+      // Row part: B1[i, k] for the CTA's rows (coalesced along k).
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+        float v = 0.f;
+        if (gi < n && gk < n) {
+          float A, dA;
+          herm(P, base + (long long)gi * n + gk, t, A, dA);
+          v = b10 * A + b11 * dA;
+        }
+        Cs[i][kk] = v;
+      }
+      for (int e = tid; e < BK * hc; e += NT) {
+        const int kk = e / hc, h = e % hc, gk = k0 + kk;
+        Ms[kk][h] = gk < n ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
+      }
+      __syncthreads();
+      // Column part: B2[k, i] (coalesced along i).
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+        if (gi < n && gk < n) {
+          float A, dA;
+          herm(P, base + (long long)gk * n + gi, t, A, dA);
+          Cs[i][kk] += b20 * A + b21 * dA;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const int pp = tid + j * NT;
+        if (pp < BM * hc) {
+          const int i = pp / hc, h = pp % hc;
+          float a = acc[j];
+#pragma unroll 8
+          for (int kk = 0; kk < BK; ++kk) a += Cs[i][kk] * Ms[kk][h];
+          acc[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       const int pp = tid + j * NT;
-      if (pp < BM * H) {
-        const int i = pp / H, h = pp % H;
-        float a = acc[j];
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) a += Cs[i][kk] * Ms[kk][h];
-        acc[j] = a;
+      if (pp < BM * hc) {
+        const int i = pp / hc, h = pp % hc, gi = r0 + i;
+        float val = 0.f;
+        if (gi < n) {
+          const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+                             (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
+          const float u = (q[6] * rA[gi] + q[7] * rdA[gi]) / fn;
+          const float m = Mb[(long long)gi * ldm + h0 + h];
+          val = acc[j] + dvec * m + u * colS[h] + (colW[h] + c7 * colS[h]);
+          if (relu) val = fmaxf(val, 0.f);
+          if (F != nullptr) F[((long long)b * n + gi) * ldf + h0 + h] = val;
+        }
+        Fs[i][h] = val;
       }
-    }
-    __syncthreads();
-  }
-
-  const float c7 = (q[12] + q[13]) * sA / fn2;
-  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int pp = tid + j * NT;
-    if (pp < BM * H) {
-      const int i = pp / H, h = pp % H, gi = r0 + i;
-      float val = 0.f;
-      if (gi < n) {
-        const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
-                           (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
-        const float u = (q[6] * rA[gi] + q[7] * rdA[gi]) / fn;
-        const float m = Mb[(long long)gi * ldm + h];
-        val = acc[j] + dvec * m + u * colS[h] + (colW[h] + c7 * colS[h]);
-        if (relu) val = fmaxf(val, 0.f);
-        if (F != nullptr) F[((long long)b * n + gi) * ldf + h] = val;
-      }
-      Fs[i][h] = val;
     }
   }
   if (has_next) {
@@ -319,11 +337,14 @@ inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {
   return lp;
 }
 
-// Host-side shape checks shared by both entry points.
-inline bool dims_ok(const int* dims, int L) {
+// Host-side shape checks shared by both entry points: inputs up to MAXIN,
+// outputs up to MAXOUT, consecutive layers chained; the M/X scratch rows
+// (ldm) hold the widest layer.
+inline bool dims_ok(const int* dims, int L, int ldm) {
   for (int l = 0; l < L; ++l) {
-    if (dims[2 * l] < 1 || dims[2 * l] > MAXH) return false;
-    if (dims[2 * l + 1] < 1 || dims[2 * l + 1] > MAXH) return false;
+    if (dims[2 * l] < 1 || dims[2 * l] > MAXIN) return false;
+    if (dims[2 * l + 1] < 1 || dims[2 * l + 1] > MAXOUT) return false;
+    if (dims[2 * l + 1] > ldm || dims[2 * l] > ldm) return false;
     if (l > 0 && dims[2 * l] != dims[2 * l - 1]) return false;
   }
   return true;

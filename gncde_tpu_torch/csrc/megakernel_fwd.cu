@@ -20,14 +20,15 @@ using namespace mk;
 
 // ptrs: host array of 5 device pointers per layer (norm_w, norm_b, W, lin_b,
 // basis); dims: host array of (hin, hout) per layer. Mbuf holds two
-// ping-pong (B, n, ldm) buffers of M. Returns the first CUDA error.
+// ping-pong (B, n, ldm) buffers of M, ldm >= every layer's width. Returns
+// the first CUDA error.
 extern "C" int gncde_mk_fwd(const float* d, const float* c, const float* b,
                             const float* a, long long plane_bstride,
                             const int* idx, const float* tau, const float* Z,
                             int B, int n, int L, const int* dims,
                             const void* const* ptrs, float* stats, float* Mbuf,
                             int ldm, float* out, cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L) || ldm < MAXH)
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm))
     return (int)cudaErrorInvalidValue;
   Planes P{d, c, b, a, plane_bstride};
   const dim3 grid((n + BM - 1) / BM, B);

@@ -1,4 +1,5 @@
-// K3, K4, K5a, K5b: the plane sweeps of the tiled regime (n > 640).
+// K3, K4, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K6a,
+// K6b: the plane-pair sweeps of the enc_idx path.
 //
 // Replace the TPU kernels of gncde_tpu/ops/pallas/tiled.py:
 //   K3  _fwd2_kernel / _fwd2_call   rowpart = B1 M, colpart = B2^T M
@@ -6,12 +7,19 @@
 //                                   dM parts and the four c cotangents
 //   K5a _dw2_kernel / _dw2_call     <A|dA, G M^T>, <A|dA, M G^T>
 //   K5b _dw_kernel / _dw_call       <slab_j, G M^T>, <slab_j, M G^T>
-// with B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from the
-// bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded to
-// bf16, every product and sum rounded to bf16, as _fwd2_kernel does), and
-// every product accumulated in f32.
+//   K6a _pair_kernel / _pair_call   rowpart = B1 Mk, colpart = B2^T Mi
+//   K6b _pair_dw_kernel / _pair_dw_call
+//                                   <A|dA, Gr Mk^T>, <A|dA, Mi Gc^T>
+// K3-K5b: B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from
+// the bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded
+// to bf16, every product and sum rounded to bf16, as _fwd2_kernel does).
+// K6a/K6b: f32 planes (the modulated A(t), dA(t), functions of trainable
+// parameters), B1/B2 formed in f32, f32 vectors, rectangular (nr, nc)
+// extents (the enc_idx path passes square ones). Every product is
+// accumulated in f32.
 //
-// Layout. Planes are (B, n, n) and vectors M, G (B, n, H) bf16, unpadded:
+// Layout. Planes are (B, n, n) and vectors M, G (B, n, H) bf16 (K6: f32,
+// (B, nr, nc) and (B, nr | nc, H)), unpadded:
 // every tile load is bound-checked against n, and a tile's overhang is
 // staged as zero. One CTA owns BO indices of one batch element and sweeps
 // the whole reduce extent in BR-deep tiles staged in shared memory as f32:
@@ -84,11 +92,15 @@ __device__ float block_sum(float v, float* red) {
 }
 
 struct Sweep {
-  const void* p[4];   // NPL plane pointers (bf16, or f32 for K5b's slabs)
-  int n;              // planes (B, n, n), vectors (B, n, H)
-  const bf16* v[2];   // NV vector operands
+  const void* p[4];   // NPL plane pointers (bf16; f32 for K5b's slabs and K6)
+  int nr, nc;         // planes (B, nr, nc); K3-K5b are square, nr = nc = n
+  const void* v[2];   // NV vector operands (bf16; f32 for K6): (B, nc, H) in
+                      // the row pass, (B, nr, H) in the column pass
   int H;
 };
+
+// How a sweep forms its plane tile from the NPL = 2 raw planes.
+enum Combo { RAW = 0, COMBO_BF16 = 1, COMBO_F32 = 2 };
 
 // Shared tiles of one CTA: NS plane tiles (BO x BR, padded rows) and NV
 // vector tiles (BR x HC), both f32.
@@ -102,13 +114,17 @@ struct Smem {
 // One sweep of a CTA over the reduce extent for owned indices o0 .. o0+BO-1
 // and feature columns h0 .. h0+hc-1:
 //   acc[s * NV + v][j] += sum_r S_s[a_j][r] * V_v[r][h_j]
-// for the (a_j, h_j) = divmod(tid + j NT, hc) pairs of this thread. With
-// COMBO the NPL = 2 raw planes form one tile S_0 = bf16(bf16(c0 x0) +
-// bf16(c1 x1)); otherwise each raw plane is its own tile (NS = NPL).
+// for the (a_j, h_j) = divmod(tid + j NT, hc) pairs of this thread. The row
+// pass owns rows and reduces over the nc columns, the column pass (trans)
+// owns columns and reduces over the nr rows. With COMBO_BF16 the NPL = 2
+// raw planes form one tile S_0 = bf16(bf16(c0 x0) + bf16(c1 x1)) (K3), with
+// COMBO_F32 the f32 tile S_0 = c0 x0 + c1 x1 (K6, each product and the sum
+// rounded once); with RAW each raw plane is its own tile (NS = NPL).
 // The next tile's global loads are issued into registers before the current
 // tile is multiplied, so their latency overlaps the FMAs; all loads of one
 // tile are in flight together (unrolled, fixed trip counts).
-template <int NPL, int NS, int NV, int BO, int HC, bool COMBO, typename PT>
+template <int NPL, int NS, int NV, int BO, int HC, int COMBO, typename PT,
+          typename VT>
 __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool trans,
                       int o0, int h0, int hc, float c0, float c1,
                       float (&acc)[NS * NV][(BO * HC + NT - 1) / NT]) {
@@ -128,8 +144,9 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
   }
   // When hc divides NT, every pair of a thread has the same column h.
   const bool one_h = NT % hc == 0;
-  const long long pbase = (long long)b * g.n * g.n;
-  const long long vbase = (long long)b * g.n * g.H;
+  const int ext = trans ? g.nr : g.nc;  // reduce extent
+  const long long pbase = (long long)b * g.nr * g.nc;
+  const long long vbase = (long long)b * ext * g.H;
   float px[NPL][PE], vx[NV][VE];
 
   auto fetch = [&](int r0) {
@@ -141,8 +158,8 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
       const int r = trans ? e / BO : e % BR;
       const int row = trans ? r0 + r : o0 + a;
       const int col = trans ? o0 + a : r0 + r;
-      const bool ok = e < BO * BR && row < g.n && col < g.n;
-      const long long off = pbase + (long long)row * g.n + col;
+      const bool ok = e < BO * BR && row < g.nr && col < g.nc;
+      const long long off = pbase + (long long)row * g.nc + col;
 #pragma unroll
       for (int q = 0; q < NPL; ++q)
         px[q][i] = ok ? ldf(static_cast<const PT*>(g.p[q]), off) : 0.f;
@@ -151,10 +168,11 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
     for (int i = 0; i < VE; ++i) {
       const int e = threadIdx.x + i * NT;
       const int r = e / hc, h = e % hc;
-      const bool ok = e < BR * hc && r0 + r < g.n;
+      const bool ok = e < BR * hc && r0 + r < ext;
       const long long off = vbase + (long long)(r0 + r) * g.H + h0 + h;
 #pragma unroll
-      for (int q = 0; q < NV; ++q) vx[q][i] = ok ? ldf(g.v[q], off) : 0.f;
+      for (int q = 0; q < NV; ++q)
+        vx[q][i] = ok ? ldf(static_cast<const VT*>(g.v[q]), off) : 0.f;
     }
   };
   auto stash = [&]() {
@@ -164,8 +182,10 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
       if (e >= BO * BR) continue;
       const int a = trans ? e % BO : e / BR;
       const int r = trans ? e / BO : e % BR;
-      if (COMBO) {
+      if (COMBO == COMBO_BF16) {
         sm.S[0][a][r] = rbf(rbf(c0 * px[0][i]) + rbf(c1 * px[1][i]));
+      } else if (COMBO == COMBO_F32) {
+        sm.S[0][a][r] = __fadd_rn(__fmul_rn(c0, px[0][i]), __fmul_rn(c1, px[1][i]));
       } else {
 #pragma unroll
         for (int q = 0; q < NS; ++q) sm.S[q][a][r] = px[q][i];
@@ -181,10 +201,10 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
   };
 
   fetch(0);
-  for (int r0 = 0; r0 < g.n; r0 += BR) {
+  for (int r0 = 0; r0 < ext; r0 += BR) {
     stash();
     __syncthreads();
-    if (r0 + BR < g.n) fetch(r0 + BR);
+    if (r0 + BR < ext) fetch(r0 + BR);
     if (one_h) {
 #pragma unroll 4
       for (int r = 0; r < BR; ++r) {
@@ -244,15 +264,16 @@ __global__ void __launch_bounds__(NT) fwd2_kernel(Sweep g, const float* cvec,
   // The coefficients are cast to the planes' dtype first (_fwd2_kernel).
   const float c0 = rbf(__ldg(cvec + (trans ? 2 : 0)));
   const float c1 = rbf(__ldg(cvec + (trans ? 3 : 1)));
-  float* out = (trans ? col_out : row_out) + (long long)b * g.n * g.H;
+  float* out = (trans ? col_out : row_out) + (long long)b * g.nr * g.H;
   float acc[1][PPT];
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 1, 1, BO, HC, true, bf16>(g, sm, b, trans, o0, h0, hc, c0, c1, acc);
+    sweep<2, 1, 1, BO, HC, COMBO_BF16, bf16, bf16>(g, sm, b, trans, o0, h0, hc, c0, c1,
+                                                 acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
-      if (pair(j, hc, BO, a, h) && o0 + a < g.n)
+      if (pair(j, hc, BO, a, h) && o0 + a < g.nr)
         out[(long long)(o0 + a) * g.H + h0 + h] = acc[0][j];
     }
   }
@@ -274,17 +295,17 @@ __global__ void __launch_bounds__(NT) bwd2_kernel(Sweep g, const float* cvec,
   const int o0 = blockIdx.x * BO;
   const float c0 = __ldg(cvec + (trans ? 2 : 0));
   const float c1 = __ldg(cvec + (trans ? 3 : 1));
-  float* out = (trans ? col_out : row_out) + (long long)b * g.n * g.H;
-  const bf16* Mb = M + (long long)b * g.n * g.H;
+  float* out = (trans ? col_out : row_out) + (long long)b * g.nr * g.H;
+  const bf16* Mb = M + (long long)b * g.nr * g.H;
   float acc[2][PPT];
   float dot0 = 0.f, dot1 = 0.f;
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 1, BO, HC, false, bf16>(g, sm, b, trans, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<2, 2, 1, BO, HC, RAW, bf16, bf16>(g, sm, b, trans, o0, h0, hc, 0.f, 0.f, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
-      if (!pair(j, hc, BO, a, h) || o0 + a >= g.n) continue;
+      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
       const long long o = (long long)(o0 + a) * g.H + h0 + h;
       out[o] = c0 * acc[0][j] + c1 * acc[1][j];
       const float m = __bfloat162float(Mb[o]);
@@ -314,17 +335,17 @@ __global__ void __launch_bounds__(NT) dw2_kernel(Sweep g, float* part) {
   __shared__ Smem<2, 2, BO, HC> sm;
   const int b = blockIdx.z;
   const int o0 = blockIdx.x * BO;
-  const bf16* Mb = g.v[0] + (long long)b * g.n * g.H;
-  const bf16* Gb = g.v[1] + (long long)b * g.n * g.H;
+  const bf16* Mb = static_cast<const bf16*>(g.v[0]) + (long long)b * g.nr * g.H;
+  const bf16* Gb = static_cast<const bf16*>(g.v[1]) + (long long)b * g.nr * g.H;
   float acc[4][PPT];
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 2, BO, HC, false, bf16>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<2, 2, 2, BO, HC, RAW, bf16, bf16>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
-      if (!pair(j, hc, BO, a, h) || o0 + a >= g.n) continue;
+      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
       const long long o = (long long)(o0 + a) * g.H + h0 + h;
       const float m = __bfloat162float(Mb[o]), gg = __bfloat162float(Gb[o]);
       dot[0] = fmaf(acc[0][j], gg, dot[0]);
@@ -350,19 +371,19 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
   __shared__ Smem<4, 2, BO, HC> sm;
   const int b = blockIdx.z;
   const int o0 = blockIdx.x * BO;
-  const bf16* Mb = g.v[0] + (long long)b * g.n * g.H;
-  const bf16* Gb = g.v[1] + (long long)b * g.n * g.H;
+  const bf16* Mb = static_cast<const bf16*>(g.v[0]) + (long long)b * g.nr * g.H;
+  const bf16* Gb = static_cast<const bf16*>(g.v[1]) + (long long)b * g.nr * g.H;
   float acc[8][PPT];
   float dot[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) dot[q] = 0.f;
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<4, 4, 2, BO, HC, false, float>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<4, 4, 2, BO, HC, RAW, float, bf16>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
-      if (!pair(j, hc, BO, a, h) || o0 + a >= g.n) continue;
+      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
       const long long o = (long long)(o0 + a) * g.H + h0 + h;
       const float m = __bfloat162float(Mb[o]), gg = __bfloat162float(Gb[o]);
 #pragma unroll
@@ -374,6 +395,81 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
   }
   float* pp = part + ((long long)b * gridDim.x + blockIdx.x) * 8;
   for (int q = 0; q < 8; ++q) {
+    const float s = block_sum(dot[q], sm.red);
+    if (threadIdx.x == 0) pp[q] = s;
+  }
+}
+
+// ---- K6a -----------------------------------------------------------------
+// The rectangular pair apply of the enc_idx path: f32 planes A, dA
+// (B, nr, nc), B1 = cr0 A + cr1 dA, B2 = cc0 A + cc1 dA formed in f32,
+//   row pass: rowpart = B1 Mk   (B, nr, H), Mk (B, nc, H)
+//   col pass: colpart = B2^T Mi (B, nc, H), Mi (B, nr, H)
+// cvec = (cr0, cr1, cc0, cc1). The grid covers max(nr, nc) owned indices;
+// CTAs past their pass's extent exit at once.
+template <int HC>
+__global__ void __launch_bounds__(NT) pair_kernel(Sweep g, const float* cvec,
+                                                  const float* Mk, const float* Mi,
+                                                  float* row_out, float* col_out) {
+  constexpr int BO = bo_for(1, HC), PPT = (BO * HC + NT - 1) / NT;
+  __shared__ Smem<1, 1, BO, HC> sm;
+  const int b = blockIdx.z;
+  const bool trans = blockIdx.y == 1;
+  const int o0 = blockIdx.x * BO;
+  const int own = trans ? g.nc : g.nr;
+  if (o0 >= own) return;
+  g.v[0] = trans ? Mi : Mk;
+  const float c0 = __ldg(cvec + (trans ? 2 : 0));
+  const float c1 = __ldg(cvec + (trans ? 3 : 1));
+  float* out = (trans ? col_out : row_out) + (long long)b * own * g.H;
+  float acc[1][PPT];
+  for (int h0 = 0; h0 < g.H; h0 += HC) {
+    const int hc = min(HC, g.H - h0);
+    sweep<2, 1, 1, BO, HC, COMBO_F32, float, float>(g, sm, b, trans, o0, h0, hc, c0,
+                                                     c1, acc);
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      int a, h;
+      if (pair(j, hc, BO, a, h) && o0 + a < own)
+        out[(long long)(o0 + a) * g.H + h0 + h] = acc[0][j];
+    }
+  }
+}
+
+// ---- K6b -----------------------------------------------------------------
+// The c cotangents of K6a, per element: (<A, Gr Mk^T>, <dA, Gr Mk^T>,
+// <A, Mi Gc^T>, <dA, Mi Gc^T>) = sum_i (Gr . A Mk, Gr . dA Mk, Mi . A Gc,
+// Mi . dA Gc)[i]. Row pass only, vectors (Mk, Gc) over the nc columns, so
+// the rank-H products Gr Mk^T and Mi Gc^T are never formed. part:
+// (B, gridDim.x, 4) per-CTA partials.
+template <int HC>
+__global__ void __launch_bounds__(NT) pair_dw_kernel(Sweep g, const float* Gr,
+                                                     const float* Mi, float* part) {
+  constexpr int BO = bo_for(4, HC), PPT = (BO * HC + NT - 1) / NT;
+  __shared__ Smem<2, 2, BO, HC> sm;
+  const int b = blockIdx.z;
+  const int o0 = blockIdx.x * BO;
+  const float* Grb = Gr + (long long)b * g.nr * g.H;
+  const float* Mib = Mi + (long long)b * g.nr * g.H;
+  float acc[4][PPT];  // (A Mk, A Gc, dA Mk, dA Gc)
+  float dot[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int h0 = 0; h0 < g.H; h0 += HC) {
+    const int hc = min(HC, g.H - h0);
+    sweep<2, 2, 2, BO, HC, RAW, float, float>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      int a, h;
+      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
+      const long long o = (long long)(o0 + a) * g.H + h0 + h;
+      const float gr = Grb[o], mi = Mib[o];
+      dot[0] = fmaf(acc[0][j], gr, dot[0]);
+      dot[1] = fmaf(acc[2][j], gr, dot[1]);
+      dot[2] = fmaf(acc[1][j], mi, dot[2]);
+      dot[3] = fmaf(acc[3][j], mi, dot[3]);
+    }
+  }
+  float* pp = part + ((long long)b * gridDim.x + blockIdx.x) * 4;
+  for (int q = 0; q < 4; ++q) {
     const float s = block_sum(dot[q], sm.red);
     if (threadIdx.x == 0) pp[q] = s;
   }
@@ -396,18 +492,22 @@ inline int launch_reduce(const float* part, int B, int nblk, int nq, float* out,
 }
 
 inline bool dims_ok(int B, int n, int H) { return B >= 1 && n >= 1 && H >= 1; }
+inline bool dims_ok(int B, int nr, int nc, int H) {
+  return dims_ok(B, nr, H) && nc >= 1;
+}
 
 inline Sweep make_sweep(const void* p0, const void* p1, const void* p2,
-                        const void* p3, int n, const void* v0, const void* v1,
-                        int H) {
+                        const void* p3, int nr, int nc, const void* v0,
+                        const void* v1, int H) {
   Sweep g;
   g.p[0] = p0;
   g.p[1] = p1;
   g.p[2] = p2;
   g.p[3] = p3;
-  g.n = n;
-  g.v[0] = static_cast<const bf16*>(v0);
-  g.v[1] = static_cast<const bf16*>(v1);
+  g.nr = nr;
+  g.nc = nc;
+  g.v[0] = v0;
+  g.v[1] = v1;
   g.H = H;
   return g;
 }
@@ -432,7 +532,7 @@ extern "C" int gncde_tiled_fwd2(const void* A, const void* dA, int n,
                                 float* row_out, float* col_out,
                                 cudaStream_t stream) {
   if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, M, nullptr, H);
+  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, n, M, nullptr, H);
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
     fwd2_kernel<HC><<<dim3((n + BO - 1) / BO, 2, B), NT, 0, stream>>>(
@@ -448,7 +548,7 @@ extern "C" int gncde_tiled_bwd2(const void* A, const void* dA, int n,
                                 int B, int H, float* row_out, float* col_out,
                                 float* part, float* dw, cudaStream_t stream) {
   if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, G, nullptr, H);
+  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, n, G, nullptr, H);
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(2, HC);
     const int nb = (n + BO - 1) / BO;
@@ -465,7 +565,7 @@ extern "C" int gncde_tiled_dw2(const void* A, const void* dA, int n, const void*
                                const void* M, int B, int H, float* part, float* dw,
                                cudaStream_t stream) {
   if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, M, G, H);
+  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, n, M, G, H);
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(4, HC);
     const int nb = (n + BO - 1) / BO;
@@ -482,12 +582,46 @@ extern "C" int gncde_tiled_dw(const float* d, const float* c, const float* b,
                               int B, int H, float* part, float* dw,
                               cudaStream_t stream) {
   if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(d, c, b, a, n, M, G, H);
+  const Sweep g = make_sweep(d, c, b, a, n, n, M, G, H);
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(8, HC);
     const int nb = (n + BO - 1) / BO;
     dw_kernel<HC><<<dim3(nb, 1, B), NT, 0, stream>>>(g, part);
     const int err = (int)cudaGetLastError();
     return err != 0 ? err : launch_reduce(part, B, nb, 8, dw, stream);
+  });
+}
+
+// K6a. A, dA: (B, nr, nc) f32; cvec: device (cr0, cr1, cc0, cc1) f32;
+// Mk: (B, nc, H) f32; Mi: (B, nr, H) f32; row_out: (B, nr, H) f32;
+// col_out: (B, nc, H) f32.
+extern "C" int gncde_pair(const float* A, const float* dA, int nr, int nc,
+                          const float* cvec, const float* Mk, const float* Mi, int B,
+                          int H, float* row_out, float* col_out, cudaStream_t stream) {
+  if (!dims_ok(B, nr, nc, H)) return (int)cudaErrorInvalidValue;
+  const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, nullptr, nullptr, H);
+  const int nmax = nr > nc ? nr : nc;
+  return by_width(H, [&](auto hc) {
+    constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
+    pair_kernel<HC><<<dim3((nmax + BO - 1) / BO, 2, B), NT, 0, stream>>>(
+        g, cvec, Mk, Mi, row_out, col_out);
+    return (int)cudaGetLastError();
+  });
+}
+
+// K6b. A, dA: (B, nr, nc) f32; Gr, Mi: (B, nr, H) f32; Mk, Gc: (B, nc, H)
+// f32; part: at least B * ceil(nr / 8) * 4 floats; dw: (B, 4) f32.
+extern "C" int gncde_pair_dw(const float* A, const float* dA, int nr, int nc,
+                             const float* Gr, const float* Mk, const float* Mi,
+                             const float* Gc, int B, int H, float* part, float* dw,
+                             cudaStream_t stream) {
+  if (!dims_ok(B, nr, nc, H)) return (int)cudaErrorInvalidValue;
+  const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, Mk, Gc, H);
+  return by_width(H, [&](auto hc) {
+    constexpr int HC = decltype(hc)::value, BO = bo_for(4, HC);
+    const int nb = (nr + BO - 1) / BO;
+    pair_dw_kernel<HC><<<dim3(nb, 1, B), NT, 0, stream>>>(g, Gr, Mi, part);
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : launch_reduce(part, B, nb, 4, dw, stream);
   });
 }

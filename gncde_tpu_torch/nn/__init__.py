@@ -1,4 +1,4 @@
-from .layers import Linear, RMSNorm
+from .layers import MLP, Embedding, Linear, RMSNorm
 from . import convert
 
-__all__ = ["Linear", "RMSNorm", "convert"]
+__all__ = ["MLP", "Embedding", "Linear", "RMSNorm", "convert"]

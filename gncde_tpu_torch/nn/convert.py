@@ -15,7 +15,9 @@ inside its CDE wrapper). :func:`jax_leaf_names` lists the port's parameters
 in that order: a module's own parameters, then its children, in
 registration order, unless the module names its JAX field order in
 ``JAX_FIELDS``. A parameter listed twice takes the later array, as the JAX
-model's forward reads the wrapper's copy.
+model's forward reads the wrapper's copy. An enc_idx field registers
+``idx_enc`` (its ``module``), ``msg_func_adj`` and ``msg_func_adj_deriv``
+(their ``layers[*]``) after ``gnn_layers``, the JAX field order.
 """
 
 from __future__ import annotations

@@ -12,7 +12,11 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
                         ``ops/megakernel_bwd.py``) per vf eval; above it,
                         up to ``TILED_MAX_N``, the tiled regime
                         (``ops/tiled.py``: K3 per layer, K4 backward).
-                        On CPU tensors the kernels' plain versions run.
+                        An enc_idx field runs K7 (``ops/modulate.py``)
+                        and the plane-pair kernels K6a/K6b
+                        (``ops/pair.py``) at every n up to
+                        ``TILED_MAX_N``. On CPU tensors the kernels'
+                        plain versions run.
   * ``"dense"``      -- the reference formulation: materialise the fused
                         operator and multiply once.
   * ``"decomposed"`` -- the rank-structured two-matmul formulation

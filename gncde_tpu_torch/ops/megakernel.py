@@ -31,8 +31,12 @@ from .equiv_basis import fusion_matrix_dense
 #: slice 2) is needed. Kept equal to the JAX package's cap so both packages
 #: dispatch the same shapes.
 MEGAKERNEL_MAX_N = 640
-#: Widest layer the kernels take (csrc/megakernel_common.cuh MAXH).
-MAX_H = 64
+#: Widest layer input and output the kernels take
+#: (csrc/megakernel_common.cuh MAXIN, MAXOUT): outputs are swept in chunks
+#: of 64 columns, so the CDE wrapper's wide last layers (H * E * 2: 512 for
+#: the trade configs, 1024 for england) are served.
+MAX_IN = 64
+MAX_OUT = 4096
 
 Planes = tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 LayerParams = tp.Dict[str, torch.Tensor]
@@ -120,8 +124,9 @@ def _check_inputs(planes: Planes, idx, tau, Z, layers, extra=()):
     hin = Z.shape[-1]
     for lp in layers:
         hout, h_in = lp["W"].shape
-        if h_in != hin or hout > MAX_H or hin > MAX_H:
-            raise ValueError(f"layer widths {h_in}->{hout} unsupported")
+        if h_in != hin or hout > MAX_OUT or hin > MAX_IN:
+            raise ValueError(f"layer widths {h_in}->{hout} unsupported "
+                             f"(inputs up to {MAX_IN}, outputs up to {MAX_OUT})")
         if lp["basis"].shape != (8, 2):
             raise ValueError("the kernels serve the undirected 8-term basis")
         hin = hout
@@ -146,6 +151,11 @@ def launch_args(planes: Planes, idx, tau, layers):
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     return bstride, idx32, tau32, dim_arr, ptr_arr, keep
+
+
+def scratch_width(layers) -> int:
+    """Row length of the kernels' M/X scratch: the widest layer."""
+    return max(max(lp["W"].shape) for lp in layers)
 
 
 _FWD_ARGTYPES = [
@@ -174,7 +184,8 @@ def _launch_fwd(planes: Planes, idx, tau, Z, layers):
     Z = Z.detach().contiguous()
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     stats = torch.empty((B, 6, n), device=Z.device, dtype=torch.float32)
-    mbuf = torch.empty((2, B, n, MAX_H), device=Z.device, dtype=torch.float32)
+    ldm = scratch_width(layers)
+    mbuf = torch.empty((2, B, n, ldm), device=Z.device, dtype=torch.float32)
     out = torch.empty((B, n, layers[-1]["W"].shape[0]), device=Z.device,
                       dtype=torch.float32)
     err = fn(
@@ -182,7 +193,7 @@ def _launch_fwd(planes: Planes, idx, tau, Z, layers):
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z),
         B, n, len(layers), ctypes.cast(dims, _build.P),
         ctypes.cast(ptrs, _build.P),
-        _build.ptr(stats), _build.ptr(mbuf), MAX_H, _build.ptr(out),
+        _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(out),
         _build.stream(),
     )
     _build.check(err, "K1 megakernel_fwd")

@@ -27,7 +27,6 @@ import torch
 
 from . import _build
 from .megakernel import (
-    MAX_H,
     Planes,
     LayerParams,
     _LAYER_KEYS,
@@ -35,6 +34,7 @@ from .megakernel import (
     hermite,
     launch_args,
     plain_layer_stack,
+    scratch_width,
 )
 
 PerLayer = tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -112,9 +112,10 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
     nblk = -(-n // 16)
     f32 = dict(device=dev, dtype=torch.float32)
     stats = torch.empty((B, 6, n), **f32)
-    mbuf = torch.empty((L, B, n, MAX_H), **f32)
-    xbuf = torch.empty((L, B, n, MAX_H), **f32)
-    gbuf = torch.empty((2, B, n, MAX_H), **f32)
+    ldm = scratch_width(layers)
+    mbuf = torch.empty((L, B, n, ldm), **f32)
+    xbuf = torch.empty((L, B, n, ldm), **f32)
+    gbuf = torch.empty((2, B, n, ldm), **f32)
     dZ = torch.empty((B, n, hin0), **f32)
     part = torch.empty((B, nblk, ptot), **f32)
     red = torch.empty((B, ptot), **f32)
@@ -124,7 +125,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
         int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
-        MAX_H, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
+        ldm, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
         _build.stream(),
     )
     _build.check(err, "K2 megakernel_bwd")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1 and K2
-(the vector-field kernels, n <= 640) and K3, K4, K5a, K5b (the tiled
-regime's plane sweeps, ``csrc/tiled.cu``).
+(the vector-field kernels, n <= 640), K3, K4, K5a, K5b (the tiled regime's
+plane sweeps, ``csrc/tiled.cu``), and the enc_idx path's K7 (modulation,
+``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/tiled.cu``).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -18,7 +19,10 @@ the forward is held to 1e-4 and every cotangent to 1e-3 of its own scale.
 The tiled kernels and their plain versions take the same bf16 operands and
 form B1/B2 with the same roundings; only the order of the f32 sums differs,
 so they are held to 1e-4 of each output's scale, and the field's tiled path
-(kernels on the card against the plain versions on the CPU) to 1e-3.
+(kernels on the card against the plain versions on the CPU) to 1e-3. K7 has
+no reductions (1e-5); K6a/K6b take f32 planes and vectors on both sides and
+sum in another order (1e-4); the enc_idx field on its kernels against its
+dense path 1e-4 for values and 1e-3 for gradients, as K1/K2.
 """
 
 import numpy as np
@@ -30,7 +34,10 @@ from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import megakernel_bwd as mkb
+from gncde_tpu_torch.ops import modulate as tmod
+from gncde_tpu_torch.ops import pair as tp
 from gncde_tpu_torch.ops import tiled as tt
+from gncde_tpu_torch.nn import MLP
 
 # n = 40 is neither a multiple of the 16-row CTA block nor of the 32-wide
 # k-tile, so every edge tile is exercised.
@@ -79,8 +86,12 @@ def _assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-CASES = [((8, 8, 8), True), ((5, 8, 3), True), ((8, 8, 8), False)]
-IDS = ["square-per-element", "widths-5-8-3", "shared-planes"]
+# trade-widths: the CDE-wrapper field of configs/tgb/trade_*perm_equiv_gncde*
+# (32 -> 32 -> 32 -> 32 -> 32 * 8 * 2), whose last layer is swept in 8
+# chunks of 64 columns.
+CASES = [((8, 8, 8), True), ((5, 8, 3), True), ((8, 8, 8), False),
+         ((32, 32, 32, 32, 512), True)]
+IDS = ["square-per-element", "widths-5-8-3", "shared-planes", "trade-widths"]
 
 
 @pytest.mark.requires_cuda
@@ -298,3 +309,134 @@ def test_cuda_tiled_wrappers_raise_instead_of_falling_back(cuda):
         tt.dw2_call(A, dA, G[:, :60].contiguous(), M[:, :60].contiguous())  # n differs
     with pytest.raises(ValueError):
         tt.dw_call(tuple(s.to(torch.bfloat16) for s in slabs), G, M)  # bf16 slabs
+
+
+# ---------------------------------------------------------------------------
+# The enc_idx path: K7, K6a, K6b
+# ---------------------------------------------------------------------------
+
+# Ragged against K6's owned blocks and reduce tiles and K7's 256-column
+# CTAs; H reaches each compiled chunk width of csrc/tiled.cu (8, 32, 128
+# with two sweeps at 130); (n70, n45) is a rectangular pair.
+PAIR_CASES = [(70, 70, 5, 2), (300, 300, 16, 1), (100, 100, 130, 1), (70, 45, 8, 2)]
+PAIR_IDS = ["n70-H5-B2", "n300-H16", "n100-H130", "rect-70x45-H8-B2"]
+
+
+def _pair_inputs(dev, nr, nc, H, B, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0, loc=0.0):
+        return torch.tensor(rng.normal(loc, scale, shape).astype(np.float32), device=dev)
+
+    return dict(A=f(B, nr, nc, scale=0.3, loc=0.1), dA=f(B, nr, nc, scale=0.5),
+                Mk=f(B, nc, H), Mi=f(B, nr, H), Gr=f(B, nr, H), Gc=f(B, nc, H),
+                cvec=torch.tensor([1.03, 0.071, -0.044, 0.052], device=dev))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nr,nc,H,B", PAIR_CASES, ids=PAIR_IDS)
+@pytest.mark.parametrize("kernel", ["K6a", "K6b"])
+def test_cuda_pair_kernel_matches_plain(cuda, kernel, nr, nc, H, B):
+    x = _pair_inputs(cuda, nr, nc, H, B)
+    if kernel == "K6a":
+        args = (x["A"], x["dA"], x["cvec"], x["Mk"], x["Mi"])
+        wrapper, plain = tp.pair_call, tp.plain_pair
+    else:
+        args = tuple(x[k] for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+        wrapper, plain = tp.pair_dw_call, tp.plain_pair_dw
+    before = wrapper.launches
+    got, again, ref = wrapper(*args), wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    if kernel == "K6b":
+        got, again, ref = (got,), (again,), (ref,)
+    for a, b, c in zip(got, ref, again):
+        assert torch.isfinite(a).all()
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)  # no atomics: bitwise repeatable
+
+
+def _mlp_pair(width, depth, d, dev):
+    gen = torch.Generator().manual_seed(width + depth)
+    return [MLP(2 * d + 1, 1, width, depth, generator=gen).to(dev) for _ in range(2)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,B,depth", [(300, 2, 2), (37, 1, 1), (90, 1, 3)],
+                         ids=["n300-d2-B2", "n37-d1", "n90-d3"])
+def test_cuda_modulate_matches_plain(cuda, n, B, depth):
+    """K7 at the reference's width 8 and depth 2, with no hidden layer, and
+    with two hidden layers, against the plain chain built from the MLPs."""
+    rng = np.random.default_rng(1)
+    A = torch.tensor(rng.uniform(0.0, 1.0, (B, n, n)).astype(np.float32), device=cuda)
+    dA = torch.tensor(rng.normal(0.0, 0.5, (B, n, n)).astype(np.float32), device=cuda)
+    emb = torch.tensor(rng.normal(size=(n, 6)).astype(np.float32), device=cuda)
+    ma, md = _mlp_pair(8, depth, 6, cuda)
+    with torch.no_grad():
+        ref = tmod.plain_modulate_pair(A, dA, ma, md, emb)
+    before = tmod.modulate_pair.launches
+    got, again = tmod.modulate_pair(A, dA, ma, md, emb), tmod.modulate_pair(A, dA, ma, md, emb)
+    torch.cuda.synchronize()
+    assert tmod.modulate_pair.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        _assert_close(a, b, 1e-5)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_enc_idx_field_matches_dense(cuda):
+    """The enc_idx field on the card (the auto backend: K7 forward, K6a per
+    layer forward, K6a + K6b per layer backward) against the dense backend,
+    value and every gradient (layers, idx_enc, both modulation MLPs, Z)."""
+    n, H, L, B, T = 150, 8, 3, 2, 5
+    rng = np.random.default_rng(5)
+    ts = torch.tensor(np.cumsum(rng.uniform(0.1, 0.3, (B, T)), axis=1).astype(np.float32),
+                      device=cuda)
+    planes = tuple(torch.tensor(rng.uniform(0.0, 0.3, (B, T - 1, n, n)).astype(np.float32),
+                                device=cuda) for _ in range(4))
+    ctrl = MatrixControl(CubicInterpolation(ts, planes))
+    vf = TVF(H, H, H, L, 1, n, enc_idx=True, enc_type="emb", idx_dim=8,
+             generator=torch.Generator().manual_seed(2)).to(cuda)
+    Z = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    t = ts[:, 1] + 0.05
+    wrappers = (tmod.modulate_pair, tp.pair_call, tp.pair_dw_call, mk.megakernel_vf_eval)
+    results = {}
+    try:
+        for name in ("dense", "auto"):
+            ops.set_fusion_backend(name)
+            vf.zero_grad()
+            Zr = Z.clone().requires_grad_(True)
+            before = [w.launches for w in wrappers]
+            out = vf(t, Zr, ctrl)
+            (out * out).sum().backward()
+            torch.cuda.synchronize()
+            ran = tuple(w.launches - b for w, b in zip(wrappers, before))
+            assert ran == ((1, 2 * L, L, 0) if name == "auto" else (0, 0, 0, 0))
+            results[name] = [out.detach(), Zr.grad] + [p.grad.clone() for p in vf.parameters()]
+    finally:
+        ops.set_fusion_backend("auto")
+    _assert_close(results["auto"][0], results["dense"][0], 1e-4)
+    for a, b in zip(results["auto"][1:], results["dense"][1:]):
+        _assert_close(a, b, 1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_enc_idx_wrappers_raise_instead_of_falling_back(cuda):
+    x = _pair_inputs(cuda, 70, 70, 5, 1)
+    with pytest.raises(ValueError):
+        tp.pair_call(x["A"].double(), x["dA"], x["cvec"], x["Mk"], x["Mi"])  # f64 planes
+    with pytest.raises(ValueError):
+        tp.pair_call(x["A"], x["dA"], x["cvec"], x["Mk"][:, :60].contiguous(), x["Mi"])
+    with pytest.raises(ValueError):
+        tp.pair_dw_call(x["A"], x["dA"], x["Gr"], x["Mk"], x["Mi"].to(torch.bfloat16), x["Gc"])
+    ma, md = _mlp_pair(8, 2, 6, cuda)
+    emb = torch.zeros((70, 6), device=cuda)
+    with pytest.raises(ValueError):
+        tmod.modulate_pair(x["A"].to(torch.bfloat16), x["dA"], ma, md, emb)  # bf16 plane
+    with pytest.raises(ValueError):
+        tmod.modulate_pair(x["A"], x["dA"], ma, md, emb[:60])  # emb rows != n
+    wide = _mlp_pair(16, 2, 6, cuda)  # the kernel is compiled for width 8 only
+    with pytest.raises(ValueError):
+        tmod.modulate_pair(x["A"], x["dA"], *wide, emb)
+    with pytest.raises(ValueError):  # the two MLPs' depths differ
+        tmod.modulate_pair(x["A"], x["dA"], ma, _mlp_pair(8, 3, 6, cuda)[0], emb)

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -101,3 +102,34 @@ def test_plain_k2_without_tau_leaves_dtau_zero():
     assert float(no_tau[0].abs().max()) == 0.0
     np.testing.assert_array_equal(no_tau[1].numpy(), with_tau[1].numpy())
 
+
+
+# Layer widths of the CDE-wrapper fields at n <= 640 (the last layer emits
+# H * E * 2 columns): configs/tgb/trade_*perm_equiv_gncde*.yaml (n=255) and
+# configs/pgt/england_perm_equiv_gncde.yaml (n=129); and an input wider than
+# the kernels' 64.
+WIDTH_CASES = {"trade": ((32, 32, 32, 32, 512), True),
+               "england": ((64, 64, 64, 1024), True),
+               "input-65": ((65, 8), False)}
+
+
+@pytest.mark.parametrize("name", list(WIDTH_CASES))
+def test_kernel_input_check_takes_the_wide_cde_wrapper_layers(name):
+    """The check K1 and K2 run before every launch on the card takes outputs
+    up to 4096 columns (it refused every layer wider than 64) and still
+    refuses inputs wider than 64. The check alone runs here; no kernel is
+    built or called."""
+    widths, ok = WIDTH_CASES[name]
+    n, b = 8, 2
+    planes = tuple(torch.zeros((b, T - 1, n, n)) for _ in range(4))
+    idx, tau = torch.zeros(b, dtype=torch.long), torch.zeros(b)
+    Z = torch.zeros((b, n, widths[0]))
+    layers = [dict(norm_w=torch.ones(hi), norm_b=torch.zeros(hi), W=torch.zeros((ho, hi)),
+                   lin_b=torch.zeros(ho), basis=torch.zeros((8, 2)))
+              for hi, ho in zip(widths[:-1], widths[1:])]
+    if ok:
+        mk._check_inputs(planes, idx, tau, Z, layers)
+        assert mk.scratch_width(layers) == max(widths)
+    else:
+        with pytest.raises(ValueError, match="inputs up to 64"):
+            mk._check_inputs(planes, idx, tau, Z, layers)
