@@ -7,7 +7,7 @@ One rule differs from the JAX package: a controlled enc_idx field emits
 ``H * E * 2`` entries like every other controlled field, so that the CDE
 wrapper can contract it with the data path. The JAX rule gives it ``H``
 entries, and ``TGBGraphNeuralCDE`` then fails the wrapper's reshape
-(ROADMAP Queue 3)."""
+(ROADMAP Queue 3 item 3, closed by ruling: ``H * E * 2`` stands)."""
 
 from __future__ import annotations
 

@@ -7,6 +7,19 @@ from .paths import (
     CubicInterpolation,
     MatrixControl,
 )
+from .sparse_paths import (
+    SparseMatrixControl,
+    SparseCubicMatrixPath,
+    SparseLinearMatrixPath,
+    union_ell_pattern,
+)
+from .bcsr_paths import (
+    BCSRMatrixControl,
+    BCSRCubicMatrixPath,
+    BCSRLinearMatrixPath,
+    bcsr_control_from_edge_snapshots,
+    build_sparse_control,
+)
 
 __all__ = [
     "fill_nan_linear",
@@ -16,4 +29,13 @@ __all__ = [
     "LinearInterpolation",
     "CubicInterpolation",
     "MatrixControl",
+    "SparseMatrixControl",
+    "SparseCubicMatrixPath",
+    "SparseLinearMatrixPath",
+    "union_ell_pattern",
+    "BCSRMatrixControl",
+    "BCSRCubicMatrixPath",
+    "BCSRLinearMatrixPath",
+    "bcsr_control_from_edge_snapshots",
+    "build_sparse_control",
 ]

@@ -35,7 +35,8 @@ def with_reductions(ctrl: MatrixControl) -> MatrixControl:
 def make_control(interpolation: str, ts: torch.Tensor, coeffs):
     """Slim control from reference-layout stacked ``[time, value]``
     coefficients: only the adjacency channel is kept. A pre-built control
-    (anything exposing ``adj``) passes through unchanged."""
+    (anything exposing ``adj``: the sparse ELL and BCSR controls of the
+    ``sparse_control`` knob) passes through unchanged."""
     if hasattr(coeffs, "adj"):
         return coeffs
     return with_reductions(MatrixControl.from_stacked(interpolation, ts, coeffs))

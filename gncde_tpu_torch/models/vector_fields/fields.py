@@ -37,7 +37,8 @@ def _pallas_plane_dispatch_ok(control_adj, device) -> bool:
     """The gate for the vf-level kernels: the megakernel backend is selected
     (or ``auto`` on a CUDA device), the control's time gradient is the
     implicit unit channel, and the path is cubic Hermite, whose interval
-    planes the kernels read."""
+    planes the kernels read. A sparse control (ELL or BCSR) fails the last
+    test: its values go to the layers' sparse applies."""
     return (
         ops_config.get_fusion_backend(device) == "megakernel"
         and getattr(control_adj, "tgrad_is_unit", False)
@@ -165,6 +166,10 @@ class PermEquivGraphVectorField(nn.Module):
             # Beyond the tiled cap the dense layer stack below runs.
 
         adj, adj_derivative, tgrad = control_terms(control_adj, t)
+        if self.enc_idx and not isinstance(adj, torch.Tensor):
+            raise NotImplementedError(
+                "enc_idx modulation needs dense planes; a sparse control (ELL or BCSR) "
+                "cannot be modulated (neither can the JAX package's)")
         if self.enc_idx:
             emb = self.idx_enc.node_embedding()
             adj = _modulate_matrix(adj, self.msg_func_adj, emb)

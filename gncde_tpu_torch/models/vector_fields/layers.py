@@ -2,7 +2,9 @@
 
 Counterpart of ``gncde_tpu/models/vector_fields/layers.py`` (undirected
 subset). Node features are ``(..., n, H)`` with any leading batch dims;
-``A``/``dA`` are ``(..., n, n)``. Attribute names match the JAX fields so
+``A``/``dA`` are ``(..., n, n)``, or the values of a sparse control
+(:class:`~gncde_tpu_torch.ops.sparse.ELL`,
+:class:`~gncde_tpu_torch.ops.bcsr.BCSRVal`). Attribute names match the JAX fields so
 ``nn/convert.py`` maps parameters by name.
 """
 
@@ -13,7 +15,9 @@ from torch import nn
 
 from ... import ops as ops_config
 from ...nn import Linear, RMSNorm
+from ...ops import bcsr as ops_bcsr
 from ...ops import equiv_basis
+from ...ops import sparse as ops_sparse
 
 
 class ConvLayer(nn.Module):
@@ -59,6 +63,14 @@ class ConvEquivFusionLayer(nn.Module):
 
     def forward(self, node_feats, adj_matrix, control_gradient) -> torch.Tensor:
         m = self.conv_layer.transform(node_feats)
+        # Sparse controls bypass the dense backends: O(nnz H) message passing
+        # through K10 (ELL) or K8/K9 (BCSR), no n x n operator.
+        if isinstance(adj_matrix, ops_sparse.ELL):
+            return ops_sparse.sparse_fused_apply(adj_matrix, control_gradient, m,
+                                                 self.params, add_identity=True)
+        if isinstance(adj_matrix, ops_bcsr.BCSRVal):
+            return ops_bcsr.bcsr_fused_apply(adj_matrix, control_gradient, m,
+                                             self.params, add_identity=True)
         backend = ops_config.get_fusion_backend(node_feats.device)
         if backend in ("dense", "megakernel"):
             # "megakernel" is a vector-field-level backend; a layer reached

@@ -22,6 +22,12 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
   * ``"decomposed"`` -- the rank-structured two-matmul formulation
                         (``equiv_basis.fused_apply``).
 
+Whatever the backend, a sparse control (the dyn trainer's
+``sparse_control``) bypasses all of them: its ELL values go to
+``sparse.sparse_fused_apply`` (K10, ``ops/ell_spmm.py``) and its BCSR values
+to ``bcsr.bcsr_fused_apply`` (K8 and K9, ``ops/bcsr.py``), on CUDA tensors
+through the kernels and on CPU ones through their plain versions.
+
 Precision: only ``"f32"`` is implemented. ``"bf16"`` raises, because the
 kernels have no bf16 operand path yet (ROADMAP Queue 2).
 """

@@ -88,6 +88,11 @@ def _compile(name: str, lib_path: Path) -> None:
     os.replace(tmp, lib_path)
 
 
+def sources() -> tp.List[str]:
+    """Names of every ``csrc/<name>.cu`` (each is one library)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def build(names: tp.Sequence[str]) -> None:
     """Compile the named ``csrc/<name>.cu`` that are not built yet, one
     ``nvcc`` process each, all started together."""

@@ -5,8 +5,10 @@ names and log lines, inter/extra validation, the best-validation weight save
 and patience early stop. The device is explicit and every tensor of the run
 lives there: ``device: cuda`` by default, which raises when no card is
 visible; the CPU runs only when asked for (``device=cpu``).
-Not ported yet (ROADMAP): resume, ``nan_guard``, the async full-state
-checkpointer and the sparse-control knobs.
+With ``sparse_control`` the coefficient dicts become sparse controls
+(``interp.build_sparse_control``: ELL through K10, or BCSR through K8/K9)
+on the host before they move to the device. Not ported yet (ROADMAP):
+resume, ``nan_guard`` and the async full-state checkpointer.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..configs import (
     clip_by_global_norm,
 )
 from ..configs._schema import required
+from ..interp import build_sparse_control
 from ..models.continuous import make_control
 from . import checkpoints
 from .logging import MetricLogger
@@ -49,6 +52,23 @@ def resolve_device(name: str) -> torch.device:
             f"device {name!r} requested but no CUDA device is visible; pass "
             "the override device=cpu to run on the CPU")
     return device
+
+
+def tensor_bytes(obj, seen=None) -> int:
+    """Bytes of every distinct tensor reachable from a control (its path,
+    coefficient tuples, layout), each counted once."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = (obj.data_ptr(), obj.numel())
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(x, seen) for x in obj)
+    if hasattr(obj, "__dict__"):
+        return sum(tensor_bytes(x, seen) for x in vars(obj).values())
+    return 0
 
 
 def make_step_fn(optimiser: torch.optim.Optimizer, schedule, loss: tp.Callable,
@@ -106,7 +126,15 @@ class Trainer(Schema):
     logger_name: str = "gncde"
     resume: bool = False
     metrics_jsonl: tp.Optional[str] = None
+    #: Scaled-n message passing: the dense graph-path coefficients become a
+    #: sparse control on the host, exact at any density (the pattern is the
+    #: union of nonzero coefficient entries).
     sparse_control: bool = False
+    sparse_max_degree: tp.Optional[int] = None
+    #: "ell" (element-sparse, K10), "bcsr" (blocked-ELL, K8/K9) or "auto"
+    #: (by blocked fill ratio: ``interp.build_sparse_control``).
+    sparse_format: tp.Literal["ell", "bcsr", "auto"] = "ell"
+    sparse_block_size: int = 128
     fusion_precision: tp.Optional[str] = None
     fusion_backend: tp.Optional[str] = None
     nan_guard: bool = False
@@ -114,7 +142,7 @@ class Trainer(Schema):
     device: str = "cuda"
 
     def validate(self) -> None:
-        for knob in ("resume", "nan_guard", "sparse_control"):
+        for knob in ("resume", "nan_guard"):
             if getattr(self, knob):
                 raise NotImplementedError(f"{knob} is not ported yet (see ROADMAP)")
         if self.fusion_precision is not None:
@@ -151,16 +179,30 @@ class Trainer(Schema):
         test_data = self.dataset.get_test_data()
         logger.info("Data loading done")
 
-        # Slim control (time channel stripped, planes contiguous) built once,
-        # on the host, then moved to the device with the rest of the data.
+        # Slim (or sparse) control built once, on the host, then moved to the
+        # device with the rest of the data.
         interpolation = self.model.interpolation
         for dct in (train_data, val_data, test_data):
             for ckey, tkey in (("train_graph_path_coeffs", "train_t"),
                                ("val_graph_path_coeffs", "t"),
                                ("test_graph_path_coeffs", "t")):
-                if ckey in dct:
-                    dct[ckey] = make_control(interpolation, dct[tkey], dct[ckey]).to(device)
-        logger.info("Slim control conversion done")
+                if ckey not in dct:
+                    continue
+                if self.sparse_control:
+                    ctrl = build_sparse_control(
+                        interpolation, dct[tkey], dct[ckey], sparse_format=self.sparse_format,
+                        max_degree=self.sparse_max_degree, block_size=self.sparse_block_size)
+                else:
+                    ctrl = make_control(interpolation, dct[tkey], dct[ckey])
+                dct[ckey] = ctrl.to(device)
+        control_bytes = tensor_bytes([dct.get(k) for dct in (train_data, val_data, test_data)
+                                      for k in ("train_graph_path_coeffs",
+                                                "val_graph_path_coeffs",
+                                                "test_graph_path_coeffs")])
+        if self.sparse_control:
+            logger.info("Sparse control conversion done (format=%s)", self.sparse_format)
+        else:
+            logger.info("Slim control conversion done")
 
         def tup(d, t_key, c_key, y_key):
             return (d[t_key].to(device), d[c_key], d[y_key].to(device),
@@ -257,5 +299,6 @@ class Trainer(Schema):
             "train_losses": train_losses,
             "train_step_s": step_times,
             "solver_steps": solver_steps,
+            "control_bytes": control_bytes,
             "device": str(device),
         }

@@ -523,3 +523,26 @@ runpy.run_module("gncde_tpu_torch.run.tgb", run_name="__main__")
     assert res.returncode == 0, res.stderr[-3000:]
     for line in ("Data loading done: 1/0/2 windows", "Train Loss", "Final:"):
         assert line in res.stderr, line
+
+
+def test_controlled_enc_idx_field_width_is_h_e_2_by_ruling():
+    """The port gives a controlled enc_idx field H * E * 2 outputs, as every
+    controlled field, so the CDE wrapper can reshape them to (n, H, E, 2).
+    This departs from the JAX rule (gncde_tpu/configs/vector_field_configs.py
+    ``_output_dim``: ``enc_idx -> hidden_dim``), whose width that wrapper
+    cannot reshape; the ruling closed ROADMAP Queue 3 item 3 in favour of
+    H * E * 2 (the genre enc_idx config: H 8, E 8 -> 128)."""
+    from gncde_tpu.configs.vector_field_configs import VectorFieldCfg as JVFCfg
+    from gncde_tpu_torch.configs.vector_field_configs import VectorFieldCfg
+
+    kw = dict(name="PermEquivGraphVectorField", hidden_dim=8, data_embed_dim=8,
+              num_layers=3, use_control=True, num_nodes=12, idx_dim=8)
+    port = VectorFieldCfg.from_dict(dict(kw, enc_idx=True))
+    assert port._output_dim() == 8 * 8 * 2
+    vf = port.build(torch.Generator().manual_seed(0))
+    assert vf.gnn_layers[-1].conv_layer.linear.weight.shape[0] == 8 * 8 * 2
+    # The same as the port's and the JAX package's non-enc_idx controlled rule
+    # and different from the JAX enc_idx rule.
+    assert port._output_dim() == VectorFieldCfg.from_dict(kw)._output_dim()
+    assert JVFCfg(**kw, enc_idx=False)._output_dim(None) == 8 * 8 * 2
+    assert JVFCfg(**kw, enc_idx=True)._output_dim(None) == 8

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1 and K2
 (the vector-field kernels, n <= 640), K3, K4, K5a, K5b (the tiled regime's
-plane sweeps, ``csrc/tiled.cu``), and the enc_idx path's K7 (modulation,
-``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/tiled.cu``).
+plane sweeps, ``csrc/tiled.cu``), the enc_idx path's K7 (modulation,
+``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/tiled.cu``), and the
+sparse controls' K8 and K9 (BCSR SpMM and SDDMM, ``csrc/bcsr.cu``) and K10
+(ELL SpMM, ``csrc/ell_spmm.cu``).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -22,7 +24,9 @@ so they are held to 1e-4 of each output's scale, and the field's tiled path
 (kernels on the card against the plain versions on the CPU) to 1e-3. K7 has
 no reductions (1e-5); K6a/K6b take f32 planes and vectors on both sides and
 sum in another order (1e-4); the enc_idx field on its kernels against its
-dense path 1e-4 for values and 1e-3 for gradients, as K1/K2.
+dense path 1e-4 for values and 1e-3 for gradients, as K1/K2. K8, K9 and
+K10 are f32 on both sides and sum in another order (1e-4); their autograd
+functions against autograd of the plain versions 1e-4.
 """
 
 import numpy as np
@@ -32,6 +36,8 @@ import torch
 from gncde_tpu_torch import ops
 from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
+from gncde_tpu_torch.ops import bcsr as tb
+from gncde_tpu_torch.ops import ell_spmm as tell
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import megakernel_bwd as mkb
 from gncde_tpu_torch.ops import modulate as tmod
@@ -440,3 +446,189 @@ def test_cuda_enc_idx_wrappers_raise_instead_of_falling_back(cuda):
         tmod.modulate_pair(x["A"], x["dA"], *wide, emb)
     with pytest.raises(ValueError):  # the two MLPs' depths differ
         tmod.modulate_pair(x["A"], x["dA"], ma, _mlp_pair(8, 3, 6, cuda)[0], emb)
+
+
+# K8 / K9: n is not a multiple of any block size; the block sizes 4, 16, 32 and
+# 128, H = 5 (the 16-wide column chunk) and H = 40 (two 32-wide chunks).
+BCSR_CASES = [(4, 5), (16, 40), (32, 5), (128, 40)]
+BCSR_IDS = [f"bs{bs}-H{H}" for bs, H in BCSR_CASES]
+BCSR_MODES = ["unbatched", "batched", "shared-matrix", "shared-pattern"]
+
+
+def _bcsr_batch(dev, n, bs, B, seed=0):
+    """B matrices with different block patterns (a band of its own width
+    and one far entry each), widened to one slot count: padded slots."""
+    rng = np.random.default_rng(seed)
+    i, j = np.indices((n, n))
+    dense = []
+    for b in range(B):
+        A = np.where(np.abs(i - j) <= 2 + 3 * b, rng.normal(size=(n, n)), 0.0)
+        A[b, n - 1 - b] = 0.5
+        dense.append(A.astype(np.float32))
+    kb = max(tb.bcsr_from_dense(A, bs).kb for A in dense)
+    mats = [tb.bcsr_from_dense(A, bs, kb) for A in dense]
+    idx = torch.stack([m.block_idx for m in mats]).to(dev)
+    blocks = torch.stack([m.blocks for m in mats]).to(dev)
+    nblocks = torch.stack([m.nblocks for m in mats]).to(dev)
+    return idx, blocks, nblocks, rng
+
+
+def _bcsr_operands(mode, idx, blocks, M):
+    """(block_idx, blocks, M) for a batching mode: every operand batched,
+    all unbatched, one matrix for batched M ("shared-matrix"), or one
+    pattern with batched values ("shared-pattern"); shared operands reach
+    the kernel with batch stride 0."""
+    if mode == "unbatched":
+        return idx[0], blocks[0], M[0]
+    if mode == "shared-matrix":
+        return idx[0], blocks[0], M
+    if mode == "shared-pattern":
+        return idx[0], blocks[:1].expand(M.shape[0], *blocks.shape[1:]), M
+    return idx, blocks, M
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", BCSR_MODES)
+@pytest.mark.parametrize("bs,H", BCSR_CASES, ids=BCSR_IDS)
+def test_cuda_bcsr_kernels_match_plain(cuda, bs, H, mode):
+    n, B = 3 * bs + bs // 2 + 1, 3
+    idx, blocks, nblocks, rng = _bcsr_batch(cuda, n, bs, B)
+    assert float(tb.slot_mask(idx, nblocks).min()) == 0.0  # padded slots exist
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    X = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    bi, bl, Mo = _bcsr_operands(mode, idx, blocks, M)
+    Xo = X[0] if mode == "unbatched" else X
+    launches = (tb.bcsr_spmm.launches, tb.bcsr_sddmm.launches)
+    got = tb.bcsr_spmm(tb.BCSR(bi, bl, n), Mo)
+    ref = tb.bcsr_spmm_plain(tb.BCSR(bi, bl, n), Mo)
+    got_s = tb.bcsr_sddmm(bi, Xo, Mo, bs)
+    ref_s = tb.bcsr_sddmm_plain(bi, Xo, Mo, bs)
+    torch.cuda.synchronize()
+    assert (tb.bcsr_spmm.launches, tb.bcsr_sddmm.launches) == (launches[0] + 1,
+                                                               launches[1] + 1)
+    _assert_close(got, ref, 1e-4)
+    _assert_close(got_s, ref_s, 1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["unbatched", "batched", "shared-pattern"])
+@pytest.mark.parametrize("n,K,H", [(37, 5, 5), (101, 9, 70)], ids=["n37-K5-H5", "n101-K9-H70"])
+def test_cuda_ell_spmm_matches_plain(cuda, n, K, H, mode):
+    """K10 with padding slots (index n) in every row and n not a multiple
+    of anything; "shared-pattern" is one index array for batched values."""
+    rng = np.random.default_rng(1)
+    B = 2
+    idx = rng.integers(0, n, (B, n, K)).astype(np.int32)
+    idx[rng.random((B, n, K)) < 0.3] = n
+    indices = torch.tensor(idx, device=cuda)
+    values = torch.tensor(rng.normal(size=(B, n, K)).astype(np.float32), device=cuda)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    if mode == "unbatched":
+        indices, values, M = indices[0], values[0], M[0]
+    elif mode == "shared-pattern":
+        indices = indices[0]
+    before = tell.ell_spmm_call.launches
+    got = tell.ell_spmm_call(indices, values, M)
+    ref = tell.plain_ell_spmm(indices, values, M)
+    torch.cuda.synchronize()
+    assert tell.ell_spmm_call.launches == before + 1
+    _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sparse_autograd_matches_plain(cuda):
+    """ELLSpMM and bcsr_spmm_grad (kernels forward and backward) against
+    autograd of the plain versions; the BCSR blocks' gradient is the plain
+    one masked by the valid slots."""
+    rng = np.random.default_rng(2)
+    n, K, H, B, bs = 45, 6, 7, 2, 16
+    idx = rng.integers(0, n, (B, n, K)).astype(np.int32)
+    idx[:, :, -1] = n
+    indices = torch.tensor(idx, device=cuda)
+    G = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+
+    def grads(fn, *xs):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        (fn(*leaves) * G).sum().backward()
+        return [x.grad for x in leaves]
+
+    values = torch.tensor(rng.normal(size=(B, n, K)).astype(np.float32), device=cuda)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    got = grads(lambda v, m: tell.ELLSpMM.apply(v, m, indices), values, M)
+    ref = grads(lambda v, m: tell.plain_ell_spmm(indices, v, m), values, M)
+    for a, b in zip(got, ref):
+        _assert_close(a, b, 1e-4)
+
+    bidx, blocks, nblocks, _ = _bcsr_batch(cuda, n, bs, B)
+    dense = [tb.bcsr_to_dense(tb.BCSR(bidx[b].cpu(), blocks[b].cpu(), n)) for b in range(B)]
+    kbT = max(tb.bcsr_from_dense(d.numpy().T, bs).kb for d in dense)
+    mT = [tb.bcsr_from_dense(d.numpy().T.copy(), bs, kbT) for d in dense]
+    idx_T = torch.stack([m.block_idx for m in mT]).to(cuda)
+    blocks_T = torch.stack([m.blocks for m in mT]).to(cuda)
+    valid = tb.slot_mask(bidx, nblocks)
+    got = grads(lambda bl, m: tb.bcsr_spmm_grad(bl, bidx, blocks_T, idx_T, valid, m, n),
+                blocks, M)
+    ref = grads(lambda bl, m: tb.bcsr_spmm_plain(tb.BCSR(bidx, bl, n), m), blocks, M)
+    _assert_close(got[0], ref[0] * valid[..., None, None], 1e-4)
+    _assert_close(got[1], ref[1], 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sparse_field_matches_cpu(cuda):
+    """The field through an ELL and a BCSR control on the card (K10, K8,
+    K9) against the same field and controls on the CPU (plain versions):
+    values 1e-4, parameter gradients 1e-3, as K1/K2; two forward passes on
+    the card are bitwise equal."""
+    from gncde_tpu_torch.interp import backward_hermite_coefficients, build_sparse_control
+
+    rng = np.random.default_rng(3)
+    Bn, T, n, H = 2, 4, 70, 8
+    ts = np.cumsum(rng.uniform(0.1, 0.3, (Bn, T)), 1).astype(np.float32) - 0.1
+    i, j = np.indices((n, n))
+    A = np.where(np.abs(i - j) <= 3, rng.random((Bn, T, n, n)), 0.0).astype(np.float32)
+    X = np.stack([np.broadcast_to(ts[..., None, None], A.shape), A], -1)
+    coeffs = tuple(c.numpy() for c in backward_hermite_coefficients(
+        torch.tensor(ts), torch.tensor(X)))
+    vf = TVF(H, H, H, 2, 1, n, generator=torch.Generator().manual_seed(0))
+    Z = torch.tensor(rng.normal(size=(Bn, n, H)).astype(np.float32))
+    t = torch.tensor(ts[:, 1] + 0.05)
+    for fmt in ("ell", "bcsr"):
+        ctrl = build_sparse_control("cubic", ts, coeffs, sparse_format=fmt, block_size=16)
+        outs = []
+        for dev in ("cpu", cuda):
+            vf.to(dev).zero_grad()
+            out = vf(t.to(dev), Z.to(dev), ctrl.to(dev))
+            out.square().sum().backward()
+            outs.append([out.detach().cpu()] + [p.grad.detach().cpu().clone() for p in vf.parameters()])
+        _assert_close(outs[1][0], outs[0][0], 1e-4)
+        for a, b in zip(outs[1][1:], outs[0][1:]):
+            _assert_close(a, b, 1e-3)
+        # Bitwise repeatable on the card (no atomics in the forward), as the
+        # checkpointed adjoint's recomputation needs.
+        with torch.no_grad():
+            again = vf(t.to(cuda), Z.to(cuda), ctrl.to(cuda)).cpu()
+        assert torch.equal(again, outs[1][0])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sparse_wrappers_raise_instead_of_falling_back(cuda):
+    """A CUDA tensor reaching K8, K9 or K10 runs the kernel or raises: a
+    block size above 128, float64 or int64 operands are refused."""
+    n, H = 300, 4
+    big = tb.bcsr_from_dense(np.eye(n, dtype=np.float32), 256)  # bs 256: no kernel
+    M = torch.ones((n, H), device=cuda)
+    with pytest.raises(ValueError):
+        tb.bcsr_spmm(tb.BCSR(big.block_idx.to(cuda), big.blocks.to(cuda), n), M)
+    with pytest.raises(ValueError):
+        tb.bcsr_sddmm(big.block_idx.to(cuda), M, M, 256)
+    ok = tb.bcsr_from_dense(np.eye(n, dtype=np.float32), 32)
+    with pytest.raises(ValueError):
+        tb.bcsr_spmm(tb.BCSR(ok.block_idx.to(cuda), ok.blocks.to(cuda), n), M.double())
+    with pytest.raises(ValueError):
+        tb.bcsr_spmm(tb.BCSR(ok.block_idx.long().to(cuda), ok.blocks.to(cuda), n), M)
+    idx = torch.zeros((n, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        tell.ell_spmm_call(idx, torch.ones((n, 3), device=cuda), M)
+    with pytest.raises(ValueError):
+        tell.ell_spmm_call(idx.int(), torch.ones((n, 3), device=cuda), M.double())
+
