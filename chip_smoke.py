@@ -5,8 +5,8 @@
 Phases, each printing one line before the last:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build every kernel from gncde_tpu_torch/csrc (K1, K2, the tiled kernels
-     K3-K6b, K7, K8/K9 and K10), one nvcc per source, all started together
-     (nvcc seconds per source);
+     K3-K6b, K7, K8/K9, K10, K11, K12/K13), one nvcc per source, all started
+     together (nvcc seconds per source);
   3. K1 (forward vf kernel) against its plain PyTorch version at the
      flagship shape (n=400, B=4, widths 16 -> 16 -> 16), the bench shape
      (widths 32 x 4) and the trade shape (n=255, B=4, widths 32 -> 32 -> 32
@@ -74,7 +74,29 @@ Phases, each printing one line before the last:
      +-64 band (4.2 M edges per knot), bs=128, H=32, 3 layers, 3 knots; the
      control built from edge lists (no n x n object anywhere), Heun at dt0
      0.25 (8 evals), one warm-up and three SGD steps at lr 1e-3; finite,
-     moving losses, K8 and K9 launched.
+     moving losses, K8 and K9 launched;
+ 14. K11 (the fused RK step) against its plain version (the stage loop of
+     plain vf evals) at the flagship (B=4, n=400, 16 -> 16 -> 16, Tsit5) and
+     bench (widths 32 x 4) shapes, y1, err and f1 within 1e-4 * max|ref|,
+     two launches bitwise equal, and its backward (one K2 per stage) against
+     autograd of the plain step within 1e-3; K12 and K13 (the dense
+     per-layer fused apply) at the flagship layer (B=4, n=400, H=16) and
+     n=300, H=5, B=2, and K5c (tiled_abar_apply's 4-slab apply) at n=1505,
+     H 8 and 128, and n=300, H=5, B=2, each within 1e-4;
+ 15. the main path with the fused step on (``ops.set_fused_step(True)``):
+     first the step at the trainer's init through K11 against the per-stage
+     K1 route on the same (t, y, h, f0), y1 within 1e-5 * max|ref| and the
+     gradients of sum(y1 * W) (state, every field parameter) within 1e-3 of
+     K2's per-stage route; then three epochs of the flagship: finite
+     losses, K11 and K2 launched, fewer K1 launches than phase 5, the first
+     loss within 5e-2 of phase 5's;
+ 16. the flagship with ``fusion_backend=pipeline`` and then
+     ``fusion_backend=pallas``, one epoch each: the field at init through
+     the backend against phase 5's K1 route (1e-4) and its gradients against
+     K2's (1e-3), then training with K13 (respectively K12) launched and K1,
+     K2 not; finite losses, the first within 5e-2 of phase 5's.
+Phase 12's route check also computes the gradients twice and requires them
+bitwise equal (the ELL backward has no scatter).
 Then one JSON line of every kernel (launches on its main path, error, times
 and the bound: the larger of the bytes its function must move at 3.35 TB/s
 and the products that function needs at the card's peak for their operands'
@@ -137,6 +159,19 @@ BCSR_EPOCHS = 3
 ELL_EPOCHS = 1
 #: benchmarks/bcsr_scale.py's point.
 SCALED = dict(n=32768, bw=64, bs=128, H=32, L=3, T=3)
+#: Phase 14: K11 at the flagship and bench shapes (Tsit5), K12/K13 at the
+#: flagship layer and an odd shape, K5c at the tiled shapes.
+STEP_SHAPES = {"flagship": SHAPES["flagship"], "bench": SHAPES["bench"]}
+APPLY_SHAPES = {"flagship-layer": dict(n=400, H=16, B=4), "odd": dict(n=300, H=5, B=2)}
+STEP_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+APPLY_TOL = 1e-4
+ABAR_TOL = 1e-4
+#: Phase 15: the step at init through K11 against the per-stage K1 route.
+STEP_ROUTE_TOL = 1e-5
+FUSED_EPOCHS = 3
+#: Phase 16: one epoch per backend.
+BACKEND_EPOCHS = 1
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -423,14 +458,16 @@ def write_genre_surrogate(out: Path, snapshots: int) -> None:
 
 
 def counters():
-    from gncde_tpu_torch.ops import (bcsr, ell_spmm, megakernel, megakernel_bwd, modulate,
-                                     pair, tiled)
+    from gncde_tpu_torch.ops import (bcsr, ell_spmm, fused_basis, fused_step, megakernel,
+                                     megakernel_bwd, modulate, pair, pipeline, tiled)
 
     return {"K1": megakernel.megakernel_vf_eval, "K2": megakernel_bwd.megakernel_vf_bwd,
             "K3": tiled.fwd2_call, "K4": tiled.bwd2_call, "K5a": tiled.dw2_call,
-            "K5b": tiled.dw_call, "K6a": pair.pair_call, "K6b": pair.pair_dw_call,
-            "K7": modulate.modulate_pair, "K8": bcsr.bcsr_spmm, "K9": bcsr.bcsr_sddmm,
-            "K10": ell_spmm.ell_spmm_call}
+            "K5b": tiled.dw_call, "K5c": tiled.abar_call, "K6a": pair.pair_call,
+            "K6b": pair.pair_dw_call, "K7": modulate.modulate_pair, "K8": bcsr.bcsr_spmm,
+            "K9": bcsr.bcsr_sddmm, "K10": ell_spmm.ell_spmm_call,
+            "K11": fused_step.fused_step_call, "K12": fused_basis._pallas_forward,
+            "K13": pipeline.fused_conv_stream}
 
 
 def run_tgb(torch, phase, config, snapshots, train_windows, extra=()):
@@ -814,11 +851,15 @@ def phase_sparse_kernels(torch, cache, results):
         torch.cuda.empty_cache()
 
 
-def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0):
+def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0, backend=None, repeat=False):
     """The field ``vf`` through ``ctrl`` against ``ref_ctrl``: the max abs
     err over max|ref| of ``f(t, y)`` at three times per element of ``ts``,
     and a dict of the same for the gradients of ``sum(f * W)`` (W normal
-    from ``seed``) with respect to y and every parameter of ``vf``."""
+    from ``seed``) with respect to y and every parameter of ``vf``. With
+    ``backend`` the second route runs under that fusion backend (the first
+    under the default); with ``repeat`` it runs twice and must give bitwise
+    equal values and gradients."""
+    from gncde_tpu_torch import ops
 
     def run(ctrl_):
         vf.zero_grad(set_to_none=True)
@@ -834,7 +875,21 @@ def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0):
         return torch.stack(outs), grads
 
     ref, ref_grads = run(ref_ctrl)
-    got, got_grads = run(ctrl)
+    if backend is not None:
+        ops.set_fusion_backend(backend)
+    try:
+        got, got_grads = run(ctrl)
+        if repeat:
+            again, again_grads = run(ctrl)
+            same = torch.equal(got, again) and all(
+                (g is None and again_grads[k] is None) or torch.equal(g, again_grads[k])
+                for k, g in got_grads.items())
+            if not same:
+                raise RuntimeError("two evaluations of the field and its gradients "
+                                   "through the same route differ in their bits")
+    finally:
+        if backend is not None:
+            ops.set_fusion_backend("auto")
     grad_errs = {}
     for k, g_ref in ref_grads.items():
         g = got_grads[k]
@@ -865,7 +920,8 @@ def sparse_route_error(torch, cache, fmt):
         y = model.initial_linear(d["true_y0"].to(dev))
     for f in counters().values():
         f.launches = 0
-    errs = route_errors(torch, model.vector_field, y, ts.to(dev), dense, sparse)
+    errs = route_errors(torch, model.vector_field, y, ts.to(dev), dense, sparse,
+                        repeat=fmt == "ell")
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters().items()}
     want = ("K1", "K2") + (("K8", "K9") if fmt == "bcsr" else ("K10",))
@@ -992,6 +1048,347 @@ def phase_scaled(torch):
     return launches
 
 
+def make_step_inputs(torch, n, B, widths, seed=0, T=8):
+    """K11's inputs: make_inputs' planes and layers, per-element knots
+    (B, T), a query time inside each element's third interval, a step h and
+    an FSAL derivative f0, from ``seed``."""
+    import numpy as np
+
+    planes, _, _, y, layers, _ = make_inputs(torch, n, B, widths, seed=seed, T=T)
+    rng = np.random.default_rng(seed + 100)
+    dev = torch.device("cuda")
+    ts = torch.tensor(np.cumsum(rng.uniform(0.1, 0.3, (B, T)), 1).astype(np.float32),
+                      device=dev)
+    t = ts[:, 2] + 0.01
+    h = torch.tensor(rng.uniform(0.02, 0.08, B).astype(np.float32), device=dev)
+    f0 = torch.tensor((0.1 * rng.normal(size=y.shape)).astype(np.float32), device=dev)
+    return planes, ts, t, y, h, f0, layers
+
+
+def step_bound(n, B, widths, S):
+    """(bound_ms, bound_by) of one K11 step: the four interval planes read
+    once, y and f0 read, y1, err, f1 and the S stage derivatives written;
+    S x L products (B1 M and B2^T M, 4 n^2 H each) per element in f32."""
+    H = widths[0]
+    nh = 4 * B * n * H
+    return bound(4 * 4 * B * n * n + nh * (5 + S),
+                 (S * sum(4 * n * n * h * B for h in widths[1:]), F32_FLOPS))
+
+
+def apply_bound(n, H, B):
+    """(bound_ms, bound_by) of one K12/K13 call: A, dA read once, M read,
+    out written, the O(n) vectors; the two combinations and two products."""
+    return bound(4 * B * (2 * n * n + 2 * n * H + 2 * n + 2 * H),
+                 (B * (6 * n * n + 4 * n * n * H), F32_FLOPS))
+
+
+def abar_bound(n, H, B, slab_bytes=4):
+    """(bound_ms, bound_by) of one K5c call: four slabs read once, bf16 M
+    read, rowpart and colpart written (f32); the two 4-term combinations in
+    f32 and the two bf16 products."""
+    return bound(B * (4 * slab_bytes * n * n + 2 * n * H + 2 * 4 * n * H),
+                 (B * 14 * n * n, F32_FLOPS), (B * 4 * n * n * H, BF16_FLOPS))
+
+
+def phase_fused_kernels(torch, results):
+    """Phase 14: K11, K12, K13 and K5c against their plain versions."""
+    import numpy as np
+
+    from gncde_tpu_torch.ops import fused_basis as tfb
+    from gncde_tpu_torch.ops import fused_step as tfs
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import pipeline as tpl
+    from gncde_tpu_torch.ops import tiled as tt
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    S = tab.num_stages - 1
+    for label, s in STEP_SHAPES.items():
+        planes, ts, t, y, h, f0, layers = make_step_inputs(torch, **s)
+        kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
+        plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
+        with torch.no_grad():
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            errs, worst_abs = {}, 0.0
+            for name, a, b, c in zip(("y1", "err", "f1", "ks"), got, ref, again):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise RuntimeError(f"K11 {label} {name}: bad output {tuple(a.shape)}")
+                if not torch.equal(a, c):
+                    raise RuntimeError(f"K11 {label} {name}: two launches differ")
+                errs[name] = rel_err(torch, a, b)[0]
+                worst_abs = max(worst_abs, float((a - b).abs().max()))
+            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        # The backward: the manual chain (one K2 per stage) against autograd
+        # of the plain step, on the gradients of sum(y1 W0 + err W1 + f1 W2).
+        flat = [p for lp in layers for p in
+                (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+        rng = np.random.default_rng(1)
+        W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=y.device)
+             for _ in range(3)]
+
+        def grads(step):
+            leaves = [x.detach().clone().requires_grad_(True) for x in (y, f0, *flat)]
+            outs = step(leaves[0], leaves[1], leaves[2:])
+            torch.autograd.backward(outs[:3], W)
+            return [x.grad for x in leaves]
+
+        fused_grads = lambda: grads(lambda y_, f0_, fl: tfs.FusedRKStep.apply(  # noqa: E731
+            tab, ts, t, y_, h, f0_, *planes, *fl))
+        plain_grads = lambda: grads(lambda y_, f0_, fl: tfs._step_reference(  # noqa: E731
+            planes, ts, t, y_, h, f0_, mk._unflatten(fl), tab))
+        bwd_errs = [rel_err(torch, a, b)[0] for a, b in zip(fused_grads(), plain_grads())]
+        fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
+        bms, by = step_bound(s["n"], s["B"], s["widths"], S)
+        emit({"phase": 14, "kernel": "K11", "shape": label, **s, "method": "tsit5",
+              "resident_ctas": tfs.capacity(y.device), "ctas": s["B"] * -(-s["n"] // 16),
+              "max_abs_err": worst_abs, "rel_errs": errs, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bms, "bound_by": by, "bwd_max_rel_err": max(bwd_errs),
+              "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms})
+        bad = {k: v for k, v in errs.items() if not v <= STEP_TOL}
+        if bad:
+            raise RuntimeError(f"K11 {label}: rel errs {bad} > {STEP_TOL}")
+        if not max(bwd_errs) <= STEP_GRAD_TOL:
+            raise RuntimeError(f"K11 {label} backward: rel err {max(bwd_errs):.3e} > "
+                               f"{STEP_GRAD_TOL}")
+        results.setdefault("K11", {})[label] = (worst_abs, ms, plain_ms, bms, by, dict(
+            fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms))
+        del planes, ts, t, y, h, f0, layers, got, again, ref
+
+    for label, s in APPLY_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        rng = np.random.default_rng(2)
+        f = lambda *shape, sc=1.0: torch.tensor(  # noqa: E731
+            (sc * rng.normal(size=shape)).astype(np.float32), device="cuda")
+        A, dA, M = f(B, n, n, sc=0.1), f(B, n, n, sc=0.1), f(B, n, H)
+        dvec, u, sv, w, q = f(B, n), f(B, n), f(B, H), f(B, H), f(2, 2)
+        calls = {
+            "K12": (lambda: tfb._pallas_forward(A, dA, M, q, dvec, u, sv, w),
+                    lambda: tfb.plain_pallas_forward(A, dA, M, q, dvec, u, sv, w)),
+            "K13": (lambda: tpl.fused_conv_stream(A, dA, M, dvec, u, sv, w, q),
+                    lambda: tpl.plain_conv_stream(A, dA, M, dvec, u, sv, w, q)),
+        }
+        for name, (kernel, plain) in calls.items():
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {label}: bad output {tuple(got.shape)}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"{name} {label}: two launches differ")
+            err, scale = rel_err(torch, got, ref)
+            abs_err = float((got - ref).abs().max())
+            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            bms, by = apply_bound(n, H, B)
+            emit({"phase": 14, "kernel": name, "shape": label, **s, "max_abs_err": abs_err,
+                  "max_abs_ref": scale, "rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bms, "bound_by": by})
+            if not err <= APPLY_TOL:
+                raise RuntimeError(f"{name} {label}: rel err {err:.3e} > {APPLY_TOL}")
+            results.setdefault(name, {})[label] = (abs_err, ms, plain_ms, bms, by, {})
+
+    for label, s in TILED_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        _, _, M, _, slabs, _ = make_tiled_inputs(torch, n, H, B)
+        wvec = torch.tensor(np.random.default_rng(3).normal(size=(B, 8)).astype(np.float32),
+                            device="cuda")
+        kernel = lambda: tt.abar_call(slabs, wvec, M)  # noqa: E731
+        plain = lambda: tt.plain_abar(slabs, wvec, M)  # noqa: E731
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        errs, worst_abs = [], 0.0
+        for a, b, c in zip(got, ref, again):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise RuntimeError(f"K5c {label}: bad output {tuple(a.shape)}")
+            if not torch.equal(a, c):
+                raise RuntimeError(f"K5c {label}: two launches differ")
+            errs.append(rel_err(torch, a, b)[0])
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        bms, by = abar_bound(n, H, B)
+        emit({"phase": 14, "kernel": "K5c", "shape": label, **s, "max_abs_err": worst_abs,
+              "max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+              "bound_by": by})
+        if not max(errs) <= ABAR_TOL:
+            raise RuntimeError(f"K5c {label}: rel err {max(errs):.3e} > {ABAR_TOL}")
+        results.setdefault("K5c", {})[label] = (worst_abs, ms, plain_ms, bms, by, {})
+    torch.cuda.empty_cache()
+
+
+def flagship_model_on_card(torch, cache):
+    """The flagship model at the trainer's init on the card, phase 5's slim
+    control of the training dict, the state y = the initial linear map of
+    the data's y0, and the knots."""
+    from gncde_tpu_torch.models.continuous import make_control
+
+    tr, d = flagship_setup(cache)
+    dev = torch.device("cuda")
+    model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+    ts = d["train_t"].to(dev)
+    ctrl = make_control(tr.model.interpolation, ts,
+                        tuple(c.to(dev) for c in d["train_graph_path_coeffs"]))
+    with torch.no_grad():
+        y = model.initial_linear(d["true_y0"].to(dev))
+    return model, ctrl, y, ts
+
+
+def step_route_errors(torch, cache, seed=0):
+    """The flagship step at the trainer's init through K11 against the
+    per-stage K1 route on the same (t, y, h, f0) (f0 = the field at t, h a
+    fiftieth of each element's span): rel errs of (y1, err, f1), and those
+    of the gradients of sum(y1 * W) (W normal from ``seed``) with respect
+    to y and every field parameter (K11's chain of K2s against K2 per
+    stage), and the launch counts of the fused run."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.solve.solve import _rk_step
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    model, ctrl, y, ts = flagship_model_on_card(torch, cache)
+    vf = model.vector_field
+    tab = get_tableau(model.method)
+    t = ts[:, 0] + 0.1 * (ts[:, -1] - ts[:, 0])
+    h = (ts[:, -1] - ts[:, 0]) / 50
+    with torch.no_grad():
+        f0 = vf(t, y, ctrl)
+    W = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed)).to(y.device)
+
+    def run(fused):
+        ops.set_fused_step(fused)
+        try:
+            vf.zero_grad(set_to_none=True)
+            y_ = y.detach().clone().requires_grad_(True)
+            outs = _rk_step(tab, vf, t, y_, h, ctrl, f0)
+            (outs[0] * W).sum().backward()
+        finally:
+            ops.set_fused_step(False)
+        grads = {"y": y_.grad, **{k: p.grad for k, p in vf.named_parameters()}}
+        return [o.detach() for o in outs], grads
+
+    ref, ref_grads = run(False)
+    for f in counters().values():
+        f.launches = 0
+    got, got_grads = run(True)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters().items()}
+    errs = {k: rel_err(torch, a, b)[0] for k, a, b in zip(("y1", "err", "f1"), got, ref)}
+    grad_errs = {k: rel_err(torch, got_grads[k], g)[0] for k, g in ref_grads.items()}
+    del model, ctrl
+    torch.cuda.empty_cache()
+    return errs, grad_errs, launches
+
+
+def phase_fused_step_train(torch, cache, first_loss_ref, k1_phase5):
+    """Phase 15: the flagship trains with the fused step on."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.run import dyn
+
+    errs, grad_errs, route_launches = step_route_errors(torch, cache)
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in counters().values():
+            f.launches = 0
+        ops.set_fused_step(True)
+        try:
+            t0 = time.perf_counter()
+            res = dyn.main([
+                "--config", FLAGSHIP, f"epochs={FUSED_EPOCHS}", "eval_freq=1", "log_freq=1",
+                "min_epochs=0", f"dataset.cache_dir={cache}", f"checkpoint_dir={tmp}/ckpt/",
+                "device=cuda", "wandb.mode=disabled",
+            ])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.set_fused_step(False)
+        launches = {k: f.launches for k, f in counters().items()}
+    losses = res["train_losses"]
+    rel = abs(losses[0] - first_loss_ref) / abs(first_loss_ref) if losses else float("nan")
+    emit({"phase": 15, "step_rel_errs_vs_k1_route": errs,
+          "grad_rel_errs_vs_k2_route": grad_errs, "route_launches": route_launches,
+          "train_losses": losses, "first_loss_phase5": first_loss_ref,
+          "first_loss_rel_diff": rel, "train_step_s": res["train_step_s"],
+          "solver_steps": res["solver_steps"], "best_validation_loss": res["validation_loss"],
+          "device": res["device"], "launches": launches, "k1_launches_phase5": k1_phase5,
+          "wall_s": wall})
+    if len(losses) != FUSED_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"phase 15: non-finite or missing train losses: {losses}")
+    if not res["device"].startswith("cuda"):
+        raise RuntimeError(f"phase 15: ran on {res['device']}, not cuda")
+    if route_launches["K11"] <= 0:
+        raise RuntimeError(f"phase 15: the route check did not launch K11: {route_launches}")
+    if not errs["y1"] <= STEP_ROUTE_TOL:
+        raise RuntimeError(f"phase 15: y1 through K11 is {errs['y1']:.3e} off the per-stage "
+                           f"K1 route (> {STEP_ROUTE_TOL})")
+    bad = {k: v for k, v in grad_errs.items() if not v <= SPARSE_GRAD_TOL}
+    if bad:
+        raise RuntimeError(f"phase 15: gradients through K11 off the per-stage K2 route by "
+                           f"more than {SPARSE_GRAD_TOL}: {bad}")
+    if not rel <= SPARSE_LOSS_RTOL:
+        raise RuntimeError(f"phase 15: first loss {losses[0]} vs phase 5's {first_loss_ref}: "
+                           f"rel diff {rel:.3e} > {SPARSE_LOSS_RTOL}")
+    if launches["K11"] <= 0 or launches["K2"] <= 0 or not launches["K1"] < k1_phase5:
+        raise RuntimeError(f"phase 15: launches {launches}; want K11 > 0, K2 > 0 and K1 < "
+                           f"phase 5's {k1_phase5}")
+    return launches
+
+
+def phase_backend_train(torch, cache, first_loss_ref):
+    """Phase 16: the flagship through the pipeline (K13) and pallas (K12)
+    backends, one epoch each; returns the launch counts of each run."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.run import dyn
+
+    out = {}
+    for backend, kernel in (("pipeline", "K13"), ("pallas", "K12")):
+        model, ctrl, y, ts = flagship_model_on_card(torch, cache)
+        vf_err, grad_errs = route_errors(torch, model.vector_field, y, ts, ctrl, ctrl,
+                                         backend=backend)
+        del model, ctrl
+        with tempfile.TemporaryDirectory() as tmp:
+            for f in counters().values():
+                f.launches = 0
+            try:
+                t0 = time.perf_counter()
+                res = dyn.main([
+                    "--config", FLAGSHIP, f"epochs={BACKEND_EPOCHS}", "eval_freq=1",
+                    "log_freq=1", "min_epochs=0", f"dataset.cache_dir={cache}",
+                    f"checkpoint_dir={tmp}/ckpt/", "device=cuda", "wandb.mode=disabled",
+                    f"fusion_backend={backend}",
+                ])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                ops.set_fusion_backend("auto")
+            launches = {k: f.launches for k, f in counters().items()}
+        losses = res["train_losses"]
+        rel = abs(losses[0] - first_loss_ref) / abs(first_loss_ref) if losses else float("nan")
+        attempts = [a + r for a, r in zip(res["solver_steps"].get("num_accepted_steps", []),
+                                          res["solver_steps"].get("num_rejected_steps", []))]
+        emit({"phase": 16, "fusion_backend": backend, "vf_rel_err_vs_k1_route": vf_err,
+              "grad_rel_errs_vs_k2_route": grad_errs, "train_losses": losses,
+              "first_loss_phase5": first_loss_ref, "first_loss_rel_diff": rel,
+              "train_step_s": res["train_step_s"], "solver_steps": res["solver_steps"],
+              "solver_attempts_last_step": attempts,
+              "best_validation_loss": res["validation_loss"], "device": res["device"],
+              "launches": launches, "wall_s": wall})
+        if len(losses) != BACKEND_EPOCHS or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"phase 16 {backend}: non-finite or missing losses: {losses}")
+        if not res["device"].startswith("cuda"):
+            raise RuntimeError(f"phase 16 {backend}: ran on {res['device']}, not cuda")
+        if not vf_err <= SPARSE_VF_TOL:
+            raise RuntimeError(f"phase 16 {backend}: the field is {vf_err:.3e} off phase 5's "
+                               f"K1 route (> {SPARSE_VF_TOL})")
+        bad = {k: v for k, v in grad_errs.items() if not v <= SPARSE_GRAD_TOL}
+        if bad:
+            raise RuntimeError(f"phase 16 {backend}: gradients off phase 5's K2 route by "
+                               f"more than {SPARSE_GRAD_TOL}: {bad}")
+        if not rel <= SPARSE_LOSS_RTOL:
+            raise RuntimeError(f"phase 16 {backend}: first loss {losses[0]} vs phase 5's "
+                               f"{first_loss_ref}: rel diff {rel:.3e} > {SPARSE_LOSS_RTOL}")
+        if launches[kernel] <= 0 or launches["K1"] or launches["K2"]:
+            raise RuntimeError(f"phase 16 {backend}: launches {launches}; want {kernel} > 0 "
+                               f"and K1 = K2 = 0")
+        out[kernel] = launches
+    return out
+
+
 def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1009,7 +1406,7 @@ def main() -> int:
     results = {}
     timed(3, phase_k1, torch, results)
     timed(4, phase_k2, torch, results)
-    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12 share the flagship data
+    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-16 share the flagship data
         dyn_launches, dyn_losses = timed(5, phase_train, torch, cache)
         timed(6, phase_tiled, torch, results)
         tgb_launches = timed(7, phase_tgb, torch)
@@ -1020,7 +1417,11 @@ def main() -> int:
                               dyn_losses[0])
         ell_launches = timed(12, phase_sparse_train, torch, 12, "ell", ELL_EPOCHS, cache,
                              dyn_losses[0])
-    timed(13, phase_scaled, torch)
+        timed(13, phase_scaled, torch)
+        timed(14, phase_fused_kernels, torch, results)
+        fused_launches = timed(15, phase_fused_step_train, torch, cache, dyn_losses[0],
+                               dyn_launches["K1"])
+        backend_launches = timed(16, phase_backend_train, torch, cache, dyn_losses[0])
     emit({"phase_wall_s": walls})
 
     s = SHAPES["flagship"]
@@ -1081,6 +1482,26 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": library_ms, "shape": f"flagship {shape}"})
+    # No single PyTorch call computes K5c, K11, K12 or K13 (library_ms null).
+    for name, src, rep, label, launches in (
+        ("K5c", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:202",
+         "genre-H128", tgb_launches["K5c"]),
+        ("K11", "gncde_tpu_torch/csrc/fused_step.cu",
+         "gncde_tpu/ops/pallas/fused_step.py:144", "flagship", fused_launches["K11"]),
+        ("K12", "gncde_tpu_torch/csrc/fused_apply.cu",
+         "gncde_tpu/ops/pallas/fused_basis.py:66", "flagship-layer",
+         backend_launches["K12"]["K12"]),
+        ("K13", "gncde_tpu_torch/csrc/fused_apply.cu", "gncde_tpu/ops/pallas/pipeline.py:94",
+         "flagship-layer", backend_launches["K13"]["K13"]),
+    ):
+        err, ms, plain_ms, bms, by, extra = results[name][label]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None, "shape": label, **extra,
+                        **({"path": "phase 7's count: tiled_abar_apply has no caller "
+                                    "but its tests (phase 14 holds it)"}
+                           if name == "K5c" else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -129,17 +129,18 @@ __device__ __forceinline__ void transform_row(const float* x, const Layer& lp,
   __syncwarp();
 }
 
-// Pass 1: per-row statistics of A, dA (and ddA) -- row sums and diagonals --
-// plus layer 0's M rows. One warp per row; lanes stride over columns.
-__global__ void __launch_bounds__(NT)
-prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau,
-            int n, const float* __restrict__ Z, int ldz, Layer l0,
-            float* __restrict__ M0, int ldm, float* __restrict__ stats) {
+// Pass 1 of one CTA: per-row statistics of A, dA (and ddA) -- row sums and
+// diagonals -- plus layer 0's M rows, for rows r0 .. r0+BM-1 of element b
+// whose interval planes start at ``base``, at offset t. One warp per row;
+// lanes stride over columns. A device function so that K1 (prep_kernel) and
+// the fused RK step K11 (fused_step.cu) run the same arithmetic.
+__device__ __forceinline__ void prep_rows(const Planes& P, long long base, float t,
+                                          int b, int r0, int n,
+                                          const float* __restrict__ Z, int ldz,
+                                          const Layer& l0, float* __restrict__ M0,
+                                          int ldm, float* __restrict__ stats) {
   __shared__ float zn[NW][MAXIN];
-  const int b = blockIdx.y, r0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long base = plane_base(P, idx, b, n);
-  const float t = __ldg(tau + b);
   float* st = stats + (long long)b * 6 * n;
   const int rend = min(r0 + BM, n);
   for (int i = r0 + warp; i < rend; i += NW) {
@@ -176,16 +177,27 @@ prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau
   }
 }
 
-// Pass 2 (one per layer): out rows = C M + rank terms (+ relu), optionally
-// stored to F, and -- when a next layer exists (then H <= HC) -- that
-// layer's M rows. The output columns are swept in chunks of HC.
 __global__ void __launch_bounds__(NT)
-fwd_rows_kernel(Planes P, const int* __restrict__ idx,
-                const float* __restrict__ tau, int n,
-                const float* __restrict__ stats, Layer lp,
-                const float* __restrict__ Mc, int ldm, float* __restrict__ F,
-                int ldf, int relu, int has_next, Layer ln,
-                float* __restrict__ Mn, int ldmn) {
+prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau,
+            int n, const float* __restrict__ Z, int ldz, Layer l0,
+            float* __restrict__ M0, int ldm, float* __restrict__ stats) {
+  const int b = blockIdx.y;
+  prep_rows(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, Z,
+            ldz, l0, M0, ldm, stats);
+}
+
+// Pass 2 of one CTA (one per layer): out rows = C M + rank terms (+ relu),
+// optionally stored to F, and -- when a next layer exists (then H <= HC) --
+// that layer's M rows; rows r0 .. r0+BM-1 of element b, planes at ``base``,
+// offset t. The output columns are swept in chunks of HC. Shared by K1
+// (fwd_rows_kernel) and K11.
+__device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float t,
+                                         int b, int r0, int n,
+                                         const float* __restrict__ stats,
+                                         const Layer& lp, const float* __restrict__ Mc,
+                                         int ldm, float* __restrict__ F, int ldf,
+                                         int relu, int has_next, const Layer& ln,
+                                         float* __restrict__ Mn, int ldmn) {
   __shared__ float Cs[BM][BK + 1];
   __shared__ float Ms[BK][HC];
   __shared__ float Fs[BM][HC];
@@ -194,12 +206,10 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
   __shared__ float scratch[NW];
   __shared__ float zn[NW][MAXIN];
 
-  const int b = blockIdx.y, r0 = blockIdx.x * BM, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int H = lp.hout;
   const float fn = (float)n, fn2 = fn * fn;
-  const long long base = plane_base(P, idx, b, n);
-  const float t = __ldg(tau + b);
   const float* st = stats + (long long)b * 6 * n;
   const float* rA = st + RA * n;
   const float* rdA = st + RDA * n;
@@ -323,6 +333,18 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
         transform_row(Fs[i], ln, zn[warp], Mn + ((long long)b * n + gi) * ldmn);
     }
   }
+}
+
+__global__ void __launch_bounds__(NT)
+fwd_rows_kernel(Planes P, const int* __restrict__ idx,
+                const float* __restrict__ tau, int n,
+                const float* __restrict__ stats, Layer lp,
+                const float* __restrict__ Mc, int ldm, float* __restrict__ F,
+                int ldf, int relu, int has_next, Layer ln,
+                float* __restrict__ Mn, int ldmn) {
+  const int b = blockIdx.y;
+  fwd_rows(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, stats,
+           lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
 }
 
 inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {

@@ -1,8 +1,12 @@
-// K3, K4, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K6a,
-// K6b: the plane-pair sweeps of the enc_idx path.
+// K3, K4, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K5c:
+// the 4-slab apply behind tiled_abar_apply; K6a, K6b: the plane-pair sweeps
+// of the enc_idx path.
 //
 // Replace the TPU kernels of gncde_tpu/ops/pallas/tiled.py:
 //   K3  _fwd2_kernel / _fwd2_call   rowpart = B1 M, colpart = B2^T M
+//   K5c _fwd_kernel / _fwd_call     rowpart = B(w_row) M, colpart =
+//                                   B(w_col)^T M, B(w) = sum_j w_j slab_j
+//                                   over the four Hermite slabs (d, c, b, a)
 //   K4  _bwd2_kernel / _bwd2_call   A g, dA g, A^T g, dA^T g in one sweep,
 //                                   dM parts and the four c cotangents
 //   K5a _dw2_kernel / _dw2_call     <A|dA, G M^T>, <A|dA, M G^T>
@@ -10,6 +14,9 @@
 //   K6a _pair_kernel / _pair_call   rowpart = B1 Mk, colpart = B2^T Mi
 //   K6b _pair_dw_kernel / _pair_dw_call
 //                                   <A|dA, Gr Mk^T>, <A|dA, Mi Gc^T>
+// K5c: B(w) formed in f32 from the f32 or bf16 slabs, each product and sum
+// rounded once in _fwd_kernel's order ((w0 d + w1 c) + w2 b) + w3 a, entries
+// beyond n zero, then rounded to bf16 (the matmul operand), M in bf16.
 // K3-K5b: B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from
 // the bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded
 // to bf16, every product and sum rounded to bf16, as _fwd2_kernel does).
@@ -97,10 +104,11 @@ struct Sweep {
   const void* v[2];   // NV vector operands (bf16; f32 for K6): (B, nc, H) in
                       // the row pass, (B, nr, H) in the column pass
   int H;
+  float w[4];         // the four slab weights of a COMBO_SLAB4 tile (K5c)
 };
 
-// How a sweep forms its plane tile from the NPL = 2 raw planes.
-enum Combo { RAW = 0, COMBO_BF16 = 1, COMBO_F32 = 2 };
+// How a sweep forms its plane tile from the NPL raw planes.
+enum Combo { RAW = 0, COMBO_BF16 = 1, COMBO_F32 = 2, COMBO_SLAB4 = 3 };
 
 // Shared tiles of one CTA: NS plane tiles (BO x BR, padded rows) and NV
 // vector tiles (BR x HC), both f32.
@@ -186,6 +194,11 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
         sm.S[0][a][r] = rbf(rbf(c0 * px[0][i]) + rbf(c1 * px[1][i]));
       } else if (COMBO == COMBO_F32) {
         sm.S[0][a][r] = __fadd_rn(__fmul_rn(c0, px[0][i]), __fmul_rn(c1, px[1][i]));
+      } else if (COMBO == COMBO_SLAB4) {
+        float x = __fmul_rn(g.w[0], px[0][i]);
+#pragma unroll
+        for (int q = 1; q < 4; ++q) x = __fadd_rn(x, __fmul_rn(g.w[q], px[q][i]));
+        sm.S[0][a][r] = rbf(x);
       } else {
 #pragma unroll
         for (int q = 0; q < NS; ++q) sm.S[q][a][r] = px[q][i];
@@ -270,6 +283,34 @@ __global__ void __launch_bounds__(NT) fwd2_kernel(Sweep g, const float* cvec,
     const int hc = min(HC, g.H - h0);
     sweep<2, 1, 1, BO, HC, COMBO_BF16, bf16, bf16>(g, sm, b, trans, o0, h0, hc, c0, c1,
                                                  acc);
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      int a, h;
+      if (pair(j, hc, BO, a, h) && o0 + a < g.nr)
+        out[(long long)(o0 + a) * g.H + h0 + h] = acc[0][j];
+    }
+  }
+}
+
+// ---- K5c -----------------------------------------------------------------
+// wvec: (B, 8) f32, per element (w_row, w_col). Slabs of type PT (f32 or
+// bf16), M (B, n, H) bf16; row_out, col_out (B, n, H) f32.
+template <int HC, typename PT>
+__global__ void __launch_bounds__(NT) abar_kernel(Sweep g, const float* wvec,
+                                                  float* row_out, float* col_out) {
+  constexpr int BO = bo_for(1, HC), PPT = (BO * HC + NT - 1) / NT;
+  __shared__ Smem<1, 1, BO, HC> sm;
+  const int b = blockIdx.z;
+  const bool trans = blockIdx.y == 1;
+  const int o0 = blockIdx.x * BO;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) g.w[q] = __ldg(wvec + b * 8 + (trans ? 4 : 0) + q);
+  float* out = (trans ? col_out : row_out) + (long long)b * g.nr * g.H;
+  float acc[1][PPT];
+  for (int h0 = 0; h0 < g.H; h0 += HC) {
+    const int hc = min(HC, g.H - h0);
+    sweep<4, 1, 1, BO, HC, COMBO_SLAB4, PT, bf16>(g, sm, b, trans, o0, h0, hc, 0.f, 0.f,
+                                                  acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
@@ -509,6 +550,7 @@ inline Sweep make_sweep(const void* p0, const void* p1, const void* p2,
   g.v[0] = v0;
   g.v[1] = v1;
   g.H = H;
+  for (int q = 0; q < 4; ++q) g.w[q] = 0.f;
   return g;
 }
 
@@ -537,6 +579,26 @@ extern "C" int gncde_tiled_fwd2(const void* A, const void* dA, int n,
     constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
     fwd2_kernel<HC><<<dim3((n + BO - 1) / BO, 2, B), NT, 0, stream>>>(
         g, cvec, row_out, col_out);
+    return (int)cudaGetLastError();
+  });
+}
+
+// K5c. d, c, b, a: (B, n, n) slabs, f32 (slab_bf16 = 0) or bf16 (1);
+// wvec: device (B, 8) f32 = (w_row, w_col) per element; M: (B, n, H) bf16;
+// row_out, col_out: (B, n, H) f32.
+extern "C" int gncde_tiled_abar(const void* d, const void* c, const void* b,
+                                const void* a, int slab_bf16, int n, const float* wvec,
+                                const void* M, int B, int H, float* row_out,
+                                float* col_out, cudaStream_t stream) {
+  if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
+  const Sweep g = make_sweep(d, c, b, a, n, n, M, nullptr, H);
+  return by_width(H, [&](auto hc) {
+    constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
+    const dim3 grid((n + BO - 1) / BO, 2, B);
+    if (slab_bf16)
+      abar_kernel<HC, bf16><<<grid, NT, 0, stream>>>(g, wvec, row_out, col_out);
+    else
+      abar_kernel<HC, float><<<grid, NT, 0, stream>>>(g, wvec, row_out, col_out);
     return (int)cudaGetLastError();
   });
 }

@@ -16,6 +16,7 @@ from torch import nn
 from ... import ops as ops_config
 from ...interp import CubicInterpolation
 from ...nn import MLP
+from ...ops import fused_step as _fs
 from ...ops import megakernel as _mk
 from ...ops import modulate as _mod
 from ...ops.modulate import modulate_matrix as _modulate_matrix
@@ -105,6 +106,28 @@ def _enc_idx_pallas_eval(vf, control_adj, t, y):
     return _pair.tiled_vf_eval_planes(A_m, dA_m, y, vf)
 
 
+def _fused_rk_step_hook(vf, tab, t, y, h, control_adj, f0):
+    """Step-level fast path (the solver's ``_rk_step`` hook): one explicit
+    FSAL RK step as one K11 launch (``ops/fused_step.py``) when the per-eval
+    dispatch would take K1 anyway. Returns None, and the solver runs its
+    stage loop, when the field has ``enc_idx``, the fused step is off, the
+    megakernel gate fails, n exceeds ``MEGAKERNEL_MAX_N``, or the layer
+    stack does not map the state width to itself (the stage combinations
+    add k's to y) -- the JAX package's own conditions."""
+    if vf.enc_idx or not ops_config.get_fused_step():
+        return None
+    if not _pallas_plane_dispatch_ok(control_adj, y.device):
+        return None
+    if y.shape[-2] > _mk.MEGAKERNEL_MAX_N:
+        return None
+    dims = [(l.conv_layer.linear.in_features, l.conv_layer.linear.out_features)
+            for l in vf.gnn_layers]
+    if dims[0][0] != dims[-1][1] or y.shape[-1] != dims[0][0]:
+        return None
+    path = control_adj.path
+    return _fs.fused_rk_step(tab, tuple(path.coeffs), path.ts, t, y, h, f0, vf)
+
+
 def _make_stack(input_dim, hidden_dim, output_dim, num_layers, generator, device):
     """num_layers-1 hidden layers + one output layer."""
     layers = []
@@ -144,6 +167,8 @@ class PermEquivGraphVectorField(nn.Module):
         self.data_embed_dim = data_embed_dim
         self.num_nodes = num_nodes
         self.enc_idx = enc_idx
+
+    fused_rk_step = _fused_rk_step_hook
 
     def forward(self, t: torch.Tensor, y: torch.Tensor, control_adj) -> torch.Tensor:
         t = t.expand(y.shape[0]) if t.dim() == 0 else t

@@ -17,6 +17,8 @@ from ... import ops as ops_config
 from ...nn import Linear, RMSNorm
 from ...ops import bcsr as ops_bcsr
 from ...ops import equiv_basis
+from ...ops import fused_basis
+from ...ops import pipeline
 from ...ops import sparse as ops_sparse
 
 
@@ -76,5 +78,11 @@ class ConvEquivFusionLayer(nn.Module):
             # "megakernel" is a vector-field-level backend; a layer reached
             # directly takes the dense formulation.
             return m + self.fusion_matrix(adj_matrix, control_gradient) @ m
+        if backend == "pipeline":  # K13 per layer (ops/pipeline.py)
+            return pipeline.pipeline_fused_apply(adj_matrix, control_gradient, m,
+                                                 self.params, False, True)
+        if backend == "pallas":  # K12 per layer (ops/fused_basis.py)
+            return fused_basis.fused_apply_pallas(adj_matrix, control_gradient, m,
+                                                  self.params, False, True)
         return equiv_basis.fused_apply(adj_matrix, control_gradient, m,
                                        self.params, add_identity=True)

@@ -21,12 +21,25 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
                         operator and multiply once.
   * ``"decomposed"`` -- the rank-structured two-matmul formulation
                         (``equiv_basis.fused_apply``).
+  * ``"pipeline"``   -- per layer, ``pipeline.pipeline_fused_apply``: the
+                        fused apply on the materialised A(t), dA(t) in one
+                        launch of K13 (``ops/pipeline.py``), ``dM`` by K13 on
+                        the transposed operator, the rest of the backward in
+                        torch.
+  * ``"pallas"``     -- per layer, ``fused_basis.fused_apply_pallas``: the
+                        same apply through K12 (``ops/fused_basis.py``), the
+                        backward by autograd of ``equiv_basis.fused_apply``.
 
 Whatever the backend, a sparse control (the dyn trainer's
 ``sparse_control``) bypasses all of them: its ELL values go to
 ``sparse.sparse_fused_apply`` (K10, ``ops/ell_spmm.py``) and its BCSR values
 to ``bcsr.bcsr_fused_apply`` (K8 and K9, ``ops/bcsr.py``), on CUDA tensors
 through the kernels and on CPU ones through their plain versions.
+
+The fused RK step (``set_fused_step``, off by default as in the JAX
+package): under the megakernel backend, each explicit FSAL solver step of
+an undirected perm-equiv field with n <= 640 and a square layer stack runs
+as one launch of K11 (``ops/fused_step.py``) instead of one K1 per stage.
 
 Precision: only ``"f32"`` is implemented. ``"bf16"`` raises, because the
 kernels have no bf16 operand path yet (ROADMAP Queue 2).
@@ -39,7 +52,7 @@ import torch
 from . import equiv_basis  # noqa: F401
 
 _BACKEND = "auto"
-_VALID = ("auto", "dense", "decomposed", "megakernel")
+_VALID = ("auto", "dense", "decomposed", "megakernel", "pipeline", "pallas")
 _PRECISION = "f32"
 _VALID_PRECISION = ("f32",)
 
@@ -82,3 +95,18 @@ def set_fusion_precision(name: str) -> None:
 
 def get_fusion_precision() -> str:
     return _PRECISION
+
+
+_FUSED_STEP = False
+
+
+def set_fused_step(enabled: bool) -> None:
+    """Turn the fused RK step (K11, ``ops/fused_step.py``) on or off: one
+    kernel launch per explicit FSAL solver step when the megakernel backend
+    serves the vector field. Off by default, as in the JAX package."""
+    global _FUSED_STEP
+    _FUSED_STEP = bool(enabled)
+
+
+def get_fused_step() -> bool:
+    return _FUSED_STEP

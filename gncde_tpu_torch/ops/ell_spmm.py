@@ -15,9 +15,14 @@ kernel with batch stride 0 (an ``expand`` view, never a copy).
 raises on what the kernel does not take; on CPU tensors it runs
 :func:`plain_ell_spmm`. :class:`ELLSpMM` is the differentiable product:
 forward K10; backward ``ell_sddmm(G, M)`` for the values (0 at padding
-slots) and the scatter-add :func:`plain_ell_spmm_t` of ``values[r, k] G[r]``
-into row ``indices[r, k]`` for ``M``, both plain torch (JAX derives both
-from the XLA gather).
+slots, plain torch) and, for ``M``, ``A^T G`` as K10 on the other pattern
+the caller passes (``ops/sparse.py``: the transposed pattern for
+``A @ M``, the original for ``A^T @ M``). JAX derives both from the XLA
+gather, whose ``A^T G`` is a scatter-add; on the card a scatter adds with
+atomics in no fixed order, which would leave the stepped parameters
+unrepeatable, so no scatter runs in either direction.
+:func:`plain_ell_spmm_t` (that scatter) stays as the plain version of
+``A^T @ M`` the tests compare with.
 """
 
 from __future__ import annotations
@@ -155,19 +160,24 @@ def sum_to(g, shape):
 
 class ELLSpMM(torch.autograd.Function):
     """Differentiable ``A @ M`` for A in ELL form. Inputs ``(values, M,
-    indices)``; ``indices`` gets no gradient."""
+    indices, t_indices, t_values)``: ``(t_indices, t_values)`` is ``A^T`` in
+    ELL form (A's transposed pattern and its values), which the backward
+    multiplies by ``G`` for ``d_M`` through K10. ``t_values`` may be None
+    when ``M`` needs no gradient. Neither pattern gets a gradient, and
+    ``t_values`` none through this function (it is a copy of the values
+    laid out for the product)."""
 
     @staticmethod
-    def forward(ctx, values, M, indices):
-        ctx.save_for_backward(indices, values, M)
+    def forward(ctx, values, M, indices, t_indices, t_values):
+        ctx.save_for_backward(indices, values, M, t_indices, t_values)
         return ell_spmm_call(indices, values, M)
 
     @staticmethod
     def backward(ctx, G):
-        indices, values, M = ctx.saved_tensors
+        indices, values, M, t_indices, t_values = ctx.saved_tensors
         d_values = d_M = None
         if ctx.needs_input_grad[0]:
             d_values = sum_to(ell_sddmm(indices, G, M), values.shape)
         if ctx.needs_input_grad[1]:
-            d_M = sum_to(plain_ell_spmm_t(indices, values, G), M.shape)
-        return d_values, d_M, None
+            d_M = sum_to(ell_spmm_call(t_indices, t_values, G.contiguous()), M.shape)
+        return d_values, d_M, None, None, None

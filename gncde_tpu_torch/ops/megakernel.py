@@ -245,16 +245,22 @@ class MegakernelVF(torch.autograd.Function):
         dtau, dZ, per_layer = megakernel_vf_bwd(
             (d, c, b, a), idx, tau, Z, layers, g.contiguous(), need_tau=need_tau
         )
-        grads = []
-        for dnw, dnb, dW, dlb, dbasis in per_layer:
-            grads += [dnw.sum(0), dnb.sum(0), dW.sum(0), dlb.sum(0)]
-            db = dbasis.sum(0)
-            grads += [db[k] for k in range(db.shape[0])]
         return (None, dtau if need_tau else None, dZ, None, None, None, None,
-                *grads)
+                *flat_grads(per_layer))
 
 
 _PER_LAYER = 12  # norm_w, norm_b, W, lin_b + 8 basis vectors
+
+
+def flat_grads(per_layer) -> tp.List[torch.Tensor]:
+    """K2's per-element, per-layer parameter cotangents summed over the
+    batch, in the order of :func:`flatten_params`."""
+    grads = []
+    for dnw, dnb, dW, dlb, dbasis in per_layer:
+        grads += [dnw.sum(0), dnb.sum(0), dW.sum(0), dlb.sum(0)]
+        db = dbasis.sum(0)
+        grads += [db[k] for k in range(db.shape[0])]
+    return grads
 
 
 def flatten_params(vf) -> tp.List[torch.Tensor]:

@@ -129,12 +129,19 @@ def ell_from_edges(src, dst, w, n: int, max_degree: tp.Optional[int] = None) -> 
 
 def ell_spmm(ell: ELL, M: torch.Tensor) -> torch.Tensor:
     """``A @ M`` (differentiable in values and M): K10 on CUDA tensors, its
-    plain version on CPU ones."""
-    return ELLSpMM.apply(ell.values, M, ell.indices)
+    plain version on CPU ones; ``d_M = A^T G`` is K10 on the transposed
+    pattern (its values are gathered only when M needs a gradient)."""
+    t_values = transposed_values(ell) if M.requires_grad and torch.is_grad_enabled() else None
+    return ELLSpMM.apply(ell.values, M, ell.indices, ell.transpose[0], t_values)
 
 
 def transposed_values(ell: ELL) -> torch.Tensor:
-    """A's values gathered into the transposed pattern, ``([B,] n, K_T)``."""
+    """A's values gathered into the transposed pattern, ``([B,] n, K_T)``.
+
+    Its gradient scatters back onto distinct slots of A's values (each entry
+    of A sits in one slot of the transposed pattern; every padding slot reads
+    the appended zero, whose gradient is dropped), so each slot receives at
+    most one term: exact and repeatable, atomics or not."""
     _, src_T = ell.transpose
     vals = ell.values.flatten(-2)
     vals = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], -1)
@@ -144,8 +151,10 @@ def transposed_values(ell: ELL) -> torch.Tensor:
 
 
 def ell_spmm_t(ell: ELL, M: torch.Tensor) -> torch.Tensor:
-    """``A^T @ M`` (differentiable): K10 on the transposed pattern."""
-    return ELLSpMM.apply(transposed_values(ell), M, ell.transpose[0])
+    """``A^T @ M`` (differentiable): K10 on the transposed pattern; its
+    ``d_M = A G`` is K10 on the original pattern."""
+    return ELLSpMM.apply(transposed_values(ell), M, ell.transpose[0], ell.indices,
+                         ell.values)
 
 
 def ell_row_sums(ell: ELL) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The tiled regime (n > 640): per-layer plane sweeps K3, K4, K5a, K5b.
+"""The tiled regime (n > 640): per-layer plane sweeps K3, K4, K5a, K5b,
+and the 4-slab apply K5c behind :func:`tiled_abar_apply`.
 
 Counterpart of ``gncde_tpu/ops/pallas/tiled.py`` for the materialised-plane
 path (``tiled_fused2`` and ``tiled_vf_eval``). Per vf eval the interval's
@@ -26,6 +27,13 @@ per-element ``tau`` and Hermite weights ``(B, 4)``; the ``c`` coefficients
 are shared by the batch, so their cotangents are summed over it. The kernels
 bound-check every row and column against n, so nothing is padded (the TPU
 kernels' padding to their tile is not needed on the card).
+
+:func:`tiled_abar_apply` (``B(w_row) M + B(w_col)^T M`` straight from the
+four Hermite slabs, ``B(w) = sum_j w_j slab_j``) keeps the JAX contract:
+``M`` has ``NP = ceil(n / tile) tile`` rows whose tail is zero, and the
+result has NP rows, zero beyond n. Its forward is K5c (:func:`abar_call`),
+its backward K5c with the weight pairs swapped for ``dM``, K5b for the
+weights and plain outer products for the slabs.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ from .megakernel import interval, select_planes
 
 #: Largest n the tiled regime serves (the JAX package's cap).
 TILED_MAX_N = 32768
+#: The JAX package's tile, which sets the padded row count NP of
+#: :func:`tiled_abar_apply`'s M and output (the kernels need no tile).
+DEFAULT_TILE = 256
 #: Widest layer the wrappers take; the kernels sweep 128 columns at a time,
 #: so any width works. The widest vf output of the repo's configs is 2048
 #: (configs/pgt/twitter_perm_equiv_gncde.yaml: 64 * 16 * 2).
@@ -159,6 +170,23 @@ def plain_dw(slabs, G, M):
     return torch.stack([(s.float() * Y).sum((1, 2)) for Y in (P, Q) for s in slabs], -1)
 
 
+def plain_abar(slabs, wvec, M):
+    """K5c's plain version: ``(B(w_row) @ M, B(w_col)^T @ M)``, each
+    ``(B, n, H)`` f32, for slabs ``(B, n, n)`` (f32 or bf16), ``wvec``
+    ``(B, 8)`` = (w_row, w_col) and bf16 ``M`` ``(B, n, H)``. B(w) is formed
+    in f32 in _fwd_kernel's order and rounded to bf16."""
+    st = [x.float() for x in slabs]
+
+    def combo(w):
+        x = w[:, 0, None, None] * st[0]
+        for j in range(1, 4):
+            x = x + w[:, j, None, None] * st[j]
+        return x.to(BF16).float()
+
+    m = M.float()
+    return combo(wvec[:, :4]) @ m, combo(wvec[:, 4:]).transpose(-2, -1) @ m
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -169,6 +197,7 @@ _ARGTYPES = {
     "gncde_tiled_bwd2": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "gncde_tiled_dw2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "gncde_tiled_dw": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "gncde_tiled_abar": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
 }
 
 
@@ -282,7 +311,29 @@ def dw_call(slabs, G, M):
     return dw
 
 
-for _f in (fwd2_call, bwd2_call, dw2_call, dw_call):
+def abar_call(slabs, wvec, M):
+    """K5c: ``(rowpart, colpart)``, each ``(B, n, H)`` f32, for four slabs
+    ``(B, n, n)`` (all f32 or all bf16), ``wvec`` ``(B, 8)`` f32 = (w_row,
+    w_col) per element and bf16 ``M`` ``(B, n, H)``."""
+    if not M.is_cuda:
+        return plain_abar(slabs, wvec, M)
+    dtype = slabs[0].dtype
+    if dtype not in (torch.float32, BF16):
+        raise ValueError(f"K5c: slabs must be float32 or bfloat16; got {dtype}")
+    B, n, H = _check("K5c", slabs, (M,), dtype=dtype)
+    if wvec.shape != (B, 8) or wvec.dtype != torch.float32 or wvec.device != M.device:
+        raise ValueError("K5c: wvec must be a float32 (B, 8) tensor on the planes' device")
+    row, col = _f32(M.device, B, n, H), _f32(M.device, B, n, H)
+    err = _fn("gncde_tiled_abar")(
+        *[_build.ptr(x) for x in slabs], int(dtype == BF16), n,
+        _build.ptr(wvec.contiguous()), _build.ptr(M), B, H, _build.ptr(row),
+        _build.ptr(col), _build.stream())
+    _build.check(err, "K5c tiled abar")
+    abar_call.launches += 1
+    return row, col
+
+
+for _f in (fwd2_call, bwd2_call, dw2_call, dw_call, abar_call):
     _f.launches = 0
 
 
@@ -358,6 +409,80 @@ class TiledFused2(torch.autograd.Function):
 def tiled_fused2(A, dA, slabs, wA, wdA, c_row, c_col, M):
     """``(B, n, H)`` f32: see :class:`TiledFused2`."""
     return TiledFused2.apply(A, dA, *slabs, wA, wdA, c_row, c_col, M)
+
+
+# ---------------------------------------------------------------------------
+# The 4-slab apply
+# ---------------------------------------------------------------------------
+
+
+class TiledAbarApply(torch.autograd.Function):
+    """Inputs ``(tile, d, c, b, a, w_row, w_col, M)``, batch-first; see
+    :func:`tiled_abar_apply`."""
+
+    @staticmethod
+    def forward(ctx, tile, d, c, b, a, w_row, w_col, M):
+        B, n = d.shape[0], d.shape[-1]
+        NP, H = M.shape[-2:]
+        if NP != -(-n // tile) * tile:
+            raise ValueError(f"M rows {NP} != padded n {-(-n // tile) * tile} "
+                             f"(n={n}, tile={tile})")
+        if M.shape[0] != B or w_row.shape != (B, 4) or w_col.shape != (B, 4):
+            raise ValueError("tiled_abar_apply: slabs, weights and M must share a batch")
+        slabs = tuple(x.contiguous() for x in (d, c, b, a))
+        w = torch.cat([w_row, w_col], -1).float().contiguous()
+        Mb = M[:, :n].to(BF16).contiguous()
+        row, col = abar_call(slabs, w, Mb)
+        out = row.new_zeros((B, NP, H))
+        out[:, :n] = row + col
+        ctx.n = n
+        ctx.save_for_backward(*slabs, w, Mb, M)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        d, c, b, a, w, Mb, M = ctx.saved_tensors
+        slabs = (d, c, b, a)
+        need = ctx.needs_input_grad
+        n = ctx.n
+        gb = g[:, :n].to(BF16).contiguous()
+        d_M = d_wr = d_wc = None
+        d_slabs = [None] * 4
+        if need[7]:
+            # Transposing the operator swaps the row and column weights.
+            row, col = abar_call(slabs, torch.cat([w[:, 4:], w[:, :4]], -1).contiguous(), gb)
+            d_M = torch.zeros_like(g, dtype=torch.float32)
+            d_M[:, :n] = row + col
+        if need[5] or need[6]:
+            dw = dw_call(tuple(x.float().contiguous() for x in slabs), gb, Mb)
+            d_wr = dw[:, :4] if need[5] else None
+            d_wc = dw[:, 4:] if need[6] else None
+        if any(need[1:5]):
+            # Rare (the planes are data in every trainer): dense outer products.
+            GMt = g[:, :n].float() @ M[:, :n].float().transpose(-2, -1)
+            MGt = GMt.transpose(-2, -1)
+            d_slabs = [(w[:, j, None, None] * GMt + w[:, 4 + j, None, None] * MGt).to(x.dtype)
+                       for j, x in enumerate(slabs)]
+        return (None, *d_slabs, d_wr, d_wc, d_M)
+
+
+def tiled_abar_apply(slabs, w_row, w_col, M, tile: int = DEFAULT_TILE):
+    """``B(w_row) @ M + B(w_col)^T @ M`` over the four Hermite interval slabs
+    ``(d, c, b, a)``, ``B(w) = sum_j w_j slab_j``, through K5c.
+
+    slabs: four ``(n, n)`` planes (f32 or bf16; consumed as bf16 matmul
+    operands with f32 sums). w_row, w_col: ``(4,)``. M: ``(NP, H)`` with
+    ``NP = ceil(n / tile) tile`` and rows >= n zero. Returns ``(NP, H)`` f32
+    whose first n rows hold the result and the rest are zero (the JAX
+    contract). With a leading batch axis on every input (slabs ``(B, n,
+    n)``, weights ``(B, 4)``, M ``(B, NP, H)``) each element is its own
+    apply. Differentiable in every input.
+    """
+    if M.dim() == 3:
+        return TiledAbarApply.apply(tile, *slabs, w_row, w_col, M)
+    out = TiledAbarApply.apply(tile, *(x[None] for x in slabs), w_row[None], w_col[None],
+                               M[None])
+    return out[0]
 
 
 # ---------------------------------------------------------------------------

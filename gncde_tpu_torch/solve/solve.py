@@ -82,7 +82,18 @@ def _bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _rk_step(tab: ButcherTableau, vf, t, y, h, args, f0):
-    """One explicit RK step; returns (y1, err, f1) with FSAL reuse of f0."""
+    """One explicit RK step; returns (y1, err, f1) with FSAL reuse of f0.
+
+    An FSAL step is first offered to the vector field's ``fused_rk_step``
+    hook (one K11 launch per step when the megakernel serves the field,
+    ``ops/fused_step.py``); a None return falls through to the stage loop."""
+    if tab.fsal:
+        inner = getattr(vf, "vf", vf)  # unwrap ODETerm; bare fields pass through
+        hook = getattr(inner, "fused_rk_step", None)
+        if hook is not None:
+            fused = hook(tab, t, y, h, args, f0)
+            if fused is not None:
+                return fused
     hb = _bc(h, y)
     ks = []
     for i in range(tab.num_stages):

@@ -1,6 +1,7 @@
 """Profile one training step of the PyTorch port on a CUDA card.
 
     python3 profile_step_torch.py [--num-nodes 400] [--trace step_trace.json]
+    python3 profile_step_torch.py --fused-step
     python3 profile_step_torch.py --task tgb [--window 3]
 
 ``--task dyn`` (the default) builds ``configs/dyn/perm_equiv_gncde.yaml`` at
@@ -15,7 +16,10 @@ checkpointed adjoint, without the optimiser update, so that every run
 repeats the same computation. Runs are timed on the host clock, ended by
 ``torch.cuda.synchronize()``, in the order kernel path (fusion backend
 ``megakernel``: K1 forward and K2 backward for dyn, K3 forward and K4
-backward for tgb), plain path (``dense``), plain, kernel. One more
+backward for tgb), plain path (``dense``), plain, kernel. With
+``--fused-step`` (dyn) the kernel path is the fused RK step (K11 forward,
+one K2 per stage backward: ``ops.set_fused_step(True)``) and it is
+compared with the per-stage K1/K2 path instead of the plain one. One more
 kernel-path run is traced with ``torch.profiler``; from the trace's device
 events (kernels, copies, memsets) it reports:
 
@@ -123,7 +127,11 @@ def main() -> int:
     ap.add_argument("--num-nodes", type=int, default=400, help="dyn: graph size")
     ap.add_argument("--window", type=int, default=3, help="tgb: snapshots per window")
     ap.add_argument("--trace", help="also keep the Chrome trace at this path")
+    ap.add_argument("--fused-step", action="store_true",
+                    help="dyn: the fused RK step (K11) against the per-stage K1 path")
     args = ap.parse_args()
+    if args.fused_step and args.task != "dyn":
+        ap.error("--fused-step applies to --task dyn")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -131,12 +139,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step_torch: no CUDA device visible")
     from gncde_tpu_torch import ops
+    from gncde_tpu_torch.ops import fused_step
     from gncde_tpu_torch.ops import megakernel as mk
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
     from gncde_tpu_torch.ops import tiled
 
     counters = {"K1": mk.megakernel_vf_eval, "K2": mkb.megakernel_vf_bwd,
-                "K3": tiled.fwd2_call, "K4": tiled.bwd2_call}
+                "K3": tiled.fwd2_call, "K4": tiled.bwd2_call,
+                "K11": fused_step.fused_step_call}
+    # (kernel path, the path it is compared with)
+    kernel_path, other_path = ("fused", "megakernel") if args.fused_step else ("megakernel",
+                                                                               "dense")
+
+    def use(path):
+        ops.set_fused_step(path == "fused")
+        ops.set_fusion_backend("dense" if path == "dense" else "megakernel")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -156,8 +174,8 @@ def main() -> int:
             torch.cuda.synchronize()
             return float(loss)
 
-        def timed(backend):
-            ops.set_fusion_backend(backend)
+        def timed(path):
+            use(path)
             t = time.perf_counter()
             loss = fwd_bwd()
             wall = time.perf_counter() - t
@@ -166,13 +184,13 @@ def main() -> int:
                 (stats["num_accepted_steps"] + stats["num_rejected_steps"]).tolist()
                 if stats else None)}
 
-        ops.set_fusion_backend("megakernel")
+        use(kernel_path)
         fwd_bwd()  # warm-up: kernel build and first launches
-        runs = {"megakernel": [], "dense": []}
-        for backend in ("megakernel", "dense", "dense", "megakernel"):
-            runs[backend].append(timed(backend))
+        runs = {kernel_path: [], other_path: []}
+        for path in (kernel_path, other_path, other_path, kernel_path):
+            runs[path].append(timed(path))
 
-        ops.set_fusion_backend("megakernel")
+        use(kernel_path)
         for f in counters.values():
             f.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -191,9 +209,9 @@ def main() -> int:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + dur, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    mk_wall = sum(r["wall_s"] for r in runs["megakernel"]) / len(runs["megakernel"])
+    mk_wall = sum(r["wall_s"] for r in runs[kernel_path]) / len(runs[kernel_path])
     print(json.dumps({
-        "nvidia_smi": smi, "task": args.task,
+        "nvidia_smi": smi, "task": args.task, "kernel_path": kernel_path,
         **({"num_nodes": args.num_nodes} if args.task == "dyn" else {"window": args.window}),
         "data_s": data_s, "fwd_bwd": runs,
         "profiled": {

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1 and K2
-(the vector-field kernels, n <= 640), K3, K4, K5a, K5b (the tiled regime's
-plane sweeps, ``csrc/tiled.cu``), the enc_idx path's K7 (modulation,
-``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/tiled.cu``), and the
-sparse controls' K8 and K9 (BCSR SpMM and SDDMM, ``csrc/bcsr.cu``) and K10
-(ELL SpMM, ``csrc/ell_spmm.cu``).
+(the vector-field kernels, n <= 640), K3, K4, K5a, K5b, K5c (the tiled
+regime's plane sweeps and the 4-slab apply, ``csrc/tiled.cu``), the enc_idx
+path's K7 (modulation, ``csrc/modulate.cu``), K6a and K6b (plane pair,
+``csrc/tiled.cu``), the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
+``csrc/bcsr.cu``) and K10 (ELL SpMM, ``csrc/ell_spmm.cu``), the fused RK
+step K11 (``csrc/fused_step.cu``) and the per-layer fused applies K12 and
+K13 (``csrc/fused_apply.cu``).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -26,7 +28,10 @@ no reductions (1e-5); K6a/K6b take f32 planes and vectors on both sides and
 sum in another order (1e-4); the enc_idx field on its kernels against its
 dense path 1e-4 for values and 1e-3 for gradients, as K1/K2. K8, K9 and
 K10 are f32 on both sides and sum in another order (1e-4); their autograd
-functions against autograd of the plain versions 1e-4.
+functions against autograd of the plain versions 1e-4. K11 against its plain
+version 1e-4 of max|ref| per output (K1's sums in another order, compounded
+over the stages), its backward 1e-3 (K2's); K12, K13 and K5c 1e-4 (f32 or
+the same bf16 operands; summation order).
 """
 
 import numpy as np
@@ -41,7 +46,11 @@ from gncde_tpu_torch.ops import ell_spmm as tell
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import megakernel_bwd as mkb
 from gncde_tpu_torch.ops import modulate as tmod
+from gncde_tpu_torch.ops import fused_basis as tfb
+from gncde_tpu_torch.ops import fused_step as tfs
 from gncde_tpu_torch.ops import pair as tp
+from gncde_tpu_torch.ops import pipeline as tpl
+from gncde_tpu_torch.ops import sparse as tsp
 from gncde_tpu_torch.ops import tiled as tt
 from gncde_tpu_torch.nn import MLP
 
@@ -554,7 +563,11 @@ def test_cuda_sparse_autograd_matches_plain(cuda):
 
     values = torch.tensor(rng.normal(size=(B, n, K)).astype(np.float32), device=cuda)
     M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
-    got = grads(lambda v, m: tell.ELLSpMM.apply(v, m, indices), values, M)
+    ell = tsp.ELL(indices, values, n, tuple(x.to(cuda) for x in
+                                            tsp.transpose_pattern(indices, n)))
+    t_values = tsp.transposed_values(ell)
+    got = grads(lambda v, m: tell.ELLSpMM.apply(v, m, indices, ell.transpose[0], t_values),
+                values, M)
     ref = grads(lambda v, m: tell.plain_ell_spmm(indices, v, m), values, M)
     for a, b in zip(got, ref):
         _assert_close(a, b, 1e-4)
@@ -631,4 +644,240 @@ def test_cuda_sparse_wrappers_raise_instead_of_falling_back(cuda):
         tell.ell_spmm_call(idx, torch.ones((n, 3), device=cuda), M)
     with pytest.raises(ValueError):
         tell.ell_spmm_call(idx.int(), torch.ones((n, 3), device=cuda), M.double())
+
+
+# ---- K11, K12, K13, K5c and the ELL repair -------------------------------
+
+#: The phase-14 shapes of K11: the flagship (Tsit5) and the bench widths.
+STEP_CASES = [(400, 4, (16, 16, 16), "tsit5"), (400, 4, (32, 32, 32, 32), "tsit5"),
+              (70, 3, (8, 8, 8), "dopri5"), (70, 3, (8, 8), "bosh3")]
+STEP_IDS = ["flagship-tsit5", "bench-tsit5", "n70-dopri5", "n70-bosh3"]
+
+
+def _step_inputs(dev, n, B, widths, seed=0, T=8):
+    """Per-element planes and knots, y, f0, h (one finished element: h = 1
+    past the last knot) and layer params, from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    planes = tuple(t(rng.uniform(-0.05, 0.1, (B, T - 1, n, n))) for _ in range(4))
+    ts = t(np.cumsum(rng.uniform(0.1, 0.3, (B, T)), 1))
+    tq = ts[:, 2] + 0.01
+    tq[-1] = ts[-1, -1] + 0.1  # finished: nodes past the last knot
+    h = t(rng.uniform(0.02, 0.2, B))
+    h[-1] = 1.0
+    y = t(rng.normal(size=(B, n, widths[0])))
+    f0 = t(0.1 * rng.normal(size=(B, n, widths[0])))
+    layers = []
+    for hin, hout in zip(widths[:-1], widths[1:]):
+        lim = 1.0 / np.sqrt(hin)
+        layers.append(dict(
+            norm_w=t(1.0 + 0.1 * rng.normal(size=hin)), norm_b=t(0.1 * rng.normal(size=hin)),
+            W=t(rng.uniform(-lim, lim, (hout, hin))), lin_b=t(rng.uniform(-lim, lim, hout)),
+            basis=t(rng.uniform(-1 / 15, 1 / 15, (8, 2)))))
+    return planes, ts, tq, y, h, f0, layers
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,B,widths,method", STEP_CASES, ids=STEP_IDS)
+def test_cuda_fused_step_matches_plain_and_repeats(cuda, n, B, widths, method):
+    """K11 against its plain version (1e-4 of each output's scale, every
+    output finite, a finished element included); a second launch is bitwise
+    equal, as the checkpointed adjoint's recomputation needs."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau(method)
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, n, B, widths)
+    before = tfs.fused_step_call.launches
+    got = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab)
+    again = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab)
+    ref = tfs._step_reference(planes, ts, tq, y, h, f0, layers, tab)
+    torch.cuda.synchronize()
+    assert tfs.fused_step_call.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, c)
+        _assert_close(a, b, 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_step_chunked_launch_equals_one_launch(cuda):
+    """A batch whose CTAs exceed one wave of the card is launched in chunks;
+    the elements are independent, so each equals its own one-element launch
+    to the bit."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    big = 2 * tfs.capacity(cuda) // 13 + 1  # n = 200: 13 CTAs per element
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, 200, big, (8, 8), seed=4, T=4)
+    before = tfs.fused_step_call.launches
+    out = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab)
+    torch.cuda.synchronize()
+    assert tfs.fused_step_call.launches - before >= 3
+    for b in (0, big // 2, big - 1):
+        sl = slice(b, b + 1)
+        one = tfs.fused_step_call(tuple(p[sl] for p in planes), ts[sl], tq[sl], y[sl],
+                                  h[sl], f0[sl], layers, tab)
+        for a, o in zip(out, one):
+            assert torch.equal(a[sl], o)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_step_backward_matches_autograd_of_plain(cuda):
+    """The manual chain rule (one K2 per stage) against autograd of the
+    plain step: y, f0, t, h and every layer parameter, 1e-3 of each scale."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, 400, 4, (16, 16, 16), seed=5)
+    flat = [p for lp in layers for p in
+            (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+    rng = np.random.default_rng(6)
+    W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=cuda)
+         for _ in range(3)]
+
+    def grads(fn):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (tq, y, h, f0, *flat)]
+        tq_, y_, h_, f0_, *fl = leaves
+        outs = fn(tq_, y_, h_, f0_, fl)
+        sum((o * w).sum() for o, w in zip(outs, W)).backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda tq_, y_, h_, f0_, fl: tfs.FusedRKStep.apply(
+        tab, ts, tq_, y_, h_, f0_, *planes, *fl))
+    ref = grads(lambda tq_, y_, h_, f0_, fl: tfs._step_reference(
+        planes, ts, tq_, y_, h_, f0_, mk._unflatten(fl), tab)[:3])
+    for a, b in zip(got, ref):
+        _assert_close(a, b, 1e-3)
+
+
+APPLY_CASES = [(400, 16, 4), (300, 5, 2)]
+APPLY_IDS = ["flagship-layer", "odd-n300-H5"]
+
+
+def _apply_inputs(dev, n, H, B, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor((scale * rng.normal(size=shape)).astype(np.float32), device=dev)
+
+    return (t(B, n, n, scale=0.1), t(B, n, n, scale=0.1), t(B, n, H), t(B, n), t(B, n),
+            t(B, H), t(B, H), t(2, 2))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,H,B", APPLY_CASES, ids=APPLY_IDS)
+@pytest.mark.parametrize("kernel", ["K12", "K13"])
+def test_cuda_fused_apply_matches_plain(cuda, kernel, n, H, B):
+    """K12 (``fused_basis._pallas_forward``) and K13 (``fused_conv_stream``)
+    against their plain versions, 1e-4 of the scale; bitwise repeatable."""
+    A, dA, M, dvec, u, s, w, q = _apply_inputs(cuda, n, H, B)
+    if kernel == "K12":
+        fn, plain, counter = (lambda: tfb._pallas_forward(A, dA, M, q, dvec, u, s, w),
+                              lambda: tfb.plain_pallas_forward(A, dA, M, q, dvec, u, s, w),
+                              tfb._pallas_forward)
+    else:
+        fn, plain, counter = (lambda: tpl.fused_conv_stream(A, dA, M, dvec, u, s, w, q),
+                              lambda: tpl.plain_conv_stream(A, dA, M, dvec, u, s, w, q),
+                              tpl.fused_conv_stream)
+    before = counter.launches
+    got, again, ref = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("backend", ["pipeline", "pallas"])
+def test_cuda_fused_apply_autograd_matches_fused_apply(cuda, backend):
+    """pipeline_fused_apply and fused_apply_pallas on the card against
+    autograd of equiv_basis.fused_apply: values 1e-4, the gradients of A,
+    dA, M and the eight basis parameters 1e-3."""
+    from gncde_tpu_torch.ops import equiv_basis
+
+    rng = np.random.default_rng(7)
+    n, H, B = 300, 5, 2
+    A, dA, M, _, _, _, _, _ = _apply_inputs(cuda, n, H, B, seed=7)
+    params = [torch.tensor(rng.uniform(-1 / 15, 1 / 15, 2).astype(np.float32), device=cuda)
+              for _ in range(8)]
+    G = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    fn = tpl.pipeline_fused_apply if backend == "pipeline" else tfb.fused_apply_pallas
+
+    def run(f):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (A, dA, M, *params)]
+        out = f(leaves[0], leaves[1], leaves[2], leaves[3:])
+        (out * G).sum().backward()
+        return out.detach(), [x.grad for x in leaves]
+
+    got, got_g = run(lambda a, da, m, p: fn(a, da, m, p, False, True))
+    ref, ref_g = run(lambda a, da, m, p: equiv_basis.fused_apply(a, da, m, p,
+                                                                 add_identity=True))
+    _assert_close(got, ref, 1e-4)
+    for a, b in zip(got_g, ref_g):
+        _assert_close(a, b, 1e-3)
+
+
+ABAR_CASES = [(1505, 8, 1, torch.float32), (1505, 128, 1, torch.float32),
+              (300, 5, 2, torch.float32), (300, 5, 2, torch.bfloat16)]
+ABAR_IDS = ["genre-H8", "genre-H128", "odd", "odd-bf16-slabs"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,H,B,dtype", ABAR_CASES, ids=ABAR_IDS)
+def test_cuda_abar_matches_plain(cuda, n, H, B, dtype):
+    """K5c against its plain version on the same bf16 operands, 1e-4 of
+    each output's scale; bitwise repeatable; tiled_abar_apply's padded
+    rows are zero."""
+    rng = np.random.default_rng(8)
+    slabs = tuple(torch.tensor(rng.normal(0.0, 0.1, (B, n, n)).astype(np.float32),
+                               device=cuda).to(dtype) for _ in range(4))
+    wvec = torch.tensor(rng.normal(size=(B, 8)).astype(np.float32), device=cuda)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda).to(
+        torch.bfloat16)
+    before = tt.abar_call.launches
+    got, again, ref = tt.abar_call(slabs, wvec, M), tt.abar_call(slabs, wvec, M), \
+        tt.plain_abar(slabs, wvec, M)
+    torch.cuda.synchronize()
+    assert tt.abar_call.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert torch.equal(a, c)
+        _assert_close(a, b, 1e-4)
+    NP = -(-n // tt.DEFAULT_TILE) * tt.DEFAULT_TILE
+    Mp = torch.zeros((B, NP, H), device=cuda)
+    Mp[:, :n] = M.float()
+    out = tt.tiled_abar_apply(slabs, wvec[:, :4], wvec[:, 4:], Mp)
+    assert out.shape == (B, NP, H) and not out[:, n:].any()
+    _assert_close(out[:, :n], ref[0] + ref[1], 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ell_backward_repeats_bitwise(cuda):
+    """The ELL control's backward has no scatter: d_M of A @ M is K10 on the
+    transposed pattern and d_M of A^T @ M K10 on the original, so two
+    backward passes give bitwise-equal gradients, within 1e-4 of the plain
+    scatter plain_ell_spmm_t."""
+    rng = np.random.default_rng(9)
+    n, K, H, B = 400, 20, 16, 4
+    idx = rng.integers(0, n, (B, n, K)).astype(np.int32)
+    idx[rng.random((B, n, K)) < 0.2] = n
+    indices = torch.tensor(idx, device=cuda)
+    values = torch.tensor(rng.normal(size=(B, n, K)).astype(np.float32), device=cuda)
+    ell = tsp.ELL(indices, values, n, tuple(x.to(cuda) for x in
+                                            tsp.transpose_pattern(indices, n)))
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    G = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    for op, plain in ((tsp.ell_spmm, tell.plain_ell_spmm_t),
+                      (tsp.ell_spmm_t, tell.plain_ell_spmm)):
+        runs = []
+        for _ in range(2):
+            v = values.detach().clone().requires_grad_(True)
+            m = M.detach().clone().requires_grad_(True)
+            (op(tsp.ELL(indices, v, n, ell.transpose), m) * G).sum().backward()
+            runs.append((v.grad, m.grad))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        _assert_close(runs[0][1], plain(indices, values, G), 1e-4)
 
