@@ -94,7 +94,38 @@ Phases, each printing one line before the last:
      ``fusion_backend=pallas``, one epoch each: the field at init through
      the backend against phase 5's K1 route (1e-4) and its gradients against
      K2's (1e-3), then training with K13 (respectively K12) launched and K1,
-     K2 not; finite losses, the first within 5e-2 of phase 5's.
+     K2 not; finite losses, the first within 5e-2 of phase 5's;
+ 17. the directed 11-term basis: K1, K2 (with and without the tau
+     cotangent) and K11 with its backward on the directed basis (K1d, K2d,
+     K11d) against their plain versions at the flagship and trade shapes
+     (K11d: flagship and bench), make_inputs with an (11, 2) basis on
+     planes whose column sums differ from their row sums by more than a
+     tenth of their scale (so a row/column swap cannot pass); bounds K1d
+     1e-4, K2d 1e-3 per cotangent, K11d 1e-4 forward and 1e-3 backward;
+     then the directed flagship field at the trainer's init through the
+     pipeline and pallas backends and the BCSR and ELL controls against the
+     directed K1 route (1e-4) and its gradients against directed K2's
+     (1e-3), phase 11's route check; then the directed tiled eval at n=1505
+     (genre widths 8 -> 8 -> 8 -> 128) through K3 against its plain version
+     on the same bf16 planes (1e-4), with its error against the f32 dense
+     directed oracle beside it;
+ 18. the trade main path: ``gncde_tpu_torch.run.tgb.main`` trains
+     configs/tgb/trade_perm_equiv_dir_gncde.yaml for one epoch at full
+     width (n=255, hidden 32, 4 layers, last layer 512, windows of 3) on
+     tools/fetch_tgb.py's tgbn-trade surrogate (seed 0, whose first 16
+     snapshots touch all 255 nodes) cut to 16 snapshots: 5 windows, 3
+     train, 1 validation, 1 test; finite losses and NDCG@10, directed K1
+     and K2 launched, K3 and K4 not;
+ 19. the genre main path on the directed basis:
+     configs/tgb/genre_perm_equiv_dir_gncde.yaml at full width (n=1505, 3
+     layers, last 128) on the surrogate cut to 12 snapshots in phase 9's
+     windows of 3, split 2/1/1 (2 train, 1 validation, 1 test window); K3
+     and K4 launched, K1 and K2 not, finite losses and NDCG;
+ 20. the directed flagship (``model.vector_field.name=
+     PermEquivDirGraphVectorField``) with the fused step on, on phase 5's
+     data: the step at the trainer's init through directed K11 against the
+     per-stage directed K1 route (y1 1e-5, gradients 1e-3 of K2's), then
+     one epoch: finite losses, K11 and K2 launched.
 Phase 12's route check also computes the gradients twice and requires them
 bitwise equal (the ELL backward has no scatter).
 Then one JSON line of every kernel (launches on its main path, error, times
@@ -172,6 +203,29 @@ STEP_ROUTE_TOL = 1e-5
 FUSED_EPOCHS = 3
 #: Phase 16: one epoch per backend.
 BACKEND_EPOCHS = 1
+#: Phases 17-20: the directed basis. The flagship takes the directed field
+#: by this override; phase 17 holds it at init through these routes.
+DIRECTED_FIELD = ("model.vector_field.name=PermEquivDirGraphVectorField",)
+DIRECTED_ROUTES = ("pipeline", "pallas", "bcsr", "ell")
+NBASIS_DIRECTED = 11
+DIR_SHAPES = {"flagship": SHAPES["flagship"], "trade": SHAPES["trade"]}
+#: The directed tiled eval of phase 17: the genre config's widths at n=1505.
+DIR_TILED = dict(n=1505, widths=(8, 8, 8, 128), B=1, T=4)
+#: Phase 18: the trade surrogate (seed 0: its first 16 snapshots touch all
+#: 255 nodes) cut to 16 snapshots in the config's windows of 3.
+TRADE_CONFIG = "configs/tgb/trade_perm_equiv_dir_gncde.yaml"
+TRADE_SNAPSHOTS = 16
+TRADE_SEED = 0
+TRADE_NODES = 255
+TRADE_TRAIN_WINDOWS = 3
+#: Phase 19: the directed genre config in phase 9's windows of 3, cut to 2
+#: training windows (12 snapshots, split 2/1/1 as phase 7's) when the whole
+#: script reached 1061 s of its 1200 s with 3 (16 snapshots).
+GENRE_DIR_CONFIG = "configs/tgb/genre_perm_equiv_dir_gncde.yaml"
+GENRE_DIR_SNAPSHOTS = 12
+GENRE_DIR_TRAIN_WINDOWS = 2
+#: Phase 20: one epoch of the directed flagship with the fused step.
+DIRECTED_EPOCHS = 1
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -219,9 +273,10 @@ def phase_build():
           "nvcc_s": dict(_build.BUILD_SECONDS)})
 
 
-def make_inputs(torch, n, B, widths, seed=0, T=8):
+def make_inputs(torch, n, B, widths, seed=0, T=8, nbasis=8):
     """Per-element planes and (idx, tau), node state and layer params of
-    the given widths (input, then each layer's output)."""
+    the given widths (input, then each layer's output); each layer's basis
+    is ``(nbasis, 2)``: 8 for the undirected basis, 11 for the directed."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -242,10 +297,43 @@ def make_inputs(torch, n, B, widths, seed=0, T=8):
             norm_b=t(0.1 * rng.normal(size=hin)),
             W=t(rng.uniform(-lim, lim, (hout, hin))),
             lin_b=t(rng.uniform(-lim, lim, hout)),
-            basis=t(rng.uniform(-1 / 15, 1 / 15, (8, 2))),
+            basis=t(rng.uniform(-1 / 15, 1 / 15, (nbasis, 2))),
         ))
     G = t(rng.normal(size=(B, n, widths[-1])))
     return planes, idx, tau, Z, layers, G
+
+
+def assert_asymmetric(torch, planes, idx, tau, what):
+    """The planes' A(tau) has column sums that differ from its row sums by
+    more than a tenth of their scale, so a directed kernel that swapped a
+    column sum for a row sum would fail its check."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    A, _ = mk.hermite(planes, idx, tau)
+    rA, cA = A.sum(-1), A.sum(-2)
+    gap, scale = float((cA - rA).abs().max()), float(rA.abs().max())
+    if not gap > 0.1 * scale:
+        raise RuntimeError(f"{what}: planes too symmetric for a directed check "
+                           f"(max|cA - rA| {gap:.3e}, max|rA| {scale:.3e})")
+    return gap / scale
+
+
+def k1_bound(s):
+    """(bound_ms, bound_by) of one K1 (or K1d) call at shape ``s``: the four
+    f32 interval planes read once, Z read, the output written; one product
+    C M per layer in f32."""
+    n, B, w = s["n"], s["B"], s["widths"]
+    return bound(4 * 4 * n * n * B + 4 * n * B * (w[0] + w[-1]),
+                 (sum(2 * n * n * h * B for h in w[1:]), F32_FLOPS))
+
+
+def k2_bound(s):
+    """(bound_ms, bound_by) of one K2 (or K2d) call: planes, Z and G read,
+    dZ written; per layer the forward recompute C M, C^T g and P = g M^T,
+    then the four basis dots <A|dA, P>, <A|dA, P^T>."""
+    n, B, w = s["n"], s["B"], s["widths"]
+    return bound(4 * 4 * n * n * B + 4 * n * B * (2 * w[0] + w[-1]),
+                 (sum((6 * h + 8) * n * n * B for h in w[1:]), F32_FLOPS))
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
@@ -267,33 +355,41 @@ def rel_err(torch, got, ref):
     return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0), scale
 
 
-def phase_k1(torch, results):
+def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8):
+    """K1 (or, with ``nbasis`` 11, K1d) against its plain version."""
     from gncde_tpu_torch.ops import megakernel as mk
 
-    for label, s in SHAPES.items():
-        planes, idx, tau, Z, layers, _ = make_inputs(torch, **s)
+    for label, s in shapes.items():
+        planes, idx, tau, Z, layers, _ = make_inputs(torch, **s, nbasis=nbasis)
+        extra = {}
+        if nbasis == NBASIS_DIRECTED:
+            extra["col_row_gap"] = assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
         got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
         ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise RuntimeError(f"K1 {label}: bad output {tuple(got.shape)}")
+            raise RuntimeError(f"{name} {label}: bad output {tuple(got.shape)}")
         err, scale = rel_err(torch, got, ref)
         abs_err = float((got - ref).abs().max())
         ms = time_ms(torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers))
         plain_ms = time_ms(torch, lambda: mk.plain_vf_eval(planes, idx, tau, Z, layers))
-        emit({"phase": 3, "kernel": "K1", "shape": label, **s,
+        bms, by = k1_bound(s)
+        emit({"phase": phase, "kernel": name, "shape": label, **s,
               "max_abs_err": abs_err, "max_abs_ref": scale, "rel_err": err,
-              "ms": ms, "plain_ms": plain_ms})
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **extra})
         if not err <= K1_TOL:
-            raise RuntimeError(f"K1 {label}: rel err {err:.3e} > {K1_TOL}")
-        results.setdefault("K1", []).append((label, abs_err, ms, plain_ms))
+            raise RuntimeError(f"{name} {label}: rel err {err:.3e} > {K1_TOL}")
+        results.setdefault(name, []).append((label, abs_err, ms, plain_ms))
 
 
-def phase_k2(torch, results):
+def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8):
+    """K2 (or, with ``nbasis`` 11, K2d) against autograd of the plain K1."""
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
 
-    for label, s in SHAPES.items():
-        planes, idx, tau, Z, layers, G = make_inputs(torch, **s)
+    for label, s in shapes.items():
+        planes, idx, tau, Z, layers, G = make_inputs(torch, **s, nbasis=nbasis)
+        if nbasis == NBASIS_DIRECTED:
+            assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
         for need_tau in (False, True):
             got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
             ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
@@ -302,28 +398,29 @@ def phase_k2(torch, results):
             if need_tau:
                 pairs.append(("dtau", got[0], ref[0]))
             for l, (gl, rl) in enumerate(zip(got[2], ref[2])):
-                for name, a, b in zip(("dnorm_w", "dnorm_b", "dW", "dlin_b",
+                for what, a, b in zip(("dnorm_w", "dnorm_b", "dW", "dlin_b",
                                        "dbasis"), gl, rl):
-                    pairs.append((f"{name}{l}", a, b))
+                    pairs.append((f"{what}{l}", a, b))
             errs, worst_abs = {}, 0.0
-            for name, a, b in pairs:
+            for what, a, b in pairs:
                 if a.shape != b.shape or not torch.isfinite(a).all():
-                    raise RuntimeError(f"K2 {label} {name}: bad output")
-                errs[name], _ = rel_err(torch, a, b)
+                    raise RuntimeError(f"{name} {label} {what}: bad output")
+                errs[what], _ = rel_err(torch, a, b)
                 worst_abs = max(worst_abs, float((a - b).abs().max()))
             worst = max(errs.values())
             ms = time_ms(torch, lambda: mkb.megakernel_vf_bwd(
                 planes, idx, tau, Z, layers, G, need_tau))
             plain_ms = time_ms(torch, lambda: mkb.plain_vf_bwd(
                 planes, idx, tau, Z, layers, G, need_tau))
-            emit({"phase": 4, "kernel": "K2", "shape": label, **s,
+            bms, by = k2_bound(s)
+            emit({"phase": phase, "kernel": name, "shape": label, **s,
                   "need_tau": need_tau, "max_rel_err": worst,
                   "max_abs_err": worst_abs, "rel_errs": errs,
-                  "ms": ms, "plain_ms": plain_ms})
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
             if not worst <= K2_TOL:
                 bad = {k: v for k, v in errs.items() if v > K2_TOL}
-                raise RuntimeError(f"K2 {label} need_tau={need_tau}: {bad}")
-            results.setdefault("K2", []).append((label, worst_abs, ms, plain_ms))
+                raise RuntimeError(f"{name} {label} need_tau={need_tau}: {bad}")
+            results.setdefault(name, []).append((label, worst_abs, ms, plain_ms))
 
 
 def phase_train(torch, cache):
@@ -443,18 +540,35 @@ def phase_tiled(torch, results):
             results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by)
 
 
-def write_genre_surrogate(out: Path, snapshots: int) -> None:
-    """tools/fetch_tgb.py's tgbn-genre surrogate cut to ``snapshots``
-    snapshots (the tool is numpy-only, loaded by path). Seed 2's first 16
-    snapshots, and so every longer cut, touch all 1505 nodes, the config's
-    n (seed 0's pair pool misses a node). The generator is sequential, so a
-    cut keeps the first snapshots."""
+def write_surrogate(out: Path, name: str, snapshots: int, seed: int) -> None:
+    """tools/fetch_tgb.py's ``name`` surrogate (tgbn-genre or tgbn-trade)
+    cut to ``snapshots`` snapshots (the tool is numpy-only, loaded by path).
+    The generator is sequential, so a cut keeps the first snapshots."""
     tool = Path(__file__).resolve().parent / "tools" / "fetch_tgb.py"
     spec = importlib.util.spec_from_file_location("fetch_tgb", tool)
     fetch_tgb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fetch_tgb)
-    fetch_tgb.SCALES["tgbn-genre"]["num_years"] = snapshots
-    fetch_tgb.synthetic("tgbn-genre", out, seed=2)
+    fetch_tgb.SCALES[name]["num_years"] = snapshots
+    fetch_tgb.synthetic(name, out, seed=seed)
+
+
+def write_genre_surrogate(out: Path, snapshots: int) -> None:
+    """The tgbn-genre surrogate cut to ``snapshots`` snapshots. Seed 2's
+    first 12 snapshots, and so every longer cut, touch all 1505 nodes, the
+    config's n (seed 0's pair pool misses a node)."""
+    write_surrogate(out, "tgbn-genre", snapshots, 2)
+
+
+def write_trade_surrogate(out: Path, snapshots: int = TRADE_SNAPSHOTS) -> None:
+    """The tgbn-trade surrogate (seed 0) cut to ``snapshots`` snapshots;
+    raises unless they touch all 255 nodes, the trade configs' n."""
+    from gncde_tpu_torch.data import tgb
+
+    write_surrogate(out, "tgbn-trade", snapshots, TRADE_SEED)
+    edges = tgb.load_tgb_edgelist("tgbn-trade-synth", str(out))
+    if edges.num_nodes != TRADE_NODES:
+        raise RuntimeError(f"the trade surrogate's first {snapshots} snapshots touch "
+                           f"{edges.num_nodes} nodes, not {TRADE_NODES}")
 
 
 def counters():
@@ -470,21 +584,25 @@ def counters():
             "K13": pipeline.fused_conv_stream}
 
 
-def run_tgb(torch, phase, config, snapshots, train_windows, extra=()):
-    """One epoch of a TGB config on the genre surrogate through the CLI's
-    entry point; returns its result and the launch counts of that run."""
+def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="tgbn-genre"):
+    """One epoch of a TGB config on the ``dataset`` surrogate (genre or
+    trade) through the CLI's entry point; returns the launch counts of that
+    run."""
     from gncde_tpu_torch.run import tgb
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        write_genre_surrogate(Path(tmp) / "data", snapshots)
+        if dataset == "tgbn-trade":
+            write_trade_surrogate(Path(tmp) / "data", snapshots)
+        else:
+            write_genre_surrogate(Path(tmp) / "data", snapshots)
         data_s = time.perf_counter() - t0
         for f in counters().values():
             f.launches = 0
         t0 = time.perf_counter()
         res = tgb.main([
             "--config", config,
-            "dataset.name=tgbn-genre-synth", "dataset.frequency=None",
+            f"dataset.name={dataset}-synth", "dataset.frequency=None",
             f"dataset.data_dir={tmp}/data", f"dataset.cache_dir={tmp}/cache",
             f"checkpoint_dir={tmp}/ckpt/", "epochs=1", "eval_freq=1", "min_epochs=0",
             "device=cuda", "wandb.mode=disabled", *extra,
@@ -623,15 +741,16 @@ def phase_pair(torch, results):
             results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by, extra)
 
 
-def flagship_setup(cache):
-    """The flagship config's trainer (for its model and seed) and its
-    training dict, from the data cache phase 5 wrote."""
+def flagship_setup(cache, overrides=()):
+    """The flagship config's trainer (for its model and seed; ``overrides``
+    such as :data:`DIRECTED_FIELD` change its model) and its training dict,
+    from the data cache phase 5 wrote."""
     from gncde_tpu_torch.run import common
     from gncde_tpu_torch.train.trainer import Trainer
 
     with open(FLAGSHIP) as f:
         cfg = common.apply_overrides(common.safe_load(f.read()),
-                                     [f"dataset.cache_dir={cache}"])
+                                     [f"dataset.cache_dir={cache}", *overrides])
     tr = Trainer.from_dict(cfg)
     return tr, tr.dataset.get_training_data()
 
@@ -1048,13 +1167,14 @@ def phase_scaled(torch):
     return launches
 
 
-def make_step_inputs(torch, n, B, widths, seed=0, T=8):
-    """K11's inputs: make_inputs' planes and layers, per-element knots
-    (B, T), a query time inside each element's third interval, a step h and
-    an FSAL derivative f0, from ``seed``."""
+def make_step_inputs(torch, n, B, widths, seed=0, T=8, nbasis=8):
+    """K11's inputs: make_inputs' planes and layers (basis ``(nbasis, 2)``),
+    per-element knots (B, T), a query time inside each element's third
+    interval, a step h and an FSAL derivative f0, from ``seed``."""
     import numpy as np
 
-    planes, _, _, y, layers, _ = make_inputs(torch, n, B, widths, seed=seed, T=T)
+    planes, _, _, y, layers, _ = make_inputs(torch, n, B, widths, seed=seed, T=T,
+                                             nbasis=nbasis)
     rng = np.random.default_rng(seed + 100)
     dev = torch.device("cuda")
     ts = torch.tensor(np.cumsum(rng.uniform(0.1, 0.3, (B, T)), 1).astype(np.float32),
@@ -1090,70 +1210,86 @@ def abar_bound(n, H, B, slab_bytes=4):
                  (B * 14 * n * n, F32_FLOPS), (B * 4 * n * n * H, BF16_FLOPS))
 
 
+def check_k11(torch, label, s, name, phase, nbasis=8):
+    """K11 (or, with ``nbasis`` 11, K11d) at shape ``s`` against its plain
+    version (Tsit5): y1, err, f1 and ks within STEP_TOL, two launches
+    bitwise equal, and its backward (one K2 per stage) against autograd of
+    the plain step within STEP_GRAD_TOL; emits one line and returns the
+    kernels line's tuple."""
+    import numpy as np
+
+    from gncde_tpu_torch.ops import fused_step as tfs
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    S = tab.num_stages - 1
+    planes, ts, t, y, h, f0, layers = make_step_inputs(torch, **s, nbasis=nbasis)
+    extra = {}
+    if nbasis == NBASIS_DIRECTED:
+        idx, tau = mk.interval(ts, t)
+        extra["col_row_gap"] = assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
+    kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
+    plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
+    with torch.no_grad():
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        errs, worst_abs = {}, 0.0
+        for what, a, b, c in zip(("y1", "err", "f1", "ks"), got, ref, again):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise RuntimeError(f"{name} {label} {what}: bad output {tuple(a.shape)}")
+            if not torch.equal(a, c):
+                raise RuntimeError(f"{name} {label} {what}: two launches differ")
+            errs[what] = rel_err(torch, a, b)[0]
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+    # The backward: the manual chain (one K2 per stage) against autograd
+    # of the plain step, on the gradients of sum(y1 W0 + err W1 + f1 W2).
+    flat = [p for lp in layers for p in
+            (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+    rng = np.random.default_rng(1)
+    W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=y.device)
+         for _ in range(3)]
+
+    def grads(step):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (y, f0, *flat)]
+        outs = step(leaves[0], leaves[1], leaves[2:])
+        torch.autograd.backward(outs[:3], W)
+        return [x.grad for x in leaves]
+
+    fused_grads = lambda: grads(lambda y_, f0_, fl: tfs.FusedRKStep.apply(  # noqa: E731
+        tab, nbasis, ts, t, y_, h, f0_, *planes, *fl))
+    plain_grads = lambda: grads(lambda y_, f0_, fl: tfs._step_reference(  # noqa: E731
+        planes, ts, t, y_, h, f0_, mk._unflatten(fl, nbasis), tab))
+    bwd_errs = [rel_err(torch, a, b)[0] for a, b in zip(fused_grads(), plain_grads())]
+    fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
+    bms, by = step_bound(s["n"], s["B"], s["widths"], S)
+    emit({"phase": phase, "kernel": name, "shape": label, **s, "method": "tsit5",
+          "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED),
+          "ctas": s["B"] * -(-s["n"] // 16),
+          "max_abs_err": worst_abs, "rel_errs": errs, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "bwd_max_rel_err": max(bwd_errs),
+          "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms, **extra})
+    bad = {k: v for k, v in errs.items() if not v <= STEP_TOL}
+    if bad:
+        raise RuntimeError(f"{name} {label}: rel errs {bad} > {STEP_TOL}")
+    if not max(bwd_errs) <= STEP_GRAD_TOL:
+        raise RuntimeError(f"{name} {label} backward: rel err {max(bwd_errs):.3e} > "
+                           f"{STEP_GRAD_TOL}")
+    return (worst_abs, ms, plain_ms, bms, by,
+            dict(fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms))
+
+
 def phase_fused_kernels(torch, results):
     """Phase 14: K11, K12, K13 and K5c against their plain versions."""
     import numpy as np
 
     from gncde_tpu_torch.ops import fused_basis as tfb
-    from gncde_tpu_torch.ops import fused_step as tfs
-    from gncde_tpu_torch.ops import megakernel as mk
     from gncde_tpu_torch.ops import pipeline as tpl
     from gncde_tpu_torch.ops import tiled as tt
-    from gncde_tpu_torch.solve.tableaus import get_tableau
 
-    tab = get_tableau("tsit5")
-    S = tab.num_stages - 1
     for label, s in STEP_SHAPES.items():
-        planes, ts, t, y, h, f0, layers = make_step_inputs(torch, **s)
-        kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
-        plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
-        with torch.no_grad():
-            got, again, ref = kernel(), kernel(), plain()
-            torch.cuda.synchronize()
-            errs, worst_abs = {}, 0.0
-            for name, a, b, c in zip(("y1", "err", "f1", "ks"), got, ref, again):
-                if a.shape != b.shape or not torch.isfinite(a).all():
-                    raise RuntimeError(f"K11 {label} {name}: bad output {tuple(a.shape)}")
-                if not torch.equal(a, c):
-                    raise RuntimeError(f"K11 {label} {name}: two launches differ")
-                errs[name] = rel_err(torch, a, b)[0]
-                worst_abs = max(worst_abs, float((a - b).abs().max()))
-            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-        # The backward: the manual chain (one K2 per stage) against autograd
-        # of the plain step, on the gradients of sum(y1 W0 + err W1 + f1 W2).
-        flat = [p for lp in layers for p in
-                (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
-        rng = np.random.default_rng(1)
-        W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=y.device)
-             for _ in range(3)]
-
-        def grads(step):
-            leaves = [x.detach().clone().requires_grad_(True) for x in (y, f0, *flat)]
-            outs = step(leaves[0], leaves[1], leaves[2:])
-            torch.autograd.backward(outs[:3], W)
-            return [x.grad for x in leaves]
-
-        fused_grads = lambda: grads(lambda y_, f0_, fl: tfs.FusedRKStep.apply(  # noqa: E731
-            tab, ts, t, y_, h, f0_, *planes, *fl))
-        plain_grads = lambda: grads(lambda y_, f0_, fl: tfs._step_reference(  # noqa: E731
-            planes, ts, t, y_, h, f0_, mk._unflatten(fl), tab))
-        bwd_errs = [rel_err(torch, a, b)[0] for a, b in zip(fused_grads(), plain_grads())]
-        fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
-        bms, by = step_bound(s["n"], s["B"], s["widths"], S)
-        emit({"phase": 14, "kernel": "K11", "shape": label, **s, "method": "tsit5",
-              "resident_ctas": tfs.capacity(y.device), "ctas": s["B"] * -(-s["n"] // 16),
-              "max_abs_err": worst_abs, "rel_errs": errs, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bms, "bound_by": by, "bwd_max_rel_err": max(bwd_errs),
-              "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms})
-        bad = {k: v for k, v in errs.items() if not v <= STEP_TOL}
-        if bad:
-            raise RuntimeError(f"K11 {label}: rel errs {bad} > {STEP_TOL}")
-        if not max(bwd_errs) <= STEP_GRAD_TOL:
-            raise RuntimeError(f"K11 {label} backward: rel err {max(bwd_errs):.3e} > "
-                               f"{STEP_GRAD_TOL}")
-        results.setdefault("K11", {})[label] = (worst_abs, ms, plain_ms, bms, by, dict(
-            fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms))
-        del planes, ts, t, y, h, f0, layers, got, again, ref
+        results.setdefault("K11", {})[label] = check_k11(torch, label, s, "K11", 14)
 
     for label, s in APPLY_SHAPES.items():
         n, H, B = s["n"], s["H"], s["B"]
@@ -1214,13 +1350,13 @@ def phase_fused_kernels(torch, results):
     torch.cuda.empty_cache()
 
 
-def flagship_model_on_card(torch, cache):
-    """The flagship model at the trainer's init on the card, phase 5's slim
-    control of the training dict, the state y = the initial linear map of
-    the data's y0, and the knots."""
+def flagship_model_on_card(torch, cache, overrides=()):
+    """The flagship model (with ``overrides``) at the trainer's init on the
+    card, phase 5's slim control of the training dict, the state y = the
+    initial linear map of the data's y0, and the knots."""
     from gncde_tpu_torch.models.continuous import make_control
 
-    tr, d = flagship_setup(cache)
+    tr, d = flagship_setup(cache, overrides)
     dev = torch.device("cuda")
     model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
     ts = d["train_t"].to(dev)
@@ -1231,18 +1367,18 @@ def flagship_model_on_card(torch, cache):
     return model, ctrl, y, ts
 
 
-def step_route_errors(torch, cache, seed=0):
-    """The flagship step at the trainer's init through K11 against the
-    per-stage K1 route on the same (t, y, h, f0) (f0 = the field at t, h a
-    fiftieth of each element's span): rel errs of (y1, err, f1), and those
-    of the gradients of sum(y1 * W) (W normal from ``seed``) with respect
-    to y and every field parameter (K11's chain of K2s against K2 per
-    stage), and the launch counts of the fused run."""
+def step_route_errors(torch, cache, seed=0, overrides=()):
+    """The flagship step (with ``overrides``) at the trainer's init through
+    K11 against the per-stage K1 route on the same (t, y, h, f0) (f0 = the
+    field at t, h a fiftieth of each element's span): rel errs of (y1, err,
+    f1), and those of the gradients of sum(y1 * W) (W normal from ``seed``)
+    with respect to y and every field parameter that gets one (K11's chain
+    of K2s against K2 per stage), and the launch counts of the fused run."""
     from gncde_tpu_torch import ops
     from gncde_tpu_torch.solve.solve import _rk_step
     from gncde_tpu_torch.solve.tableaus import get_tableau
 
-    model, ctrl, y, ts = flagship_model_on_card(torch, cache)
+    model, ctrl, y, ts = flagship_model_on_card(torch, cache, overrides)
     vf = model.vector_field
     tab = get_tableau(model.method)
     t = ts[:, 0] + 0.1 * (ts[:, -1] - ts[:, 0])
@@ -1270,7 +1406,11 @@ def step_route_errors(torch, cache, seed=0):
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters().items()}
     errs = {k: rel_err(torch, a, b)[0] for k, a, b in zip(("y1", "err", "f1"), got, ref)}
-    grad_errs = {k: rel_err(torch, got_grads[k], g)[0] for k, g in ref_grads.items()}
+    if any((g is None) != (got_grads[k] is None) for k, g in ref_grads.items()):
+        raise RuntimeError("the fused and per-stage steps give gradients to different "
+                           "parameters")
+    grad_errs = {k: rel_err(torch, got_grads[k], g)[0] for k, g in ref_grads.items()
+                 if g is not None}
     del model, ctrl
     torch.cuda.empty_cache()
     return errs, grad_errs, launches
@@ -1389,6 +1529,195 @@ def phase_backend_train(torch, cache, first_loss_ref):
     return out
 
 
+def directed_route_errors(torch, model, y, ts, coeffs, interpolation, block_size=128):
+    """:func:`route_errors` of ``model``'s field at ``y`` through each of
+    :data:`DIRECTED_ROUTES` -- the ``pipeline`` and ``pallas`` backends on
+    the slim control, the BCSR (``block_size``) and ELL controls -- against
+    the default route on the slim control (K1/K2 on the card, the dense
+    layer stack on the CPU). ``ts`` and ``coeffs`` are the training dict's
+    (on the CPU); the model and ``y`` sit on their device. Returns {route:
+    (field rel err, {y or parameter: gradient rel err})}."""
+    from gncde_tpu_torch.interp import build_sparse_control
+    from gncde_tpu_torch.models.continuous import make_control
+
+    dev = y.device
+    ts_d = ts.to(dev)
+    dense = make_control(interpolation, ts_d, tuple(c.to(dev) for c in coeffs))
+    vf = model.vector_field
+    out = {}
+    for route in DIRECTED_ROUTES:
+        if route in ("pipeline", "pallas"):
+            out[route] = route_errors(torch, vf, y, ts_d, dense, dense, backend=route)
+        else:
+            ctrl = build_sparse_control(interpolation, ts, coeffs, route,
+                                        block_size=block_size).to(dev)
+            out[route] = route_errors(torch, vf, y, ts_d, dense, ctrl, repeat=route == "ell")
+    return out
+
+
+def directed_tiled_errors(torch, seed=5):
+    """The directed field's tiled eval (K3 per layer) at :data:`DIR_TILED`
+    against the same eval with K3's plain version on the same bf16 planes,
+    and against the f32 dense directed oracle (``plain_vf_eval``); returns
+    (rel err vs the plain version, rel err vs the oracle, K3 launches,
+    column/row gap)."""
+    import numpy as np
+
+    from gncde_tpu_torch.models.vector_fields import PermEquivDirGraphVectorField
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import tiled as tt
+
+    n, widths, B, T = (DIR_TILED[k] for k in ("n", "widths", "B", "T"))
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    ts = t(np.cumsum(rng.uniform(0.1, 0.3, (B, T)), 1))
+    planes = tuple(t(rng.uniform(-0.05, 0.1, (B, T - 1, n, n))) for _ in range(4))
+    tq = ts[:, 1] + 0.05
+    H = widths[0]
+    vf = PermEquivDirGraphVectorField(H, widths[1], widths[-1], len(widths) - 1, 8, n,
+                                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    Z = t(rng.normal(size=(B, n, H)))
+    idx, tau = mk.interval(ts, tq)
+    gap = assert_asymmetric(torch, planes, idx, tau, "directed tiled eval")
+    red = tt.cubic_plane_reductions(planes)
+    with torch.no_grad():
+        before = tt.fwd2_call.launches
+        got = tt.tiled_vf_eval(planes, ts, tq, Z, vf, red=red)
+        torch.cuda.synchronize()
+        launched = tt.fwd2_call.launches - before
+        real = tt.fwd2_call
+        tt.fwd2_call = tt.plain_fwd2  # the same eval, K3's plain version
+        try:
+            ref = tt.tiled_vf_eval(planes, ts, tq, Z, vf, red=red)
+        finally:
+            tt.fwd2_call = real
+        oracle = mk.plain_vf_eval(planes, idx, tau, Z, mk.layer_params(vf))
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"directed tiled eval: bad output {tuple(got.shape)}")
+    return rel_err(torch, got, ref)[0], rel_err(torch, got, oracle)[0], launched, gap
+
+
+def phase_directed_kernels(torch, cache, results):
+    """Phase 17: K1d, K2d and K11d against their plain versions, the
+    directed flagship field at init through every other route, and the
+    directed tiled eval."""
+    phase_k1(torch, results, "K1d", 17, DIR_SHAPES, NBASIS_DIRECTED)
+    phase_k2(torch, results, "K2d", 17, DIR_SHAPES, NBASIS_DIRECTED)
+    for label, s in STEP_SHAPES.items():
+        results.setdefault("K11d", {})[label] = check_k11(torch, label, s, "K11d", 17,
+                                                          NBASIS_DIRECTED)
+
+    tr, d = flagship_setup(cache, DIRECTED_FIELD)
+    dev = torch.device("cuda")
+    model = tr.model.build(torch.Generator().manual_seed(tr.seed)).to(dev)
+    with torch.no_grad():
+        y = model.initial_linear(d["true_y0"].to(dev))
+    for f in counters().values():
+        f.launches = 0
+    errs = directed_route_errors(torch, model, y, d["train_t"], d["train_graph_path_coeffs"],
+                                 tr.model.interpolation)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters().items()}
+    del model, y, d
+    torch.cuda.empty_cache()
+    tiled_err, oracle_err, k3_launched, gap = directed_tiled_errors(torch)
+    emit({"phase": 17, "routes": {r: {"vf_rel_err_vs_k1d_route": e,
+                                      "grad_rel_errs_vs_k2d_route": g}
+                                  for r, (e, g) in errs.items()},
+          "route_launches": launches, "tiled": {
+              **DIR_TILED, "rel_err_vs_plain": tiled_err, "rel_err_vs_f32_dense_oracle":
+              oracle_err, "k3_launches": k3_launched, "col_row_gap": gap}})
+    want = ("K1", "K2", "K8", "K9", "K10", "K12", "K13")
+    if min(launches[k] for k in want) <= 0:
+        raise RuntimeError(f"phase 17 route check: launches {launches}; want {want} > 0")
+    for route, (vf_err, grad_errs) in errs.items():
+        if not vf_err <= SPARSE_VF_TOL:
+            raise RuntimeError(f"phase 17: the directed field through {route} is "
+                               f"{vf_err:.3e} off the K1d route (> {SPARSE_VF_TOL})")
+        bad = {k: v for k, v in grad_errs.items() if not v <= SPARSE_GRAD_TOL}
+        if bad:
+            raise RuntimeError(f"phase 17: gradients through {route} off the K2d route by "
+                               f"more than {SPARSE_GRAD_TOL}: {bad}")
+    if k3_launched <= 0 or not tiled_err <= TILED_TOL:
+        raise RuntimeError(f"phase 17: the directed tiled eval is {tiled_err:.3e} off its "
+                           f"plain version (> {TILED_TOL}) or K3 did not launch "
+                           f"({k3_launched})")
+
+
+def phase_trade(torch):
+    """Phase 18: the directed trade config trains through K1d and K2d."""
+    launches = run_tgb(torch, 18, TRADE_CONFIG, TRADE_SNAPSHOTS, TRADE_TRAIN_WINDOWS,
+                       dataset="tgbn-trade")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise RuntimeError(f"phase 18: directed K1/K2 not launched: {launches}")
+    if launches["K3"] or launches["K4"]:
+        raise RuntimeError(f"phase 18: the n=255 path launched the tiled kernels: {launches}")
+    return launches
+
+
+def phase_genre_dir(torch):
+    """Phase 19: the directed genre config trains through K3 and K4."""
+    launches = run_tgb(torch, 19, GENRE_DIR_CONFIG, GENRE_DIR_SNAPSHOTS, GENRE_DIR_TRAIN_WINDOWS,
+                       ENC_IDX_WINDOW + GENRE_SPLIT)
+    if launches["K3"] <= 0 or launches["K4"] <= 0:
+        raise RuntimeError(f"phase 19: tiled kernels not launched: {launches}")
+    if launches["K1"] or launches["K2"]:
+        raise RuntimeError(f"phase 19: the n=1505 path launched K1/K2: {launches}")
+    return launches
+
+
+def phase_directed_fused_train(torch, cache):
+    """Phase 20: the directed flagship with the fused step on: the step at
+    init through K11d against the per-stage K1d route, then one epoch."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.run import dyn
+
+    errs, grad_errs, route_launches = step_route_errors(torch, cache, overrides=DIRECTED_FIELD)
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in counters().values():
+            f.launches = 0
+        ops.set_fused_step(True)
+        try:
+            t0 = time.perf_counter()
+            res = dyn.main([
+                "--config", FLAGSHIP, f"epochs={DIRECTED_EPOCHS}", "eval_freq=1",
+                "log_freq=1", "min_epochs=0", f"dataset.cache_dir={cache}",
+                f"checkpoint_dir={tmp}/ckpt/", "device=cuda", "wandb.mode=disabled",
+                *DIRECTED_FIELD,
+            ])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.set_fused_step(False)
+        launches = {k: f.launches for k, f in counters().items()}
+    losses = res["train_losses"]
+    emit({"phase": 20, "step_rel_errs_vs_k1d_route": errs,
+          "grad_rel_errs_vs_k2d_route": grad_errs, "route_launches": route_launches,
+          "train_losses": losses, "train_step_s": res["train_step_s"],
+          "solver_steps": res["solver_steps"], "best_validation_loss": res["validation_loss"],
+          "device": res["device"], "launches": launches, "wall_s": wall})
+    if len(losses) != DIRECTED_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"phase 20: non-finite or missing train losses: {losses}")
+    if not res["device"].startswith("cuda"):
+        raise RuntimeError(f"phase 20: ran on {res['device']}, not cuda")
+    if route_launches["K11"] <= 0:
+        raise RuntimeError(f"phase 20: the route check did not launch K11: {route_launches}")
+    if not errs["y1"] <= STEP_ROUTE_TOL:
+        raise RuntimeError(f"phase 20: y1 through K11d is {errs['y1']:.3e} off the per-stage "
+                           f"K1d route (> {STEP_ROUTE_TOL})")
+    bad = {k: v for k, v in grad_errs.items() if not v <= SPARSE_GRAD_TOL}
+    if bad:
+        raise RuntimeError(f"phase 20: gradients through K11d off the per-stage K2d route by "
+                           f"more than {SPARSE_GRAD_TOL}: {bad}")
+    if launches["K11"] <= 0 or launches["K2"] <= 0:
+        raise RuntimeError(f"phase 20: launches {launches}; want K11 > 0 and K2 > 0")
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1406,7 +1735,7 @@ def main() -> int:
     results = {}
     timed(3, phase_k1, torch, results)
     timed(4, phase_k2, torch, results)
-    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-16 share the flagship data
+    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-17, 20 share the flagship data
         dyn_launches, dyn_losses = timed(5, phase_train, torch, cache)
         timed(6, phase_tiled, torch, results)
         tgb_launches = timed(7, phase_tgb, torch)
@@ -1422,28 +1751,31 @@ def main() -> int:
         fused_launches = timed(15, phase_fused_step_train, torch, cache, dyn_losses[0],
                                dyn_launches["K1"])
         backend_launches = timed(16, phase_backend_train, torch, cache, dyn_losses[0])
+        timed(17, phase_directed_kernels, torch, cache, results)
+        trade_launches = timed(18, phase_trade, torch)
+        timed(19, phase_genre_dir, torch)
+        dir_fused_launches = timed(20, phase_directed_fused_train, torch, cache)
     emit({"phase_wall_s": walls})
 
-    s = SHAPES["flagship"]
-    n, B, w = s["n"], s["B"], s["widths"]
-    planes = 4 * 4 * n * n * B  # four f32 interval planes per element
+    flagship = SHAPES["flagship"]
     kernels = []
-    for name, src, rep, (bms, by) in (
-        # K1: Z -> output, one product C M per layer.
+    # K1/K1d and K2/K2d at the flagship shape; the directed kernels'
+    # launches are phase 18's and 20's (every K1 and K2 launch there is on
+    # the directed basis).
+    dir_launches = {k: trade_launches[k] + dir_fused_launches[k] for k in ("K1", "K2")}
+    for name, src, rep, (bms, by), launches in (
         ("K1", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
-         "gncde_tpu/ops/pallas/megakernel.py:277",
-         bound(planes + 4 * n * B * (w[0] + w[-1]),
-               (sum(2 * n * n * h * B for h in w[1:]), F32_FLOPS))),
-        # K2: Z, G -> dZ; per layer the forward recompute C M, C^T g and
-        # P = g M^T, then the four basis dots <A|dA, P>, <A|dA, P^T>.
+         "gncde_tpu/ops/pallas/megakernel.py:277", k1_bound(flagship), dyn_launches["K1"]),
         ("K2", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
-         "gncde_tpu/ops/pallas/megakernel_bwd.py:412",
-         bound(planes + 4 * n * B * (2 * w[0] + w[-1]),
-               (sum((6 * h + 8) * n * n * B for h in w[1:]), F32_FLOPS))),
+         "gncde_tpu/ops/pallas/megakernel_bwd.py:412", k2_bound(flagship), dyn_launches["K2"]),
+        ("K1d", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
+         "gncde_tpu/ops/pallas/megakernel.py:160", k1_bound(flagship), dir_launches["K1"]),
+        ("K2d", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
+         "gncde_tpu/ops/pallas/megakernel_bwd.py:249", k2_bound(flagship), dir_launches["K2"]),
     ):
         _, err, ms, plain_ms = results[name][0]  # flagship shape
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": dyn_launches[name],
+                        "replaces": rep, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bms, "bound_by": by, "library_ms": None,
                         "shape": "flagship"})
@@ -1482,12 +1814,14 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": library_ms, "shape": f"flagship {shape}"})
-    # No single PyTorch call computes K5c, K11, K12 or K13 (library_ms null).
+    # No single PyTorch call computes K5c, K11, K11d, K12 or K13 (library_ms null).
     for name, src, rep, label, launches in (
         ("K5c", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:202",
          "genre-H128", tgb_launches["K5c"]),
         ("K11", "gncde_tpu_torch/csrc/fused_step.cu",
          "gncde_tpu/ops/pallas/fused_step.py:144", "flagship", fused_launches["K11"]),
+        ("K11d", "gncde_tpu_torch/csrc/fused_step.cu",
+         "gncde_tpu/ops/pallas/fused_step.py:86", "flagship", dir_fused_launches["K11"]),
         ("K12", "gncde_tpu_torch/csrc/fused_apply.cu",
          "gncde_tpu/ops/pallas/fused_basis.py:66", "flagship-layer",
          backend_launches["K12"]["K12"]),

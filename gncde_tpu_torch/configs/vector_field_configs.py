@@ -1,7 +1,8 @@
 """Vector-field factory config (counterpart of
 ``gncde_tpu/configs/vector_field_configs.py``). Every name of the JAX
-schema validates; only ``PermEquivGraphVectorField`` (with or without
-``enc_idx``) builds in the port.
+schema validates; ``PermEquivGraphVectorField`` (with or without
+``enc_idx``) and ``PermEquivDirGraphVectorField`` (without it) build in
+the port.
 
 One rule differs from the JAX package: a controlled enc_idx field emits
 ``H * E * 2`` entries like every other controlled field, so that the CDE
@@ -18,7 +19,7 @@ import torch
 
 from ._schema import Schema, required
 
-_PORTED = ("PermEquivGraphVectorField",)
+_PORTED = ("PermEquivGraphVectorField", "PermEquivDirGraphVectorField")
 
 
 @dataclasses.dataclass
@@ -45,10 +46,10 @@ class VectorFieldCfg(Schema):
     idx_dim: int = 512
 
     def validate(self) -> None:
-        if self.name == "PermEquivDirGraphVectorField":
+        if self.name == "PermEquivDirGraphVectorField" and self.enc_idx:
             raise NotImplementedError(
-                f"vector field {self.name!r} (enc_idx={self.enc_idx}) needs the directed "
-                "basis, which is not ported yet (ROADMAP Queue 1 item 4)")
+                f"vector field {self.name!r} with enc_idx modulation is not ported yet "
+                "(ROADMAP Queue 1 item 6, the directed enc_idx field)")
         if self.name not in _PORTED:
             raise NotImplementedError(
                 f"vector field {self.name!r} is not ported yet (see ROADMAP)")
@@ -63,6 +64,12 @@ class VectorFieldCfg(Schema):
         from ..models import vector_fields
 
         cls = getattr(vector_fields, self.name)
+        # As the JAX package: enc_type and idx_dim reach the field only with
+        # enc_idx, so the directed field's unused index encoder and MLPs
+        # take the field's defaults otherwise.
+        kw = {}
+        if self.use_control and self.enc_idx:
+            kw = dict(enc_idx=True, enc_type=self.enc_type, idx_dim=self.idx_dim)
         return cls(
             input_dim=self.hidden_dim,
             hidden_dim=self.hidden_dim,
@@ -70,9 +77,7 @@ class VectorFieldCfg(Schema):
             num_layers=self.num_layers,
             data_embed_dim=self.data_embed_dim,
             num_nodes=self.num_nodes,
-            enc_idx=self.use_control and self.enc_idx,
-            enc_type=self.enc_type,
-            idx_dim=self.idx_dim,
             generator=generator,
             device=device,
+            **kw,
         )

@@ -1,8 +1,10 @@
-// K11: one explicit FSAL Runge-Kutta step of the undirected perm-equiv
-// field in one cooperative launch.
+// K11: one explicit FSAL Runge-Kutta step of the perm-equiv field (the
+// undirected 8-term basis or the directed 11-term one) in one cooperative
+// launch.
 //
 // Replaces gncde_tpu/ops/pallas/fused_step.py (_make_step_kernel /
-// _step_call): one pallas_call per solver step, grid (batch, stages), the
+// _step_call, both values of its ``directed`` flag): one pallas_call per
+// solver step, grid (batch, stages), the
 // stage derivatives k_1 .. k_S in VMEM. On the TPU that grid runs in order
 // on one core. Here the vf eval of each stage is K1's row pass split over
 // CTAs (megakernel_common.cuh): grid (ceil(n / BM), B), each CTA owning BM
@@ -23,7 +25,11 @@
 //
 // and after the last stage the row-local y1 = y + h sum_j b_j k_j,
 // err = h sum_j e_j k_j and f1 = k_S. The tableau rows are kernel
-// arguments, so one build serves Tsit5, Dopri5 and Bosh3.
+// arguments, so one build serves Tsit5, Dopri5 and Bosh3. The basis is the
+// kernel's template parameter DIR, passed on to prep_rows / fwd_rows: the
+// directed prep also writes the column sums of the stage's planes, before
+// the grid barrier that already follows it, so the layer passes read them
+// as they read the row sums.
 //
 // The stage combinations are formed in the per-stage solver's order (terms
 // in stage order, every product and sum rounded once: __fmul_rn / __fadd_rn,
@@ -71,7 +77,7 @@ struct StepArgs {
   int S, n, H, L, ldm;
   int b0;        // first batch element of this launch (blockIdx.y offset)
   int Btot;      // batch size of the buffers
-  float* stats;  // (B, 6, n)
+  float* stats;  // (B, NSTAT, n)
   float* Mbuf;   // (2, B, n, ldm)
   float* Yi;     // (B, n, H) stage input
   float* ks;     // (B, S, n, H): k_1 .. k_S
@@ -80,6 +86,7 @@ struct StepArgs {
   float* f1;
 };
 
+template <bool DIR>
 __global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
   cg::grid_group grid = cg::this_grid();
   const int b = A.b0 + blockIdx.y, r0 = blockIdx.x * BM;
@@ -109,14 +116,15 @@ __global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
     const long long base =
         (long long)b * A.P.bstride + (long long)__ldg(A.idx + b * S + s) * n * n;
     const float t = __ldg(A.tau + b * S + s);
-    prep_rows(A.P, base, t, b, r0, n, A.Yi, H, A.layers[0], A.Mbuf, A.ldm, A.stats);
+    prep_rows<DIR>(A.P, base, t, b, r0, n, A.Yi, H, A.layers[0], A.Mbuf, A.ldm,
+                   A.stats);
     grid.sync();
     // 3. The layer stack. fwd_rows stores row gi of element b at
     // F + (b n + gi) ldf, so F is shifted to land in slot s of ks.
     for (int l = 0; l < L; ++l) {
       const bool last = l == L - 1;
       float* F = last ? A.ks + ((long long)b * (S - 1) + s) * nH : nullptr;
-      fwd_rows(A.P, base, t, b, r0, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
+      fwd_rows<DIR>(A.P, base, t, b, r0, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
                A.ldm, F, H, last ? 0 : 1, last ? 0 : 1, A.layers[last ? l : l + 1],
                A.Mbuf + ((l + 1) % 2) * mhalf, A.ldm);
       grid.sync();
@@ -145,30 +153,34 @@ __global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
 
 using namespace fs;
 
-// How many CTAs of step_kernel can be resident at once on the current
-// device (blocks per SM times SMs); 0 on error.
-extern "C" int gncde_fused_step_capacity() {
+// How many CTAs of step_kernel (directed basis or not) can be resident at
+// once on the current device (blocks per SM times SMs); 0 on error.
+extern "C" int gncde_fused_step_capacity(int directed) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel, NT, 0) !=
-      cudaSuccess)
-    return 0;
+  const cudaError_t e =
+      directed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<true>,
+                                                               NT, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<false>,
+                                                               NT, 0);
+  if (e != cudaSuccess) return 0;
   return per_sm * sms;
 }
 
 // One step for batch elements b0 .. b0 + nb - 1 (one cooperative launch,
 // grid (ceil(n / BM), nb)). Buffers are sized for the whole batch Btot.
 // amat: host (S, S) row-major; bvec, berr: host (S + 1); dims, ptrs: host
-// arrays as for K1. Returns the first CUDA error.
+// arrays as for K1; directed: the layers' basis is the (11, 2) directed
+// stack. Returns the first CUDA error.
 extern "C" int gncde_fused_step(const float* d, const float* c, const float* b,
                                 const float* a, long long plane_bstride, const int* idx,
                                 const float* tau, const float* h, const float* y,
                                 const float* f0, int Btot, int b0, int nb, int n, int S,
                                 const float* amat, const float* bvec, const float* berr,
                                 int L, const int* dims, const void* const* ptrs,
-                                float* stats, float* Mbuf, int ldm, float* Yi, float* ks,
+                                int directed, float* stats, float* Mbuf, int ldm, float* Yi, float* ks,
                                 float* y1, float* err, float* f1, cudaStream_t stream) {
   if (L < 1 || L > LMAX || S < 1 || S > SMAX || nb < 1 || b0 < 0 || b0 + nb > Btot ||
       n < 1 || !dims_ok(dims, L, ldm))
@@ -205,8 +217,8 @@ extern "C" int gncde_fused_step(const float* d, const float* c, const float* b,
   A.f1 = f1;
   void* args[] = {&A};
   const dim3 grid((n + BM - 1) / BM, nb);
-  cudaError_t e =
-      cudaLaunchCooperativeKernel((const void*)step_kernel, grid, dim3(NT), args, 0, stream);
+  const void* fn = directed ? (const void*)step_kernel<true> : (const void*)step_kernel<false>;
+  cudaError_t e = cudaLaunchCooperativeKernel(fn, grid, dim3(NT), args, 0, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// K2: the fused backward of one vector-field eval of the undirected
-// perm-equiv field.
+// K2: the fused backward of one vector-field eval of the perm-equiv field,
+// on the undirected 8-term basis or the directed 11-term one.
 //
 // Replaces gncde_tpu/ops/pallas/megakernel_bwd.py (_make_bwd_kernel /
-// bwd_call / bwd_call_batched), which holds about 38 n^2 bytes per eval in
+// bwd_call / bwd_call_batched, both values of its ``directed`` flag),
+// which holds about 38 n^2 bytes per eval in
 // one TensorCore's VMEM. Here the forward is recomputed on the row tiling
 // of K1 (megakernel_common.cuh), keeping each layer's M and input x in
 // device memory ((L, B, n, H) floats of scratch), then one row pass per
@@ -25,11 +26,18 @@
 // What bounds it on the card: bytes, as in K1 -- 8 plane reads per tile
 // element per layer (12 with ddA), about 32 n^2 bytes per element and layer
 // against 10 n H FLOPs per element; the planes mostly hit L2.
+//
+// The directed basis (DIR) changes only O(n) terms: the recomputed forward
+// reads the column sums of K1's directed prep pass, and the rank-term
+// cotangents (p4 .. p6', megakernel_bwd.py:249-268) and the directed dtau
+// chain (:292-302) are row dots against the column sums cA, cdA, cddA
+// beside the row sums. The reduction vector's basis block grows from 16 to
+// 22 entries.
 #include "megakernel_common.cuh"
 
 using namespace mk;
 
-template <bool TAU>
+template <bool TAU, bool DIR>
 __global__ void __launch_bounds__(NT)
 bwd_rows_kernel(Planes P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
@@ -53,7 +61,8 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   __shared__ float colS[HC], colG[HC], colU[HC];
   __shared__ float red[3][NT];
   __shared__ float scratch[NW];
-  __shared__ float wred[NW][10];
+  constexpr int NWR = DIR ? 14 : 10;  // per-warp row dots (below)
+  __shared__ float wred[NW][NWR];
 
   const int b = blockIdx.y, r0 = blockIdx.x * BM, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -61,14 +70,15 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   const float fn = (float)n, fn2 = fn * fn;
   const long long base = plane_base(P, idx, b, n);
   const float t = __ldg(tau + b);
-  const float* st = stats + (long long)b * 6 * n;
+  const float* st = stats + (long long)b * NSTAT * n;
   const float* rA = st + RA * n;
   const float* rdA = st + RDA * n;
   const float* Mb = Mc + (long long)b * n * ldm;
   const float* Gb = G + (long long)b * n * ldg;
-  float q[16];
+  constexpr int NQ = 2 * nbasis<DIR>();
+  float q[NQ];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) q[k] = __ldg(lp.basis + k);
+  for (int k = 0; k < NQ; ++k) q[k] = __ldg(lp.basis + k);
 
   // Global sums every CTA needs: sA, sdA, sddA.
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
@@ -107,8 +117,14 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   }
 
   const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
-  const float c7 = (q[12] + q[13]) * sA / fn2;
-  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  float c7, c8;
+  if constexpr (DIR) {
+    c7 = (q[18] + q[19]) * sA / fn2;
+    c8 = (q[20] * sA + q[21] * sdA) / fn2;
+  } else {
+    c7 = (q[12] + q[13]) * sA / fn2;
+    c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  }
   float* pout = part + ((long long)b * gridDim.x + blockIdx.x) * ptot + poff;
   const int rend = min(BM, n - r0);
   float tp1a = 0.f, tp1b = 0.f, tp2a = 0.f, tp2b = 0.f, tddP = 0.f, tddQ = 0.f;
@@ -126,7 +142,11 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
         for (int k = sl; k < n; k += nsl) {
           const float m = Mb[(long long)k * ldm + h0 + h];
           const float g = Gb[(long long)k * ldg + h0 + h];
-          const float u = (q[6] * rA[k] + q[7] * rdA[k]) / fn;
+          float u;
+          if constexpr (DIR)
+            u = dir_u(q, st, n, k, fn);
+          else
+            u = (q[6] * rA[k] + q[7] * rdA[k]) / fn;
           s_ += m;
           g_ += g;
           u_ += u * g;
@@ -243,9 +263,15 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
             tddP += g * addAM[j];
             tddQ += m * addAg[j];
           }
-          const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
-                             (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
-          const float v = (q[8] * rA[gi] + q[9] * rdA[gi]) / fn;
+          float dvec, v;
+          if constexpr (DIR) {
+            dvec = dir_dvec(q, st, n, gi, fn, c8);
+            v = dir_v(q, st, n, gi, fn);
+          } else {
+            dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+                   (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
+            v = (q[8] * rA[gi] + q[9] * rdA[gi]) / fn;
+          }
           dm = aDM[j] + dvec * g + colU[h] + v * colG[h] + c7 * colG[h];
         }
         dMs[i][h] = dm;
@@ -307,33 +333,67 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     tddQ = block_sum(tddQ, scratch);
   }
 
-  // One warp per row: rank-term dots, RMSNorm backward, g_prev.
-  float w[10];
+  // One warp per row: rank-term dots, RMSNorm backward, g_prev. The row
+  // dots gm = g . m, du = g . colS, dv = m . colG against the row's O(n)
+  // statistics; undirected w[0 .. 9]: gm, gm dgA, gm dgdA, du rA, du rdA,
+  // dv rA, dv rdA, gm rA, gm rdA, the dtau part; directed w[0 .. 13]: gm,
+  // gm dgA, gm dgdA, du cA, du cdA, dv rA, dv cdA, dv cA, dv rdA, gm cA,
+  // gm cdA, gm rA, gm rdA, the dtau part.
+  float w[NWR];
 #pragma unroll
-  for (int k = 0; k < 10; ++k) w[k] = 0.f;
+  for (int k = 0; k < NWR; ++k) w[k] = 0.f;
   for (int i = warp; i < BM; i += NW) {
     const int gi = r0 + i;
     if (gi >= n) continue;
     const float gm = rowd[i][0], du = rowd[i][1], dv = rowd[i][2];
     const float rAi = rA[gi], rdAi = rdA[gi];
     const float dgA = st[DGA * n + gi], dgdA = st[DGDA * n + gi];
-    w[0] += gm;
-    w[1] += gm * dgA;
-    w[2] += gm * dgdA;
-    w[3] += du * rAi;
-    w[4] += du * rdAi;
-    w[5] += dv * rAi;
-    w[6] += dv * rdAi;
-    w[7] += gm * rAi;
-    w[8] += gm * rdAi;
-    if (TAU) {
-      const float rddAi = st[RDDA * n + gi], dgddA = st[DGDDA * n + gi];
-      const float ddvec = q[4] * dgdA + q[5] * dgddA +
-                          (q[10] * rdAi + q[11] * rddAi) / fn +
-                          (q[14] * sdA + q[15] * sddA) / fn2;
-      const float du_dt = (q[6] * rdAi + q[7] * rddAi) / fn;
-      const float dv_dt = (q[8] * rdAi + q[9] * rddAi) / fn;
-      w[9] += gm * ddvec + du * du_dt + dv * dv_dt;
+    if constexpr (DIR) {
+      const float cAi = st[CA * n + gi], cdAi = st[CDA * n + gi];
+      w[0] += gm;
+      w[1] += gm * dgA;
+      w[2] += gm * dgdA;
+      w[3] += du * cAi;
+      w[4] += du * cdAi;
+      w[5] += dv * rAi;
+      w[6] += dv * cdAi;
+      w[7] += dv * cAi;
+      w[8] += dv * rdAi;
+      w[9] += gm * cAi;
+      w[10] += gm * cdAi;
+      w[11] += gm * rAi;
+      w[12] += gm * rdAi;
+      if (TAU) {
+        // megakernel_bwd.py:292-302: the tau derivatives of dvec, u, v.
+        const float rddAi = st[RDDA * n + gi], dgddA = st[DGDDA * n + gi];
+        const float cddAi = st[CDDA * n + gi];
+        const float ddvec = q[4] * dgdA + q[5] * dgddA + (q[14] * cdAi + q[15] * cddAi) / fn +
+                            (q[16] * rdAi + q[17] * rddAi) / fn +
+                            (q[20] * sdA + q[21] * sddA) / fn2;
+        const float du_dt = (q[6] * cdAi + q[7] * cddAi) / fn;
+        const float dv_dt = (q[8] * rdAi + q[9] * cddAi + q[10] * cdAi + q[11] * cddAi +
+                             q[12] * rdAi + q[13] * rddAi) / fn;
+        w[13] += gm * ddvec + du * du_dt + dv * dv_dt;
+      }
+    } else {
+      w[0] += gm;
+      w[1] += gm * dgA;
+      w[2] += gm * dgdA;
+      w[3] += du * rAi;
+      w[4] += du * rdAi;
+      w[5] += dv * rAi;
+      w[6] += dv * rdAi;
+      w[7] += gm * rAi;
+      w[8] += gm * rdAi;
+      if (TAU) {
+        const float rddAi = st[RDDA * n + gi], dgddA = st[DGDDA * n + gi];
+        const float ddvec = q[4] * dgdA + q[5] * dgddA +
+                            (q[10] * rdAi + q[11] * rddAi) / fn +
+                            (q[14] * sdA + q[15] * sddA) / fn2;
+        const float du_dt = (q[6] * rdAi + q[7] * rddAi) / fn;
+        const float dv_dt = (q[8] * rdAi + q[9] * rddAi) / fn;
+        w[9] += gm * ddvec + du * du_dt + dv * dv_dt;
+      }
     }
 
     const float* x = X + ((long long)b * n + gi) * ldx;
@@ -351,12 +411,12 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
   }
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < 10; ++k) wred[warp][k] = w[k];
+    for (int k = 0; k < NWR; ++k) wred[warp][k] = w[k];
   }
   __syncthreads();
 
   // Per-CTA partials: [dnorm_w (hin) | dnorm_b (hin) | dW (H*hin, written
-  // above) | dlin_b (H, above) | dbasis (16) | dtau (1)].
+  // above) | dlin_b (H, above) | dbasis (16, or 22 directed) | dtau (1)].
   for (int j = tid; j < hin; j += NT) {
     float dw = 0.f, db = 0.f;
     for (int i = 0; i < rend; ++i) {
@@ -368,8 +428,8 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     pout[hin + j] = db;
   }
   if (tid == 0) {
-    float tot[10];
-    for (int k = 0; k < 10; ++k) {
+    float tot[NWR];
+    for (int k = 0; k < NWR; ++k) {
       tot[k] = 0.f;
       for (int ww = 0; ww < NW; ++ww) tot[k] += wred[ww][k];
     }
@@ -381,24 +441,53 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     db[3] = tp2b;
     db[4] = tot[1];
     db[5] = tot[2];
-    db[6] = tot[3] / fn;
-    db[7] = tot[4] / fn;
-    db[8] = tot[5] / fn;
-    db[9] = tot[6] / fn;
-    db[10] = tot[7] / fn;
-    db[11] = tot[8] / fn;
-    const float p7 = first ? dc7 * sA / fn2 : 0.f;
-    db[12] = p7;
-    db[13] = p7;
-    db[14] = tot[0] * sA / fn2;
-    db[15] = tot[0] * sdA / fn2;
     float dtau = 0.f;
-    if (TAU) {
-      dtau = (1.f + q[0]) * tp1b + (1.f + q[1]) * tddP + q[2] * tp2b +
-             q[3] * tddQ + tot[9];
-      if (first) dtau += dc7 * (q[12] + q[13]) * sdA / fn2;
+    if constexpr (DIR) {
+      // megakernel_bwd.py:249-268: p4 (du . cA, du . cdA), p4' (dv . rA,
+      // dv . cdA), p5 (dv . cA, dv . cdA), p5' (dv . rA, dv . rdA), p6
+      // (gm . cA, gm . cdA), p6' (gm . rA, gm . rdA), each over n.
+      db[6] = tot[3] / fn;
+      db[7] = tot[4] / fn;
+      db[8] = tot[5] / fn;
+      db[9] = tot[6] / fn;
+      db[10] = tot[7] / fn;
+      db[11] = tot[6] / fn;
+      db[12] = tot[5] / fn;
+      db[13] = tot[8] / fn;
+      db[14] = tot[9] / fn;
+      db[15] = tot[10] / fn;
+      db[16] = tot[11] / fn;
+      db[17] = tot[12] / fn;
+      const float p7 = first ? dc7 * sA / fn2 : 0.f;
+      db[18] = p7;
+      db[19] = p7;
+      db[20] = tot[0] * sA / fn2;
+      db[21] = tot[0] * sdA / fn2;
+      if (TAU) {
+        dtau = (1.f + q[0]) * tp1b + (1.f + q[1]) * tddP + q[2] * tp2b +
+               q[3] * tddQ + tot[13];
+        if (first) dtau += dc7 * (q[18] + q[19]) * sdA / fn2;
+      }
+      db[22] = dtau;
+    } else {
+      db[6] = tot[3] / fn;
+      db[7] = tot[4] / fn;
+      db[8] = tot[5] / fn;
+      db[9] = tot[6] / fn;
+      db[10] = tot[7] / fn;
+      db[11] = tot[8] / fn;
+      const float p7 = first ? dc7 * sA / fn2 : 0.f;
+      db[12] = p7;
+      db[13] = p7;
+      db[14] = tot[0] * sA / fn2;
+      db[15] = tot[0] * sdA / fn2;
+      if (TAU) {
+        dtau = (1.f + q[0]) * tp1b + (1.f + q[1]) * tddP + q[2] * tp2b +
+               q[3] * tddQ + tot[9];
+        if (first) dtau += dc7 * (q[12] + q[13]) * sdA / fn2;
+      }
+      db[16] = dtau;
     }
-    db[16] = dtau;
   }
 }
 
@@ -411,44 +500,36 @@ __global__ void reduce_blocks_kernel(const float* __restrict__ part, int nblk,
   out[(long long)b * ptot + p] = acc;
 }
 
-// Layer l's partial block has 2*hin + hout*hin + hout + 17 floats.
-static int layer_ptot(const int* dims, int l) {
+// Layer l's partial block has 2*hin + hout*hin + hout + 2*nb + 1 floats
+// (nb basis 2-vectors and dtau).
+static int layer_ptot(const int* dims, int l, int nb) {
   const int hin = dims[2 * l], hout = dims[2 * l + 1];
-  return 2 * hin + hout * hin + hout + 17;
+  return 2 * hin + hout * hin + hout + 2 * nb + 1;
 }
 
 // Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward (Xbuf[0]
 // unused: layer 0 reads Z), ldm >= every layer's width. gbuf: two
-// (B, n, ldm) cotangent buffers.
+// (B, n, ldm) cotangent buffers. stats: (B, NSTAT, n).
 // part: (B, nblk, ptot) partials; red: (B, ptot) reduced per-element
 // grads, layer blocks in order. dZ: (B, n, hin0).
-extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
-                            const float* a, long long plane_bstride,
-                            const int* idx, const float* tau, const float* Z,
-                            const float* G, int B, int n, int L,
-                            const int* dims, const void* const* ptrs,
-                            int need_tau, float* stats, float* Mbuf,
-                            float* Xbuf, float* gbuf, int ldm, float* dZ,
-                            float* part, int ptot, float* red,
-                            cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm))
-    return (int)cudaErrorInvalidValue;
-  int want = 0;
-  for (int l = 0; l < L; ++l) want += layer_ptot(dims, l);
-  if (want != ptot) return (int)cudaErrorInvalidValue;
-  Planes P{d, c, b, a, plane_bstride};
+template <bool DIR>
+static int mk_bwd(const Planes& P, const int* idx, const float* tau, const float* Z,
+                  const float* G, int B, int n, int L, const int* dims,
+                  const void* const* ptrs, int need_tau, float* stats, float* Mbuf,
+                  float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
+                  float* red, cudaStream_t stream) {
   const int nblk = (n + BM - 1) / BM;
   const dim3 grid(nblk, B);
   const long long lstride = (long long)B * n * ldm;
   cudaError_t err;
 
   // Forward recompute: M_l for every layer, x_l for l >= 1.
-  prep_kernel<<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
-                                       layer_from(ptrs, dims, 0), Mbuf, ldm,
-                                       stats);
+  prep_kernel<DIR><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
+                                            layer_from(ptrs, dims, 0), Mbuf, ldm,
+                                            stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int l = 0; l + 1 < L; ++l) {
-    fwd_rows_kernel<<<grid, NT, 0, stream>>>(
+    fwd_rows_kernel<DIR><<<grid, NT, 0, stream>>>(
         P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
         ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
         Mbuf + (l + 1) * lstride, ldm);
@@ -460,18 +541,18 @@ extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
   const float* g_in = G;
   int ldg = dims[2 * (L - 1) + 1];
   for (int l = L - 1; l >= 0; --l) {
-    poff -= layer_ptot(dims, l);
+    poff -= layer_ptot(dims, l, nbasis<DIR>());
     const Layer lp = layer_from(ptrs, dims, l);
     const float* X = l == 0 ? Z : Xbuf + l * lstride;
     const int ldx = l == 0 ? dims[0] : ldm;
     float* Gp = l == 0 ? dZ : gbuf + (l % 2) * lstride;
     const int ldgp = l == 0 ? dims[0] : ldm;
     if (need_tau)
-      bwd_rows_kernel<true><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<true, DIR><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     else
-      bwd_rows_kernel<false><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<false, DIR><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -482,4 +563,28 @@ extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
       part, nblk, ptot, red);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return 0;
+}
+
+// directed: the layers' basis is the (11, 2) directed stack (else (8, 2)).
+extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
+                            const float* a, long long plane_bstride,
+                            const int* idx, const float* tau, const float* Z,
+                            const float* G, int B, int n, int L,
+                            const int* dims, const void* const* ptrs, int directed,
+                            int need_tau, float* stats, float* Mbuf,
+                            float* Xbuf, float* gbuf, int ldm, float* dZ,
+                            float* part, int ptot, float* red,
+                            cudaStream_t stream) {
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm))
+    return (int)cudaErrorInvalidValue;
+  const int nb = directed ? NBASIS_D : NBASIS_U;
+  int want = 0;
+  for (int l = 0; l < L; ++l) want += layer_ptot(dims, l, nb);
+  if (want != ptot) return (int)cudaErrorInvalidValue;
+  const Planes P{d, c, b, a, plane_bstride};
+  if (directed)
+    return mk_bwd<true>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                        Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+  return mk_bwd<false>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                       Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
 }

@@ -2,9 +2,9 @@
 // K2 (megakernel_bwd.cu): Hermite plane evaluation, the per-row statistics
 // pass, the forward row pass and the row-local RMSNorm -> Linear transform.
 //
-// One vector-field eval of the undirected perm-equiv field, per batch
-// element b, with A = A(tau_b), dA = dA(tau_b) taken from the four Hermite
-// interval planes d, c, b, a of interval idx_b:
+// One vector-field eval of the perm-equiv field, per batch element b, with
+// A = A(tau_b), dA = dA(tau_b) taken from the four Hermite interval planes
+// d, c, b, a of interval idx_b:
 //
 //   M_l   = Linear_l(RMSNorm_l(x_l))                          (n, H)
 //   out_l = C_l M_l + dvec_l * M_l + u_l s_l^T + 1 (w_l + c7_l s_l)^T
@@ -12,7 +12,15 @@
 //
 // with C = B1 + B2^T = b1_0 A + b1_1 dA + b2_0 A^T + b2_1 dA^T and the O(n)
 // vectors of gncde_tpu/ops/equiv_basis.py (the residual identity folded
-// into dvec). Layout: CTAs own BM rows of one batch element (grid
+// into dvec). The basis is a compile-time parameter DIR of the device
+// functions: the undirected 8-term basis (DIR = false) or the directed
+// 11-term one (DIR = true), whose dvec, u and v also read the column sums
+// cA, cdA of A and dA (fused_coeffs_directed, with its two reference
+// quirks: v takes p4'[0] rA + p4'[1] cdA, and c7 scales both of its
+// operands by sum(A)). The undirected instantiation runs exactly the
+// instructions it ran before the directed basis existed.
+//
+// Layout: CTAs own BM rows of one batch element (grid
 // (ceil(n/BM), B)); the n x n operands never reach device memory -- each
 // CTA regenerates its (BM x BK) tiles of C from the planes, in shared
 // memory, once per layer and chunk of HC output columns. All reductions are
@@ -48,7 +56,14 @@ struct Planes {
   long long bstride;  // floats between batch elements' plane stacks (0: shared)
 };
 
-// One layer's parameters; basis is the (8, 2) stack [p1 .. p8].
+// Basis entries (2-vectors) of the undirected and the directed basis.
+constexpr int NBASIS_U = 8;
+constexpr int NBASIS_D = 11;
+template <bool DIR>
+__host__ __device__ constexpr int nbasis() { return DIR ? NBASIS_D : NBASIS_U; }
+
+// One layer's parameters; basis is the (8, 2) stack [p1 .. p8] or the
+// directed (11, 2) stack [p1, p2, p3, p4, p4', p5, p5', p6, p6', p7, p8].
 struct Layer {
   const float* nw;
   const float* nb;
@@ -59,8 +74,11 @@ struct Layer {
   int hout;
 };
 
-// Statistic rows of the (B, 6, n) stats buffer.
-enum Stat { RA = 0, RDA = 1, DGA = 2, DGDA = 3, RDDA = 4, DGDDA = 5 };
+// Statistic rows of the (B, NSTAT, n) stats buffer: row sums and
+// diagonals of A, dA, ddA, and (directed basis only) their column sums.
+enum Stat { RA = 0, RDA = 1, DGA = 2, DGDA = 3, RDDA = 4, DGDDA = 5, CA = 6, CDA = 7,
+            CDDA = 8 };
+constexpr int NSTAT = 9;
 
 __device__ __forceinline__ long long plane_base(const Planes& P, const int* idx,
                                                 int b, int n) {
@@ -129,11 +147,41 @@ __device__ __forceinline__ void transform_row(const float* x, const Layer& lp,
   __syncwarp();
 }
 
+// The directed basis's O(n) vectors at node i (fused_coeffs_directed): q
+// is the flattened (11, 2) stack, st the element's NSTAT stats rows, c8 the
+// p8 term. The undirected ones are written inline where they are used.
+__device__ __forceinline__ float dir_u(const float* q, const float* st, int n, int i,
+                                       float fn) {
+  return (q[6] * st[CA * n + i] + q[7] * st[CDA * n + i]) / fn;
+}
+
+__device__ __forceinline__ float dir_v(const float* q, const float* st, int n, int i,
+                                       float fn) {
+  const float rA = st[RA * n + i], rdA = st[RDA * n + i];
+  const float cA = st[CA * n + i], cdA = st[CDA * n + i];
+  return (q[8] * rA + q[9] * cdA + q[10] * cA + q[11] * cdA + q[12] * rA +
+          q[13] * rdA) / fn;
+}
+
+__device__ __forceinline__ float dir_dvec(const float* q, const float* st, int n, int i,
+                                          float fn, float c8) {
+  return q[4] * st[DGA * n + i] + q[5] * st[DGDA * n + i] +
+         (q[14] * st[CA * n + i] + q[15] * st[CDA * n + i]) / fn +
+         (q[16] * st[RA * n + i] + q[17] * st[RDA * n + i]) / fn + c8 + 1.f;
+}
+
 // Pass 1 of one CTA: per-row statistics of A, dA (and ddA) -- row sums and
 // diagonals -- plus layer 0's M rows, for rows r0 .. r0+BM-1 of element b
 // whose interval planes start at ``base``, at offset t. One warp per row;
-// lanes stride over columns. A device function so that K1 (prep_kernel) and
-// the fused RK step K11 (fused_step.cu) run the same arithmetic.
+// lanes stride over columns. With the directed basis the CTA also owns
+// columns r0 .. r0+BM-1 and writes their sums cA, cdA, cddA: it sweeps all
+// n rows of those columns (BM consecutive floats a row, NT / BM row slices
+// in parallel) and sums the slices in a fixed order -- no atomics, so the
+// column sums are bitwise repeatable like everything else. A device
+// function so that K1 (prep_kernel) and the fused RK step K11
+// (fused_step.cu) run the same arithmetic; it ends on a CTA barrier when
+// DIR, so every thread must reach it.
+template <bool DIR>
 __device__ __forceinline__ void prep_rows(const Planes& P, long long base, float t,
                                           int b, int r0, int n,
                                           const float* __restrict__ Z, int ldz,
@@ -141,7 +189,7 @@ __device__ __forceinline__ void prep_rows(const Planes& P, long long base, float
                                           int ldm, float* __restrict__ stats) {
   __shared__ float zn[NW][MAXIN];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = stats + (long long)b * 6 * n;
+  float* st = stats + (long long)b * NSTAT * n;
   const int rend = min(r0 + BM, n);
   for (int i = r0 + warp; i < rend; i += NW) {
     float rA = 0.f, rdA = 0.f, rddA = 0.f, gA = 0.f, gdA = 0.f, gddA = 0.f;
@@ -175,15 +223,48 @@ __device__ __forceinline__ void prep_rows(const Planes& P, long long base, float
     transform_row(Z + ((long long)b * n + i) * ldz, l0, zn[warp],
                   M0 + ((long long)b * n + i) * ldm);
   }
+  if constexpr (DIR) {
+    constexpr int NSL = NT / BM;  // row slices
+    __shared__ float cred[3][NT];
+    const int c = threadIdx.x % BM, sl = threadIdx.x / BM, gc = r0 + c;
+    float cA = 0.f, cdA = 0.f, cddA = 0.f;
+    if (gc < n) {
+      for (int k = sl; k < n; k += NSL) {
+        float A, dA, ddA;
+        herm3(P, base + (long long)k * n + gc, t, A, dA, ddA);
+        cA += A;
+        cdA += dA;
+        cddA += ddA;
+      }
+    }
+    cred[0][threadIdx.x] = cA;
+    cred[1][threadIdx.x] = cdA;
+    cred[2][threadIdx.x] = cddA;
+    __syncthreads();
+    if (threadIdx.x < BM && r0 + (int)threadIdx.x < n) {
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+      for (int q = 0; q < NSL; ++q) {
+        s0 += cred[0][q * BM + threadIdx.x];
+        s1 += cred[1][q * BM + threadIdx.x];
+        s2 += cred[2][q * BM + threadIdx.x];
+      }
+      const int gi = r0 + threadIdx.x;
+      st[CA * n + gi] = s0;
+      st[CDA * n + gi] = s1;
+      st[CDDA * n + gi] = s2;
+    }
+    __syncthreads();
+  }
 }
 
+template <bool DIR>
 __global__ void __launch_bounds__(NT)
 prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau,
             int n, const float* __restrict__ Z, int ldz, Layer l0,
             float* __restrict__ M0, int ldm, float* __restrict__ stats) {
   const int b = blockIdx.y;
-  prep_rows(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, Z,
-            ldz, l0, M0, ldm, stats);
+  prep_rows<DIR>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, Z,
+                 ldz, l0, M0, ldm, stats);
 }
 
 // Pass 2 of one CTA (one per layer): out rows = C M + rank terms (+ relu),
@@ -191,6 +272,7 @@ prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau
 // that layer's M rows; rows r0 .. r0+BM-1 of element b, planes at ``base``,
 // offset t. The output columns are swept in chunks of HC. Shared by K1
 // (fwd_rows_kernel) and K11.
+template <bool DIR>
 __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float t,
                                          int b, int r0, int n,
                                          const float* __restrict__ stats,
@@ -210,13 +292,14 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
   const int warp = tid / 32;
   const int H = lp.hout;
   const float fn = (float)n, fn2 = fn * fn;
-  const float* st = stats + (long long)b * 6 * n;
+  const float* st = stats + (long long)b * NSTAT * n;
   const float* rA = st + RA * n;
   const float* rdA = st + RDA * n;
   const float* Mb = Mc + (long long)b * n * ldm;
-  float q[16];
+  constexpr int NQ = 2 * nbasis<DIR>();
+  float q[NQ];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) q[k] = __ldg(lp.basis + k);
+  for (int k = 0; k < NQ; ++k) q[k] = __ldg(lp.basis + k);
 
   // Global sums every CTA needs: sA, sdA.
   float a0 = 0.f, a1 = 0.f;
@@ -227,8 +310,14 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
   const float sA = block_sum(a0, scratch);
   const float sdA = block_sum(a1, scratch);
   const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
-  const float c7 = (q[12] + q[13]) * sA / fn2;
-  const float c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  float c7, c8;
+  if constexpr (DIR) {
+    c7 = (q[18] + q[19]) * sA / fn2;
+    c8 = (q[20] * sA + q[21] * sdA) / fn2;
+  } else {
+    c7 = (q[12] + q[13]) * sA / fn2;
+    c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  }
 
   for (int h0 = 0; h0 < H; h0 += HC) {
     const int hc = min(HC, H - h0);
@@ -241,7 +330,11 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
       if (sl < nsl) {
         for (int k = sl; k < n; k += nsl) {
           const float m = Mb[(long long)k * ldm + h0 + h];
-          const float v = (q[8] * rA[k] + q[9] * rdA[k]) / fn;
+          float v;
+          if constexpr (DIR)
+            v = dir_v(q, st, n, k, fn);
+          else
+            v = (q[8] * rA[k] + q[9] * rdA[k]) / fn;
           s_ += m;
           w_ += v * m;
         }
@@ -313,9 +406,15 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
         const int i = pp / hc, h = pp % hc, gi = r0 + i;
         float val = 0.f;
         if (gi < n) {
-          const float dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
-                             (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
-          const float u = (q[6] * rA[gi] + q[7] * rdA[gi]) / fn;
+          float dvec, u;
+          if constexpr (DIR) {
+            dvec = dir_dvec(q, st, n, gi, fn, c8);
+            u = dir_u(q, st, n, gi, fn);
+          } else {
+            dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+                   (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
+            u = (q[6] * rA[gi] + q[7] * rdA[gi]) / fn;
+          }
           const float m = Mb[(long long)gi * ldm + h0 + h];
           val = acc[j] + dvec * m + u * colS[h] + (colW[h] + c7 * colS[h]);
           if (relu) val = fmaxf(val, 0.f);
@@ -335,6 +434,7 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
   }
 }
 
+template <bool DIR>
 __global__ void __launch_bounds__(NT)
 fwd_rows_kernel(Planes P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
@@ -343,8 +443,8 @@ fwd_rows_kernel(Planes P, const int* __restrict__ idx,
                 int ldf, int relu, int has_next, Layer ln,
                 float* __restrict__ Mn, int ldmn) {
   const int b = blockIdx.y;
-  fwd_rows(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, stats,
-           lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
+  fwd_rows<DIR>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, stats,
+                lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
 }
 
 inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {

@@ -1,8 +1,8 @@
 """Graph vector fields (the functions the CDE solver integrates).
 
 Counterpart of ``gncde_tpu/models/vector_fields/fields.py`` for the
-undirected permutation-equivariant field, with or without ``enc_idx``
-modulation. Call signature ``vf(t, y, control) -> dy/dt`` with a leading
+permutation-equivariant fields: the undirected one, with or without
+``enc_idx`` modulation, and the directed one without it. Call signature ``vf(t, y, control) -> dy/dt`` with a leading
 batch dim written out: ``t`` is ``(B,)``, ``y`` is ``(B, n, H)`` and the
 control's path holds per-element knots ``(B, T)`` and planes
 ``(B, T-1, n, n)``.
@@ -23,7 +23,7 @@ from ...ops.modulate import modulate_matrix as _modulate_matrix
 from ...ops import pair as _pair
 from ...ops import tiled as _tiled
 from ..neural_nets import IdxEncoder
-from .layers import ConvEquivFusionLayer
+from .layers import ConvEquivFusionDirectedLayer, ConvEquivFusionLayer
 
 
 def control_terms(control_adj, t):
@@ -128,15 +128,14 @@ def _fused_rk_step_hook(vf, tab, t, y, h, control_adj, f0):
     return _fs.fused_rk_step(tab, tuple(path.coeffs), path.ts, t, y, h, f0, vf)
 
 
-def _make_stack(input_dim, hidden_dim, output_dim, num_layers, generator, device):
+def _make_stack(input_dim, hidden_dim, output_dim, num_layers, generator, device,
+                layer_cls=ConvEquivFusionLayer):
     """num_layers-1 hidden layers + one output layer."""
     layers = []
     for _ in range(num_layers - 1):
-        layers.append(ConvEquivFusionLayer(input_dim, hidden_dim,
-                                           generator=generator, device=device))
+        layers.append(layer_cls(input_dim, hidden_dim, generator=generator, device=device))
         input_dim = hidden_dim
-    layers.append(ConvEquivFusionLayer(input_dim, output_dim,
-                                       generator=generator, device=device))
+    layers.append(layer_cls(input_dim, output_dim, generator=generator, device=device))
     return nn.ModuleList(layers)
 
 
@@ -207,3 +206,47 @@ class PermEquivGraphVectorField(nn.Module):
         if tgrad is not None:
             out = tgrad.mean(-2)[..., :, None] * out
         return out
+
+
+class PermEquivDirGraphVectorField(nn.Module):
+    """Directed 11-term perm-equiv vf (perm_equiv_dir_graph_vector_field.py),
+    without ``enc_idx`` modulation.
+
+    As the JAX field, it builds the index encoder (``enc_type``, width
+    ``idx_dim``) and both modulation MLPs whether or not ``enc_idx`` is set,
+    in the JAX field order ``gnn_layers``, ``idx_enc``, ``msg_func_adj``,
+    ``msg_func_adj_deriv``, so that parameter lists, optimiser state and
+    ``save_weights`` files agree; without ``enc_idx`` the forward never
+    reads them (their gradients are zero). ``enc_idx=True`` raises: the
+    directed enc_idx field is ROADMAP Queue 1 item 6. The dispatch is the
+    undirected field's: K1/K2 for n <= 640, the tiled kernels up to
+    ``TILED_MAX_N``, the layer stack beyond (and for sparse controls), each
+    reading the directed basis off the layers.
+    """
+
+    #: The JAX field order (``nn/convert.py``).
+    JAX_FIELDS = ("gnn_layers", "idx_enc", "msg_func_adj", "msg_func_adj_deriv")
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int, data_embed_dim: int, num_nodes: int,
+                 enc_idx: bool = False, enc_type: str = "mlp", idx_dim: int = 512, *,
+                 generator: torch.Generator, device=None, **_unused):
+        super().__init__()
+        if enc_idx:
+            raise NotImplementedError(
+                "the directed field with enc_idx modulation is not ported yet "
+                "(ROADMAP Queue 1 item 6)")
+        self.gnn_layers = _make_stack(input_dim, hidden_dim, output_dim, num_layers,
+                                      generator, device, ConvEquivFusionDirectedLayer)
+        kw = dict(generator=generator, device=device)
+        self.idx_enc = IdxEncoder(num_nodes, idx_dim, type=enc_type, **kw)
+        self.msg_func_adj = MLP(2 * idx_dim + 1, 1, width_size=8, depth=2, **kw)
+        self.msg_func_adj_deriv = MLP(2 * idx_dim + 1, 1, width_size=8, depth=2, **kw)
+        self.data_embed_dim = data_embed_dim
+        self.num_nodes = num_nodes
+        self.enc_idx = False
+
+    fused_rk_step = _fused_rk_step_hook
+    # The undirected field's dispatch with enc_idx off: every route it takes
+    # reads the basis (8 or 11 terms) off the layers.
+    forward = PermEquivGraphVectorField.forward

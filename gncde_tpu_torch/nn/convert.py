@@ -6,7 +6,8 @@ joined by ``/``, e.g. ``vector_field/gnn_layers/0/conv_layer/linear/weight``).
 The port's modules use the same attribute names, so a leaf path maps to a
 ``state_dict`` key by swapping ``/`` for ``.``. Layouts agree: ``Linear``
 weights are ``(out, in)`` on both sides, and each fusion layer keeps its
-basis as eight 2-vectors ``param1 .. param8``.
+basis as 2-vectors: ``param1 .. param8``, and for the directed layer also
+``param4_prime``, ``param5_prime`` and ``param6_prime``.
 
 ``save_weights`` of the JAX package writes the leaves as ``leaf_<i>`` in
 flatten order: the field order of each module, a module shared by two
@@ -17,7 +18,11 @@ registration order, unless the module names its JAX field order in
 ``JAX_FIELDS``. A parameter listed twice takes the later array, as the JAX
 model's forward reads the wrapper's copy. An enc_idx field registers
 ``idx_enc`` (its ``module``), ``msg_func_adj`` and ``msg_func_adj_deriv``
-(their ``layers[*]``) after ``gnn_layers``, the JAX field order.
+(their ``layers[*]``) after ``gnn_layers``, the JAX field order. The
+directed layer and field name theirs in ``JAX_FIELDS``: the layer's primed
+parameters sit between the unprimed ones (``param4, param4_prime, param5,
+...``), and the directed field lists ``idx_enc`` and both MLPs, which it
+builds even without enc_idx, as the JAX field does.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
   * ``"auto"``       -- (default) ``"megakernel"`` when the tensors of the
                         call lie on a CUDA device, ``"dense"`` otherwise.
                         Resolved per call from the device of the node state.
-  * ``"megakernel"`` -- the vector-field-level fast path for the undirected
-                        perm-equiv field with a slim cubic control: for
+  * ``"megakernel"`` -- the vector-field-level fast path for the perm-equiv
+                        fields (undirected or directed basis) with a slim
+                        cubic control: for
                         ``n <= MEGAKERNEL_MAX_N`` one forward kernel (K1,
                         ``ops/megakernel.py``) and one backward kernel (K2,
                         ``ops/megakernel_bwd.py``) per vf eval; above it,
@@ -33,13 +34,15 @@ Counterpart of ``gncde_tpu/ops/__init__.py``. Backends:
 Whatever the backend, a sparse control (the dyn trainer's
 ``sparse_control``) bypasses all of them: its ELL values go to
 ``sparse.sparse_fused_apply`` (K10, ``ops/ell_spmm.py``) and its BCSR values
-to ``bcsr.bcsr_fused_apply`` (K8 and K9, ``ops/bcsr.py``), on CUDA tensors
-through the kernels and on CPU ones through their plain versions.
+to ``bcsr.bcsr_fused_apply`` (K8 and K9, ``ops/bcsr.py``), or their
+``_directed`` forms, on CUDA tensors through the kernels and on CPU ones
+through their plain versions.
 
 The fused RK step (``set_fused_step``, off by default as in the JAX
 package): under the megakernel backend, each explicit FSAL solver step of
-an undirected perm-equiv field with n <= 640 and a square layer stack runs
-as one launch of K11 (``ops/fused_step.py``) instead of one K1 per stage.
+a perm-equiv field (either basis, no enc_idx) with n <= 640 and a square
+layer stack runs as one launch of K11 (``ops/fused_step.py``) instead of
+one K1 per stage.
 
 Precision: only ``"f32"`` is implemented. ``"bf16"`` raises, because the
 kernels have no bf16 operand path yet (ROADMAP Queue 2).

@@ -32,7 +32,8 @@ import torch
 
 from . import _build
 from .ell_spmm import batch_of, operand, sum_to, take_rows
-from .sparse import _rank_terms
+from .equiv_basis import directed_rank_terms
+from .sparse import _rank_terms, _uv_terms
 
 F32 = torch.float32
 #: Largest block size the kernels take.
@@ -428,6 +429,28 @@ def bcsr_fused_apply(bA: BCSRVal, bdA: BCSRVal, M, params,
     if add_identity:
         dvec = dvec + 1.0
     return _rank_terms(rowpart + colpart, dvec, rA, rdA, sA, M, (p4, p5, p7), n)
+
+
+def bcsr_fused_apply_directed(bA: BCSRVal, bdA: BCSRVal, M, params,
+                              add_identity: bool = False) -> torch.Tensor:
+    """Directed 11-term fused basis apply over BCSR values: the blocked
+    mirror of :func:`~gncde_tpu_torch.ops.sparse.sparse_fused_apply_directed`.
+    The pairs as in :func:`bcsr_fused_apply`; the column sums are the row
+    sums of the transposed-layout blocks (JAX ``bcsr.py:755-758``)."""
+    p1, p2 = params[0], params[1]
+    lay = bA.layout
+    n = lay.n
+    rA, rdA = bcsr_row_sums(bA.blocks, n), bcsr_row_sums(bdA.blocks, n)
+    dvec, u, v, c7 = directed_rank_terms(
+        params, n, rA, rdA, bcsr_row_sums(bA.blocks_T, n), bcsr_row_sums(bdA.blocks_T, n),
+        bcsr_diag(bA.blocks, lay.diag_slot, n), bcsr_diag(bdA.blocks, lay.diag_slot, n),
+        rA.sum(-1), rdA.sum(-1))
+    rowpart = _bcsr_apply_pair(bA.combine(bdA, 1.0 + p1[0], 1.0 + p1[1]), M,
+                               transpose=False)
+    colpart = _bcsr_apply_pair(bA.combine(bdA, p2[0], p2[1]), M, transpose=True)
+    if add_identity:
+        dvec = dvec + 1.0
+    return _uv_terms(rowpart + colpart, dvec, u, v, c7, M)
 
 
 def blocked_fill_ratio(mask, block_size: int) -> float:

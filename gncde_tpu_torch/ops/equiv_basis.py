@@ -120,19 +120,18 @@ def fused_coeffs(A, dA, params) -> FusedCoeffs:
     return FusedCoeffs(B1, B2, dvec, u, v, c7)
 
 
-def fused_coeffs_directed(A, dA, params) -> FusedCoeffs:
-    """Directed 11-term basis -> rank-structured coefficients."""
-    p1, p2, p3, p4, p4p, p5, p5p, p6, p6p, p7, p8 = params
-    n = A.shape[-1]
-    rA, rdA = A.sum(-1), dA.sum(-1)
-    cA, cdA = A.sum(-2), dA.sum(-2)
-    sA, sdA = A.sum((-2, -1)), dA.sum((-2, -1))
-
-    B1 = (1.0 + _s(p1, 0)) * A + (1.0 + _s(p1, 1)) * dA
-    B2 = _s(p2, 0) * A + _s(p2, 1) * dA
+def directed_rank_terms(params, n, rA, rdA, cA, cdA, dgA, dgdA, sA, sdA):
+    """The O(n) terms ``(dvec, u, v, c7)`` of the directed 11-term basis
+    (dvec without the residual identity) from the row sums ``rA``, ``rdA``,
+    column sums ``cA``, ``cdA``, diagonals ``dgA``, ``dgdA`` (each
+    ``(..., n)``) and totals ``sA``, ``sdA`` (``(...)``) of A and dA, with
+    the reference's term_4' quirk (row sums of A, column sums of dA) and
+    term_7 quirk (sum(A) for both operands). Every directed apply of the
+    port -- dense, tiled, per-layer and sparse -- takes its terms here."""
+    _, _, p3, p4, p4p, p5, p5p, p6, p6p, p7, p8 = params
     dvec = (
-        _v(p3, 0) * _diag(A)
-        + _v(p3, 1) * _diag(dA)
+        _v(p3, 0) * dgA
+        + _v(p3, 1) * dgdA
         + (_v(p6, 0) * cA + _v(p6, 1) * cdA) / n
         + (_v(p6p, 0) * rA + _v(p6p, 1) * rdA) / n
         + ((p8[..., 0] * sA + p8[..., 1] * sdA) / n**2)[..., None]
@@ -144,7 +143,18 @@ def fused_coeffs_directed(A, dA, params) -> FusedCoeffs:
         + (_v(p5p, 0) * rA + _v(p5p, 1) * rdA)
     ) / n
     c7 = (p7[..., 0] + p7[..., 1]) * sA / n**2
-    return FusedCoeffs(B1, B2, dvec, u, v, c7)
+    return dvec, u, v, c7
+
+
+def fused_coeffs_directed(A, dA, params) -> FusedCoeffs:
+    """Directed 11-term basis -> rank-structured coefficients."""
+    p1, p2 = params[0], params[1]
+    B1 = (1.0 + _s(p1, 0)) * A + (1.0 + _s(p1, 1)) * dA
+    B2 = _s(p2, 0) * A + _s(p2, 1) * dA
+    terms = directed_rank_terms(params, A.shape[-1], A.sum(-1), dA.sum(-1), A.sum(-2),
+                                dA.sum(-2), _diag(A), _diag(dA), A.sum((-2, -1)),
+                                dA.sum((-2, -1)))
+    return FusedCoeffs(B1, B2, *terms)
 
 
 def fused_matvec(coeffs: FusedCoeffs, M: torch.Tensor,

@@ -1,8 +1,8 @@
 """K12: the fused equivariant-basis message passing (backend ``"pallas"``).
 
 Counterpart of ``gncde_tpu/ops/pallas/fused_basis.py``. Computes
-``out = A_bar @ M (+ M)`` for the undirected Maron-basis operator without
-materialising ``A_bar`` or B1/B2: per row tile the kernel forms
+``out = A_bar @ M (+ M)`` for the undirected or the directed Maron-basis
+operator without materialising ``A_bar`` or B1/B2: per row tile the kernel forms
 ``a1 A + a2 dA`` and ``b1 A + b2 dA`` on the fly, multiplies, and adds the
 diagonal and rank-1 corrections. The backward is autograd of the plain
 ``equiv_basis.fused_apply``, as JAX's ``_bwd`` takes ``jax.vjp`` of it.
@@ -18,7 +18,10 @@ to the decomposed XLA path, because the TPU kernel's blocks must tile n.
 The Hopper kernel bound-checks its rows and columns and serves every n, so
 there is no tile search and no fallback here. The operands come from
 ``pipeline._prep``, the O(n) terms without ``fused_coeffs``: torch, unlike
-XLA, would not drop the unused B1/B2 planes.
+XLA, would not drop the unused B1/B2 planes. The directed basis changes
+only those operands (``_prep(directed=True)``, from the directed rank
+structure, as JAX builds them from ``fused_coeffs_directed``) and the
+backward's autograd, which runs ``fused_apply(directed=True)``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import equiv_basis
-from .pipeline import _prep, _rank_structure, launch_apply
+from .pipeline import _prep, launch_apply
 
 
 def plain_pallas_forward(A, dA, M, scalars, dvec, u, svec, wvec):
@@ -50,35 +53,33 @@ _pallas_forward.launches = 0
 
 
 class FusedApplyPallas(torch.autograd.Function):
-    """Inputs ``(add_identity, A, dA, M, *params)``."""
+    """Inputs ``(directed, add_identity, A, dA, M, *params)``."""
 
     @staticmethod
-    def forward(ctx, add_identity, A, dA, M, *params):
+    def forward(ctx, directed, add_identity, A, dA, M, *params):
         with torch.no_grad():
-            ops = _prep(A, dA, M, params, add_identity)
+            ops = _prep(A, dA, M, params, add_identity, directed=directed)
             out = _pallas_forward(A.float(), dA.float(), M.float(), *ops)
-        ctx.add_identity = add_identity
+        ctx.directed, ctx.add_identity = directed, add_identity
         ctx.save_for_backward(A, dA, M, *params)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        needs = ctx.needs_input_grad[1:]
+        needs = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(need)
                       for x, need in zip(ctx.saved_tensors, needs)]
             A, dA, M, *params = leaves
-            out = equiv_basis.fused_apply(A, dA, M, params,
+            out = equiv_basis.fused_apply(A, dA, M, params, directed=ctx.directed,
                                           add_identity=ctx.add_identity)
             wrt = [x for x, need in zip(leaves, needs) if need]
             grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        return (None, *[next(grads) if need else None for need in needs])
+        return (None, None, *[next(grads) if need else None for need in needs])
 
 
 def fused_apply_pallas(A, dA, M, params, directed: bool = False,
                        add_identity: bool = False):
     """``A_bar @ M`` (+ ``M``) through K12, same semantics as
-    ``equiv_basis.fused_apply``."""
-    if directed:
-        _rank_structure(A, dA, params, True)  # raises
-    return FusedApplyPallas.apply(add_identity, A, dA, M, *params)
+    ``equiv_basis.fused_apply`` on the undirected or ``directed`` basis."""
+    return FusedApplyPallas.apply(bool(directed), add_identity, A, dA, M, *params)

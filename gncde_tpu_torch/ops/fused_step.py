@@ -26,7 +26,10 @@ glue between them. Off by default (``ops.set_fused_step``), as in JAX.
   does.
 
 Shapes are batch-first: ``t``, ``h`` ``(B,)``; ``y``, ``f0`` ``(B, n, H)``;
-planes ``(B, T-1, n, n)`` or ``(T-1, n, n)``; knots ``(B, T)``.
+planes ``(B, T-1, n, n)`` or ``(T-1, n, n)``; knots ``(B, T)``. The layers
+carry the undirected ``(8, 2)`` or the directed ``(11, 2)`` basis; the
+kernel is built for both (its ``directed`` argument), and the backward's
+K2 follows the basis.
 """
 
 from __future__ import annotations
@@ -39,10 +42,13 @@ import torch
 
 from . import _build
 from .megakernel import (
+    NBASIS_DIRECTED,
+    NSTAT,
     Planes,
     _check_inputs,
     _unflatten,
     flat_grads,
+    field_basis_size,
     flatten_params,
     interval,
     launch_args,
@@ -145,7 +151,7 @@ _ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.P,  # idx, tau, h, y, f0
     _build.I, _build.I, _build.I, _build.I, _build.I,  # Btot, b0, nb, n, S
     _build.P, _build.P, _build.P,  # amat, bvec, berr (host arrays)
-    _build.I, _build.P, _build.P,  # L, dims, ptrs (host arrays)
+    _build.I, _build.P, _build.P, _build.I,  # L, dims, ptrs (host arrays), directed
     _build.P, _build.P, _build.I, _build.P, _build.P,  # stats, Mbuf, ldm, Yi, ks
     _build.P, _build.P, _build.P, _build.P,  # y1, err, f1, stream
 ]
@@ -157,23 +163,25 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.gncde_fused_step_capacity.argtypes = []
+        lib.gncde_fused_step_capacity.argtypes = [_build.I]
         lib.gncde_fused_step_capacity.restype = ctypes.c_int
     return lib
 
 
-_CAPACITY: tp.Dict[int, int] = {}
+_CAPACITY: tp.Dict[tp.Tuple[int, bool], int] = {}
 
 
-def capacity(device) -> int:
-    """How many K11 CTAs can be resident at once on ``device`` (a
-    cooperative launch needs them all resident)."""
+def capacity(device, directed: bool = False) -> int:
+    """How many K11 CTAs (of the directed basis's build or not) can be
+    resident at once on ``device`` (a cooperative launch needs them all
+    resident)."""
     dev = torch.device(device).index
     dev = torch.cuda.current_device() if dev is None else dev
-    if dev not in _CAPACITY:
+    key = (dev, bool(directed))
+    if key not in _CAPACITY:
         with torch.cuda.device(dev):
-            _CAPACITY[dev] = int(_lib().gncde_fused_step_capacity())
-    return _CAPACITY[dev]
+            _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(int(bool(directed))))
+    return _CAPACITY[key]
 
 
 def _host_floats(a: np.ndarray):
@@ -184,7 +192,8 @@ def _host_floats(a: np.ndarray):
 def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
     amat, bvec, berr, _ = tabs
     S = amat.shape[0]
-    _check_inputs(planes, idx[:, 0], tau[:, 0], y, layers, extra=(f0, h))
+    directed = _check_inputs(planes, idx[:, 0], tau[:, 0], y, layers,
+                             extra=(f0, h)) == NBASIS_DIRECTED
     if S > MAX_STAGES or len(layers) > MAX_LAYERS:
         raise ValueError(f"K11 serves up to {MAX_STAGES} stages and {MAX_LAYERS} "
                          f"layers; got {S} and {len(layers)}")
@@ -196,7 +205,7 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
         raise ValueError("K11: the layer stack must map the state width to itself")
     lib = _lib()
     nrb = -(-n // 16)  # csrc/megakernel_common.cuh BM
-    per_launch = capacity(y.device) // nrb
+    per_launch = capacity(y.device, directed) // nrb
     if per_launch < 1:
         raise RuntimeError(f"K11: not even one batch element ({nrb} CTAs) fits a "
                            f"cooperative launch on this device")
@@ -206,7 +215,7 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     ldm = scratch_width(layers)
     f32 = dict(device=y.device, dtype=torch.float32)
-    stats = torch.empty((B, 6, n), **f32)
+    stats = torch.empty((B, NSTAT, n), **f32)
     mbuf = torch.empty((2, B, n, ldm), **f32)
     yi = torch.empty((B, n, H), **f32)
     ks = torch.empty((B, S, n, H), **f32)
@@ -219,8 +228,8 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
             _build.ptr(tau32), _build.ptr(h32), _build.ptr(y), _build.ptr(f0),
             B, b0, nb, n, S, *[ctypes.cast(a, _build.P) for a in host],
             len(layers), ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-            _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(yi), _build.ptr(ks),
-            _build.ptr(y1), _build.ptr(err), _build.ptr(f1), _build.stream())
+            int(directed), _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(yi),
+            _build.ptr(ks), _build.ptr(y1), _build.ptr(err), _build.ptr(f1), _build.stream())
         _build.check(code, "K11 fused_step")
         fused_step_call.launches += 1
     del keep
@@ -250,29 +259,31 @@ def _bsum(x, y):
 
 class FusedRKStep(torch.autograd.Function):
     """Differentiable fused step: forward K11, backward the explicit-RK chain
-    rule with one K2 per stage. Inputs ``(tab, ts, t, y, h, f0, d, c, b, a,
-    *flat)`` with ``flat`` as for :class:`~gncde_tpu_torch.ops.megakernel.MegakernelVF`."""
+    rule with one K2 per stage. Inputs ``(tab, nbasis, ts, t, y, h, f0, d, c,
+    b, a, *flat)`` with ``nbasis`` and ``flat`` as for
+    :class:`~gncde_tpu_torch.ops.megakernel.MegakernelVF`."""
 
     @staticmethod
-    def forward(ctx, tab, ts, t, y, h, f0, d, c, b, a, *flat):
-        layers = _unflatten(flat)
+    def forward(ctx, tab, nbasis, ts, t, y, h, f0, d, c, b, a, *flat):
+        layers = _unflatten(flat, nbasis)
         with torch.no_grad():
             y1, err, f1, ks = fused_step_call((d, c, b, a), ts, t, y, h, f0, layers, tab)
-        ctx.tab = tab
+        ctx.tab, ctx.nbasis = tab, nbasis
         ctx.save_for_backward(ts, t, y, h, f0, ks, d, c, b, a, *flat)
         return y1, err, f1
 
     @staticmethod
     def backward(ctx, g_y1, g_err, g_f1):
         ts, t, y, h, f0, ks, d, c, b, a, *flat = ctx.saved_tensors
-        needs = ctx.needs_input_grad
+        # needs[k]: input k of (nbasis, ts, t, y, h, f0, d, c, b, a, *flat).
+        needs = ctx.needs_input_grad[1:]
         if any(needs[6:10]):
             raise NotImplementedError(
                 "gradients with respect to the coefficient planes are not served "
                 "by the fused step's backward")
         need_t, need_y, need_h, need_f0 = needs[2], needs[3], needs[4], needs[5]
         need_vf = any(needs[10:])
-        layers = _unflatten(flat)
+        layers = _unflatten(flat, ctx.nbasis)
         planes = (d, c, b, a)
         amat, bvec, berr, cvec = _register(ctx.tab)
         idx, tau = _stage_nodes(ctx.tab, ts, t, h)
@@ -306,7 +317,7 @@ class FusedRKStep(torch.autograd.Function):
                 grads = flat_grads(per_layer)
                 d_flat = grads if d_flat is None else [x + g for x, g in zip(d_flat, grads)]
         d_flat = d_flat if need_vf else [None] * len(flat)
-        return (None, None, tbar if need_t else None, ybar if need_y else None,
+        return (None, None, None, tbar if need_t else None, ybar if need_y else None,
                 hbar if need_h else None, kbar[0] if need_f0 else None,
                 None, None, None, None, *d_flat)
 
@@ -322,4 +333,5 @@ def fused_rk_step(tab, planes: Planes, ts, t, y, h, f0, vf):
     _register(tab)
     if ts.dim() == 1:
         ts = ts.unsqueeze(0).expand(y.shape[0], -1)
-    return FusedRKStep.apply(tab, ts, t, y, h, f0, *planes, *flatten_params(vf))
+    return FusedRKStep.apply(tab, field_basis_size(vf), ts, t, y, h, f0, *planes,
+                             *flatten_params(vf))

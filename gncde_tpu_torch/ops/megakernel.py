@@ -3,8 +3,11 @@
 Counterpart of ``gncde_tpu/ops/pallas/megakernel.py``. For each batch
 element ``b`` the eval reads that element's four Hermite interval planes
 ``d, c, b, a`` at interval ``idx[b]``, forms ``A(tau[b])`` and
-``dA(tau[b])``, and runs the undirected perm-equiv layer stack
-``L x [RMSNorm -> Linear -> A_bar @ M (+ M)]`` with ReLU between layers.
+``dA(tau[b])``, and runs the perm-equiv layer stack
+``L x [RMSNorm -> Linear -> A_bar @ M (+ M)]`` with ReLU between layers, on
+the undirected 8-term basis (each layer's ``basis`` is ``(8, 2)``) or the
+directed 11-term one (``(11, 2)``, ``fusion_matrix_dense_directed``), one
+basis for the whole stack.
 
 * :func:`plain_vf_eval` is the plain PyTorch version (the dense layer
   stack, counterpart of ``_xla_reference``). CPU tensors always take it.
@@ -25,7 +28,7 @@ import typing as tp
 import torch
 
 from . import _build
-from .equiv_basis import fusion_matrix_dense
+from .equiv_basis import fusion_matrix_dense, fusion_matrix_dense_directed
 
 #: Largest n the vf-level kernels serve; above it the tiled regime (ROADMAP
 #: slice 2) is needed. Kept equal to the JAX package's cap so both packages
@@ -42,6 +45,13 @@ Planes = tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 LayerParams = tp.Dict[str, torch.Tensor]
 
 _LAYER_KEYS = ("norm_w", "norm_b", "W", "lin_b", "basis")
+#: Basis 2-vectors of the undirected and the directed basis
+#: (csrc/megakernel_common.cuh NBASIS_U, NBASIS_D).
+NBASIS_UNDIRECTED = 8
+NBASIS_DIRECTED = 11
+#: Rows of the kernels' (B, NSTAT, n) statistics buffer
+#: (csrc/megakernel_common.cuh NSTAT).
+NSTAT = 9
 
 
 def interval(ts: torch.Tensor, t: torch.Tensor):
@@ -89,7 +99,9 @@ def plain_layer_stack(A, dA, Z, layers: tp.Sequence[LayerParams]):
         inv = torch.rsqrt((feats * feats).mean(-1, keepdim=True) + 1e-6)
         m = (feats * inv * nw + nb) @ W.transpose(-2, -1) + lb
         params = [basis[:, k] for k in range(basis.shape[1])]
-        fused = fusion_matrix_dense(A, dA, params)
+        dense = (fusion_matrix_dense_directed if basis.shape[1] == NBASIS_DIRECTED
+                 else fusion_matrix_dense)
+        fused = dense(A, dA, params)
         feats = m + fused @ m
         if l < len(layers) - 1:
             feats = torch.relu(feats)
@@ -102,7 +114,19 @@ def plain_vf_eval(planes: Planes, idx, tau, Z, layers):
     return plain_layer_stack(A, dA, Z, layers)
 
 
+def basis_size(layers) -> int:
+    """The stack's number of basis 2-vectors, 8 (undirected) or 11
+    (directed); raises on another shape or on a stack that mixes the two."""
+    shapes = {tuple(lp["basis"].shape) for lp in layers}
+    if len(shapes) != 1 or next(iter(shapes)) not in ((NBASIS_UNDIRECTED, 2),
+                                                      (NBASIS_DIRECTED, 2)):
+        raise ValueError(f"the kernels take a (8, 2) or (11, 2) basis, one size for the "
+                         f"whole stack; got {sorted(shapes)}")
+    return next(iter(shapes))[0]
+
+
 def _check_inputs(planes: Planes, idx, tau, Z, layers, extra=()):
+    """Raises on what the kernels do not take; returns the basis size."""
     dev = Z.device
     B, n, _ = Z.shape
     shape = planes[0].shape
@@ -127,9 +151,8 @@ def _check_inputs(planes: Planes, idx, tau, Z, layers, extra=()):
         if h_in != hin or hout > MAX_OUT or hin > MAX_IN:
             raise ValueError(f"layer widths {h_in}->{hout} unsupported "
                              f"(inputs up to {MAX_IN}, outputs up to {MAX_OUT})")
-        if lp["basis"].shape != (8, 2):
-            raise ValueError("the kernels serve the undirected 8-term basis")
         hin = hout
+    return basis_size(layers)
 
 
 def launch_args(planes: Planes, idx, tau, layers):
@@ -162,7 +185,7 @@ _FWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P,  # idx, tau, Z
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P,  # dims, ptrs (host arrays)
+    _build.P, _build.P, _build.I,  # dims, ptrs (host arrays), directed
     _build.P, _build.P, _build.I,  # stats, Mbuf, ldm
     _build.P, _build.P,  # out, stream
 ]
@@ -178,12 +201,12 @@ def _fwd_lib():
 
 
 def _launch_fwd(planes: Planes, idx, tau, Z, layers):
-    _check_inputs(planes, idx, tau, Z, layers)
+    nbasis = _check_inputs(planes, idx, tau, Z, layers)
     fn = _fwd_lib()
     B, n, _ = Z.shape
     Z = Z.detach().contiguous()
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
-    stats = torch.empty((B, 6, n), device=Z.device, dtype=torch.float32)
+    stats = torch.empty((B, NSTAT, n), device=Z.device, dtype=torch.float32)
     ldm = scratch_width(layers)
     mbuf = torch.empty((2, B, n, ldm), device=Z.device, dtype=torch.float32)
     out = torch.empty((B, n, layers[-1]["W"].shape[0]), device=Z.device,
@@ -192,7 +215,7 @@ def _launch_fwd(planes: Planes, idx, tau, Z, layers):
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z),
         B, n, len(layers), ctypes.cast(dims, _build.P),
-        ctypes.cast(ptrs, _build.P),
+        ctypes.cast(ptrs, _build.P), int(nbasis == NBASIS_DIRECTED),
         _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(out),
         _build.stream(),
     )
@@ -217,16 +240,18 @@ megakernel_vf_eval.launches = 0
 class MegakernelVF(torch.autograd.Function):
     """Differentiable vf eval: forward K1, backward K2.
 
-    Inputs: ``(idx, tau, Z, d, c, b, a, *flat)`` where ``flat`` holds, per
-    layer, ``norm_w, norm_b, W, lin_b`` and the eight basis 2-vectors.
+    Inputs: ``(nbasis, idx, tau, Z, d, c, b, a, *flat)`` where ``flat``
+    holds, per layer, ``norm_w, norm_b, W, lin_b`` and the ``nbasis`` (8 or
+    11) basis 2-vectors.
     """
 
     @staticmethod
-    def forward(ctx, idx, tau, Z, d, c, b, a, *flat):
-        layers = _unflatten(flat)
+    def forward(ctx, nbasis, idx, tau, Z, d, c, b, a, *flat):
+        layers = _unflatten(flat, nbasis)
         planes = (d, c, b, a)
         with torch.no_grad():
             out = megakernel_vf_eval(planes, idx, tau, Z, layers)
+        ctx.nbasis = nbasis
         ctx.save_for_backward(idx, tau, Z, d, c, b, a, *flat)
         return out
 
@@ -235,21 +260,18 @@ class MegakernelVF(torch.autograd.Function):
         from .megakernel_bwd import megakernel_vf_bwd
 
         idx, tau, Z, d, c, b, a, *flat = ctx.saved_tensors
-        if any(ctx.needs_input_grad[3:7]):
+        if any(ctx.needs_input_grad[4:8]):
             raise NotImplementedError(
                 "gradients with respect to the coefficient planes are not "
                 "served by the megakernel backward"
             )
-        layers = _unflatten(flat)
-        need_tau = ctx.needs_input_grad[1]
+        layers = _unflatten(flat, ctx.nbasis)
+        need_tau = ctx.needs_input_grad[2]
         dtau, dZ, per_layer = megakernel_vf_bwd(
             (d, c, b, a), idx, tau, Z, layers, g.contiguous(), need_tau=need_tau
         )
-        return (None, dtau if need_tau else None, dZ, None, None, None, None,
+        return (None, None, dtau if need_tau else None, dZ, None, None, None, None,
                 *flat_grads(per_layer))
-
-
-_PER_LAYER = 12  # norm_w, norm_b, W, lin_b + 8 basis vectors
 
 
 def flat_grads(per_layer) -> tp.List[torch.Tensor]:
@@ -263,6 +285,11 @@ def flat_grads(per_layer) -> tp.List[torch.Tensor]:
     return grads
 
 
+def field_basis_size(vf) -> int:
+    """8 for an undirected field's layers, 11 for a directed one's."""
+    return len(vf.gnn_layers[0].params)
+
+
 def flatten_params(vf) -> tp.List[torch.Tensor]:
     flat = []
     for layer in vf.gnn_layers:
@@ -272,18 +299,22 @@ def flatten_params(vf) -> tp.List[torch.Tensor]:
     return flat
 
 
-def _unflatten(flat) -> tp.List[LayerParams]:
+def _unflatten(flat, nbasis: int = NBASIS_UNDIRECTED) -> tp.List[LayerParams]:
+    """Inverse of :func:`flatten_params` for a stack of ``nbasis`` basis
+    2-vectors per layer."""
+    per_layer = 4 + nbasis  # norm_w, norm_b, W, lin_b + the basis vectors
     layers = []
-    for i in range(0, len(flat), _PER_LAYER):
-        nw, nb, W, lb, *basis = flat[i:i + _PER_LAYER]
+    for i in range(0, len(flat), per_layer):
+        nw, nb, W, lb, *basis = flat[i:i + per_layer]
         layers.append(dict(norm_w=nw, norm_b=nb, W=W, lin_b=lb,
                            basis=torch.stack(basis)))
     return layers
 
 
 def layer_params(vf) -> tp.List[LayerParams]:
-    """Per-layer parameters of a PermEquivGraphVectorField, basis as (8, 2)."""
-    return _unflatten(flatten_params(vf))
+    """Per-layer parameters of a perm-equiv field, basis as (8, 2) or, for
+    the directed field, (11, 2)."""
+    return _unflatten(flatten_params(vf), field_basis_size(vf))
 
 
 def megakernel_vf(planes: Planes, ts, t, Z, vf):
@@ -291,4 +322,5 @@ def megakernel_vf(planes: Planes, ts, t, Z, vf):
     if ts.dim() == 1:
         ts = ts.unsqueeze(0).expand(Z.shape[0], -1)
     idx, tau = interval(ts, t)
-    return MegakernelVF.apply(idx, tau, Z, *planes, *flatten_params(vf))
+    return MegakernelVF.apply(field_basis_size(vf), idx, tau, Z, *planes,
+                              *flatten_params(vf))

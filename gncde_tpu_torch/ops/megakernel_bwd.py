@@ -5,7 +5,9 @@ inputs and an output cotangent ``G`` (B, n, Hout), returns
 
     dtau (B,), dZ (B, n, Hin0),
     per layer: dnorm_w (B, Hin), dnorm_b (B, Hin), dW (B, Hout, Hin),
-               dlin_b (B, Hout), dbasis (B, 8, 2)
+               dlin_b (B, Hout), dbasis (B, P, 2)
+
+with P = 8 for the undirected basis and 11 for the directed one
 
 -- per-element parameter cotangents, summed over the batch by the caller
 (as ``bwd_call_batched`` leaves them). ``dtau`` is computed only when
@@ -27,6 +29,8 @@ import torch
 
 from . import _build
 from .megakernel import (
+    NBASIS_DIRECTED,
+    NSTAT,
     Planes,
     LayerParams,
     _LAYER_KEYS,
@@ -43,7 +47,8 @@ PerLayer = tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 def plain_vf_bwd(planes: Planes, idx, tau, Z, layers: tp.Sequence[LayerParams],
                  G, need_tau: bool = True):
-    """Plain PyTorch version of K2 (autograd of the dense layer stack)."""
+    """Plain PyTorch version of K2 (autograd of the dense layer stack, on
+    whichever basis the layers carry)."""
     B = Z.shape[0]
     with torch.enable_grad():
         tau_ = tau.detach().clone().requires_grad_(need_tau)
@@ -74,7 +79,7 @@ _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P,  # dims, ptrs (host arrays)
+    _build.P, _build.P, _build.I,  # dims, ptrs (host arrays), directed
     _build.I,  # need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
@@ -97,7 +102,7 @@ def _layer_sizes(layers) -> tp.List[tp.Tuple[int, int]]:
 
 
 def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
-    _check_inputs(planes, idx, tau, Z, layers, extra=(G,))
+    nbasis = _check_inputs(planes, idx, tau, Z, layers, extra=(G,))
     if G.shape != Z.shape[:2] + (layers[-1]["W"].shape[0],):
         raise ValueError(f"G {tuple(G.shape)} does not match the output shape")
     fn = _bwd_lib()
@@ -108,10 +113,10 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
     G = G.detach().contiguous()
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     sizes = _layer_sizes(layers)
-    ptot = sum(2 * hi + ho * hi + ho + 17 for hi, ho in sizes)
+    ptot = sum(2 * hi + ho * hi + ho + 2 * nbasis + 1 for hi, ho in sizes)
     nblk = -(-n // 16)
     f32 = dict(device=dev, dtype=torch.float32)
-    stats = torch.empty((B, 6, n), **f32)
+    stats = torch.empty((B, NSTAT, n), **f32)
     ldm = scratch_width(layers)
     mbuf = torch.empty((L, B, n, ldm), **f32)
     xbuf = torch.empty((L, B, n, ldm), **f32)
@@ -123,7 +128,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-        int(bool(need_tau)),
+        int(nbasis == NBASIS_DIRECTED), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
         ldm, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
         _build.stream(),
@@ -135,7 +140,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
     for hi, ho in sizes:
         chunks = []
         for size, shape in ((hi, (hi,)), (hi, (hi,)), (ho * hi, (ho, hi)),
-                            (ho, (ho,)), (16, (8, 2))):
+                            (ho, (ho,)), (2 * nbasis, (nbasis, 2))):
             chunks.append(red[:, off:off + size].reshape((B,) + shape))
             off += size
         dtau_l = red[:, off]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .ell_spmm import ELLSpMM, ell_sddmm  # noqa: F401
+from .equiv_basis import directed_rank_terms
 
 
 class ELL:
@@ -206,13 +207,46 @@ def sparse_fused_apply(ell_A: ELL, ell_dA: ELL, M: torch.Tensor, params,
     return _rank_terms(rowpart + colpart, dvec, rA, rdA, sA, M, (p4, p5, p7), n)
 
 
+def sparse_fused_apply_directed(ell_A: ELL, ell_dA: ELL, M: torch.Tensor, params,
+                                add_identity: bool = False) -> torch.Tensor:
+    """Directed 11-term fused basis apply with sparse A, dA: the pairs as in
+    :func:`sparse_fused_apply`, and the column sums ``cA``, ``cdA`` from the
+    transposed pattern every ELL carries (:func:`ell_col_sums`). Matches
+    ``ops.equiv_basis.fused_apply(directed=True)``, the term_4' row/column
+    mix and the term_7 ``sum(A)`` quirks included."""
+    p1, p2 = params[0], params[1]
+    n = ell_A.n
+    rA, rdA = ell_row_sums(ell_A), ell_row_sums(ell_dA)
+    dvec, u, v, c7 = directed_rank_terms(
+        params, n, rA, rdA, ell_col_sums(ell_A), ell_col_sums(ell_dA), ell_diag(ell_A),
+        ell_diag(ell_dA), rA.sum(-1), rdA.sum(-1))
+
+    if ell_A.indices is ell_dA.indices:
+        rowpart = ell_spmm(ell_A.combine(ell_dA, 1.0 + p1[0], 1.0 + p1[1]), M)
+        colpart = ell_spmm_t(ell_A.combine(ell_dA, p2[0], p2[1]), M)
+    else:
+        rowpart = ((1.0 + p1[0]) * ell_spmm(ell_A, M)
+                   + (1.0 + p1[1]) * ell_spmm(ell_dA, M))
+        colpart = p2[0] * ell_spmm_t(ell_A, M) + p2[1] * ell_spmm_t(ell_dA, M)
+    if add_identity:
+        dvec = dvec + 1.0
+    return _uv_terms(rowpart + colpart, dvec, u, v, c7, M)
+
+
 def _rank_terms(pairs, dvec, rA, rdA, sA, M, p457, n):
     """``pairs + dvec M + u s^T + 1 (v^T M + c7 s)^T`` with ``s`` the column
-    sums of M (shared by the ELL and BCSR applies)."""
+    sums of M, for the undirected basis (shared by the ELL and BCSR
+    applies)."""
     p4, p5, p7 = p457
     u = (p4[0] * rA + p4[1] * rdA) / n
     v = (p5[0] * rA + p5[1] * rdA) / n
     c7 = (p7[0] + p7[1]) * sA / n**2  # quirk: both use sum(A)
+    return _uv_terms(pairs, dvec, u, v, c7, M)
+
+
+def _uv_terms(pairs, dvec, u, v, c7, M):
+    """``pairs + dvec M + u s^T + 1 (v^T M + c7 s)^T`` for given ``u``, ``v``,
+    ``c7`` (either basis)."""
     s = M.sum(-2)
     w = (v.unsqueeze(-1) * M).sum(-2)
     return (

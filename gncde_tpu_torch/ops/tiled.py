@@ -44,6 +44,7 @@ import typing as tp
 import torch
 
 from . import _build
+from .equiv_basis import directed_rank_terms
 from .megakernel import interval, select_planes
 
 #: Largest n the tiled regime serves (the JAX package's cap).
@@ -108,10 +109,15 @@ def reductions_at(red: PlaneReductions, idx, wA, wdA):
                  for r in (red.rs, red.cs, red.dg) for w in (wA, wdA))
 
 
-def rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA):
-    """O(n) tail of the undirected fused basis apply: (dvec, u, v, c7) with
-    the residual identity folded into dvec, keeping the reference's term_7
-    quirk (both operands scaled by sum(A))."""
+def rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA, cA=None, cdA=None):
+    """O(n) tail of the fused basis apply: (dvec, u, v, c7) with the residual
+    identity folded into dvec, keeping the reference's term_7 quirk (both
+    operands scaled by sum(A)). ``p`` is the undirected 8-term basis or the
+    directed 11-term one (JAX ``tiled.py`` ``_rank_terms``), whose terms
+    also read the column sums ``cA``, ``cdA``."""
+    if len(p) == 11:
+        dvec, u, v, c7 = directed_rank_terms(p, n, rA, rdA, cA, cdA, dgA, dgdA, sA, sdA)
+        return dvec + 1.0, u, v, c7
     _, _, p3, p4, p5, p6, p7, p8 = p
     dvec = (p3[0] * dgA + p3[1] * dgdA
             + (p6[0] * rA + p6[1] * rdA) / n
@@ -491,8 +497,8 @@ def tiled_abar_apply(slabs, w_row, w_col, M, tile: int = DEFAULT_TILE):
 
 
 def tiled_vf_eval(coeffs, ts, t, Z, vf, red: tp.Optional[PlaneReductions] = None):
-    """Evaluate a :class:`PermEquivGraphVectorField` at ``(t, Z)`` through
-    the tiled kernels.
+    """Evaluate a perm-equiv field (undirected or directed) at ``(t, Z)``
+    through the tiled kernels.
 
     ``coeffs``: the slim Hermite stacks (d, c, b, a), each ``(B, T-1, n, n)``
     (or shared ``(T-1, n, n)``); ``ts`` ``(B, T)`` or ``(T,)``; ``t`` ``(B,)``;
@@ -528,7 +534,7 @@ def tiled_vf_eval(coeffs, ts, t, Z, vf, red: tp.Optional[PlaneReductions] = None
         M = layer.conv_layer.transform(feats)  # (B, n, H)
         p = layer.params
         heavy = tiled_fused2(A_h, dA_h, slabs, wA, wdA, 1.0 + p[0], p[1], M)
-        dvec, u, v, c7 = rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA)
+        dvec, u, v, c7 = rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA, cA, cdA)
         s = M.sum(1)  # (B, H)
         w = torch.einsum("bn,bnh->bh", v, M)
         feats = (heavy + dvec[..., None] * M + u[..., None] * s[:, None, :]

@@ -108,7 +108,7 @@ def tgb_setup(args, tmp, dev):
     from gncde_tpu_torch.train.windowed import TGBTrainer, _to_device
 
     t0 = time.perf_counter()
-    chip_smoke.write_genre_surrogate(Path(tmp) / "data")
+    chip_smoke.write_genre_surrogate(Path(tmp) / "data", args.window)
     edges = tgb.load_tgb_edgelist("tgbn-genre-synth", os.path.join(tmp, "data"))
     snaps = tgb.process_snapshots(edges, "None")[:args.window]
     window = _to_device(windows.process_window_tgb(snaps, "cubic"), dev)

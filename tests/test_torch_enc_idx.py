@@ -486,7 +486,8 @@ def test_genre_enc_idx_config_builds_and_directed_is_refused():
     """configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml builds at full width
     (n=1505, vf 8 -> 8 -> 8 -> 128, emb idx encoder of width 8, two
     modulation MLPs of width 8 and depth 2); the directed enc_idx config
-    still raises, naming the queue item of the directed basis."""
+    still raises, naming the queue item of the directed enc_idx field (the
+    directed basis itself is ported)."""
     cfg = _cfg("genre_perm_equiv_enc_idx_gncde.yaml")
     model = TGBGraphNeuralCDECfg.from_dict(cfg["model"]).build(torch.Generator().manual_seed(0))
     vf = model.vector_field
@@ -496,7 +497,7 @@ def test_genre_enc_idx_config_builds_and_directed_is_refused():
     for mlp in (vf.msg_func_adj, vf.msg_func_adj_deriv):
         assert (mlp.in_size, mlp.width_size, mlp.depth) == (17, 8, 2)
         assert tmod.modulate_supported(mlp)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         TGBGraphNeuralCDECfg.from_dict(_cfg("genre_perm_equiv_dir_enc_idx_gncde.yaml")["model"])
 
 

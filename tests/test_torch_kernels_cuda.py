@@ -4,8 +4,9 @@ regime's plane sweeps and the 4-slab apply, ``csrc/tiled.cu``), the enc_idx
 path's K7 (modulation, ``csrc/modulate.cu``), K6a and K6b (plane pair,
 ``csrc/tiled.cu``), the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
 ``csrc/bcsr.cu``) and K10 (ELL SpMM, ``csrc/ell_spmm.cu``), the fused RK
-step K11 (``csrc/fused_step.cu``) and the per-layer fused applies K12 and
-K13 (``csrc/fused_apply.cu``).
+step K11 (``csrc/fused_step.cu``), the per-layer fused applies K12 and
+K13 (``csrc/fused_apply.cu``), and K1, K2 and K11 on the directed 11-term
+basis (K1d, K2d, K11d: the same sources, the basis a template parameter).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -31,7 +32,8 @@ K10 are f32 on both sides and sum in another order (1e-4); their autograd
 functions against autograd of the plain versions 1e-4. K11 against its plain
 version 1e-4 of max|ref| per output (K1's sums in another order, compounded
 over the stages), its backward 1e-3 (K2's); K12, K13 and K5c 1e-4 (f32 or
-the same bf16 operands; summation order).
+the same bf16 operands; summation order). K1d, K2d and K11d as K1, K2 and
+K11, on planes whose column sums differ from their row sums.
 """
 
 import numpy as np
@@ -40,6 +42,7 @@ import torch
 
 from gncde_tpu_torch import ops
 from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
+from gncde_tpu_torch.models.vector_fields import PermEquivDirGraphVectorField as TDVF
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
 from gncde_tpu_torch.ops import bcsr as tb
 from gncde_tpu_torch.ops import ell_spmm as tell
@@ -68,9 +71,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, widths, per_element=True, seed=0):
-    """Planes, per-element (idx, tau), node state, layer params and an
-    output cotangent, made with numpy from ``seed``."""
+def _inputs(dev, widths, per_element=True, seed=0, nbasis=8):
+    """Planes, per-element (idx, tau), node state, layer params (basis
+    ``(nbasis, 2)``) and an output cotangent, made with numpy from ``seed``."""
     rng = np.random.default_rng(seed)
 
     def t(x):
@@ -89,7 +92,7 @@ def _inputs(dev, widths, per_element=True, seed=0):
             norm_b=t(0.1 * rng.normal(size=hin)),
             W=t(rng.uniform(-lim, lim, (hout, hin))),
             lin_b=t(rng.uniform(-lim, lim, hout)),
-            basis=t(rng.uniform(-1 / 15, 1 / 15, (8, 2))),
+            basis=t(rng.uniform(-1 / 15, 1 / 15, (nbasis, 2))),
         ))
     G = t(rng.normal(size=(B, N, widths[-1])))
     return planes, idx, tau, Z, layers, G
@@ -654,9 +657,10 @@ STEP_CASES = [(400, 4, (16, 16, 16), "tsit5"), (400, 4, (32, 32, 32, 32), "tsit5
 STEP_IDS = ["flagship-tsit5", "bench-tsit5", "n70-dopri5", "n70-bosh3"]
 
 
-def _step_inputs(dev, n, B, widths, seed=0, T=8):
+def _step_inputs(dev, n, B, widths, seed=0, T=8, nbasis=8):
     """Per-element planes and knots, y, f0, h (one finished element: h = 1
-    past the last knot) and layer params, from ``seed``."""
+    past the last knot) and layer params (basis ``(nbasis, 2)``), from
+    ``seed``."""
     rng = np.random.default_rng(seed)
 
     def t(x):
@@ -676,7 +680,7 @@ def _step_inputs(dev, n, B, widths, seed=0, T=8):
         layers.append(dict(
             norm_w=t(1.0 + 0.1 * rng.normal(size=hin)), norm_b=t(0.1 * rng.normal(size=hin)),
             W=t(rng.uniform(-lim, lim, (hout, hin))), lin_b=t(rng.uniform(-lim, lim, hout)),
-            basis=t(rng.uniform(-1 / 15, 1 / 15, (8, 2)))))
+            basis=t(rng.uniform(-1 / 15, 1 / 15, (nbasis, 2)))))
     return planes, ts, tq, y, h, f0, layers
 
 
@@ -746,7 +750,7 @@ def test_cuda_fused_step_backward_matches_autograd_of_plain(cuda):
         return [x.grad for x in leaves]
 
     got = grads(lambda tq_, y_, h_, f0_, fl: tfs.FusedRKStep.apply(
-        tab, ts, tq_, y_, h_, f0_, *planes, *fl))
+        tab, 8, ts, tq_, y_, h_, f0_, *planes, *fl))
     ref = grads(lambda tq_, y_, h_, f0_, fl: tfs._step_reference(
         planes, ts, tq_, y_, h_, f0_, mk._unflatten(fl), tab)[:3])
     for a, b in zip(got, ref):
@@ -881,3 +885,165 @@ def test_cuda_ell_backward_repeats_bitwise(cuda):
             assert torch.equal(a, b)
         _assert_close(runs[0][1], plain(indices, values, G), 1e-4)
 
+
+# ---------------------------------------------------------------------------
+# The directed 11-term basis: K1d, K2d, K11d
+# ---------------------------------------------------------------------------
+
+DIR_CASES = [((8, 8, 8), True), ((32, 32, 32, 32, 512), True), ((8, 8, 8), False)]
+DIR_IDS = ["square-per-element", "trade-widths", "shared-planes"]
+
+
+def _assert_asymmetric(planes, idx, tau):
+    """Column sums of A(tau) differ from its row sums, so a row/column swap
+    in a directed term cannot pass."""
+    A, _ = mk.hermite(planes, idx, tau)
+    rA, cA = A.sum(-1), A.sum(-2)
+    assert float((cA - rA).abs().max()) > 0.1 * float(rA.abs().max())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("widths,per_element", DIR_CASES, ids=DIR_IDS)
+def test_cuda_k1_directed_matches_plain(cuda, widths, per_element):
+    planes, idx, tau, Z, layers, _ = _inputs(cuda, widths, per_element, seed=7, nbasis=11)
+    _assert_asymmetric(planes, idx, tau)
+    before = mk.megakernel_vf_eval.launches
+    got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+    again = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+    ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+    torch.cuda.synchronize()
+    assert mk.megakernel_vf_eval.launches == before + 2
+    assert torch.equal(got, again)  # the column sums too: no atomics
+    _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("need_tau", [False, True])
+@pytest.mark.parametrize("widths,per_element", DIR_CASES, ids=DIR_IDS)
+def test_cuda_k2_directed_matches_plain(cuda, widths, per_element, need_tau):
+    planes, idx, tau, Z, layers, G = _inputs(cuda, widths, per_element, seed=8, nbasis=11)
+    _assert_asymmetric(planes, idx, tau)
+    before = mkb.megakernel_vf_bwd.launches
+    got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
+    ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
+    torch.cuda.synchronize()
+    assert mkb.megakernel_vf_bwd.launches == before + 1
+    _assert_close(got[1], ref[1], 1e-3)
+    if need_tau:
+        _assert_close(got[0], ref[0], 1e-3)
+    for gl, rl in zip(got[2], ref[2]):
+        assert gl[4].shape == (B, 11, 2)
+        for a, b in zip(gl, rl):
+            _assert_close(a, b, 1e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,B,widths,method", STEP_CASES[:3], ids=STEP_IDS[:3])
+def test_cuda_fused_step_directed_matches_plain_and_repeats(cuda, n, B, widths, method):
+    """K11d against its plain version, 1e-4 of each output's scale, a
+    finished element included; a second launch bitwise equal."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau(method)
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, n, B, widths, seed=9, nbasis=11)
+    got = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab)
+    again = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab)
+    ref = tfs._step_reference(planes, ts, tq, y, h, f0, layers, tab)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, again):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, c)
+        _assert_close(a, b, 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_step_directed_backward_matches_autograd_of_plain(cuda):
+    """K11d's chain rule (one K2d per stage) against autograd of the plain
+    step: y, f0, t, h and every layer parameter, 1e-3 of each scale."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, 400, 4, (16, 16, 16), seed=10,
+                                                    nbasis=11)
+    flat = [p for lp in layers for p in
+            (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+    rng = np.random.default_rng(11)
+    W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=cuda)
+         for _ in range(3)]
+
+    def grads(fn):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (tq, y, h, f0, *flat)]
+        tq_, y_, h_, f0_, *fl = leaves
+        outs = fn(tq_, y_, h_, f0_, fl)
+        sum((o * w).sum() for o, w in zip(outs, W)).backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda tq_, y_, h_, f0_, fl: tfs.FusedRKStep.apply(
+        tab, 11, ts, tq_, y_, h_, f0_, *planes, *fl))
+    ref = grads(lambda tq_, y_, h_, f0_, fl: tfs._step_reference(
+        planes, ts, tq_, y_, h_, f0_, mk._unflatten(fl, 11), tab)[:3])
+    for a, b in zip(got, ref):
+        _assert_close(a, b, 1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_field_directed_megakernel_matches_dense(cuda):
+    """The directed field on the card: K1d forward + K2d backward through the
+    autograd Function against the dense backend, value and every gradient
+    (the unused index encoder and MLPs get none on either route), with a
+    per-element query time that needs its own gradient (dtau)."""
+    H = 8
+    planes, _, _, Z, _, _ = _inputs(cuda, (H, H), seed=12)
+    ts = torch.linspace(0.0, 1.0, T, device=cuda).repeat(B, 1)
+    ts[1] *= 1.3
+    ctrl = MatrixControl(CubicInterpolation(ts, planes))
+    vf = TDVF(H, H, H, 2, 1, N, idx_dim=4, generator=torch.Generator().manual_seed(0)).to(cuda)
+    t0 = torch.tensor([0.1, 0.55, 0.93], device=cuda)
+    results = {}
+    try:
+        for name in ("dense", "megakernel"):
+            ops.set_fusion_backend(name)
+            vf.zero_grad(set_to_none=True)
+            t = t0.clone().requires_grad_(True)
+            Zr = Z.clone().requires_grad_(True)
+            launches = mk.megakernel_vf_eval.launches, mkb.megakernel_vf_bwd.launches
+            out = vf(t, Zr, ctrl)
+            (out * out).sum().backward()
+            torch.cuda.synchronize()
+            ran = (mk.megakernel_vf_eval.launches - launches[0],
+                   mkb.megakernel_vf_bwd.launches - launches[1])
+            assert ran == ((1, 1) if name == "megakernel" else (0, 0))
+            results[name] = [out.detach(), Zr.grad, t.grad] + [
+                p.grad.clone() for p in vf.gnn_layers.parameters()]
+            assert all(p.grad is None for p in vf.idx_enc.parameters())
+    finally:
+        ops.set_fusion_backend("auto")
+    _assert_close(results["megakernel"][0], results["dense"][0], 1e-4)
+    for a, b in zip(results["megakernel"][1:], results["dense"][1:]):
+        _assert_close(a, b, 1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_wrong_basis_shape_raises(cuda):
+    """K1, K2 and K11 take an (8, 2) or (11, 2) basis, one size for the
+    stack; another shape, or a stack that mixes the two, raises before any
+    launch."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    planes, idx, tau, Z, layers, G = _inputs(cuda, (8, 8, 8))
+    _, _, _, _, layers11, _ = _inputs(cuda, (8, 8, 8), nbasis=11)
+    bad = {"seven": [dict(lp, basis=lp["basis"][:7]) for lp in layers],
+           "mixed": [layers[0], layers11[1]]}
+    before = mk.megakernel_vf_eval.launches, mkb.megakernel_vf_bwd.launches
+    for stack in bad.values():
+        with pytest.raises(ValueError, match=r"\(8, 2\) or \(11, 2\)"):
+            mk.megakernel_vf_eval(planes, idx, tau, Z, stack)
+        with pytest.raises(ValueError, match=r"\(8, 2\) or \(11, 2\)"):
+            mkb.megakernel_vf_bwd(planes, idx, tau, Z, stack, G, True)
+    assert (mk.megakernel_vf_eval.launches, mkb.megakernel_vf_bwd.launches) == before
+    sp, ts, tq, y, h, f0, slayers = _step_inputs(cuda, 40, 2, (8, 8), nbasis=11)
+    steps = tfs.fused_step_call.launches
+    with pytest.raises(ValueError, match=r"\(8, 2\) or \(11, 2\)"):
+        tfs.fused_step_call(sp, ts, tq, y, h, f0, [dict(lp, basis=lp["basis"][:10])
+                                                   for lp in slayers], get_tableau("tsit5"))
+    assert tfs.fused_step_call.launches == steps
