@@ -126,6 +126,28 @@ Phases, each printing one line before the last:
      data: the step at the trainer's init through directed K11 against the
      per-stage directed K1 route (y1 1e-5, gradients 1e-3 of K2's), then
      one epoch: finite losses, K11 and K2 launched.
+ 21. fusion_precision bf16: K1bf, K2bf (flagship, bench and trade shapes)
+     and K11bf (flagship and bench, Tsit5), each on both bases (K1dbf,
+     K2dbf, K11dbf), against their plain bf16 versions on the same bf16
+     planes, layer by layer: each layer of the plain version starts from
+     the kernel's own M, input and cotangent, read back from its scratch,
+     and every layer's values and outputs are held to 1e-4 (K1bf) and 1e-3
+     (K2bf) of max|ref|; K11bf's stage derivatives against one plain K1bf
+     eval each at the stage input formed from the kernel's own, y1 and err
+     formed from them (1e-4), every K2bf launch of its backward layer by
+     layer (1e-3; a single stage's basis cotangents 5e-3);
+     two launches bitwise equal; the free-running errors beside them.
+     Then the flagship field at init and its gradients (state and every
+     field parameter) through K1bf/K2bf on phase 5's data, both
+     bases: bitwise equal to a K1bf and a K2bf launch on the same inputs,
+     which are held layer by layer as above; their distance to the f32
+     K1/K2 route finite and nonzero (the witness that the bf16 kernels
+     ran); the step at init through K11bf against the per-stage K1bf route
+     (y1 1e-5, gradients 5e-3: the two routes sum the stage
+     cotangents in another order before K2bf rounds them to bf16); then one
+     epoch of the flagship with ``fusion_precision=bf16`` per stage, one
+     with the fused step and one of the directed flagship fused: finite
+     losses, the bf16 kernels launched and the f32 K1, K2, K11 not.
 Phase 12's route check also computes the gradients twice and requires them
 bitwise equal (the ELL backward has no scatter).
 Then one JSON line of every kernel (launches on its main path, error, times
@@ -155,6 +177,33 @@ SHAPES = {
 }
 K1_TOL = 1e-4
 K2_TOL = 1e-3
+#: The bf16 kernels (phase 21) against their plain versions, layer by layer.
+#: Both round the same operands at the same points, but their f32
+#: intermediates (each layer's M, the cotangents, so the ReLU masks) differ
+#: in their last bits (summation order), and rounding such a value to bf16
+#: moves it by a whole bf16 ulp where it straddles a rounding boundary; the
+#: flips compound through the layers (PERF.md: up to 4.1e-2 of max|ref| on a
+#: deep layer's basis cotangent, a sum with cancellation). So each layer of
+#: the plain version starts from the kernel's own M, x and cotangent, read
+#: back from its scratch (``trace``), and every layer's values and every
+#: output are held to the f32 kernels' bounds, K1_TOL and K2_TOL: only one
+#: layer's f32 sums separate the two. The free-running error (the plain
+#: version alone from the inputs) is printed beside it.
+#: K11bf's stages cannot be read back layer by layer from its cooperative
+#: launch: each stage derivative is held against one plain K1bf eval at the
+#: stage input formed from the kernel's own stage derivatives, y1 and err
+#: against their combinations of them, all to STEP_TOL (a stage is a whole
+#: K1bf eval, free-running: measured up to 6.4e-5 at the STEP_SHAPES,
+#: PERF.md). Its backward: every K2bf launch layer by layer (K2_TOL), and the
+#: gradients bitwise those of the explicit chain over those launches. The
+#: basis cotangents of one stage's launch are held to BF16_STAGE_BASIS_TOL,
+#: five times K2_TOL: at the bench shape a middle layer's basis
+#: cotangents of a single stage cancel to a small fraction of their terms,
+#: so the f32 summation order alone moves them by up to 4.1e-3 of their
+#: scale on the card (the plain version's own f32 error there is 6.8e-4,
+#: against float64 on the CPU; the f32 K11d's summed gradients in that cell
+#: differ from their plain version by 5.7e-4, PERF.md).
+BF16_STAGE_BASIS_TOL = 5e-3
 TILED_TOL = 1e-4
 #: tgbn-genre shapes of the tiled kernels (the config's layer widths 8, 8,
 #: and the CDE wrapper's 8 * 8 * 2 = 128) and one small odd shape.
@@ -226,6 +275,24 @@ GENRE_DIR_SNAPSHOTS = 12
 GENRE_DIR_TRAIN_WINDOWS = 2
 #: Phase 20: one epoch of the directed flagship with the fused step.
 DIRECTED_EPOCHS = 1
+#: Phase 21: fusion_precision bf16. The flagship field at init and its
+#: gradients through K1bf/K2bf: each eval's launches held layer by layer
+#: against the plain versions (K1_TOL, K2_TOL) and bitwise equal to the
+#: route's value and gradients; the distance to the f32 route (K1/K2) is
+#: the witness that the bf16 kernels ran: finite and nonzero. It has no
+#: upper bound: it is the bf16 rounding of the function itself, which the
+#: JAX package's bf16 field shows too (tests/test_torch_bf16.py), measured
+#: on the flagship data up to 6.4e-2 for the field and 0.59 for a basis
+#: gradient (PERF.md). The step through K11bf against the per-stage K1bf
+#: route: y1 STEP_ROUTE_TOL, gradients BF16_STEP_ROUTE_GRAD_TOL, five times
+#: K2_TOL: both routes run K2bf per stage, but their explicit chain and
+#: autograd sum the stage cotangents in another order, and the bf16
+#: rounding of those cotangents in K2bf turns the last-bit differences into
+#: bf16 ulps (measured 3.1e-3 on the flagship's layer-1 basis gradients,
+#: whose bf16 rounding effect is 0.49 of their scale).
+BF16_STEP_ROUTE_GRAD_TOL = 5e-3
+BF16_EPOCHS = 1
+BF16 = ("fusion_precision=bf16",)
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -318,22 +385,116 @@ def assert_asymmetric(torch, planes, idx, tau, what):
     return gap / scale
 
 
-def k1_bound(s):
+def k1_bound(s, bf16=False):
     """(bound_ms, bound_by) of one K1 (or K1d) call at shape ``s``: the four
     f32 interval planes read once, Z read, the output written; one product
-    C M per layer in f32."""
+    C M per layer in f32. ``bf16`` (K1bf): the planes are bf16 and each
+    layer takes two bf16 products, B1 Mh and B2^T Mh."""
     n, B, w = s["n"], s["B"], s["widths"]
+    if bf16:
+        return bound(4 * 2 * n * n * B + 4 * n * B * (w[0] + w[-1]),
+                     (sum(4 * n * n * h * B for h in w[1:]), BF16_FLOPS))
     return bound(4 * 4 * n * n * B + 4 * n * B * (w[0] + w[-1]),
                  (sum(2 * n * n * h * B for h in w[1:]), F32_FLOPS))
 
 
-def k2_bound(s):
+def k2_bound(s, bf16=False):
     """(bound_ms, bound_by) of one K2 (or K2d) call: planes, Z and G read,
     dZ written; per layer the forward recompute C M, C^T g and P = g M^T,
-    then the four basis dots <A|dA, P>, <A|dA, P^T>."""
+    then the four basis dots <A|dA, P>, <A|dA, P^T>. ``bf16`` (K2bf): bf16
+    planes; the recompute's two products, C^T gb and P in bf16, the basis
+    dots in f32."""
     n, B, w = s["n"], s["B"], s["widths"]
+    if bf16:
+        return bound(4 * 2 * n * n * B + 4 * n * B * (2 * w[0] + w[-1]),
+                     (sum(8 * h * n * n * B for h in w[1:]), BF16_FLOPS),
+                     (sum(8 * n * n * B for _ in w[1:]), F32_FLOPS))
     return bound(4 * 4 * n * n * B + 4 * n * B * (2 * w[0] + w[-1]),
                  (sum((6 * h + 8) * n * n * B for h in w[1:]), F32_FLOPS))
+
+
+def check_errs(errs, tol, what):
+    """Raises unless every rel err in ``errs`` is finite and within ``tol``."""
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        raise RuntimeError(f"{what}: rel errs above {tol}: {bad}")
+
+
+def bf16_k1_stepwise(torch, planes, idx, tau, Z, layers):
+    """One K1bf launch against its plain version layer by layer: the
+    kernel's output and ``({what: rel err}, max abs err)`` of its output and
+    every layer's M against the plain version that applies the kernel's own
+    M (read back from its scratch) to each layer."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    trace, mine = {}, {}
+    got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, True, trace=trace)
+    ref = mk.plain_vf_eval_bf16(planes, idx, tau, Z, layers, given_M=trace["M"], trace=mine)
+    pairs = [("out", got, ref)] + [(f"M{l}", a, b)
+                                   for l, (a, b) in enumerate(zip(trace["M"], mine["M"]))]
+    return got, errs_of(torch, pairs)
+
+
+def bf16_k2_stepwise(torch, planes, idx, tau, Z, layers, G, need_tau):
+    """One K2bf launch against its plain version layer by layer: the
+    kernel's ``(dtau, dZ, per_layer)`` and ``({what: rel err}, max abs
+    err)`` of every output and of each layer's M, input x and masked input
+    cotangent, the plain version starting each layer from the kernel's own
+    (read back from its scratch)."""
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    trace, mine = {}, {}
+    got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau, True, trace=trace)
+    ref = mkb.plain_vf_bwd_bf16(planes, idx, tau, Z, layers, G, need_tau, given=trace,
+                                trace=mine)
+    pairs = k2_pairs(got, ref, need_tau)
+    for key in ("M", "X", "g"):
+        pairs += [(f"{key}{l}", a, b) for l, (a, b) in enumerate(zip(trace[key], mine[key]))
+                  if a is not None]
+    return got, errs_of(torch, pairs)
+
+
+def k2_pairs(got, ref, need_tau):
+    """(what, kernel, plain) of K2's outputs: dZ, dtau (``need_tau``) and
+    every layer's parameter cotangents."""
+    pairs = [("dZ", got[1], ref[1])] + ([("dtau", got[0], ref[0])] if need_tau else [])
+    for l, (gl, rl) in enumerate(zip(got[2], ref[2])):
+        pairs += [(f"{what}{l}", a, b) for what, a, b in
+                  zip(("dnorm_w", "dnorm_b", "dW", "dlin_b", "dbasis"), gl, rl)]
+    return pairs
+
+
+def errs_of(torch, pairs):
+    """``({what: rel err}, max abs err)`` of (what, got, ref) triples; raises
+    on a shape mismatch or a non-finite value."""
+    errs, worst_abs = {}, 0.0
+    for what, a, b in pairs:
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise RuntimeError(f"{what}: bad output {tuple(a.shape)}")
+        errs[what] = rel_err(torch, a, b)[0]
+        worst_abs = max(worst_abs, float((a - b).abs().max()))
+    return errs, worst_abs
+
+
+def bf16_step_bwd_stepwise(torch, tab, planes, ts, t, y, h, f0, ks, layers, cotangents,
+                           needs):
+    """K11bf's backward (``fused_step.step_vjp`` with one K2bf per stage) on
+    the kernel's stage derivatives ``ks``, each K2bf launch held layer by
+    layer against the plain K2bf (:func:`bf16_k2_stepwise`): the chain's
+    outputs and, per stage from the last, ``({what: rel err}, max abs
+    err)``."""
+    from gncde_tpu_torch.ops import fused_step as tfs
+
+    stages = []
+
+    def stage_bwd(planes_, idx, tau, Yi, layers_, G, need_tau):
+        got, errs = bf16_k2_stepwise(torch, planes_, idx, tau, Yi, layers_, G, need_tau)
+        stages.append(errs)
+        return got
+
+    out = tfs.step_vjp(tab, planes, ts, t, y, h, f0, ks, layers, *cotangents, needs,
+                       stage_bwd)
+    return out, stages
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
@@ -355,25 +516,39 @@ def rel_err(torch, got, ref):
     return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0), scale
 
 
-def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8):
-    """K1 (or, with ``nbasis`` 11, K1d) against its plain version."""
+def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8, bf16=False):
+    """K1 (or, with ``nbasis`` 11, K1d; with ``bf16``, K1bf on bf16 planes,
+    held layer by layer: :func:`bf16_k1_stepwise`) against its plain
+    version."""
     from gncde_tpu_torch.ops import megakernel as mk
 
+    plain_eval = mk.plain_vf_eval_bf16 if bf16 else mk.plain_vf_eval
     for label, s in shapes.items():
         planes, idx, tau, Z, layers, _ = make_inputs(torch, **s, nbasis=nbasis)
         extra = {}
         if nbasis == NBASIS_DIRECTED:
             extra["col_row_gap"] = assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
-        got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
-        ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+        if bf16:
+            planes = tuple(p.to(torch.bfloat16) for p in planes)
+            got, (errs, abs_err) = bf16_k1_stepwise(torch, planes, idx, tau, Z, layers)
+        else:
+            got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+        ref = plain_eval(planes, idx, tau, Z, layers)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: bad output {tuple(got.shape)}")
+        if bf16 and not torch.equal(got, mk.megakernel_vf_eval(planes, idx, tau, Z, layers,
+                                                               bf16)):
+            raise RuntimeError(f"{name} {label}: two launches differ")
         err, scale = rel_err(torch, got, ref)
-        abs_err = float((got - ref).abs().max())
-        ms = time_ms(torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers))
-        plain_ms = time_ms(torch, lambda: mk.plain_vf_eval(planes, idx, tau, Z, layers))
-        bms, by = k1_bound(s)
+        if bf16:
+            extra.update(stepwise_rel_errs=errs, free_running_rel_err=err)
+            err = max(errs.values())
+        else:
+            abs_err = float((got - ref).abs().max())
+        ms = time_ms(torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16))
+        plain_ms = time_ms(torch, lambda: plain_eval(planes, idx, tau, Z, layers))
+        bms, by = k1_bound(s, bf16)
         emit({"phase": phase, "kernel": name, "shape": label, **s,
               "max_abs_err": abs_err, "max_abs_ref": scale, "rel_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **extra})
@@ -382,44 +557,44 @@ def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8):
         results.setdefault(name, []).append((label, abs_err, ms, plain_ms))
 
 
-def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8):
-    """K2 (or, with ``nbasis`` 11, K2d) against autograd of the plain K1."""
+def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8, bf16=False):
+    """K2 (or, with ``nbasis`` 11, K2d) against autograd of the plain K1;
+    with ``bf16``, K2bf on bf16 planes against its plain version layer by
+    layer (:func:`bf16_k2_stepwise`)."""
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
 
+    plain_bwd = mkb.plain_vf_bwd_bf16 if bf16 else mkb.plain_vf_bwd
     for label, s in shapes.items():
         planes, idx, tau, Z, layers, G = make_inputs(torch, **s, nbasis=nbasis)
         if nbasis == NBASIS_DIRECTED:
             assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
+        if bf16:
+            planes = tuple(p.to(torch.bfloat16) for p in planes)
         for need_tau in (False, True):
-            got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
-            ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
+            extra = {}
+            if bf16:
+                got, (errs, worst_abs) = bf16_k2_stepwise(torch, planes, idx, tau, Z, layers,
+                                                          G, need_tau)
+            else:
+                got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
+            ref = plain_bwd(planes, idx, tau, Z, layers, G, need_tau)
             torch.cuda.synchronize()
-            pairs = [("dZ", got[1], ref[1])]
-            if need_tau:
-                pairs.append(("dtau", got[0], ref[0]))
-            for l, (gl, rl) in enumerate(zip(got[2], ref[2])):
-                for what, a, b in zip(("dnorm_w", "dnorm_b", "dW", "dlin_b",
-                                       "dbasis"), gl, rl):
-                    pairs.append((f"{what}{l}", a, b))
-            errs, worst_abs = {}, 0.0
-            for what, a, b in pairs:
-                if a.shape != b.shape or not torch.isfinite(a).all():
-                    raise RuntimeError(f"{name} {label} {what}: bad output")
-                errs[what], _ = rel_err(torch, a, b)
-                worst_abs = max(worst_abs, float((a - b).abs().max()))
+            free_errs, free_abs = errs_of(torch, k2_pairs(got, ref, need_tau))
+            if bf16:
+                extra["free_running_rel_errs"] = free_errs
+            else:
+                errs, worst_abs = free_errs, free_abs
             worst = max(errs.values())
             ms = time_ms(torch, lambda: mkb.megakernel_vf_bwd(
+                planes, idx, tau, Z, layers, G, need_tau, bf16))
+            plain_ms = time_ms(torch, lambda: plain_bwd(
                 planes, idx, tau, Z, layers, G, need_tau))
-            plain_ms = time_ms(torch, lambda: mkb.plain_vf_bwd(
-                planes, idx, tau, Z, layers, G, need_tau))
-            bms, by = k2_bound(s)
+            bms, by = k2_bound(s, bf16)
             emit({"phase": phase, "kernel": name, "shape": label, **s,
                   "need_tau": need_tau, "max_rel_err": worst,
                   "max_abs_err": worst_abs, "rel_errs": errs,
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
-            if not worst <= K2_TOL:
-                bad = {k: v for k, v in errs.items() if v > K2_TOL}
-                raise RuntimeError(f"{name} {label} need_tau={need_tau}: {bad}")
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **extra})
+            check_errs(errs, K2_TOL, f"{name} {label} need_tau={need_tau}")
             results.setdefault(name, []).append((label, worst_abs, ms, plain_ms))
 
 
@@ -576,6 +751,9 @@ def counters():
                                      megakernel_bwd, modulate, pair, pipeline, tiled)
 
     return {"K1": megakernel.megakernel_vf_eval, "K2": megakernel_bwd.megakernel_vf_bwd,
+            "K1bf": megakernel.megakernel_vf_eval.bf16,
+            "K2bf": megakernel_bwd.megakernel_vf_bwd.bf16,
+            "K11bf": fused_step.fused_step_call.bf16,
             "K3": tiled.fwd2_call, "K4": tiled.bwd2_call, "K5a": tiled.dw2_call,
             "K5b": tiled.dw_call, "K5c": tiled.abar_call, "K6a": pair.pair_call,
             "K6b": pair.pair_dw_call, "K7": modulate.modulate_pair, "K8": bcsr.bcsr_spmm,
@@ -970,14 +1148,16 @@ def phase_sparse_kernels(torch, cache, results):
         torch.cuda.empty_cache()
 
 
-def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0, backend=None, repeat=False):
+def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0, backend=None, repeat=False,
+                 precision=None, launches=None):
     """The field ``vf`` through ``ctrl`` against ``ref_ctrl``: the max abs
     err over max|ref| of ``f(t, y)`` at three times per element of ``ts``,
     and a dict of the same for the gradients of ``sum(f * W)`` (W normal
     from ``seed``) with respect to y and every parameter of ``vf``. With
-    ``backend`` the second route runs under that fusion backend (the first
-    under the default); with ``repeat`` it runs twice and must give bitwise
-    equal values and gradients."""
+    ``backend`` (or ``precision``) the second route runs under that fusion
+    backend (or precision; the first under the default); with ``repeat`` it
+    runs twice and must give bitwise equal values and gradients. A
+    ``launches`` dict receives the kernel launches of the second route."""
     from gncde_tpu_torch import ops
 
     def run(ctrl_):
@@ -996,8 +1176,14 @@ def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0, backend=None, repeat=
     ref, ref_grads = run(ref_ctrl)
     if backend is not None:
         ops.set_fusion_backend(backend)
+    if precision is not None:
+        ops.set_fusion_precision(precision)
     try:
+        before = {k: f.launches for k, f in counters().items()}
         got, got_grads = run(ctrl)
+        if launches is not None:
+            torch.cuda.synchronize()
+            launches.update({k: f.launches - before[k] for k, f in counters().items()})
         if repeat:
             again, again_grads = run(ctrl)
             same = torch.equal(got, again) and all(
@@ -1009,6 +1195,8 @@ def route_errors(torch, vf, y, ts, ref_ctrl, ctrl, seed=0, backend=None, repeat=
     finally:
         if backend is not None:
             ops.set_fusion_backend("auto")
+        if precision is not None:
+            ops.set_fusion_precision("f32")
     grad_errs = {}
     for k, g_ref in ref_grads.items():
         g = got_grads[k]
@@ -1185,14 +1373,16 @@ def make_step_inputs(torch, n, B, widths, seed=0, T=8, nbasis=8):
     return planes, ts, t, y, h, f0, layers
 
 
-def step_bound(n, B, widths, S):
+def step_bound(n, B, widths, S, bf16=False):
     """(bound_ms, bound_by) of one K11 step: the four interval planes read
     once, y and f0 read, y1, err, f1 and the S stage derivatives written;
-    S x L products (B1 M and B2^T M, 4 n^2 H each) per element in f32."""
+    S x L products (B1 M and B2^T M, 4 n^2 H each) per element in f32 (with
+    ``bf16``, K11bf: bf16 planes and bf16 products)."""
     H = widths[0]
     nh = 4 * B * n * H
-    return bound(4 * 4 * B * n * n + nh * (5 + S),
-                 (S * sum(4 * n * n * h * B for h in widths[1:]), F32_FLOPS))
+    plane_bytes, peak = (2, BF16_FLOPS) if bf16 else (4, F32_FLOPS)
+    return bound(4 * plane_bytes * B * n * n + nh * (5 + S),
+                 (S * sum(4 * n * n * h * B for h in widths[1:]), peak))
 
 
 def apply_bound(n, H, B):
@@ -1210,12 +1400,17 @@ def abar_bound(n, H, B, slab_bytes=4):
                  (B * 14 * n * n, F32_FLOPS), (B * 4 * n * n * H, BF16_FLOPS))
 
 
-def check_k11(torch, label, s, name, phase, nbasis=8):
+def check_k11(torch, label, s, name, phase, nbasis=8, bf16=False):
     """K11 (or, with ``nbasis`` 11, K11d) at shape ``s`` against its plain
     version (Tsit5): y1, err, f1 and ks within STEP_TOL, two launches
     bitwise equal, and its backward (one K2 per stage) against autograd of
     the plain step within STEP_GRAD_TOL; emits one line and returns the
-    kernels line's tuple."""
+    kernels line's tuple. With ``bf16`` (K11bf, on bf16 planes) the plain
+    step is formed stage by stage from the kernel's stage derivatives, and
+    every K2bf launch of the backward is held layer by layer
+    (:func:`bf16_step_bwd_stepwise`, STEP_GRAD_TOL; its basis cotangents
+    BF16_STAGE_BASIS_TOL); the free-running errors are printed beside
+    them."""
     import numpy as np
 
     from gncde_tpu_torch.ops import fused_step as tfs
@@ -1229,19 +1424,25 @@ def check_k11(torch, label, s, name, phase, nbasis=8):
     if nbasis == NBASIS_DIRECTED:
         idx, tau = mk.interval(ts, t)
         extra["col_row_gap"] = assert_asymmetric(torch, planes, idx, tau, f"{name} {label}")
-    kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
-    plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)  # noqa: E731
+    if bf16:
+        planes = tuple(p.to(torch.bfloat16) for p in planes)
+    kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab,  # noqa: E731
+                                         bf16)
+    plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab,  # noqa: E731
+                                        bf16)
+    names = ("y1", "err", "f1", "ks")
     with torch.no_grad():
         got, again, ref = kernel(), kernel(), plain()
         torch.cuda.synchronize()
-        errs, worst_abs = {}, 0.0
-        for what, a, b, c in zip(("y1", "err", "f1", "ks"), got, ref, again):
-            if a.shape != b.shape or not torch.isfinite(a).all():
-                raise RuntimeError(f"{name} {label} {what}: bad output {tuple(a.shape)}")
+        for what, a, c in zip(names, got, again):
             if not torch.equal(a, c):
                 raise RuntimeError(f"{name} {label} {what}: two launches differ")
-            errs[what] = rel_err(torch, a, b)[0]
-            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        errs, worst_abs = errs_of(torch, list(zip(names, got, ref)))
+        if bf16:
+            extra["free_running_rel_errs"] = errs
+            stepwise = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, True,
+                                           given_ks=got[3])
+            errs, worst_abs = errs_of(torch, list(zip(names, got, stepwise)))
         ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
     # The backward: the manual chain (one K2 per stage) against autograd
     # of the plain step, on the gradients of sum(y1 W0 + err W1 + f1 W2).
@@ -1258,21 +1459,44 @@ def check_k11(torch, label, s, name, phase, nbasis=8):
         return [x.grad for x in leaves]
 
     fused_grads = lambda: grads(lambda y_, f0_, fl: tfs.FusedRKStep.apply(  # noqa: E731
-        tab, nbasis, ts, t, y_, h, f0_, *planes, *fl))
-    plain_grads = lambda: grads(lambda y_, f0_, fl: tfs._step_reference(  # noqa: E731
-        planes, ts, t, y_, h, f0_, mk._unflatten(fl, nbasis), tab))
-    bwd_errs = [rel_err(torch, a, b)[0] for a, b in zip(fused_grads(), plain_grads())]
+        tab, nbasis, bf16, ts, t, y_, h, f0_, *planes, *fl))
+    needs = (False, True, False, True, True)  # y, f0 and the layer parameters
+    if bf16:
+        from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+        # The free-running reference: the same chain rule with the plain
+        # K2bf per stage on the kernel's stage derivatives.
+        def plain_grads():
+            out = tfs.step_vjp(tab, planes, ts, t, y, h, f0, got[3], layers, *W, needs,
+                               mkb.plain_vf_bwd_bf16)
+            return [out[1], out[3], *out[4]]
+    else:
+        plain_grads = lambda: grads(lambda y_, f0_, fl: tfs._step_reference(  # noqa: E731
+            planes, ts, t, y_, h, f0_, mk._unflatten(fl, nbasis), tab))
+    bwd_ref, bwd_got = plain_grads(), fused_grads()
+    bwd_errs = [rel_err(torch, a, b)[0] for a, b in zip(bwd_got, bwd_ref)]
+    if bf16:
+        out, stages = bf16_step_bwd_stepwise(torch, tab, planes, ts, t, y, h, f0, got[3],
+                                             layers, W, needs)
+        if not all(torch.equal(a, b) for a, b in zip(bwd_got, [out[1], out[3], *out[4]])):
+            raise RuntimeError(f"{name} {label}: the backward's gradients are not the "
+                               "chain's over its K2bf launches")
+        extra.update(free_running_bwd_rel_errs=bwd_errs, stage_bwd_worst=[
+            max(e.items(), key=lambda kv: kv[1]) for e, _ in stages])
+        bwd_errs = [e for errs_, _ in stages for k, e in errs_.items()
+                    if not k.startswith("dbasis")]
+        for i, (errs_, _) in enumerate(stages):
+            check_errs({k: e for k, e in errs_.items() if k.startswith("dbasis")},
+                       BF16_STAGE_BASIS_TOL, f"{name} {label} backward, stage {S - i}")
     fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
-    bms, by = step_bound(s["n"], s["B"], s["widths"], S)
+    bms, by = step_bound(s["n"], s["B"], s["widths"], S, bf16)
     emit({"phase": phase, "kernel": name, "shape": label, **s, "method": "tsit5",
-          "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED),
+          "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED, bf16),
           "ctas": s["B"] * -(-s["n"] // 16),
           "max_abs_err": worst_abs, "rel_errs": errs, "ms": ms, "plain_ms": plain_ms,
           "bound_ms": bms, "bound_by": by, "bwd_max_rel_err": max(bwd_errs),
           "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms, **extra})
-    bad = {k: v for k, v in errs.items() if not v <= STEP_TOL}
-    if bad:
-        raise RuntimeError(f"{name} {label}: rel errs {bad} > {STEP_TOL}")
+    check_errs(errs, STEP_TOL, f"{name} {label}")
     if not max(bwd_errs) <= STEP_GRAD_TOL:
         raise RuntimeError(f"{name} {label} backward: rel err {max(bwd_errs):.3e} > "
                            f"{STEP_GRAD_TOL}")
@@ -1676,7 +1900,8 @@ def phase_directed_fused_train(torch, cache):
     from gncde_tpu_torch import ops
     from gncde_tpu_torch.run import dyn
 
-    errs, grad_errs, route_launches = step_route_errors(torch, cache, overrides=DIRECTED_FIELD)
+    errs, grad_errs, route_launches = step_route_errors(torch, cache,
+                                                          overrides=DIRECTED_FIELD)
     with tempfile.TemporaryDirectory() as tmp:
         for f in counters().values():
             f.launches = 0
@@ -1718,6 +1943,165 @@ def phase_directed_fused_train(torch, cache):
     return launches
 
 
+def bf16_route_check(torch, cache, overrides=()):
+    """The flagship field (with ``overrides``) at the trainer's init under
+    fusion_precision bf16, at :func:`route_errors`' three times: each eval
+    and its gradients (of sum(f * W), W normal) through the field, bitwise
+    equal to one K1bf and one K2bf launch on the same inputs, each held layer
+    by layer against its plain version (:func:`bf16_k1_stepwise`,
+    :func:`bf16_k2_stepwise`); and :func:`route_errors` of the bf16 control
+    against the f32 one (K1/K2). Returns ``(stepwise rel errs, field rel
+    err and gradient rel errs against the f32 route, launches of the bf16
+    route)``."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    model, ctrl, y, ts = flagship_model_on_card(torch, cache, overrides)
+    ops.set_fusion_precision("bf16")
+    try:
+        _, ctrl_bf, _, _ = flagship_model_on_card(torch, cache, overrides)
+    finally:
+        ops.set_fusion_precision("f32")
+    if ctrl_bf.path.coeffs[0].dtype != torch.bfloat16:
+        raise RuntimeError("phase 21: the bf16 control does not store bf16 stacks")
+    vf = model.vector_field
+    launches = {}
+    vf_err, grad_errs = route_errors(torch, vf, y, ts, ctrl, ctrl_bf, precision="bf16",
+                                     launches=launches)
+    path, layers, flat = ctrl_bf.path, mk.layer_params(vf), mk.flatten_params(vf)
+    planes = tuple(path.coeffs)
+    knots = path.ts if path.ts.dim() == 2 else path.ts.unsqueeze(0).expand(y.shape[0], -1)
+    gen = torch.Generator().manual_seed(0)
+    stepwise = {}
+    ops.set_fusion_precision("bf16")
+    try:
+        for k in (0.17, 0.5, 0.83):
+            t = ts[:, 0] + k * (ts[:, -1] - ts[:, 0])
+            vf.zero_grad(set_to_none=True)
+            y_ = y.detach().clone().requires_grad_(True)
+            out = vf(t, y_, ctrl_bf)
+            W = torch.randn(out.shape, generator=gen).to(out.device)
+            (out * W).sum().backward()
+            idx, tau = mk.interval(knots, t)
+            with torch.no_grad():
+                got, (e1, _) = bf16_k1_stepwise(torch, planes, idx, tau, y, layers)
+                (_, dZ, per_layer), (e2, _) = bf16_k2_stepwise(torch, planes, idx, tau, y,
+                                                               layers, W, False)
+            same = (torch.equal(got, out.detach()) and torch.equal(dZ, y_.grad)
+                    and all(torch.equal(g, p.grad)
+                            for g, p in zip(mk.flat_grads(per_layer), flat)))
+            if not same:
+                raise RuntimeError("phase 21: the bf16 route's value or gradients are not "
+                                   "those of its K1bf and K2bf launches")
+            stepwise[f"t{k}"] = {"K1bf": e1, "K2bf": e2}
+    finally:
+        ops.set_fusion_precision("f32")
+    del model, ctrl, ctrl_bf
+    torch.cuda.empty_cache()
+    return stepwise, vf_err, grad_errs, launches
+
+
+def bf16_train(torch, cache, fused, overrides=()):
+    """One epoch of the flagship (with ``overrides``) with
+    ``fusion_precision=bf16``, per stage or with the fused step; returns the
+    result and the launch counts."""
+    from gncde_tpu_torch import ops
+    from gncde_tpu_torch.run import dyn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in counters().values():
+            f.launches = 0
+        ops.set_fused_step(fused)
+        try:
+            t0 = time.perf_counter()
+            res = dyn.main([
+                "--config", FLAGSHIP, f"epochs={BF16_EPOCHS}", "eval_freq=1", "log_freq=1",
+                "min_epochs=0", f"dataset.cache_dir={cache}", f"checkpoint_dir={tmp}/ckpt/",
+                "device=cuda", "wandb.mode=disabled", *BF16, *overrides,
+            ])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.set_fused_step(False)
+            ops.set_fusion_precision("f32")
+        launches = {k: f.launches for k, f in counters().items()}
+    losses = res["train_losses"]
+    attempts = [a + r for a, r in zip(res["solver_steps"].get("num_accepted_steps", []),
+                                      res["solver_steps"].get("num_rejected_steps", []))]
+    line = {"fused_step": fused, "directed": bool(overrides), "train_losses": losses,
+            "train_step_s": res["train_step_s"], "solver_attempts_last_step": attempts,
+            "solver_steps": res["solver_steps"], "best_validation_loss": res["validation_loss"],
+            "device": res["device"], "launches": launches, "wall_s": wall}
+    what = f"phase 21 ({'fused' if fused else 'per stage'}{', directed' if overrides else ''})"
+    if len(losses) != BF16_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{what}: non-finite or missing train losses: {losses}")
+    if not res["device"].startswith("cuda"):
+        raise RuntimeError(f"{what}: ran on {res['device']}, not cuda")
+    want = ("K11bf", "K2bf", "K1bf") if fused else ("K1bf", "K2bf")
+    f32 = ("K1", "K2", "K11") + (() if fused else ("K11bf",))
+    if min(launches[k] for k in want) <= 0 or any(launches[k] for k in f32):
+        raise RuntimeError(f"{what}: launches {launches}; want {want} > 0 and {f32} = 0")
+    return line, launches
+
+
+def phase_bf16(torch, cache, results):
+    """Phase 21: fusion_precision bf16. K1bf, K2bf, K11bf (both bases)
+    against their plain bf16 versions; the flagship field at init through
+    K1bf/K2bf against the f32 route (both bases) and the step through K11bf
+    against the per-stage K1bf route; then one epoch per stage, one fused,
+    and one of the directed field fused. Returns the three runs' launches."""
+    from gncde_tpu_torch import ops
+
+    phase_k1(torch, results, "K1bf", 21, SHAPES, 8, bf16=True)
+    phase_k1(torch, results, "K1dbf", 21, SHAPES, NBASIS_DIRECTED, bf16=True)
+    phase_k2(torch, results, "K2bf", 21, SHAPES, 8, bf16=True)
+    phase_k2(torch, results, "K2dbf", 21, SHAPES, NBASIS_DIRECTED, bf16=True)
+    for label, s in STEP_SHAPES.items():
+        results.setdefault("K11bf", {})[label] = check_k11(torch, label, s, "K11bf", 21,
+                                                           bf16=True)
+        results.setdefault("K11dbf", {})[label] = check_k11(torch, label, s, "K11dbf", 21,
+                                                            NBASIS_DIRECTED, bf16=True)
+
+    routes = {}
+    for basis, overrides in (("undirected", ()), ("directed", DIRECTED_FIELD)):
+        stepwise, vf_err, grad_errs, launches = bf16_route_check(torch, cache, overrides)
+        for at, errs in stepwise.items():
+            check_errs(errs["K1bf"], K1_TOL, f"phase 21 {basis} {at}: the route's K1bf")
+            check_errs(errs["K2bf"], K2_TOL, f"phase 21 {basis} {at}: the route's K2bf")
+        zero = {k: e for k, e in [("field", vf_err), *grad_errs.items()]
+                if not (math.isfinite(e) and e > 0.0)}
+        if zero:
+            raise RuntimeError(f"phase 21 {basis}: the bf16 route's distance to the f32 route "
+                               f"must be finite and nonzero: {zero}")
+        if launches["K1bf"] <= 0 or launches["K2bf"] <= 0 or launches["K1"] or launches["K2"]:
+            raise RuntimeError(f"phase 21 {basis}: the bf16 route launched {launches}")
+        ops.set_fusion_precision("bf16")
+        try:
+            step_errs, step_grad_errs, step_launches = step_route_errors(
+                torch, cache, overrides=overrides)
+        finally:
+            ops.set_fusion_precision("f32")
+        if step_launches["K11bf"] <= 0 or step_launches["K11"]:
+            raise RuntimeError(f"phase 21 {basis}: the step route launched {step_launches}")
+        if not step_errs["y1"] <= STEP_ROUTE_TOL:
+            raise RuntimeError(f"phase 21 {basis}: y1 through K11bf is {step_errs['y1']:.3e} "
+                               f"off the per-stage K1bf route (> {STEP_ROUTE_TOL})")
+        check_errs(step_grad_errs, BF16_STEP_ROUTE_GRAD_TOL,
+                   f"phase 21 {basis}: gradient through K11bf against the per-stage route")
+        routes[basis] = {"stepwise_rel_errs": stepwise,
+                         "vf_rel_err_vs_f32_route": vf_err,
+                         "grad_rel_errs_vs_f32_route": grad_errs, "route_launches": launches,
+                         "step_rel_errs_vs_k1bf_route": step_errs,
+                         "step_grad_rel_errs_vs_k2bf_route": step_grad_errs,
+                         "step_route_launches": step_launches}
+
+    runs = {"per_stage": bf16_train(torch, cache, False),
+            "fused": bf16_train(torch, cache, True),
+            "directed_fused": bf16_train(torch, cache, True, DIRECTED_FIELD)}
+    emit({"phase": 21, "routes": routes, "train": {k: v[0] for k, v in runs.items()}})
+    return {k: v[1] for k, v in runs.items()}
+
+
 def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1735,7 +2119,7 @@ def main() -> int:
     results = {}
     timed(3, phase_k1, torch, results)
     timed(4, phase_k2, torch, results)
-    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-17, 20 share the flagship data
+    with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-17, 20, 21 share the flagship data
         dyn_launches, dyn_losses = timed(5, phase_train, torch, cache)
         timed(6, phase_tiled, torch, results)
         tgb_launches = timed(7, phase_tgb, torch)
@@ -1755,6 +2139,7 @@ def main() -> int:
         trade_launches = timed(18, phase_trade, torch)
         timed(19, phase_genre_dir, torch)
         dir_fused_launches = timed(20, phase_directed_fused_train, torch, cache)
+        bf16_launches = timed(21, phase_bf16, torch, cache, results)
     emit({"phase_wall_s": walls})
 
     flagship = SHAPES["flagship"]
@@ -1836,6 +2221,37 @@ def main() -> int:
                         **({"path": "phase 7's count: tiled_abar_apply has no caller "
                                     "but its tests (phase 14 holds it)"}
                            if name == "K5c" else {})})
+    # The bf16 kernels: their launches are phase 21's training runs' (per
+    # stage: K1bf, K2bf; fused: K11bf; the directed fused run: K1dbf, K2dbf,
+    # K11dbf); no single PyTorch call computes any of them.
+    per_stage, fused, dfused = (bf16_launches[k] for k in
+                                ("per_stage", "fused", "directed_fused"))
+    for name, src, rep, (bms, by), launches in (
+        ("K1bf", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
+         "gncde_tpu/ops/pallas/megakernel.py:81", k1_bound(flagship, True),
+         per_stage["K1bf"]),
+        ("K2bf", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
+         "gncde_tpu/ops/pallas/megakernel_bwd.py:65", k2_bound(flagship, True),
+         per_stage["K2bf"]),
+        ("K1dbf", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
+         "gncde_tpu/ops/pallas/megakernel.py:81", k1_bound(flagship, True), dfused["K1bf"]),
+        ("K2dbf", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
+         "gncde_tpu/ops/pallas/megakernel_bwd.py:65", k2_bound(flagship, True),
+         dfused["K2bf"]),
+    ):
+        _, err, ms, plain_ms = results[name][0]  # flagship shape
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None, "shape": "flagship"})
+    for name, launches in (("K11bf", fused["K11bf"]), ("K11dbf", dfused["K11bf"])):
+        err, ms, plain_ms, bms, by, extra = results[name]["flagship"]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gncde_tpu_torch/csrc/fused_step.cu",
+                        "replaces": "gncde_tpu/ops/pallas/fused_step.py:86",
+                        "launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None, "shape": "flagship", **extra})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

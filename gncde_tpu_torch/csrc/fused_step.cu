@@ -51,6 +51,11 @@
 // launch needs every CTA resident (256 threads, about 21 KB of static
 // shared memory a CTA): gncde_fused_step_capacity gives how many fit, and
 // the wrapper launches the batch in chunks that do.
+//
+// K11bf (BF, fusion_precision bf16, _make_step_kernel(bf16=True)): the same
+// step on bfloat16 planes, each stage's eval K1bf's device code (the n x n
+// products on the tensor cores, megakernel_common.cuh); the stage
+// combinations stay f32. Its backward is one K2bf per stage.
 #include <cooperative_groups.h>
 
 #include "megakernel_common.cuh"
@@ -63,8 +68,9 @@ namespace fs {
 constexpr int SMAX = 8;  // most evaluated stages (Tsit5, Dopri5: 6; Bosh3: 3)
 constexpr int LMAX = 8;  // most layers
 
+template <bool BF>
 struct StepArgs {
-  Planes P;
+  Planes<BF> P;
   const int* idx;    // (B, S) interval of each stage's node
   const float* tau;  // (B, S) offset into it
   const float* h;    // (B,)
@@ -86,8 +92,8 @@ struct StepArgs {
   float* f1;
 };
 
-template <bool DIR>
-__global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
+template <bool DIR, bool BF>
+__global__ void __launch_bounds__(NT) step_kernel(const StepArgs<BF> A) {
   cg::grid_group grid = cg::this_grid();
   const int b = A.b0 + blockIdx.y, r0 = blockIdx.x * BM;
   const int n = A.n, H = A.H, S = A.S, L = A.L;
@@ -116,15 +122,15 @@ __global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
     const long long base =
         (long long)b * A.P.bstride + (long long)__ldg(A.idx + b * S + s) * n * n;
     const float t = __ldg(A.tau + b * S + s);
-    prep_rows<DIR>(A.P, base, t, b, r0, n, A.Yi, H, A.layers[0], A.Mbuf, A.ldm,
-                   A.stats);
+    prep_rows<DIR, BF>(A.P, base, t, b, r0, n, A.Yi, H, A.layers[0], A.Mbuf, A.ldm,
+                       A.stats);
     grid.sync();
     // 3. The layer stack. fwd_rows stores row gi of element b at
     // F + (b n + gi) ldf, so F is shifted to land in slot s of ks.
     for (int l = 0; l < L; ++l) {
       const bool last = l == L - 1;
       float* F = last ? A.ks + ((long long)b * (S - 1) + s) * nH : nullptr;
-      fwd_rows<DIR>(A.P, base, t, b, r0, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
+      fwd_rows<DIR, BF>(A.P, base, t, b, r0, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
                A.ldm, F, H, last ? 0 : 1, last ? 0 : 1, A.layers[last ? l : l + 1],
                A.Mbuf + ((l + 1) % 2) * mhalf, A.ldm);
       grid.sync();
@@ -153,42 +159,38 @@ __global__ void __launch_bounds__(NT) step_kernel(const StepArgs A) {
 
 using namespace fs;
 
-// How many CTAs of step_kernel (directed basis or not) can be resident at
-// once on the current device (blocks per SM times SMs); 0 on error.
-extern "C" int gncde_fused_step_capacity(int directed) {
+// How many CTAs of step_kernel (directed basis or not, bf16 or not) can be
+// resident at once on the current device (blocks per SM times SMs); 0 on
+// error.
+template <bool DIR, bool BF>
+static int capacity_of() {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  const cudaError_t e =
-      directed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<true>,
-                                                               NT, 0)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<false>,
-                                                               NT, 0);
-  if (e != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<DIR, BF>, NT, 0) !=
+      cudaSuccess)
+    return 0;
   return per_sm * sms;
 }
 
-// One step for batch elements b0 .. b0 + nb - 1 (one cooperative launch,
-// grid (ceil(n / BM), nb)). Buffers are sized for the whole batch Btot.
-// amat: host (S, S) row-major; bvec, berr: host (S + 1); dims, ptrs: host
-// arrays as for K1; directed: the layers' basis is the (11, 2) directed
-// stack. Returns the first CUDA error.
-extern "C" int gncde_fused_step(const float* d, const float* c, const float* b,
-                                const float* a, long long plane_bstride, const int* idx,
-                                const float* tau, const float* h, const float* y,
-                                const float* f0, int Btot, int b0, int nb, int n, int S,
-                                const float* amat, const float* bvec, const float* berr,
-                                int L, const int* dims, const void* const* ptrs,
-                                int directed, float* stats, float* Mbuf, int ldm, float* Yi, float* ks,
-                                float* y1, float* err, float* f1, cudaStream_t stream) {
-  if (L < 1 || L > LMAX || S < 1 || S > SMAX || nb < 1 || b0 < 0 || b0 + nb > Btot ||
-      n < 1 || !dims_ok(dims, L, ldm))
-    return (int)cudaErrorInvalidValue;
-  const int H = dims[0];
-  if (dims[2 * L - 1] != H) return (int)cudaErrorInvalidValue;  // k and y alike
-  StepArgs A;
-  A.P = Planes{d, c, b, a, plane_bstride};
+extern "C" int gncde_fused_step_capacity(int directed, int bf16) {
+  if (bf16) return directed ? capacity_of<true, true>() : capacity_of<false, true>();
+  return directed ? capacity_of<true, false>() : capacity_of<false, false>();
+}
+
+template <bool BF>
+static int launch_step(const void* d, const void* c, const void* b, const void* a,
+                       long long plane_bstride, const int* idx, const float* tau,
+                       const float* h, const float* y, const float* f0, int Btot, int b0,
+                       int nb, int n, int S, const float* amat, const float* bvec,
+                       const float* berr, int L, const int* dims, const void* const* ptrs,
+                       int directed, float* stats, float* Mbuf, int ldm, float* Yi,
+                       float* ks, float* y1, float* err, float* f1, cudaStream_t stream) {
+  using T = typename Planes<BF>::T;
+  StepArgs<BF> A;
+  A.P = Planes<BF>{static_cast<const T*>(d), static_cast<const T*>(c),
+                   static_cast<const T*>(b), static_cast<const T*>(a), plane_bstride};
   A.idx = idx;
   A.tau = tau;
   A.h = h;
@@ -203,7 +205,7 @@ extern "C" int gncde_fused_step(const float* d, const float* c, const float* b,
   for (int l = 0; l < L; ++l) A.layers[l] = layer_from(ptrs, dims, l);
   A.S = S;
   A.n = n;
-  A.H = H;
+  A.H = dims[0];
   A.L = L;
   A.ldm = ldm;
   A.b0 = b0;
@@ -217,8 +219,38 @@ extern "C" int gncde_fused_step(const float* d, const float* c, const float* b,
   A.f1 = f1;
   void* args[] = {&A};
   const dim3 grid((n + BM - 1) / BM, nb);
-  const void* fn = directed ? (const void*)step_kernel<true> : (const void*)step_kernel<false>;
+  const void* fn = directed ? (const void*)step_kernel<true, BF>
+                            : (const void*)step_kernel<false, BF>;
   cudaError_t e = cudaLaunchCooperativeKernel(fn, grid, dim3(NT), args, 0, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// One step for batch elements b0 .. b0 + nb - 1 (one cooperative launch,
+// grid (ceil(n / BM), nb)). Buffers are sized for the whole batch Btot.
+// amat: host (S, S) row-major; bvec, berr: host (S + 1); dims, ptrs: host
+// arrays as for K1; directed: the layers' basis is the (11, 2) directed
+// stack; planes float32, or bfloat16 when bf16 (K11bf). Returns the first
+// CUDA error.
+extern "C" int gncde_fused_step(const void* d, const void* c, const void* b,
+                                const void* a, long long plane_bstride, const int* idx,
+                                const float* tau, const float* h, const float* y,
+                                const float* f0, int Btot, int b0, int nb, int n, int S,
+                                const float* amat, const float* bvec, const float* berr,
+                                int L, const int* dims, const void* const* ptrs,
+                                int directed, int bf16, float* stats, float* Mbuf, int ldm,
+                                float* Yi, float* ks, float* y1, float* err, float* f1,
+                                cudaStream_t stream) {
+  if (L < 1 || L > LMAX || S < 1 || S > SMAX || nb < 1 || b0 < 0 || b0 + nb > Btot ||
+      n < 1 || !dims_ok(dims, L, ldm))
+    return (int)cudaErrorInvalidValue;
+  const int H = dims[0];
+  if (dims[2 * L - 1] != H) return (int)cudaErrorInvalidValue;  // k and y alike
+  if (bf16)
+    return launch_step<true>(d, c, b, a, plane_bstride, idx, tau, h, y, f0, Btot, b0, nb, n,
+                             S, amat, bvec, berr, L, dims, ptrs, directed, stats, Mbuf, ldm,
+                             Yi, ks, y1, err, f1, stream);
+  return launch_step<false>(d, c, b, a, plane_bstride, idx, tau, h, y, f0, Btot, b0, nb, n,
+                            S, amat, bvec, berr, L, dims, ptrs, directed, stats, Mbuf, ldm,
+                            Yi, ks, y1, err, f1, stream);
 }

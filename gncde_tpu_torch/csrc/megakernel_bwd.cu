@@ -33,13 +33,21 @@
 // chain (:292-302) are row dots against the column sums cA, cdA, cddA
 // beside the row sums. The reduction vector's basis block grows from 16 to
 // 22 entries.
+//
+// K2bf (BF, _make_bwd_kernel(bf16=True)): bfloat16 planes, the forward
+// recomputed as K1bf computes it; per layer C^T = ((b1_0 Ah^T + b1_1 dAh^T)
+// + b2_0 Ah) + b2_1 dAh is formed in bf16 in that order (each product and
+// sum rounded) and dM's product C^T gb runs on the tensor cores with g
+// rounded to bf16; the basis dots <A|dA|ddA, gb Mb^T> keep the f32 planes
+// and take g and M rounded (P and Q of the JAX kernel are products of the
+// rounded g and M), multiplied in f32. Everything else is f32.
 #include "megakernel_common.cuh"
 
 using namespace mk;
 
-template <bool TAU, bool DIR>
+template <bool TAU, bool DIR, bool BF>
 __global__ void __launch_bounds__(NT)
-bwd_rows_kernel(Planes P, const int* __restrict__ idx,
+bwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
                 const float* __restrict__ stats, Layer lp,
                 const float* __restrict__ X, int ldx,
@@ -176,72 +184,161 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
     for (int j = 0; j < PPT; ++j)
       aDM[j] = aAM[j] = adAM[j] = aAg[j] = adAg[j] = addAM[j] = addAg[j] = 0.f;
 
-    for (int k0 = 0; k0 < n; k0 += BK) {
-      // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
-      for (int e = tid; e < BM * BK; e += NT) {
-        const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-        float A = 0.f, dA = 0.f, ddA = 0.f;
-        if (gi < n && gk < n) {
-          const long long off = base + (long long)gi * n + gk;
-          if (TAU)
-            herm3(P, off, t, A, dA, ddA);
-          else
-            herm(P, off, t, A, dA);
+    if constexpr (BF) {
+      // Row tiles of A, dA (ddA) in f32 and the chunk's M and g rounded to
+      // bf16 (held in f32) for the basis dots; g's bit patterns transposed
+      // as the MMA's right operand; then C^T in bf16 from the column tiles
+      // and the row tiles. dM's product accumulates per warp and is staged
+      // through dMs (each thread reads its own pairs back).
+      __shared__ __align__(16) unsigned short CopS[BM][BKP];
+      __shared__ __align__(16) unsigned short Gt[HC][BKP];
+      const float cb0 = rbf(b10), cb1 = rbf(b11), cb2 = rbf(b20), cb3 = rbf(b21);
+      const int nb0 = warp * 8;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < n; k0 += BK) {
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+          float A = 0.f, dA = 0.f, ddA = 0.f;
+          if (gi < n && gk < n) {
+            const long long off = base + (long long)gi * n + gk;
+            if (TAU)
+              herm3(P, off, t, A, dA, ddA);
+            else
+              herm(P, off, t, A, dA);
+          }
+          Ar[i][kk] = A;
+          dAr[i][kk] = dA;
+          if (TAU) ddAr[i][kk] = ddA;
         }
-        Ar[i][kk] = A;
-        dAr[i][kk] = dA;
-        if (TAU) ddAr[i][kk] = ddA;
-        Cop[i][kk] = b20 * A + b21 * dA;
-      }
-      for (int e = tid; e < BK * hc; e += NT) {
-        const int kk = e / hc, h = e % hc, gk = k0 + kk;
-        const bool ok = gk < n;
-        Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
-        Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h0 + h] : 0.f;
-      }
-      __syncthreads();
-      // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
-      for (int e = tid; e < BM * BK; e += NT) {
-        const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-        if (gi < n && gk < n) {
-          float A, dA;
-          herm(P, base + (long long)gk * n + gi, t, A, dA);
-          Cop[i][kk] += b10 * A + b11 * dA;
+        for (int e = tid; e < BK * HC; e += NT) {
+          const int kk = e / HC, h = e % HC, gk = k0 + kk;
+          const bool ok = gk < n && h < hc;
+          const float g = ok ? rbf(Gb[(long long)gk * ldg + h0 + h]) : 0.f;
+          Ms[kk][h] = ok ? rbf(Mb[(long long)gk * ldm + h0 + h]) : 0.f;
+          Gs[kk][h] = g;
+          Gt[h][kk] = bf16_bits(g);
         }
+        __syncthreads();
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+          float v = 0.f;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gk * n + gi, t, A, dA);
+            v = rbf(__fadd_rn(bmul(cb0, A), bmul(cb1, dA)));
+            v = rbf(__fadd_rn(v, bmul(cb2, Ar[i][kk])));
+            v = __fadd_rn(v, bmul(cb3, dAr[i][kk]));
+          }
+          CopS[i][kk] = bf16_bits(v);
+        }
+        __syncthreads();
+        if (nb0 < hc) mma_tile(CopS, Gt, nb0, c);
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const int pp = tid + j * NT;
+          if (pp < BM * hc) {
+            const int i = pp / hc, h = pp % hc;
+            float x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
+            float x5 = addAM[j], x6 = addAg[j];
+#pragma unroll 4
+            for (int kk = 0; kk < BK; ++kk) {
+              const float g = Gs[kk][h], m = Ms[kk][h];
+              const float ar = Ar[i][kk], dar = dAr[i][kk];
+              x1 += ar * m;
+              x2 += dar * m;
+              x3 += ar * g;
+              x4 += dar * g;
+              if (TAU) {
+                const float ddar = ddAr[i][kk];
+                x5 += ddar * m;
+                x6 += ddar * g;
+              }
+            }
+            aAM[j] = x1;
+            adAM[j] = x2;
+            aAg[j] = x3;
+            adAg[j] = x4;
+            addAM[j] = x5;
+            addAg[j] = x6;
+          }
+        }
+        __syncthreads();
       }
+      if (nb0 < hc) mma_store(c, nb0, dMs);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < PPT; ++j) {
         const int pp = tid + j * NT;
-        if (pp < BM * hc) {
-          const int i = pp / hc, h = pp % hc;
-          float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
-          float x5 = addAM[j], x6 = addAg[j];
-#pragma unroll 4
-          for (int kk = 0; kk < BK; ++kk) {
-            const float g = Gs[kk][h], m = Ms[kk][h];
-            const float ar = Ar[i][kk], dar = dAr[i][kk];
-            x0 += Cop[i][kk] * g;
-            x1 += ar * m;
-            x2 += dar * m;
-            x3 += ar * g;
-            x4 += dar * g;
-            if (TAU) {
-              const float ddar = ddAr[i][kk];
-              x5 += ddar * m;
-              x6 += ddar * g;
-            }
-          }
-          aDM[j] = x0;
-          aAM[j] = x1;
-          adAM[j] = x2;
-          aAg[j] = x3;
-          adAg[j] = x4;
-          addAM[j] = x5;
-          addAg[j] = x6;
-        }
+        if (pp < BM * hc) aDM[j] = dMs[pp / hc][pp % hc];
       }
-      __syncthreads();
+    } else {
+      for (int k0 = 0; k0 < n; k0 += BK) {
+        // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+          float A = 0.f, dA = 0.f, ddA = 0.f;
+          if (gi < n && gk < n) {
+            const long long off = base + (long long)gi * n + gk;
+            if (TAU)
+              herm3(P, off, t, A, dA, ddA);
+            else
+              herm(P, off, t, A, dA);
+          }
+          Ar[i][kk] = A;
+          dAr[i][kk] = dA;
+          if (TAU) ddAr[i][kk] = ddA;
+          Cop[i][kk] = b20 * A + b21 * dA;
+        }
+        for (int e = tid; e < BK * hc; e += NT) {
+          const int kk = e / hc, h = e % hc, gk = k0 + kk;
+          const bool ok = gk < n;
+          Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
+          Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h0 + h] : 0.f;
+        }
+        __syncthreads();
+        // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gk * n + gi, t, A, dA);
+            Cop[i][kk] += b10 * A + b11 * dA;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const int pp = tid + j * NT;
+          if (pp < BM * hc) {
+            const int i = pp / hc, h = pp % hc;
+            float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
+            float x5 = addAM[j], x6 = addAg[j];
+#pragma unroll 4
+            for (int kk = 0; kk < BK; ++kk) {
+              const float g = Gs[kk][h], m = Ms[kk][h];
+              const float ar = Ar[i][kk], dar = dAr[i][kk];
+              x0 += Cop[i][kk] * g;
+              x1 += ar * m;
+              x2 += dar * m;
+              x3 += ar * g;
+              x4 += dar * g;
+              if (TAU) {
+                const float ddar = ddAr[i][kk];
+                x5 += ddar * m;
+                x6 += ddar * g;
+              }
+            }
+            aDM[j] = x0;
+            aAM[j] = x1;
+            adAM[j] = x2;
+            aAg[j] = x3;
+            adAg[j] = x4;
+            addAM[j] = x5;
+            addAg[j] = x6;
+          }
+        }
+        __syncthreads();
+      }
     }
 
     // The chunk's dM rows and matmul-part basis dots.
@@ -255,13 +352,18 @@ bwd_rows_kernel(Planes P, const int* __restrict__ idx,
           const long long o = (long long)gi * ldm + h0 + h;
           const float g = Gb[(long long)gi * ldg + h0 + h];
           const float m = Mb[o];
-          tp1a += g * aAM[j];
-          tp1b += g * adAM[j];
-          tp2a += m * aAg[j];
-          tp2b += m * adAg[j];
+          float gq = g, mq = m;  // the dots' rounded g and M (BF)
+          if constexpr (BF) {
+            gq = rbf(g);
+            mq = rbf(m);
+          }
+          tp1a += gq * aAM[j];
+          tp1b += gq * adAM[j];
+          tp2a += mq * aAg[j];
+          tp2b += mq * adAg[j];
           if (TAU) {
-            tddP += g * addAM[j];
-            tddQ += m * addAg[j];
+            tddP += gq * addAM[j];
+            tddQ += mq * addAg[j];
           }
           float dvec, v;
           if constexpr (DIR) {
@@ -508,12 +610,14 @@ static int layer_ptot(const int* dims, int l, int nb) {
 }
 
 // Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward (Xbuf[0]
-// unused: layer 0 reads Z), ldm >= every layer's width. gbuf: two
-// (B, n, ldm) cotangent buffers. stats: (B, NSTAT, n).
+// unused: layer 0 reads Z), ldm >= every layer's width. gbuf: (L, B, n, ldm),
+// gbuf[l] the masked cotangent of x_l for l >= 1 (gbuf[0] unused: layer
+// 0 writes dZ), so the caller can read every layer's inputs back. stats:
+// (B, NSTAT, n).
 // part: (B, nblk, ptot) partials; red: (B, ptot) reduced per-element
 // grads, layer blocks in order. dZ: (B, n, hin0).
-template <bool DIR>
-static int mk_bwd(const Planes& P, const int* idx, const float* tau, const float* Z,
+template <bool DIR, bool BF>
+static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
                   const float* G, int B, int n, int L, const int* dims,
                   const void* const* ptrs, int need_tau, float* stats, float* Mbuf,
                   float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
@@ -524,12 +628,12 @@ static int mk_bwd(const Planes& P, const int* idx, const float* tau, const float
   cudaError_t err;
 
   // Forward recompute: M_l for every layer, x_l for l >= 1.
-  prep_kernel<DIR><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
-                                            layer_from(ptrs, dims, 0), Mbuf, ldm,
-                                            stats);
+  prep_kernel<DIR, BF><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
+                                                layer_from(ptrs, dims, 0), Mbuf, ldm,
+                                                stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int l = 0; l + 1 < L; ++l) {
-    fwd_rows_kernel<DIR><<<grid, NT, 0, stream>>>(
+    fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
         P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
         ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
         Mbuf + (l + 1) * lstride, ldm);
@@ -545,14 +649,14 @@ static int mk_bwd(const Planes& P, const int* idx, const float* tau, const float
     const Layer lp = layer_from(ptrs, dims, l);
     const float* X = l == 0 ? Z : Xbuf + l * lstride;
     const int ldx = l == 0 ? dims[0] : ldm;
-    float* Gp = l == 0 ? dZ : gbuf + (l % 2) * lstride;
+    float* Gp = l == 0 ? dZ : gbuf + l * lstride;
     const int ldgp = l == 0 ? dims[0] : ldm;
     if (need_tau)
-      bwd_rows_kernel<true, DIR><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<true, DIR, BF><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     else
-      bwd_rows_kernel<false, DIR><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<false, DIR, BF><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -565,13 +669,32 @@ static int mk_bwd(const Planes& P, const int* idx, const float* tau, const float
   return 0;
 }
 
-// directed: the layers' basis is the (11, 2) directed stack (else (8, 2)).
-extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
-                            const float* a, long long plane_bstride,
+template <bool BF>
+static int mk_bwd_basis(const void* d, const void* c, const void* b, const void* a,
+                        long long bstride, const int* idx, const float* tau,
+                        const float* Z, const float* G, int B, int n, int L,
+                        const int* dims, const void* const* ptrs, int directed,
+                        int need_tau, float* stats, float* Mbuf, float* Xbuf, float* gbuf,
+                        int ldm, float* dZ, float* part, int ptot, float* red,
+                        cudaStream_t stream) {
+  using T = typename Planes<BF>::T;
+  const Planes<BF> P{static_cast<const T*>(d), static_cast<const T*>(c),
+                     static_cast<const T*>(b), static_cast<const T*>(a), bstride};
+  if (directed)
+    return mk_bwd<true, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                            Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+  return mk_bwd<false, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                           Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+}
+
+// directed: the layers' basis is the (11, 2) directed stack (else (8, 2));
+// planes float32, or bfloat16 when bf16 (K2bf).
+extern "C" int gncde_mk_bwd(const void* d, const void* c, const void* b,
+                            const void* a, long long plane_bstride,
                             const int* idx, const float* tau, const float* Z,
                             const float* G, int B, int n, int L,
                             const int* dims, const void* const* ptrs, int directed,
-                            int need_tau, float* stats, float* Mbuf,
+                            int bf16, int need_tau, float* stats, float* Mbuf,
                             float* Xbuf, float* gbuf, int ldm, float* dZ,
                             float* part, int ptot, float* red,
                             cudaStream_t stream) {
@@ -581,10 +704,11 @@ extern "C" int gncde_mk_bwd(const float* d, const float* c, const float* b,
   int want = 0;
   for (int l = 0; l < L; ++l) want += layer_ptot(dims, l, nb);
   if (want != ptot) return (int)cudaErrorInvalidValue;
-  const Planes P{d, c, b, a, plane_bstride};
-  if (directed)
-    return mk_bwd<true>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
-                        Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
-  return mk_bwd<false>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
-                       Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+  if (bf16)
+    return mk_bwd_basis<true>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
+                              ptrs, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm, dZ,
+                              part, ptot, red, stream);
+  return mk_bwd_basis<false>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
+                             ptrs, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm, dZ,
+                             part, ptot, red, stream);
 }

@@ -32,11 +32,33 @@
 // wide layers are CDE-wrapper outputs, H * E * 2 columns (512 for the trade
 // configs, 1024 for england), and always last, so a layer that feeds
 // another is at most 64 wide.
+//
+// Precision: a second compile-time parameter BF selects fusion_precision
+// bf16 (gncde_tpu/ops/pallas/megakernel.py _make_vf_body(bf16=True)). The
+// planes are then bfloat16 stacks, read at half the bytes and evaluated in
+// f32 with every product and sum rounded once (no FMA contraction, so the
+// bf16 operands equal the plain version's bit for bit); the row sums,
+// diagonals and totals stay f32; the directed column sums are sums of the
+// bf16-rounded A(t), dA(t), as JAX takes them. Per layer B1 = b1_0 Ah +
+// b1_1 dAh and B2^T = b2_0 Ah^T + b2_1 dAh^T are formed in bf16 (the
+// coefficients rounded, each product and the sum rounded), separately --
+// their sum would round again -- and multiplied with M rounded to bf16 on
+// the tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation):
+// each of the CTA's 8 warps owns one 16 x 8 block of the 16 x 64 output
+// chunk, and both products feed its one accumulator. The rank terms are
+// f32 on the unrounded M. The f32 instantiations (BF = false) run the
+// instructions they ran before BF existed.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace mk {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int BM = 16;     // rows per CTA
 constexpr int BK = 32;     // k-tile width
@@ -47,13 +69,17 @@ constexpr int HC = 64;       // output columns per sweep
 constexpr int MAXOUT = 4096; // widest layer output
 constexpr int PPT = (BM * HC + NT - 1) / NT;  // (row, col) pairs per thread
 constexpr float EPS = 1e-6f;
+constexpr int BKP = BK + 8;  // padded k extent of the bf16 MMA tiles
 
+// The four Hermite interval plane stacks: float32, or bfloat16 when BF.
+template <bool BF>
 struct Planes {
-  const float* d;
-  const float* c;
-  const float* b;
-  const float* a;
-  long long bstride;  // floats between batch elements' plane stacks (0: shared)
+  using T = std::conditional_t<BF, bf16, float>;
+  const T* d;
+  const T* c;
+  const T* b;
+  const T* a;
+  long long bstride;  // elements between batch elements' plane stacks (0: shared)
 };
 
 // Basis entries (2-vectors) of the undirected and the directed basis.
@@ -80,26 +106,107 @@ enum Stat { RA = 0, RDA = 1, DGA = 2, DGDA = 3, RDDA = 4, DGDDA = 5, CA = 6, CDA
             CDDA = 8 };
 constexpr int NSTAT = 9;
 
-__device__ __forceinline__ long long plane_base(const Planes& P, const int* idx,
+template <bool BF>
+__device__ __forceinline__ long long plane_base(const Planes<BF>& P, const int* idx,
                                                 int b, int n) {
   return (long long)b * P.bstride + (long long)__ldg(idx + b) * n * n;
 }
 
-__device__ __forceinline__ void herm(const Planes& P, long long off, float t,
-                                     float& A, float& dA) {
-  const float d = __ldg(P.d + off), c = __ldg(P.c + off);
-  const float b = __ldg(P.b + off), a = __ldg(P.a + off);
-  A = ((d * t + c) * t + b) * t + a;
-  dA = (3.0f * d * t + 2.0f * c) * t + b;
+__device__ __forceinline__ float ldp(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldp(const bf16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
-__device__ __forceinline__ void herm3(const Planes& P, long long off, float t,
+// Round to bf16 (to nearest even) and back.
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// The bf16 bit pattern of x rounded (to nearest even).
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// A(t), dA(t) (and d(dA)/dt) at one plane element. BF: each product and sum
+// rounded once, in the plain version's order.
+template <bool BF>
+__device__ __forceinline__ void herm(const Planes<BF>& P, long long off, float t,
+                                     float& A, float& dA) {
+  const float d = ldp(P.d + off), c = ldp(P.c + off);
+  const float b = ldp(P.b + off), a = ldp(P.a + off);
+  if constexpr (BF) {
+    A = __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(d, t), c), t), b), t), a);
+    dA = __fadd_rn(
+        __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(3.0f, d), t), __fmul_rn(2.0f, c)), t), b);
+  } else {
+    A = ((d * t + c) * t + b) * t + a;
+    dA = (3.0f * d * t + 2.0f * c) * t + b;
+  }
+}
+
+template <bool BF>
+__device__ __forceinline__ void herm3(const Planes<BF>& P, long long off, float t,
                                       float& A, float& dA, float& ddA) {
-  const float d = __ldg(P.d + off), c = __ldg(P.c + off);
-  const float b = __ldg(P.b + off), a = __ldg(P.a + off);
-  A = ((d * t + c) * t + b) * t + a;
-  dA = (3.0f * d * t + 2.0f * c) * t + b;
-  ddA = 6.0f * d * t + 2.0f * c;
+  const float d = ldp(P.d + off), c = ldp(P.c + off);
+  const float b = ldp(P.b + off), a = ldp(P.a + off);
+  if constexpr (BF) {
+    A = __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(d, t), c), t), b), t), a);
+    dA = __fadd_rn(
+        __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(3.0f, d), t), __fmul_rn(2.0f, c)), t), b);
+    ddA = __fadd_rn(__fmul_rn(__fmul_rn(6.0f, d), t), __fmul_rn(2.0f, c));
+  } else {
+    A = ((d * t + c) * t + b) * t + a;
+    dA = (3.0f * d * t + 2.0f * c) * t + b;
+    ddA = 6.0f * d * t + 2.0f * c;
+  }
+}
+
+// One bf16 operand of a product, its coefficient already rounded: round(c *
+// round(x)), exact in f32 before the rounding (8-bit significands).
+__device__ __forceinline__ float bmul(float c, float x) { return rbf(c * rbf(x)); }
+
+// ---- Tensor-core products (BF) ---------------------------------------------
+// A tiles S[i][k] (BM rows, BK deep) are the MMA's row-major A operand; a B
+// tile Bt[h][k] holds the (BK x HC) right operand transposed, so a lane's
+// two consecutive k values are one 32-bit word. Both hold bf16 bit patterns;
+// rows padded to BKP halves keep the fragment loads free of bank conflicts.
+
+__device__ __forceinline__ uint32_t ld_pair(const unsigned short* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a b, one m16n8k16 bf16 product with f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += S Bt^T over one BK-deep tile for the warp's 16 x 8 output block
+// (columns nb0 .. nb0 + 7): two k16 steps. Fragment layout of the PTX ISA:
+// lane = 4 g + q; A rows g, g + 8 and k pairs 2q, 2q + 8; B column g.
+__device__ __forceinline__ void mma_tile(const unsigned short (*S)[BKP],
+                                         const unsigned short (*Bt)[BKP], int nb0,
+                                         float c[4]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = 2 * (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16)
+    mma_bf16(c, ld_pair(&S[g][ks + q]), ld_pair(&S[g + 8][ks + q]),
+             ld_pair(&S[g][ks + q + 8]), ld_pair(&S[g + 8][ks + q + 8]),
+             ld_pair(&Bt[nb0 + g][ks + q]), ld_pair(&Bt[nb0 + g][ks + q + 8]));
+}
+
+// The warp's accumulator block into D (BM x HC f32): rows g, g + 8, columns
+// nb0 + 2q, nb0 + 2q + 1.
+__device__ __forceinline__ void mma_store(const float c[4], int nb0, float (*D)[HC]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = 2 * (lane & 3);
+  D[g][nb0 + q] = c[0];
+  D[g][nb0 + q + 1] = c[1];
+  D[g + 8][nb0 + q] = c[2];
+  D[g + 8][nb0 + q + 1] = c[3];
 }
 
 // Sum over the warp; every lane gets lane 0's total (one rounding order).
@@ -181,8 +288,8 @@ __device__ __forceinline__ float dir_dvec(const float* q, const float* st, int n
 // function so that K1 (prep_kernel) and the fused RK step K11
 // (fused_step.cu) run the same arithmetic; it ends on a CTA barrier when
 // DIR, so every thread must reach it.
-template <bool DIR>
-__device__ __forceinline__ void prep_rows(const Planes& P, long long base, float t,
+template <bool DIR, bool BF>
+__device__ __forceinline__ void prep_rows(const Planes<BF>& P, long long base, float t,
                                           int b, int r0, int n,
                                           const float* __restrict__ Z, int ldz,
                                           const Layer& l0, float* __restrict__ M0,
@@ -232,6 +339,10 @@ __device__ __forceinline__ void prep_rows(const Planes& P, long long base, float
       for (int k = sl; k < n; k += NSL) {
         float A, dA, ddA;
         herm3(P, base + (long long)k * n + gc, t, A, dA, ddA);
+        if constexpr (BF) {  // column sums of the rounded planes (JAX's At)
+          A = rbf(A);
+          dA = rbf(dA);
+        }
         cA += A;
         cdA += dA;
         cddA += ddA;
@@ -257,14 +368,14 @@ __device__ __forceinline__ void prep_rows(const Planes& P, long long base, float
   }
 }
 
-template <bool DIR>
+template <bool DIR, bool BF>
 __global__ void __launch_bounds__(NT)
-prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau,
+prep_kernel(Planes<BF> P, const int* __restrict__ idx, const float* __restrict__ tau,
             int n, const float* __restrict__ Z, int ldz, Layer l0,
             float* __restrict__ M0, int ldm, float* __restrict__ stats) {
   const int b = blockIdx.y;
-  prep_rows<DIR>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, Z,
-                 ldz, l0, M0, ldm, stats);
+  prep_rows<DIR, BF>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n,
+                     Z, ldz, l0, M0, ldm, stats);
 }
 
 // Pass 2 of one CTA (one per layer): out rows = C M + rank terms (+ relu),
@@ -272,8 +383,8 @@ prep_kernel(Planes P, const int* __restrict__ idx, const float* __restrict__ tau
 // that layer's M rows; rows r0 .. r0+BM-1 of element b, planes at ``base``,
 // offset t. The output columns are swept in chunks of HC. Shared by K1
 // (fwd_rows_kernel) and K11.
-template <bool DIR>
-__device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float t,
+template <bool DIR, bool BF>
+__device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, float t,
                                          int b, int r0, int n,
                                          const float* __restrict__ stats,
                                          const Layer& lp, const float* __restrict__ Mc,
@@ -358,45 +469,97 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
 #pragma unroll
     for (int j = 0; j < PPT; ++j) acc[j] = 0.f;
 
-    for (int k0 = 0; k0 < n; k0 += BK) {
-      // Row part: B1[i, k] for the CTA's rows (coalesced along k).
-      for (int e = tid; e < BM * BK; e += NT) {
-        const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-        float v = 0.f;
-        if (gi < n && gk < n) {
-          float A, dA;
-          herm(P, base + (long long)gi * n + gk, t, A, dA);
-          v = b10 * A + b11 * dA;
+    if constexpr (BF) {
+      // B1 and B2^T tiles in bf16 (JAX's roundings), M rounded, both
+      // products on the tensor cores into the warp's one accumulator, which
+      // is staged through Fs (each thread then reads its own (row, col)
+      // pairs, and the epilogue rewrites only those).
+      __shared__ __align__(16) unsigned short S1[BM][BKP];
+      __shared__ __align__(16) unsigned short S2[BM][BKP];
+      __shared__ __align__(16) unsigned short Mt[HC][BKP];
+      const float cb0 = rbf(b10), cb1 = rbf(b11), cb2 = rbf(b20), cb3 = rbf(b21);
+      const int nb0 = warp * 8;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < n; k0 += BK) {
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+          float v = 0.f;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gi * n + gk, t, A, dA);
+            v = __fadd_rn(bmul(cb0, A), bmul(cb1, dA));
+          }
+          S1[i][kk] = bf16_bits(v);
         }
-        Cs[i][kk] = v;
-      }
-      for (int e = tid; e < BK * hc; e += NT) {
-        const int kk = e / hc, h = e % hc, gk = k0 + kk;
-        Ms[kk][h] = gk < n ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
-      }
-      __syncthreads();
-      // Column part: B2[k, i] (coalesced along i).
-      for (int e = tid; e < BM * BK; e += NT) {
-        const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-        if (gi < n && gk < n) {
-          float A, dA;
-          herm(P, base + (long long)gk * n + gi, t, A, dA);
-          Cs[i][kk] += b20 * A + b21 * dA;
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+          float v = 0.f;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gk * n + gi, t, A, dA);
+            v = __fadd_rn(bmul(cb2, A), bmul(cb3, dA));
+          }
+          S2[i][kk] = bf16_bits(v);
         }
+        for (int e = tid; e < BK * HC; e += NT) {
+          const int kk = e / HC, h = e % HC, gk = k0 + kk;
+          Mt[h][kk] = bf16_bits(gk < n && h < hc ? Mb[(long long)gk * ldm + h0 + h] : 0.f);
+        }
+        __syncthreads();
+        if (nb0 < hc) {
+          mma_tile(S1, Mt, nb0, c);
+          mma_tile(S2, Mt, nb0, c);
+        }
+        __syncthreads();
       }
+      if (nb0 < hc) mma_store(c, nb0, Fs);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < PPT; ++j) {
         const int pp = tid + j * NT;
-        if (pp < BM * hc) {
-          const int i = pp / hc, h = pp % hc;
-          float a = acc[j];
-#pragma unroll 8
-          for (int kk = 0; kk < BK; ++kk) a += Cs[i][kk] * Ms[kk][h];
-          acc[j] = a;
-        }
+        if (pp < BM * hc) acc[j] = Fs[pp / hc][pp % hc];
       }
-      __syncthreads();
+    } else {
+      for (int k0 = 0; k0 < n; k0 += BK) {
+        // Row part: B1[i, k] for the CTA's rows (coalesced along k).
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+          float v = 0.f;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gi * n + gk, t, A, dA);
+            v = b10 * A + b11 * dA;
+          }
+          Cs[i][kk] = v;
+        }
+        for (int e = tid; e < BK * hc; e += NT) {
+          const int kk = e / hc, h = e % hc, gk = k0 + kk;
+          Ms[kk][h] = gk < n ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
+        }
+        __syncthreads();
+        // Column part: B2[k, i] (coalesced along i).
+        for (int e = tid; e < BM * BK; e += NT) {
+          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+          if (gi < n && gk < n) {
+            float A, dA;
+            herm(P, base + (long long)gk * n + gi, t, A, dA);
+            Cs[i][kk] += b20 * A + b21 * dA;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const int pp = tid + j * NT;
+          if (pp < BM * hc) {
+            const int i = pp / hc, h = pp % hc;
+            float a = acc[j];
+#pragma unroll 8
+            for (int kk = 0; kk < BK; ++kk) a += Cs[i][kk] * Ms[kk][h];
+            acc[j] = a;
+          }
+        }
+        __syncthreads();
+      }
     }
 
 #pragma unroll
@@ -434,17 +597,17 @@ __device__ __forceinline__ void fwd_rows(const Planes& P, long long base, float 
   }
 }
 
-template <bool DIR>
+template <bool DIR, bool BF>
 __global__ void __launch_bounds__(NT)
-fwd_rows_kernel(Planes P, const int* __restrict__ idx,
+fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
                 const float* __restrict__ stats, Layer lp,
                 const float* __restrict__ Mc, int ldm, float* __restrict__ F,
                 int ldf, int relu, int has_next, Layer ln,
                 float* __restrict__ Mn, int ldmn) {
   const int b = blockIdx.y;
-  fwd_rows<DIR>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n, stats,
-                lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
+  fwd_rows<DIR, BF>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n,
+                    stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
 }
 
 inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {

@@ -113,6 +113,13 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(idx.shape[0], device=idx.device), idx]
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """Knot values or coefficients stored in bfloat16 (``fusion_precision:
+    bf16``), upcast: the path is evaluated in f32, as JAX promotes them (torch
+    would keep ``3.0 * d`` in bf16); other dtypes pass unchanged."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Per-element scalar ``v`` (shape ``()`` or ``(B,)``) against ``like``."""
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
@@ -144,7 +151,7 @@ class LinearInterpolation:
         same = t1 == t0
         h = torch.where(same, torch.ones_like(t0), t1 - t0)
         w = torch.where(same, torch.zeros_like(t0), (t - t0) / h)
-        y0, y1 = _take(self.ys, i), _take(self.ys, i + 1)
+        y0, y1 = _f32(_take(self.ys, i)), _f32(_take(self.ys, i + 1))
         return y0 + _bcast(w, y0) * (y1 - y0)
 
     def derivative(self, t):
@@ -152,12 +159,13 @@ class LinearInterpolation:
         same = t1 == t0
         h = torch.where(same, torch.ones_like(t0), t1 - t0)
         scale = torch.where(same, torch.zeros_like(t0), 1.0 / h)
-        y0, y1 = _take(self.ys, i), _take(self.ys, i + 1)
+        y0, y1 = _f32(_take(self.ys, i)), _f32(_take(self.ys, i + 1))
         return (y1 - y0) * _bcast(scale, y0)
 
 
 class CubicInterpolation:
-    """Hermite-cubic control path; ``coeffs`` is ``(d, c, b, a)``."""
+    """Hermite-cubic control path; ``coeffs`` is ``(d, c, b, a)``, float32 or
+    (``fusion_precision: bf16``) bfloat16, evaluated in f32 either way."""
 
     def __init__(self, ts: torch.Tensor, coeffs):
         self.ts = ts.contiguous()
@@ -171,14 +179,14 @@ class CubicInterpolation:
     def evaluate(self, t):
         d, c, b, a = self.coeffs
         i, tau = self._at(t)
-        di, ci, bi, ai = (_take(x, i) for x in (d, c, b, a))
+        di, ci, bi, ai = (_f32(_take(x, i)) for x in (d, c, b, a))
         tau = _bcast(tau, di)
         return ((di * tau + ci) * tau + bi) * tau + ai
 
     def derivative(self, t):
         d, c, b, a = self.coeffs
         i, tau = self._at(t)
-        di, ci, bi = (_take(x, i) for x in (d, c, b))
+        di, ci, bi = (_f32(_take(x, i)) for x in (d, c, b))
         tau = _bcast(tau, di)
         return (3.0 * di * tau + 2.0 * ci) * tau + bi
 

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from .. import ops as ops_config
-from ..interp import CubicInterpolation, MatrixControl
+from ..interp import CubicInterpolation, LinearInterpolation, MatrixControl
 from ..nn import Linear
 from ..ops import megakernel as _mk
 from ..ops import tiled as _tiled
@@ -34,12 +34,23 @@ def with_reductions(ctrl: MatrixControl) -> MatrixControl:
 
 def make_control(interpolation: str, ts: torch.Tensor, coeffs):
     """Slim control from reference-layout stacked ``[time, value]``
-    coefficients: only the adjacency channel is kept. A pre-built control
-    (anything exposing ``adj``: the sparse ELL and BCSR controls of the
-    ``sparse_control`` knob) passes through unchanged."""
+    coefficients: only the adjacency channel is kept, stored in bfloat16
+    under ``fusion_precision: bf16`` (the hot loop's only O(n^2) reads, and
+    bf16 matmul operands anyway; ``gncde_tpu/models/continuous.py:41-56``).
+    The tiled regime's reductions are taken after that cast. A pre-built
+    control (anything exposing ``adj``: the sparse ELL and BCSR controls of
+    the ``sparse_control`` knob) passes through unchanged."""
     if hasattr(coeffs, "adj"):
         return coeffs
-    return with_reductions(MatrixControl.from_stacked(interpolation, ts, coeffs))
+    ctrl = MatrixControl.from_stacked(interpolation, ts, coeffs)
+    if ops_config.bf16_precision():
+        path = ctrl.path
+        if isinstance(path, CubicInterpolation):
+            path = CubicInterpolation(path.ts, tuple(c.to(torch.bfloat16) for c in path.coeffs))
+        else:
+            path = LinearInterpolation(path.ts, path.ys.to(torch.bfloat16))
+        ctrl = MatrixControl(path)
+    return with_reductions(ctrl)
 
 
 class GraphNeuralCDE(nn.Module):

@@ -92,6 +92,11 @@ def _enc_idx_pallas_eval(vf, control_adj, t, y):
     it does not take), then
     :func:`~gncde_tpu_torch.ops.pair.tiled_vf_eval_planes` (K6 per layer,
     the planes differentiable)."""
+    if ops_config.bf16_precision():
+        raise NotImplementedError(
+            "the enc_idx kernel route under fusion_precision 'bf16' needs K7 with bf16 "
+            "output and K6 on bf16 planes, which are not ported (ROADMAP Queue 2 B2); "
+            "use 'f32'")
     path = control_adj.path
     ts = path.ts
     if ts.dim() == 1:
@@ -113,7 +118,8 @@ def _fused_rk_step_hook(vf, tab, t, y, h, control_adj, f0):
     stage loop, when the field has ``enc_idx``, the fused step is off, the
     megakernel gate fails, n exceeds ``MEGAKERNEL_MAX_N``, or the layer
     stack does not map the state width to itself (the stage combinations
-    add k's to y) -- the JAX package's own conditions."""
+    add k's to y) -- the JAX package's own conditions. Under
+    ``fusion_precision: bf16`` the step is K11bf."""
     if vf.enc_idx or not ops_config.get_fused_step():
         return None
     if not _pallas_plane_dispatch_ok(control_adj, y.device):
@@ -125,7 +131,8 @@ def _fused_rk_step_hook(vf, tab, t, y, h, control_adj, f0):
     if dims[0][0] != dims[-1][1] or y.shape[-1] != dims[0][0]:
         return None
     path = control_adj.path
-    return _fs.fused_rk_step(tab, tuple(path.coeffs), path.ts, t, y, h, f0, vf)
+    return _fs.fused_rk_step(tab, tuple(path.coeffs), path.ts, t, y, h, f0, vf,
+                             ops_config.bf16_precision())
 
 
 def _make_stack(input_dim, hidden_dim, output_dim, num_layers, generator, device,
@@ -181,7 +188,8 @@ class PermEquivGraphVectorField(nn.Module):
                     # the plane-pair kernels, at every n.
                     return _enc_idx_pallas_eval(self, control_adj, t, y)
             elif n <= _mk.MEGAKERNEL_MAX_N:
-                return _mk.megakernel_vf(path.coeffs, path.ts, t, y, self)
+                return _mk.megakernel_vf(path.coeffs, path.ts, t, y, self,
+                                         ops_config.bf16_precision())
             elif n <= _tiled.TILED_MAX_N:
                 # K1/K2 serve n <= 640; above it the tiled kernels (twitter
                 # n=1000, tgbn-genre n=1505 and beyond).

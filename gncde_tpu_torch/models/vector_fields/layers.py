@@ -19,6 +19,7 @@ from ...nn import Linear, RMSNorm
 from ...ops import bcsr as ops_bcsr
 from ...ops import equiv_basis
 from ...ops import fused_basis
+from ...ops.megakernel import rbf
 from ...ops import pipeline
 from ...ops import sparse as ops_sparse
 
@@ -84,6 +85,13 @@ class ConvEquivFusionLayer(nn.Module):
         if backend in ("dense", "megakernel"):
             # "megakernel" is a vector-field-level backend; a layer reached
             # directly takes the dense formulation.
+            if ops_config.bf16_precision():
+                # JAX layers.py:147-155 / :273-281: the fused operator formed
+                # on bf16 planes (f32, its reductions bf16 sums), times M
+                # rounded to bf16: exact products summed in f32.
+                fused = self.fusion_matrix(adj_matrix.to(torch.bfloat16),
+                                           control_gradient.to(torch.bfloat16))
+                return m + fused @ rbf(m)
             return m + self.fusion_matrix(adj_matrix, control_gradient) @ m
         if backend == "pipeline":  # K13 per layer (ops/pipeline.py)
             return pipeline.pipeline_fused_apply(adj_matrix, control_gradient, m,

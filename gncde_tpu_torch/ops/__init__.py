@@ -44,8 +44,19 @@ a perm-equiv field (either basis, no enc_idx) with n <= 640 and a square
 layer stack runs as one launch of K11 (``ops/fused_step.py``) instead of
 one K1 per stage.
 
-Precision: only ``"f32"`` is implemented. ``"bf16"`` raises, because the
-kernels have no bf16 operand path yet (ROADMAP Queue 2).
+Precision (``set_fusion_precision``): ``"f32"`` (the default) or
+``"bf16"``, the JAX package's production precision: the slim control's
+Hermite stacks are stored in bfloat16 (``models/continuous.py``), evaluated
+in f32, and the message-passing products take bf16 operands with f32
+accumulation -- K1bf, K2bf and K11bf (the bf16 instantiations of K1, K2 and
+K11, on the tensor cores) at n <= 640, the dense layers' bf16 apply on the
+CPU. The tiled regime (bf16 operands in every precision), the per-layer
+``pipeline`` / ``pallas`` backends (f32 kernels on A(t) evaluated from the
+bf16 stacks) and the sparse controls (f32, built from the f32 coefficients)
+compute what the JAX package computes under ``"bf16"``. The enc_idx kernel
+route raises under ``"bf16"``: the JAX package switches its modulation to
+bf16 planes there, and K7/K6 on bf16 planes are not ported (ROADMAP Queue 2
+B2).
 """
 
 from __future__ import annotations
@@ -57,7 +68,7 @@ from . import equiv_basis  # noqa: F401
 _BACKEND = "auto"
 _VALID = ("auto", "dense", "decomposed", "megakernel", "pipeline", "pallas")
 _PRECISION = "f32"
-_VALID_PRECISION = ("f32",)
+_VALID_PRECISION = ("f32", "bf16")
 
 
 def check_fusion_backend(name: str) -> None:
@@ -81,11 +92,6 @@ def get_fusion_backend(device: torch.device | str | None = None) -> str:
 
 
 def check_fusion_precision(name: str) -> None:
-    if name == "bf16":
-        raise NotImplementedError(
-            "fusion_precision 'bf16' is not implemented in the Hopper kernels "
-            "yet (ROADMAP Queue 2); use 'f32'"
-        )
     if name not in _VALID_PRECISION:
         raise ValueError(f"precision must be one of {_VALID_PRECISION}")
 
@@ -98,6 +104,11 @@ def set_fusion_precision(name: str) -> None:
 
 def get_fusion_precision() -> str:
     return _PRECISION
+
+
+def bf16_precision() -> bool:
+    """True under ``fusion_precision: bf16``."""
+    return _PRECISION == "bf16"
 
 
 _FUSED_STEP = False

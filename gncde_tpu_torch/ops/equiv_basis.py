@@ -50,12 +50,20 @@ def _eye_like(A: torch.Tensor) -> torch.Tensor:
     return torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
+def _wide(*xs):
+    """The reductions of bf16 planes (rounded to bf16, as ``jnp.sum`` of a
+    bf16 array is) in f32, so that the f32 basis parameters promote them as
+    they do in JAX (torch keeps a 0-dim f32 times a bf16 tensor in bf16);
+    f32 and f64 pass unchanged."""
+    return tuple(x.to(torch.promote_types(x.dtype, torch.float32)) for x in xs)
+
+
 def fusion_matrix_dense(A, dA, params) -> torch.Tensor:
-    """Materialise the undirected 8-term fused operator (layers.py:102-160)."""
+    """Materialise the undirected 8-term fused operator (layers.py:102-160).
+    On bf16 planes the result is f32, as JAX's is."""
     p1, p2, p3, p4, p5, p6, p7, p8 = params
     n = A.shape[-1]
-    rA, rdA = A.sum(-1), dA.sum(-1)
-    sA, sdA = A.sum((-2, -1)), dA.sum((-2, -1))
+    rA, rdA, sA, sdA = _wide(A.sum(-1), dA.sum(-1), A.sum((-2, -1)), dA.sum((-2, -1)))
     At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
 
     out = (1.0 + _s(p1, 0)) * A + (1.0 + _s(p1, 1)) * dA
@@ -73,12 +81,12 @@ def fusion_matrix_dense(A, dA, params) -> torch.Tensor:
 
 
 def fusion_matrix_dense_directed(A, dA, params) -> torch.Tensor:
-    """Dense oracle for the directed 11-term basis (layers.py:256-345)."""
+    """Dense oracle for the directed 11-term basis (layers.py:256-345); f32
+    on bf16 planes, as :func:`fusion_matrix_dense`."""
     p1, p2, p3, p4, p4p, p5, p5p, p6, p6p, p7, p8 = params
     n = A.shape[-1]
-    rA, rdA = A.sum(-1), dA.sum(-1)
-    cA, cdA = A.sum(-2), dA.sum(-2)
-    sA, sdA = A.sum((-2, -1)), dA.sum((-2, -1))
+    rA, rdA, cA, cdA, sA, sdA = _wide(A.sum(-1), dA.sum(-1), A.sum(-2), dA.sum(-2),
+                                      A.sum((-2, -1)), dA.sum((-2, -1)))
     At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
 
     out = (1.0 + _s(p1, 0)) * A + (1.0 + _s(p1, 1)) * dA

@@ -9,8 +9,8 @@ vf evals, ``y1``, ``err`` and ``f1`` -- as one cooperative CUDA launch
 glue between them. Off by default (``ops.set_fused_step``), as in JAX.
 
 * :func:`_step_reference` is the plain version: the same step composed of
-  :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` stage by stage. CPU
-  tensors take it.
+  :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` (with ``bf16``,
+  ``plain_vf_eval_bf16``) stage by stage. CPU tensors take it.
 * :func:`fused_step_call` launches K11 for CUDA tensors (raising on what the
   kernel does not take) and returns the stage derivatives ``ks`` too.
 * :class:`FusedRKStep` is the differentiable step: forward K11, backward the
@@ -29,12 +29,16 @@ Shapes are batch-first: ``t``, ``h`` ``(B,)``; ``y``, ``f0`` ``(B, n, H)``;
 planes ``(B, T-1, n, n)`` or ``(T-1, n, n)``; knots ``(B, T)``. The layers
 carry the undirected ``(8, 2)`` or the directed ``(11, 2)`` basis; the
 kernel is built for both (its ``directed`` argument), and the backward's
-K2 follows the basis.
+K2 follows the basis. Under ``fusion_precision: bf16`` (``bf16``) the planes
+are bfloat16, each stage is K1bf's arithmetic (K11bf, the kernel's bf16
+instantiation) and the backward runs one K2bf per stage.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 import typing as tp
 
 import numpy as np
@@ -53,6 +57,7 @@ from .megakernel import (
     interval,
     launch_args,
     plain_vf_eval,
+    plain_vf_eval_bf16,
     scratch_width,
 )
 from .megakernel_bwd import megakernel_vf_bwd
@@ -128,21 +133,30 @@ def _combine(weights, ks, start):
     return start if acc is None else acc
 
 
-def _step_reference(planes: Planes, ts, t, y, h, f0, layers, tab):
-    """Plain version of K11: ``(y1, err, f1, ks)`` with ``ks`` ``(B, S, n, H)``
-    the stage derivatives k_1 .. k_S, each stage a
-    :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` (mirrors the
-    solver's ``_rk_step`` for explicit FSAL tableaus)."""
+def _step_reference(planes: Planes, ts, t, y, h, f0, layers, tab, bf16: bool = False,
+                    given_ks=None):
+    """Plain version of K11 (with ``bf16``, of K11bf): ``(y1, err, f1, ks)``
+    with ``ks`` ``(B, S, n, H)`` the stage derivatives k_1 .. k_S, each stage a
+    :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` (or
+    ``plain_vf_eval_bf16``; mirrors the solver's ``_rk_step`` for explicit
+    FSAL tableaus).
+
+    Stage by stage: with ``given_ks`` (a kernel's ``ks``) every stage input,
+    ``y1`` and ``err`` are formed from the given stage derivatives, so each
+    returned stage derivative is one plain eval on the kernel's own stage
+    input and ``y1`` and ``err`` differ from the kernel's only by f32 sums."""
     _register(tab)
     idx, tau = _stage_nodes(tab, ts, t, h)
     hb = h[:, None, None]
     ks = [f0]
+    known = ks if given_ks is None else [f0] + list(given_ks.unbind(1))
+    stage = plain_vf_eval_bf16 if bf16 else plain_vf_eval
     for s in range(1, tab.num_stages):
-        acc = _combine(tab.a[s], ks, None)
+        acc = _combine(tab.a[s], known, None)
         yi = y if acc is None else y + hb * acc
-        ks.append(plain_vf_eval(planes, idx[:, s - 1], tau[:, s - 1], yi, layers))
-    y1 = y + hb * _combine(tab.b, ks, torch.zeros_like(y))
-    err = hb * _combine(tab.b_err, ks, torch.zeros_like(y))
+        ks.append(stage(planes, idx[:, s - 1], tau[:, s - 1], yi, layers))
+    y1 = y + hb * _combine(tab.b, known, torch.zeros_like(y))
+    err = hb * _combine(tab.b_err, known, torch.zeros_like(y))
     return y1, err, ks[-1], torch.stack(ks[1:], 1)
 
 
@@ -151,7 +165,7 @@ _ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.P,  # idx, tau, h, y, f0
     _build.I, _build.I, _build.I, _build.I, _build.I,  # Btot, b0, nb, n, S
     _build.P, _build.P, _build.P,  # amat, bvec, berr (host arrays)
-    _build.I, _build.P, _build.P, _build.I,  # L, dims, ptrs (host arrays), directed
+    _build.I, _build.P, _build.P, _build.I, _build.I,  # L, dims, ptrs, directed, bf16
     _build.P, _build.P, _build.I, _build.P, _build.P,  # stats, Mbuf, ldm, Yi, ks
     _build.P, _build.P, _build.P, _build.P,  # y1, err, f1, stream
 ]
@@ -163,24 +177,25 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.gncde_fused_step_capacity.argtypes = [_build.I]
+        lib.gncde_fused_step_capacity.argtypes = [_build.I, _build.I]
         lib.gncde_fused_step_capacity.restype = ctypes.c_int
     return lib
 
 
-_CAPACITY: tp.Dict[tp.Tuple[int, bool], int] = {}
+_CAPACITY: tp.Dict[tp.Tuple[int, bool, bool], int] = {}
 
 
-def capacity(device, directed: bool = False) -> int:
-    """How many K11 CTAs (of the directed basis's build or not) can be
-    resident at once on ``device`` (a cooperative launch needs them all
-    resident)."""
+def capacity(device, directed: bool = False, bf16: bool = False) -> int:
+    """How many K11 CTAs (of the directed basis's build or not, the bf16
+    one or not) can be resident at once on ``device`` (a cooperative launch
+    needs them all resident)."""
     dev = torch.device(device).index
     dev = torch.cuda.current_device() if dev is None else dev
-    key = (dev, bool(directed))
+    key = (dev, bool(directed), bool(bf16))
     if key not in _CAPACITY:
         with torch.cuda.device(dev):
-            _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(int(bool(directed))))
+            _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(int(bool(directed)),
+                                                                  int(bool(bf16))))
     return _CAPACITY[key]
 
 
@@ -189,11 +204,11 @@ def _host_floats(a: np.ndarray):
     return (ctypes.c_float * flat.size)(*flat.tolist())
 
 
-def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
+def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays, bf16: bool):
     amat, bvec, berr, _ = tabs
     S = amat.shape[0]
     directed = _check_inputs(planes, idx[:, 0], tau[:, 0], y, layers,
-                             extra=(f0, h)) == NBASIS_DIRECTED
+                             extra=(f0, h), bf16=bf16) == NBASIS_DIRECTED
     if S > MAX_STAGES or len(layers) > MAX_LAYERS:
         raise ValueError(f"K11 serves up to {MAX_STAGES} stages and {MAX_LAYERS} "
                          f"layers; got {S} and {len(layers)}")
@@ -205,7 +220,7 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
         raise ValueError("K11: the layer stack must map the state width to itself")
     lib = _lib()
     nrb = -(-n // 16)  # csrc/megakernel_common.cuh BM
-    per_launch = capacity(y.device, directed) // nrb
+    per_launch = capacity(y.device, directed, bf16) // nrb
     if per_launch < 1:
         raise RuntimeError(f"K11: not even one batch element ({nrb} CTAs) fits a "
                            f"cooperative launch on this device")
@@ -228,28 +243,32 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays):
             _build.ptr(tau32), _build.ptr(h32), _build.ptr(y), _build.ptr(f0),
             B, b0, nb, n, S, *[ctypes.cast(a, _build.P) for a in host],
             len(layers), ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-            int(directed), _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(yi),
-            _build.ptr(ks), _build.ptr(y1), _build.ptr(err), _build.ptr(f1), _build.stream())
-        _build.check(code, "K11 fused_step")
-        fused_step_call.launches += 1
+            int(directed), int(bool(bf16)), _build.ptr(stats), _build.ptr(mbuf), ldm,
+            _build.ptr(yi), _build.ptr(ks), _build.ptr(y1), _build.ptr(err), _build.ptr(f1),
+            _build.stream())
+        _build.check(code, "K11bf fused_step" if bf16 else "K11 fused_step")
+        (fused_step_call.bf16 if bf16 else fused_step_call).launches += 1
     del keep
     return y1, err, f1, ks
 
 
-def fused_step_call(planes: Planes, ts, t, y, h, f0, layers, tab):
-    """K11: ``(y1, err, f1, ks)`` of one step of ``tab`` from ``(t, y)`` with
-    step ``h`` and FSAL derivative ``f0``. The kernel for CUDA tensors (one
-    cooperative launch; a batch whose CTAs do not all fit at once in chunks
-    that do), the plain version for CPU tensors. Not differentiable by
-    itself (see :class:`FusedRKStep`)."""
+def fused_step_call(planes: Planes, ts, t, y, h, f0, layers, tab, bf16: bool = False):
+    """K11 (with ``bf16``, K11bf on bf16 planes): ``(y1, err, f1, ks)`` of
+    one step of ``tab`` from ``(t, y)`` with step ``h`` and FSAL derivative
+    ``f0``. The kernel for CUDA tensors (one cooperative launch; a batch
+    whose CTAs do not all fit at once in chunks that do), the plain version
+    for CPU tensors. Not differentiable by itself (see
+    :class:`FusedRKStep`)."""
     if not y.is_cuda:
-        return _step_reference(planes, ts, t, y, h, f0, layers, tab)
+        return _step_reference(planes, ts, t, y, h, f0, layers, tab, bf16)
     tabs = _register(tab)
     idx, tau = _stage_nodes(tab, ts, t, h)
-    return _launch(planes, idx, tau, y, h, f0, layers, tabs)
+    return _launch(planes, idx, tau, y, h, f0, layers, tabs, bf16)
 
 
+#: Launches of the f32 kernel; ``.bf16.launches`` those of K11bf.
 fused_step_call.launches = 0
+fused_step_call.bf16 = types.SimpleNamespace(launches=0)
 
 
 def _bsum(x, y):
@@ -257,73 +276,90 @@ def _bsum(x, y):
     return (x * y).flatten(1).sum(1)
 
 
+def step_vjp(tab, planes: Planes, ts, t, y, h, f0, ks, layers, g_y1, g_err, g_f1,
+             needs, stage_bwd):
+    """The explicit-RK chain rule of one step (``_fused_step_vjp._bwd``):
+    per stage, in reverse, ``stage_bwd`` (K2's signature) on the stage input
+    rebuilt from the stored stage derivatives ``ks`` (B, S, n, H), then the
+    ``kbar``, ``ybar``, ``hbar``, ``tbar`` accumulations in torch. ``needs``
+    = (t, y, h, f0, layer parameters) flags; returns ``(tbar, ybar, hbar,
+    f0bar, flat parameter grads or None)``."""
+    need_t, need_y, need_h, need_f0, need_vf = needs
+    amat, bvec, berr, cvec = _register(tab)
+    idx, tau = _stage_nodes(tab, ts, t, h)
+    S = amat.shape[0]
+    hb = h[:, None, None]
+    k = [f0] + [ks[:, j] for j in range(S)]  # k[0] = f0, k[i] = stage i
+    kbar = [hb * (float(bvec[j]) * g_y1 + float(berr[j]) * g_err) for j in range(S + 1)]
+    kbar[S] = kbar[S] + g_f1
+    ybar = g_y1
+    hbar = sum(float(bvec[j]) * _bsum(k[j], g_y1) + float(berr[j]) * _bsum(k[j], g_err)
+               for j in range(S + 1))
+    tbar = torch.zeros_like(t)
+    want_dt = need_t or need_h
+    d_flat = None
+    for i in range(S, 0, -1):
+        acc = _combine(amat[i - 1, :i], k, None)
+        Yi = y if acc is None else y + hb * acc
+        d_ti, d_Yi, per_layer = stage_bwd(
+            planes, idx[:, i - 1], tau[:, i - 1], Yi, layers,
+            kbar[i].contiguous(), need_tau=want_dt)
+        if want_dt:
+            tbar = tbar + d_ti
+            hbar = hbar + float(cvec[i - 1]) * d_ti
+        ybar = ybar + d_Yi
+        if acc is not None:
+            hbar = hbar + _bsum(acc, d_Yi)
+        for j in range(i):
+            if amat[i - 1, j] != 0.0:
+                kbar[j] = kbar[j] + (hb * float(amat[i - 1, j])) * d_Yi
+        if need_vf:
+            grads = flat_grads(per_layer)
+            d_flat = grads if d_flat is None else [x + g for x, g in zip(d_flat, grads)]
+    return (tbar if need_t else None, ybar if need_y else None, hbar if need_h else None,
+            kbar[0] if need_f0 else None, d_flat)
+
+
 class FusedRKStep(torch.autograd.Function):
     """Differentiable fused step: forward K11, backward the explicit-RK chain
-    rule with one K2 per stage. Inputs ``(tab, nbasis, ts, t, y, h, f0, d, c,
-    b, a, *flat)`` with ``nbasis`` and ``flat`` as for
+    rule with one K2 per stage (with ``bf16``, K11bf and K2bf). Inputs
+    ``(tab, nbasis, bf16, ts, t, y, h, f0, d, c, b, a, *flat)`` with
+    ``nbasis`` and ``flat`` as for
     :class:`~gncde_tpu_torch.ops.megakernel.MegakernelVF`."""
 
     @staticmethod
-    def forward(ctx, tab, nbasis, ts, t, y, h, f0, d, c, b, a, *flat):
+    def forward(ctx, tab, nbasis, bf16, ts, t, y, h, f0, d, c, b, a, *flat):
         layers = _unflatten(flat, nbasis)
         with torch.no_grad():
-            y1, err, f1, ks = fused_step_call((d, c, b, a), ts, t, y, h, f0, layers, tab)
-        ctx.tab, ctx.nbasis = tab, nbasis
+            y1, err, f1, ks = fused_step_call((d, c, b, a), ts, t, y, h, f0, layers, tab,
+                                              bf16)
+        ctx.tab, ctx.nbasis, ctx.bf16 = tab, nbasis, bf16
         ctx.save_for_backward(ts, t, y, h, f0, ks, d, c, b, a, *flat)
         return y1, err, f1
 
     @staticmethod
     def backward(ctx, g_y1, g_err, g_f1):
         ts, t, y, h, f0, ks, d, c, b, a, *flat = ctx.saved_tensors
-        # needs[k]: input k of (nbasis, ts, t, y, h, f0, d, c, b, a, *flat).
-        needs = ctx.needs_input_grad[1:]
-        if any(needs[6:10]):
+        # needs[k]: input k of (ts, t, y, h, f0, d, c, b, a, *flat).
+        needs = ctx.needs_input_grad[3:]
+        if any(needs[5:9]):
             raise NotImplementedError(
                 "gradients with respect to the coefficient planes are not served "
                 "by the fused step's backward")
-        need_t, need_y, need_h, need_f0 = needs[2], needs[3], needs[4], needs[5]
-        need_vf = any(needs[10:])
-        layers = _unflatten(flat, ctx.nbasis)
-        planes = (d, c, b, a)
-        amat, bvec, berr, cvec = _register(ctx.tab)
-        idx, tau = _stage_nodes(ctx.tab, ts, t, h)
-        S = amat.shape[0]
-        hb = h[:, None, None]
-        k = [f0] + [ks[:, j] for j in range(S)]  # k[0] = f0, k[i] = stage i
-        kbar = [hb * (float(bvec[j]) * g_y1 + float(berr[j]) * g_err) for j in range(S + 1)]
-        kbar[S] = kbar[S] + g_f1
-        ybar = g_y1
-        hbar = sum(float(bvec[j]) * _bsum(k[j], g_y1) + float(berr[j]) * _bsum(k[j], g_err)
-                   for j in range(S + 1))
-        tbar = torch.zeros_like(t)
-        want_dt = need_t or need_h
-        d_flat = None
-        for i in range(S, 0, -1):
-            acc = _combine(amat[i - 1, :i], k, None)
-            Yi = y if acc is None else y + hb * acc
-            d_ti, d_Yi, per_layer = megakernel_vf_bwd(
-                planes, idx[:, i - 1], tau[:, i - 1], Yi, layers,
-                kbar[i].contiguous(), need_tau=want_dt)
-            if want_dt:
-                tbar = tbar + d_ti
-                hbar = hbar + float(cvec[i - 1]) * d_ti
-            ybar = ybar + d_Yi
-            if acc is not None:
-                hbar = hbar + _bsum(acc, d_Yi)
-            for j in range(i):
-                if amat[i - 1, j] != 0.0:
-                    kbar[j] = kbar[j] + (hb * float(amat[i - 1, j])) * d_Yi
-            if need_vf:
-                grads = flat_grads(per_layer)
-                d_flat = grads if d_flat is None else [x + g for x, g in zip(d_flat, grads)]
+        need_vf = any(needs[9:])
+
+        tbar, ybar, hbar, f0bar, d_flat = step_vjp(
+            ctx.tab, (d, c, b, a), ts, t, y, h, f0, ks, _unflatten(flat, ctx.nbasis),
+            g_y1, g_err, g_f1, (needs[1], needs[2], needs[3], needs[4], need_vf),
+            functools.partial(megakernel_vf_bwd, bf16=ctx.bf16))
         d_flat = d_flat if need_vf else [None] * len(flat)
-        return (None, None, None, tbar if need_t else None, ybar if need_y else None,
-                hbar if need_h else None, kbar[0] if need_f0 else None,
-                None, None, None, None, *d_flat)
+        return (None, None, None, None, tbar, ybar, hbar, f0bar, None, None, None, None,
+                *d_flat)
 
 
-def fused_rk_step(tab, planes: Planes, ts, t, y, h, f0, vf):
-    """One explicit FSAL RK step of the field ``vf`` through K11.
+def fused_rk_step(tab, planes: Planes, ts, t, y, h, f0, vf, bf16: bool = False):
+    """One explicit FSAL RK step of the field ``vf`` through K11 (with
+    ``bf16``, K11bf).
 
     Returns ``(y1, err, f1)`` with the semantics of the solver's
     ``_rk_step``. Callers ensure ``tab.fsal`` and an explicit tableau (the
@@ -333,5 +369,5 @@ def fused_rk_step(tab, planes: Planes, ts, t, y, h, f0, vf):
     _register(tab)
     if ts.dim() == 1:
         ts = ts.unsqueeze(0).expand(y.shape[0], -1)
-    return FusedRKStep.apply(tab, field_basis_size(vf), ts, t, y, h, f0, *planes,
+    return FusedRKStep.apply(tab, field_basis_size(vf), bf16, ts, t, y, h, f0, *planes,
                              *flatten_params(vf))

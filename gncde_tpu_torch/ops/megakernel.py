@@ -11,18 +11,25 @@ basis for the whole stack.
 
 * :func:`plain_vf_eval` is the plain PyTorch version (the dense layer
   stack, counterpart of ``_xla_reference``). CPU tensors always take it.
+* :func:`plain_vf_eval_bf16` is the plain version of K1bf, the eval under
+  ``fusion_precision: bf16`` (``_make_vf_body(bf16=True)``): bf16 planes
+  read and evaluated in f32, the two n x n products on bf16 operands
+  rounded where JAX rounds them, with f32 sums; everything else f32.
 * :func:`megakernel_vf_eval` launches the CUDA kernel
-  (``csrc/megakernel_fwd.cu``) for CUDA tensors and raises if it cannot.
+  (``csrc/megakernel_fwd.cu``; with ``bf16`` its tensor-core instantiation
+  on bf16 planes) for CUDA tensors and raises if it cannot.
 * :class:`MegakernelVF` is the ``autograd.Function`` the vector field
   calls: forward is K1, backward is K2 (``ops/megakernel_bwd.py``).
 
 Planes are ``(T-1, n, n)`` (shared by the batch) or ``(B, T-1, n, n)``
-(one stack per element, as the trainer's irregular time grids need).
+(one stack per element, as the trainer's irregular time grids need):
+float32, or bfloat16 for the bf16 kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 import typing as tp
 
 import torch
@@ -71,12 +78,22 @@ def select_planes(planes: Planes, idx: torch.Tensor):
 
 
 def hermite(planes: Planes, idx: torch.Tensor, tau: torch.Tensor):
-    """A(tau) and dA(tau) per element from the interval planes."""
-    d, c, b, a = select_planes(planes, idx)
+    """A(tau) and dA(tau) per element from the interval planes, in f32
+    (bf16 planes are read as stored and upcast, as the kernels read them)."""
+    A, dA, _ = hermite3(planes, idx, tau, need_dd=False)
+    return A, dA
+
+
+def hermite3(planes: Planes, idx, tau, need_dd: bool = True):
+    """A(tau), dA(tau) and, with ``need_dd``, d(dA)/dtau per element, in f32,
+    each product and sum rounded once (no contraction: the bf16 kernels
+    evaluate the same way, so their bf16 operands round identically)."""
+    d, c, b, a = (p.to(torch.float32) for p in select_planes(planes, idx))
     t = tau[:, None, None]
     A = ((d * t + c) * t + b) * t + a
     dA = (3.0 * d * t + 2.0 * c) * t + b
-    return A, dA
+    ddA = 6.0 * d * t + 2.0 * c if need_dd else None
+    return A, dA, ddA
 
 
 def _bview(p: torch.Tensor, unbatched_dim: int) -> torch.Tensor:
@@ -114,6 +131,116 @@ def plain_vf_eval(planes: Planes, idx, tau, Z, layers):
     return plain_layer_stack(A, dA, Z, layers)
 
 
+# ---------------------------------------------------------------------------
+# fusion_precision bf16 (K1bf): JAX's rounding points, _make_vf_body(bf16=True)
+# ---------------------------------------------------------------------------
+
+
+def rbf(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even) and held in float32.
+
+    A product of two such values is exact in f32, so a product of rounded
+    operands summed in f32 is JAX's ``preferred_element_type=f32`` dot (torch's
+    CPU ``matmul`` on bf16 tensors would round its result to bf16)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class Bf16Stats(tp.NamedTuple):
+    """What every layer of a bf16 eval shares, per element: the bf16-rounded
+    A(t), dA(t) held in f32 ``(B, n, n)``; the f32 row sums, diagonals
+    ``(B, n, 1)`` and totals ``(B, 1, 1)`` of the unrounded planes; and the
+    column sums of the rounded ones (the directed basis; JAX takes them as
+    row sums of its bf16 transposes)."""
+
+    Ah: torch.Tensor
+    dAh: torch.Tensor
+    rA: torch.Tensor
+    rdA: torch.Tensor
+    sA: torch.Tensor
+    sdA: torch.Tensor
+    dgA: torch.Tensor
+    dgdA: torch.Tensor
+    cA: torch.Tensor
+    cdA: torch.Tensor
+
+
+def bf16_stats(A: torch.Tensor, dA: torch.Tensor) -> Bf16Stats:
+    Ah, dAh = rbf(A), rbf(dA)
+    rA, rdA = A.sum(-1, keepdim=True), dA.sum(-1, keepdim=True)
+    diag = lambda x: torch.diagonal(x, dim1=-2, dim2=-1)[..., None]  # noqa: E731
+    return Bf16Stats(Ah, dAh, rA, rdA, rA.sum(-2, keepdim=True), rdA.sum(-2, keepdim=True),
+                     diag(A), diag(dA), Ah.sum(-2)[..., None], dAh.sum(-2)[..., None])
+
+
+def bf16_rank_vectors(st: Bf16Stats, p: torch.Tensor, n: int):
+    """``(dvec, u, v, c7)`` of one layer's ``(8, 2)`` or ``(11, 2)`` basis
+    ``p`` from the stats (``ops/tiled.py`` ``rank_terms``: the residual
+    identity folded into dvec; the directed basis's quirks), as
+    ``(B, n, 1)`` vectors and a ``(B, 1, 1)`` c7."""
+    from .tiled import rank_terms
+
+    col = lambda x: x[..., 0]  # noqa: E731
+    dvec, u, v, c7 = rank_terms(p, n, col(st.rA), col(st.rdA), col(st.dgA), col(st.dgdA),
+                                st.sA.flatten(), st.sdA.flatten(), col(st.cA), col(st.cdA))
+    return dvec[..., None], u[..., None], v[..., None], c7[:, None, None]
+
+
+def bf16_coeffs(p: torch.Tensor) -> torch.Tensor:
+    """``(1 + p1_0, 1 + p1_1, p2_0, p2_1)`` rounded to bf16: the coefficients
+    of the row operand B1 and the column operand B2^T."""
+    return rbf(torch.stack([1.0 + p[0, 0], 1.0 + p[0, 1], p[1, 0], p[1, 1]]))
+
+
+def transform(feats: torch.Tensor, lp: LayerParams):
+    """RMSNorm then Linear of one layer: ``(M, zn, inv_rms)``."""
+    inv = torch.rsqrt((feats * feats).mean(-1, keepdim=True) + 1e-6)
+    zn = feats * inv * lp["norm_w"] + lp["norm_b"]
+    return zn @ lp["W"].transpose(-2, -1) + lp["lin_b"], zn, inv
+
+
+def bf16_layer(st: Bf16Stats, M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """One layer's fused apply in bf16 precision (before the ReLU).
+
+    ``B1 = b1_0 Ah + b1_1 dAh`` and ``B2^T = b2_0 Ah^T + b2_1 dAh^T`` are
+    formed in bf16 (each product and the sum rounded), separately: their sum
+    would round again. ``Mh`` is M rounded; the two products are exact
+    products of bf16 values summed in f32. The rank terms are f32 on the
+    unrounded M."""
+    n = M.shape[-2]
+    c = bf16_coeffs(p)
+    B1 = rbf(rbf(c[0] * st.Ah) + rbf(c[1] * st.dAh))
+    B2t = rbf(rbf(c[2] * st.Ah.transpose(-2, -1)) + rbf(c[3] * st.dAh.transpose(-2, -1)))
+    Mh = rbf(M)
+    rowpart, colpart = B1 @ Mh, B2t @ Mh
+    dvec, u, v, c7 = bf16_rank_vectors(st, p, n)
+    s = M.sum(-2, keepdim=True)
+    w = (v * M).sum(-2, keepdim=True)
+    return rowpart + colpart + dvec * M + u * s + (w + c7 * s)
+
+
+def plain_vf_eval_bf16(planes: Planes, idx, tau, Z, layers, given_M=None, trace=None):
+    """Plain PyTorch version of K1bf (either basis). Not differentiable:
+    :class:`MegakernelVF` takes its gradients from K2bf.
+
+    Layer by layer: with ``given_M`` (a kernel's per-layer M, read back
+    through :func:`megakernel_vf_eval`'s ``trace``) each layer applies the
+    given M, and its own M is the transform of the previous layer's output
+    computed from the given one. Then both sides round the same M to bf16
+    and only one layer's f32 sums separate them. ``trace`` (a dict)
+    receives the per-layer M this version computed, under ``"M"``."""
+    A, dA = hermite(planes, idx, tau)
+    st = bf16_stats(A, dA)
+    feats, Ms = Z, []
+    for l, lp in enumerate(layers):
+        Ms.append(transform(feats, lp)[0])
+        feats = bf16_layer(st, Ms[l] if given_M is None else given_M[l], lp["basis"])
+        if l < len(layers) - 1:
+            feats = torch.relu(feats)
+    if trace is not None:
+        trace["M"] = Ms
+    return feats
+
+
 def basis_size(layers) -> int:
     """The stack's number of basis 2-vectors, 8 (undirected) or 11
     (directed); raises on another shape or on a stack that mixes the two."""
@@ -125,14 +252,16 @@ def basis_size(layers) -> int:
     return next(iter(shapes))[0]
 
 
-def _check_inputs(planes: Planes, idx, tau, Z, layers, extra=()):
-    """Raises on what the kernels do not take; returns the basis size."""
+def _check_inputs(planes: Planes, idx, tau, Z, layers, extra=(), bf16: bool = False):
+    """Raises on what the kernels do not take; returns the basis size. The
+    f32 kernels take float32 planes, the bf16 kernels bfloat16 ones."""
     dev = Z.device
     B, n, _ = Z.shape
     shape = planes[0].shape
+    dtype = torch.bfloat16 if bf16 else torch.float32
     for p in planes:
-        if p.shape != shape or p.dtype != torch.float32 or p.device != dev:
-            raise ValueError("planes must be four float32 tensors of one shape "
+        if p.shape != shape or p.dtype != dtype or p.device != dev:
+            raise ValueError(f"planes must be four {dtype} tensors of one shape "
                              "on the node state's device")
         if not p.is_contiguous():
             raise ValueError("planes must be contiguous")
@@ -185,7 +314,7 @@ _FWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P,  # idx, tau, Z
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P, _build.I,  # dims, ptrs (host arrays), directed
+    _build.P, _build.P, _build.I, _build.I,  # dims, ptrs (host arrays), directed, bf16
     _build.P, _build.P, _build.I,  # stats, Mbuf, ldm
     _build.P, _build.P,  # out, stream
 ]
@@ -200,58 +329,68 @@ def _fwd_lib():
     return fn
 
 
-def _launch_fwd(planes: Planes, idx, tau, Z, layers):
-    nbasis = _check_inputs(planes, idx, tau, Z, layers)
+def _launch_fwd(planes: Planes, idx, tau, Z, layers, bf16: bool, trace=None):
+    nbasis = _check_inputs(planes, idx, tau, Z, layers, bf16=bf16)
     fn = _fwd_lib()
     B, n, _ = Z.shape
     Z = Z.detach().contiguous()
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     stats = torch.empty((B, NSTAT, n), device=Z.device, dtype=torch.float32)
     ldm = scratch_width(layers)
-    mbuf = torch.empty((2, B, n, ldm), device=Z.device, dtype=torch.float32)
+    mbuf = torch.empty((len(layers), B, n, ldm), device=Z.device, dtype=torch.float32)
     out = torch.empty((B, n, layers[-1]["W"].shape[0]), device=Z.device,
                       dtype=torch.float32)
     err = fn(
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z),
         B, n, len(layers), ctypes.cast(dims, _build.P),
-        ctypes.cast(ptrs, _build.P), int(nbasis == NBASIS_DIRECTED),
+        ctypes.cast(ptrs, _build.P), int(nbasis == NBASIS_DIRECTED), int(bool(bf16)),
         _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(out),
         _build.stream(),
     )
-    _build.check(err, "K1 megakernel_fwd")
-    megakernel_vf_eval.launches += 1
+    _build.check(err, "K1bf megakernel_fwd" if bf16 else "K1 megakernel_fwd")
+    (megakernel_vf_eval.bf16 if bf16 else megakernel_vf_eval).launches += 1
     del keep
+    if trace is not None:
+        trace["M"] = [mbuf[l, :, :, :lp["W"].shape[0]] for l, lp in enumerate(layers)]
     return out
 
 
-def megakernel_vf_eval(planes: Planes, idx, tau, Z, layers):
-    """K1: ``(B, n, Hout)`` vf output; the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Not differentiable by itself (see
-    :class:`MegakernelVF`)."""
+def megakernel_vf_eval(planes: Planes, idx, tau, Z, layers, bf16: bool = False,
+                       trace=None):
+    """K1 (with ``bf16``, K1bf on bf16 planes): ``(B, n, Hout)`` vf output;
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors. Not
+    differentiable by itself (see :class:`MegakernelVF`). ``trace`` (a dict)
+    receives each layer's M under ``"M"``: the kernel's, read back from its
+    scratch, or (CPU, bf16) the plain version's."""
     if Z.is_cuda:
-        return _launch_fwd(planes, idx, tau, Z, layers)
+        return _launch_fwd(planes, idx, tau, Z, layers, bf16, trace)
+    if bf16:
+        return plain_vf_eval_bf16(planes, idx, tau, Z, layers, trace=trace)
     return plain_vf_eval(planes, idx, tau, Z, layers)
 
 
+#: Launches of the f32 kernel; ``.bf16.launches`` those of K1bf.
 megakernel_vf_eval.launches = 0
+megakernel_vf_eval.bf16 = types.SimpleNamespace(launches=0)
 
 
 class MegakernelVF(torch.autograd.Function):
-    """Differentiable vf eval: forward K1, backward K2.
+    """Differentiable vf eval: forward K1, backward K2 (with ``bf16``, K1bf
+    and K2bf).
 
-    Inputs: ``(nbasis, idx, tau, Z, d, c, b, a, *flat)`` where ``flat``
+    Inputs: ``(nbasis, bf16, idx, tau, Z, d, c, b, a, *flat)`` where ``flat``
     holds, per layer, ``norm_w, norm_b, W, lin_b`` and the ``nbasis`` (8 or
     11) basis 2-vectors.
     """
 
     @staticmethod
-    def forward(ctx, nbasis, idx, tau, Z, d, c, b, a, *flat):
+    def forward(ctx, nbasis, bf16, idx, tau, Z, d, c, b, a, *flat):
         layers = _unflatten(flat, nbasis)
         planes = (d, c, b, a)
         with torch.no_grad():
-            out = megakernel_vf_eval(planes, idx, tau, Z, layers)
-        ctx.nbasis = nbasis
+            out = megakernel_vf_eval(planes, idx, tau, Z, layers, bf16)
+        ctx.nbasis, ctx.bf16 = nbasis, bf16
         ctx.save_for_backward(idx, tau, Z, d, c, b, a, *flat)
         return out
 
@@ -260,17 +399,18 @@ class MegakernelVF(torch.autograd.Function):
         from .megakernel_bwd import megakernel_vf_bwd
 
         idx, tau, Z, d, c, b, a, *flat = ctx.saved_tensors
-        if any(ctx.needs_input_grad[4:8]):
+        if any(ctx.needs_input_grad[5:9]):
             raise NotImplementedError(
                 "gradients with respect to the coefficient planes are not "
                 "served by the megakernel backward"
             )
         layers = _unflatten(flat, ctx.nbasis)
-        need_tau = ctx.needs_input_grad[2]
+        need_tau = ctx.needs_input_grad[3]
         dtau, dZ, per_layer = megakernel_vf_bwd(
-            (d, c, b, a), idx, tau, Z, layers, g.contiguous(), need_tau=need_tau
+            (d, c, b, a), idx, tau, Z, layers, g.contiguous(), need_tau=need_tau,
+            bf16=ctx.bf16,
         )
-        return (None, None, dtau if need_tau else None, dZ, None, None, None, None,
+        return (None, None, None, dtau if need_tau else None, dZ, None, None, None, None,
                 *flat_grads(per_layer))
 
 
@@ -317,10 +457,10 @@ def layer_params(vf) -> tp.List[LayerParams]:
     return _unflatten(flatten_params(vf), field_basis_size(vf))
 
 
-def megakernel_vf(planes: Planes, ts, t, Z, vf):
+def megakernel_vf(planes: Planes, ts, t, Z, vf, bf16: bool = False):
     """The field's fast path: interval lookup, then :class:`MegakernelVF`."""
     if ts.dim() == 1:
         ts = ts.unsqueeze(0).expand(Z.shape[0], -1)
     idx, tau = interval(ts, t)
-    return MegakernelVF.apply(field_basis_size(vf), idx, tau, Z, *planes,
+    return MegakernelVF.apply(field_basis_size(vf), bf16, idx, tau, Z, *planes,
                               *flatten_params(vf))

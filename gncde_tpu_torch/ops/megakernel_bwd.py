@@ -16,13 +16,20 @@ with P = 8 for the undirected basis and 11 for the directed one
 * :func:`plain_vf_bwd` is the plain PyTorch version: ``torch.autograd.grad``
   of :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` with the
   parameters expanded per element. CPU tensors always take it.
-* :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` for CUDA
-  tensors and raises if it cannot.
+* :func:`plain_vf_bwd_bf16` is the plain version of K2bf, the backward under
+  ``fusion_precision: bf16``, written out as ``_make_bwd_kernel(bf16=True)``
+  computes it (not autograd of the bf16 forward: the JAX kernel rounds g
+  and M for its products, and reads the unrounded planes for the basis
+  cotangents).
+* :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` (with
+  ``bf16``, its tensor-core instantiation on bf16 planes) for CUDA tensors
+  and raises if it cannot.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 import typing as tp
 
 import torch
@@ -35,10 +42,17 @@ from .megakernel import (
     LayerParams,
     _LAYER_KEYS,
     _check_inputs,
+    bf16_coeffs,
+    bf16_layer,
+    bf16_rank_vectors,
+    bf16_stats,
     hermite,
+    hermite3,
     launch_args,
     plain_layer_stack,
+    rbf,
     scratch_width,
+    transform,
 )
 
 PerLayer = tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -75,11 +89,147 @@ def plain_vf_bwd(planes: Planes, idx, tau, Z, layers: tp.Sequence[LayerParams],
     return dtau, dZ, per_layer
 
 
+def _bsum(x: torch.Tensor) -> torch.Tensor:
+    """Per-element total of a (B, ...) tensor, (B,)."""
+    return x.flatten(1).sum(1)
+
+
+@torch.no_grad()
+def plain_vf_bwd_bf16(planes: Planes, idx, tau, Z, layers: tp.Sequence[LayerParams],
+                      G, need_tau: bool = True, given=None, trace=None):
+    """Plain PyTorch version of K2bf (either basis), in K2's return layout.
+
+    The forward is recomputed as K1bf computes it. Per layer in reverse:
+    ``P = gb Mb^T`` and ``Q = P^T`` of the bf16-rounded cotangent and M; the
+    basis cotangents ``<A|dA, P>``, ``<A|dA, Q>`` on the unrounded planes;
+    ``dM = Cop gb + (rank terms)`` with ``Cop = b1_0 Ah^T + b1_1 dAh^T + b2_0
+    Ah + b2_1 dAh`` formed in bf16 in that order (each product and sum
+    rounded); everything else in f32.
+
+    Layer by layer: ``given`` (a kernel's intermediates, read back through
+    :func:`megakernel_vf_bwd`'s ``trace``: per layer ``"M"``, the inputs
+    ``"X"`` and the masked input cotangents ``"g"``, entry 0 of the last
+    two unused) makes each layer's forward and backward start from the
+    given values, so both sides round the same M and g to bf16 and only one
+    layer's f32 sums separate them. ``trace`` (a dict) receives this
+    version's own ``"M"``, ``"X"`` and ``"g"`` in that layout."""
+    n = Z.shape[-2]
+    A, dA, ddA = hermite3(planes, idx, tau, need_dd=need_tau)
+    st = bf16_stats(A, dA)
+    directed = layers[0]["basis"].shape[0] == NBASIS_DIRECTED
+    if need_tau:
+        rddA = ddA.sum(-1, keepdim=True)
+        sddA = rddA.sum(-2, keepdim=True)
+        dgddA = torch.diagonal(ddA, dim1=-2, dim2=-1)[..., None]
+        cddA = ddA.sum(-2)[..., None]
+    L = len(layers)
+    # Each layer's input x, M and its input's masked cotangent: the given
+    # ones when layer by layer, else this version's own.
+    x_in = (lambda l: Z if l == 0 else given["X"][l]) if given else (lambda l: xs[l])
+    m_in = (lambda l: given["M"][l]) if given else (lambda l: Ms[l])
+    xs, zns, invs, Ms = [Z], [], [], []
+    for l, lp in enumerate(layers):
+        M, zn, inv = transform(x_in(l), lp)
+        zns.append(zn)
+        invs.append(inv)
+        Ms.append(M)
+        out = bf16_layer(st, m_in(l), lp["basis"])
+        xs.append(torch.relu(out) if l < L - 1 else out)
+
+    g = G
+    gs = [None] * L
+    dtau = torch.zeros_like(tau)
+    per_layer = [None] * L
+    for l in range(L - 1, -1, -1):
+        lp, p = layers[l], layers[l]["basis"]
+        x, zn, inv, M = x_in(l), zns[l], invs[l], m_in(l)
+        if l < L - 1:
+            if given:
+                g = given["g"][l + 1]
+            g = torch.where(x_in(l + 1) > 0.0, g, torch.zeros_like(g))
+        gb, Mb = rbf(g), rbf(M)
+        P = gb @ Mb.transpose(-2, -1)
+        Q = P.transpose(-2, -1)
+        dvec, u, v, c7 = bf16_rank_vectors(st, p, n)
+        s = M.sum(-2, keepdim=True)  # (B, 1, H)
+        gcol = g.sum(-2, keepdim=True)
+        gM_row = (g * M).sum(-1, keepdim=True)  # (B, n, 1)
+        du_vec = (g * s).sum(-1, keepdim=True)
+        dv_vec = (M * gcol).sum(-1, keepdim=True)
+        dc7 = _bsum(gcol * s)
+        sgM = _bsum(gM_row)
+        sA, sdA = st.sA.flatten(), st.sdA.flatten()
+
+        def pair(x0, x1):
+            return torch.stack([x0, x1], -1)
+
+        def dots(vec, a, b):
+            return pair(_bsum(vec * a), _bsum(vec * b)) / n
+
+        dp1 = pair(_bsum(A * P), _bsum(dA * P))
+        dp2 = pair(_bsum(A * Q), _bsum(dA * Q))
+        dp3 = pair(_bsum(gM_row * st.dgA), _bsum(gM_row * st.dgdA))
+        dp7v = dc7 * sA / n**2
+        dp7 = pair(dp7v, dp7v)
+        dp8 = pair(sgM * sA / n**2, sgM * sdA / n**2)
+        if directed:
+            dbasis = [dp1, dp2, dp3, dots(du_vec, st.cA, st.cdA), dots(dv_vec, st.rA, st.cdA),
+                      dots(dv_vec, st.cA, st.cdA), dots(dv_vec, st.rA, st.rdA),
+                      dots(gM_row, st.cA, st.cdA), dots(gM_row, st.rA, st.rdA), dp7, dp8]
+        else:
+            dbasis = [dp1, dp2, dp3, dots(du_vec, st.rA, st.rdA), dots(dv_vec, st.rA, st.rdA),
+                      dots(gM_row, st.rA, st.rdA), dp7, dp8]
+        dbasis = torch.stack(dbasis, 1)  # (B, P, 2)
+
+        if need_tau:
+            dtau = dtau + (1.0 + p[0, 0]) * dp1[:, 1] + (1.0 + p[0, 1]) * _bsum(ddA * P)
+            dtau = dtau + p[1, 0] * dp2[:, 1] + p[1, 1] * _bsum(ddA * Q)
+            if directed:
+                _, _, p3, p4, p4p, p5, p5p, p6, p6p, p7, p8 = p
+                ddvec_dt = (p3[0] * st.dgdA + p3[1] * dgddA + (p6[0] * st.cdA + p6[1] * cddA) / n
+                            + (p6p[0] * st.rdA + p6p[1] * rddA) / n
+                            + (p8[0] * st.sdA + p8[1] * sddA) / n**2)
+                du_dt = (p4[0] * st.cdA + p4[1] * cddA) / n
+                dv_dt = (p4p[0] * st.rdA + p4p[1] * cddA + p5[0] * st.cdA + p5[1] * cddA
+                         + p5p[0] * st.rdA + p5p[1] * rddA) / n
+            else:
+                _, _, p3, p4, p5, p6, p7, p8 = p
+                ddvec_dt = (p3[0] * st.dgdA + p3[1] * dgddA + (p6[0] * st.rdA + p6[1] * rddA) / n
+                            + (p8[0] * st.sdA + p8[1] * sddA) / n**2)
+                du_dt = (p4[0] * st.rdA + p4[1] * rddA) / n
+                dv_dt = (p5[0] * st.rdA + p5[1] * rddA) / n
+            dtau = dtau + _bsum(gM_row * ddvec_dt) + _bsum(du_vec * du_dt) + _bsum(dv_vec * dv_dt)
+            dtau = dtau + dc7 * (p7[0] + p7[1]) * sdA / n**2
+
+        c = bf16_coeffs(p)
+        Aht, dAht = st.Ah.transpose(-2, -1), st.dAh.transpose(-2, -1)
+        Cop = rbf(rbf(c[0] * Aht) + rbf(c[1] * dAht))
+        Cop = rbf(Cop + rbf(c[2] * st.Ah))
+        Cop = rbf(Cop + rbf(c[3] * st.dAh))
+        utg = (u * g).sum(-2, keepdim=True)
+        dM = Cop @ gb + dvec * g + utg + v * gcol + c7 * gcol
+
+        dW = dM.transpose(-2, -1) @ zn  # (B, Hout, Hin)
+        dlin_b = dM.sum(-2)
+        dzn = dM @ lp["W"]
+        dnorm_w = (dzn * x * inv).sum(-2)
+        dnorm_b = dzn.sum(-2)
+        h = dzn * lp["norm_w"]
+        dot_hx = (h * x).sum(-1, keepdim=True)
+        g = h * inv - x * (inv**3 / x.shape[-1]) * dot_hx
+        if l > 0:
+            gs[l] = torch.where(x > 0.0, g, torch.zeros_like(g))
+        per_layer[l] = (dnorm_w, dnorm_b, dW, dlin_b, dbasis)
+    if trace is not None:
+        trace.update(M=Ms, X=[None] + xs[1:L], g=gs)
+    return dtau, g, per_layer
+
+
 _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P, _build.I,  # dims, ptrs (host arrays), directed
+    _build.P, _build.P, _build.I, _build.I,  # dims, ptrs (host arrays), directed, bf16
     _build.I,  # need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
@@ -101,8 +251,8 @@ def _layer_sizes(layers) -> tp.List[tp.Tuple[int, int]]:
     return [(lp["W"].shape[1], lp["W"].shape[0]) for lp in layers]
 
 
-def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
-    nbasis = _check_inputs(planes, idx, tau, Z, layers, extra=(G,))
+def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=None):
+    nbasis = _check_inputs(planes, idx, tau, Z, layers, extra=(G,), bf16=bf16)
     if G.shape != Z.shape[:2] + (layers[-1]["W"].shape[0],):
         raise ValueError(f"G {tuple(G.shape)} does not match the output shape")
     fn = _bwd_lib()
@@ -120,7 +270,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
     ldm = scratch_width(layers)
     mbuf = torch.empty((L, B, n, ldm), **f32)
     xbuf = torch.empty((L, B, n, ldm), **f32)
-    gbuf = torch.empty((2, B, n, ldm), **f32)
+    gbuf = torch.empty((L, B, n, ldm), **f32)
     dZ = torch.empty((B, n, hin0), **f32)
     part = torch.empty((B, nblk, ptot), **f32)
     red = torch.empty((B, ptot), **f32)
@@ -128,13 +278,13 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-        int(nbasis == NBASIS_DIRECTED), int(bool(need_tau)),
+        int(nbasis == NBASIS_DIRECTED), int(bool(bf16)), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
         ldm, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
         _build.stream(),
     )
-    _build.check(err, "K2 megakernel_bwd")
-    megakernel_vf_bwd.launches += 1
+    _build.check(err, "K2bf megakernel_bwd" if bf16 else "K2 megakernel_bwd")
+    (megakernel_vf_bwd.bf16 if bf16 else megakernel_vf_bwd).launches += 1
     del keep
     per_layer, off = [], 0
     for hi, ho in sizes:
@@ -147,15 +297,27 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau):
         off += 1
         per_layer.append((tuple(chunks), dtau_l))
     dtau = sum(d for _, d in per_layer)
+    if trace is not None:
+        trace.update(M=[mbuf[l, :, :, :ho] for l, (_, ho) in enumerate(sizes)],
+                     X=[None] + [xbuf[l, :, :, :hi] for l, (hi, _) in enumerate(sizes) if l],
+                     g=[None] + [gbuf[l, :, :, :hi] for l, (hi, _) in enumerate(sizes) if l])
     return dtau, dZ, [c for c, _ in per_layer]
 
 
 def megakernel_vf_bwd(planes: Planes, idx, tau, Z, layers, G,
-                      need_tau: bool = True):
-    """K2: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+                      need_tau: bool = True, bf16: bool = False, trace=None):
+    """K2 (with ``bf16``, K2bf on bf16 planes): the CUDA kernel for CUDA
+    tensors, the plain version on CPU. ``trace`` (a dict) receives each
+    layer's M, input x and masked input cotangent g (``"M"``, ``"X"``,
+    ``"g"``; entry 0 of the last two None): the kernel's, read back from its
+    scratch, or (CPU, bf16) the plain version's."""
     if Z.is_cuda:
-        return _launch_bwd(planes, idx, tau, Z, layers, G, need_tau)
+        return _launch_bwd(planes, idx, tau, Z, layers, G, need_tau, bf16, trace)
+    if bf16:
+        return plain_vf_bwd_bf16(planes, idx, tau, Z, layers, G, need_tau, trace=trace)
     return plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
 
 
+#: Launches of the f32 kernel; ``.bf16.launches`` those of K2bf.
 megakernel_vf_bwd.launches = 0
+megakernel_vf_bwd.bf16 = types.SimpleNamespace(launches=0)

@@ -135,6 +135,10 @@ class Trainer(Schema):
     #: (by blocked fill ratio: ``interp.build_sparse_control``).
     sparse_format: tp.Literal["ell", "bcsr", "auto"] = "ell"
     sparse_block_size: int = 128
+    #: "bf16" stores the control's Hermite stacks in bfloat16 and runs the
+    #: message passing on bf16 operands with f32 sums (K1bf/K2bf/K11bf on the
+    #: card); set before the controls are built. None keeps the process-wide
+    #: setting (``ops.set_fusion_precision``, "f32" by default).
     fusion_precision: tp.Optional[str] = None
     fusion_backend: tp.Optional[str] = None
     nan_guard: bool = False

@@ -153,8 +153,10 @@ def test_schema_rejections():
     with pytest.raises(ConfigError, match="L2"):
         Trainer.from_dict(cfg)
     cfg = _flagship()
-    cfg["fusion_precision"] = "bf16"  # no bf16 kernel path yet: refuse early
-    with pytest.raises(NotImplementedError, match="bf16"):
+    cfg["fusion_precision"] = "bf16"  # served by K1bf/K2bf/K11bf: accepted
+    assert Trainer.from_dict(cfg).fusion_precision == "bf16"
+    cfg["fusion_precision"] = "fp8"  # no such precision: refuse early
+    with pytest.raises(ValueError, match="precision"):
         Trainer.from_dict(cfg)
     cfg = _flagship()
     cfg["model"]["method"] = "Kvaerno5"

@@ -5,8 +5,10 @@ path's K7 (modulation, ``csrc/modulate.cu``), K6a and K6b (plane pair,
 ``csrc/tiled.cu``), the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
 ``csrc/bcsr.cu``) and K10 (ELL SpMM, ``csrc/ell_spmm.cu``), the fused RK
 step K11 (``csrc/fused_step.cu``), the per-layer fused applies K12 and
-K13 (``csrc/fused_apply.cu``), and K1, K2 and K11 on the directed 11-term
-basis (K1d, K2d, K11d: the same sources, the basis a template parameter).
+K13 (``csrc/fused_apply.cu``), K1, K2 and K11 on the directed 11-term
+basis (K1d, K2d, K11d: the same sources, the basis a template parameter),
+and their fusion_precision bf16 instantiations on bf16 planes (K1bf, K2bf,
+K11bf, either basis: the precision a second template parameter).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -33,8 +35,15 @@ functions against autograd of the plain versions 1e-4. K11 against its plain
 version 1e-4 of max|ref| per output (K1's sums in another order, compounded
 over the stages), its backward 1e-3 (K2's); K12, K13 and K5c 1e-4 (f32 or
 the same bf16 operands; summation order). K1d, K2d and K11d as K1, K2 and
-K11, on planes whose column sums differ from their row sums.
+K11, on planes whose column sums differ from their row sums. K1bf and
+K2bf as K1 and K2 against their plain bf16 versions run layer by layer
+from the kernel's own intermediates (the same bf16 operands on both
+sides); K11bf stage by stage as K11, its backward's K2bf launches as
+K2bf (see the bf16 section).
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -56,6 +65,9 @@ from gncde_tpu_torch.ops import pipeline as tpl
 from gncde_tpu_torch.ops import sparse as tsp
 from gncde_tpu_torch.ops import tiled as tt
 from gncde_tpu_torch.nn import MLP
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the bf16 kernels' layer-by-layer checks)
 
 # n = 40 is neither a multiple of the 16-row CTA block nor of the 32-wide
 # k-tile, so every edge tile is exercised.
@@ -750,7 +762,7 @@ def test_cuda_fused_step_backward_matches_autograd_of_plain(cuda):
         return [x.grad for x in leaves]
 
     got = grads(lambda tq_, y_, h_, f0_, fl: tfs.FusedRKStep.apply(
-        tab, 8, ts, tq_, y_, h_, f0_, *planes, *fl))
+        tab, 8, False, ts, tq_, y_, h_, f0_, *planes, *fl))
     ref = grads(lambda tq_, y_, h_, f0_, fl: tfs._step_reference(
         planes, ts, tq_, y_, h_, f0_, mk._unflatten(fl), tab)[:3])
     for a, b in zip(got, ref):
@@ -979,7 +991,7 @@ def test_cuda_fused_step_directed_backward_matches_autograd_of_plain(cuda):
         return [x.grad for x in leaves]
 
     got = grads(lambda tq_, y_, h_, f0_, fl: tfs.FusedRKStep.apply(
-        tab, 11, ts, tq_, y_, h_, f0_, *planes, *fl))
+        tab, 11, False, ts, tq_, y_, h_, f0_, *planes, *fl))
     ref = grads(lambda tq_, y_, h_, f0_, fl: tfs._step_reference(
         planes, ts, tq_, y_, h_, f0_, mk._unflatten(fl, 11), tab)[:3])
     for a, b in zip(got, ref):
@@ -1047,3 +1059,152 @@ def test_cuda_wrong_basis_shape_raises(cuda):
         tfs.fused_step_call(sp, ts, tq, y, h, f0, [dict(lp, basis=lp["basis"][:10])
                                                    for lp in slayers], get_tableau("tsit5"))
     assert tfs.fused_step_call.launches == steps
+
+
+# ---------------------------------------------------------------------------
+# fusion_precision bf16: K1bf, K2bf, K11bf (either basis) on bf16 planes
+# ---------------------------------------------------------------------------
+# The kernels and their plain versions form the same bf16 operands (the
+# Hermite evaluation unfused in both, B1, B2^T and C^T rounded at JAX's
+# points) from the same data, but their f32 intermediates (each layer's M,
+# the cotangents, so the ReLU masks) differ in their last bits (summation
+# order), and rounding one to bf16 moves it by a whole bf16 ulp; through a
+# deep stack the flips compound. So the plain version runs layer by layer
+# from the kernel's own intermediates, read back from its scratch
+# (chip_smoke.py's bf16_k1_stepwise, bf16_k2_stepwise and
+# bf16_step_bwd_stepwise), and every layer's values and every output are
+# held to the f32 kernels' bounds: forward 1e-4, cotangents 1e-3. K11bf's
+# stage derivatives: one plain K1bf eval each at the stage input formed from
+# the kernel's own, y1 and err formed from them, 1e-4 as K11.
+
+BF16_CASES = [((8, 8, 8), True, 8), ((5, 8, 3), True, 8), ((8, 8, 8), False, 8),
+              ((32, 32, 32, 32, 512), True, 8), ((8, 8, 8), True, 11),
+              ((32, 32, 32, 32, 512), True, 11)]
+BF16_IDS = ["square-per-element", "widths-5-8-3", "shared-planes", "trade-widths",
+            "directed-square", "directed-trade-widths"]
+
+
+def _bf16(planes):
+    return tuple(p.to(torch.bfloat16).contiguous() for p in planes)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("widths,per_element,nbasis", BF16_CASES, ids=BF16_IDS)
+def test_cuda_k1bf_matches_plain_and_repeats(cuda, widths, per_element, nbasis):
+    planes, idx, tau, Z, layers, _ = _inputs(cuda, widths, per_element, seed=12, nbasis=nbasis)
+    planes = _bf16(planes)
+    before = mk.megakernel_vf_eval.launches, mk.megakernel_vf_eval.bf16.launches
+    got, (errs, _) = chip_smoke.bf16_k1_stepwise(torch, planes, idx, tau, Z, layers)
+    again = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True)
+    torch.cuda.synchronize()
+    # The bf16 counter moved, the f32 one did not.
+    assert (mk.megakernel_vf_eval.launches, mk.megakernel_vf_eval.bf16.launches) == (
+        before[0], before[1] + 2)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)  # no atomics: bitwise repeatable
+    assert set(errs) == {"out"} | {f"M{l}" for l in range(len(layers))}
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("need_tau", [False, True])
+@pytest.mark.parametrize("widths,per_element,nbasis", BF16_CASES, ids=BF16_IDS)
+def test_cuda_k2bf_matches_plain(cuda, widths, per_element, nbasis, need_tau):
+    planes, idx, tau, Z, layers, G = _inputs(cuda, widths, per_element, seed=13,
+                                             nbasis=nbasis)
+    planes = _bf16(planes)
+    before = mkb.megakernel_vf_bwd.launches, mkb.megakernel_vf_bwd.bf16.launches
+    got, (errs, _) = chip_smoke.bf16_k2_stepwise(torch, planes, idx, tau, Z, layers, G,
+                                                 need_tau)
+    again = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau, bf16=True)
+    torch.cuda.synchronize()
+    assert (mkb.megakernel_vf_bwd.launches, mkb.megakernel_vf_bwd.bf16.launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(got[1], again[1])
+    L = len(layers)
+    assert {f"dbasis{l}" for l in range(L)} | {f"g{l}" for l in range(1, L)} <= set(errs)
+    assert ("dtau" in errs) == need_tau
+    for gl in got[2]:
+        assert gl[4].shape == (B, nbasis, 2)
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+@pytest.mark.parametrize("n,B,widths,method", STEP_CASES[:3], ids=STEP_IDS[:3])
+def test_cuda_fused_step_bf16_matches_plain_and_repeats(cuda, n, B, widths, method, nbasis):
+    """K11bf against its plain version stage by stage (each stage one plain
+    K1bf eval at the stage input formed from the kernel's stage
+    derivatives, y1 and err formed from them: 1e-4), a finished element
+    included; a second launch bitwise equal; only the bf16 counter
+    moves."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau(method)
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, n, B, widths, seed=14,
+                                                    nbasis=nbasis)
+    planes = _bf16(planes)
+    before = tfs.fused_step_call.launches, tfs.fused_step_call.bf16.launches
+    got = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab, bf16=True)
+    again = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab, bf16=True)
+    ref = tfs._step_reference(planes, ts, tq, y, h, f0, layers, tab, bf16=True,
+                              given_ks=got[3])
+    torch.cuda.synchronize()
+    assert tfs.fused_step_call.launches == before[0]
+    assert tfs.fused_step_call.bf16.launches >= before[1] + 2
+    for what, a, b, c in zip(("y1", "err", "f1", "ks"), got, ref, again):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, c)
+        _assert_close(a, b, 1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+def test_cuda_fused_step_bf16_backward_matches_plain_chain(cuda, nbasis):
+    """K11bf's backward (one K2bf per stage): its gradients with respect to
+    t, y, h, f0 and every layer parameter are bitwise those of the explicit
+    chain over its K2bf launches, and every launch holds the plain K2bf
+    layer by layer within 1e-3."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    planes, ts, tq, y, h, f0, layers = _step_inputs(cuda, 400, 4, (16, 16, 16), seed=15,
+                                                    nbasis=nbasis)
+    planes = _bf16(planes)
+    flat = [p for lp in layers for p in
+            (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+    rng = np.random.default_rng(16)
+    W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=cuda)
+         for _ in range(3)]
+    leaves = [x.detach().clone().requires_grad_(True) for x in (tq, y, h, f0, *flat)]
+    outs = tfs.FusedRKStep.apply(tab, nbasis, True, ts, *leaves[:4], *planes, *leaves[4:])
+    torch.autograd.backward(outs, W)
+    ks = tfs.fused_step_call(planes, ts, tq, y, h, f0, layers, tab, bf16=True)[3]
+    (tbar, ybar, hbar, f0bar, d_flat), stages = chip_smoke.bf16_step_bwd_stepwise(
+        torch, tab, planes, ts, tq, y, h, f0, ks, layers, W, (True,) * 5)
+    assert len(stages) == tab.num_stages - 1
+    for a, b in zip(leaves, [tbar, ybar, hbar, f0bar, *d_flat]):
+        assert torch.equal(a.grad, b)
+    for errs, _ in stages:
+        assert "dtau" in errs and max(errs.values()) <= 1e-3, errs
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_kernels_take_only_bf16_planes(cuda):
+    """No fallback: K1bf, K2bf and K11bf refuse f32 planes (and K1, K2, K11
+    bf16 ones) before any launch."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    planes, idx, tau, Z, layers, G = _inputs(cuda, (8, 8, 8))
+    counters = (mk.megakernel_vf_eval, mk.megakernel_vf_eval.bf16, mkb.megakernel_vf_bwd,
+                mkb.megakernel_vf_bwd.bf16, tfs.fused_step_call, tfs.fused_step_call.bf16)
+    before = [c.launches for c in counters]
+    for p, bf16 in ((planes, True), (_bf16(planes), False)):
+        with pytest.raises(ValueError, match="planes must be"):
+            mk.megakernel_vf_eval(p, idx, tau, Z, layers, bf16=bf16)
+        with pytest.raises(ValueError, match="planes must be"):
+            mkb.megakernel_vf_bwd(p, idx, tau, Z, layers, G, True, bf16=bf16)
+    sp, ts, tq, y, h, f0, slayers = _step_inputs(cuda, 40, 2, (8, 8))
+    with pytest.raises(ValueError, match="planes must be"):
+        tfs.fused_step_call(sp, ts, tq, y, h, f0, slayers, get_tableau("tsit5"), bf16=True)
+    assert [c.launches for c in counters] == before
