@@ -5,8 +5,9 @@
 Phases, each printing one line before the last:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build every kernel from gncde_tpu_torch/csrc (K1, K2, the tiled kernels
-     K3-K6b, K7, K8/K9, K10, K11, K12/K13), one nvcc per source, all started
-     together (nvcc seconds per source);
+     K3-K6b, K7, K8/K9, K10, K11, K12/K13, and their directed and bf16
+     instantiations), one nvcc per source, all started together (nvcc
+     seconds per source);
   3. K1 (forward vf kernel) against its plain PyTorch version at the
      flagship shape (n=400, B=4, widths 16 -> 16 -> 16), the bench shape
      (widths 32 x 4) and the trade shape (n=255, B=4, widths 32 -> 32 -> 32
@@ -45,7 +46,7 @@ Phases, each printing one line before the last:
      configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml for one epoch at full
      width (n=1505, vf hidden 8, 3 layers, idx_dim 8, two modulation MLPs of
      width 8 and depth 2) on the same surrogate cut to 16 snapshots, in
-     windows of 3 (5 windows: 3 train, 1 validation, 1 test); every train
+     windows of 3 (5 windows: 1 train, 1 validation, 3 test); every train
      loss and the validation NDCG@10 must be finite, K7, K6a and K6b must
      have launched, and K3 and K4 must not have (enc_idx bypasses them);
  10. the sparse controls' kernels K8 (BCSR SpMM), K9 (BCSR SDDMM) and K10
@@ -148,6 +149,36 @@ Phases, each printing one line before the last:
      epoch of the flagship with ``fusion_precision=bf16`` per stage, one
      with the fused step and one of the directed flagship fused: finite
      losses, the bf16 kernels launched and the f32 K1, K2, K11 not.
+ 22. the bf16 enc_idx kernels against their plain versions at phase 8's
+     shapes and the trade width (n=255, H=512): K7bf (bf16 output) within
+     one bf16 ulp per element beyond K7's f32 bound and bitwise K7's f32
+     output rounded once; K6a-bf on bf16 planes with f32 vectors (the
+     forward) and with bf16 vectors (the backward) and K6b-bf on bf16
+     operands within 1e-4 * max|ref|; each timed beside the f32 kernel;
+ 23. configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml (the directed
+     enc_idx field: n=255, hidden 32, 4 layers, last layer 512, an mlp
+     index encoder of width 512) through ``gncde_tpu_torch.run.tgb.main``
+     on phase 18's surrogate and cut (16 snapshots in windows of 3), split
+     1/1/3: one training window, no evaluation of the initial model; finite
+     losses and NDCG@10, K7, K6a and K6b launched, the Hermite kernels
+     (K1-K4) and the bf16 ones not;
+ 24. configs/tgb/genre_perm_equiv_dir_enc_idx_gncde.yaml (n=1505, 8 -> 8
+     -> 8 -> 128) on phase 9's cut, split 1/1/3, with the same checks;
+ 25. fusion_precision bf16 on the enc_idx route: the directed enc_idx field
+     at benchmarks/enc_idx_micro.py's two shapes (trade n=255, H=32, 4
+     layers; genre n=1505, H=8, 3 layers; idx_dim 512, T=6 knots, planes
+     uniform * 0.1, t=0.37, B=1) through K7bf -> K6a-bf (backward K6a-bf,
+     K6b-bf) against the plain versions on the CPU: the field against the
+     plain stack started from K7bf's own planes within 1e-4 * max|ref|;
+     each plane-pair apply of the route against its plain version from the
+     route's own inputs and output cotangents (outputs 1e-4, d_M and the c
+     cotangents 1e-3, the bf16 plane cotangents one ulp), and the
+     modulation MLPs' and the embedding's gradients against the plain
+     chain's from the route's own plane cotangents (5e-3); the free-running
+     gradients printed beside; the f32 route's distance finite and
+     nonzero; then one training window of phase 23's config under
+     ``ops.set_fusion_precision("bf16")``: finite losses, K7bf, K6a-bf and
+     K6b-bf launched, K7, K6a, K6b and the Hermite kernels not.
 Phase 12's route check also computes the gradients twice and requires them
 bitwise equal (the ELL backward has no scatter).
 Then one JSON line of every kernel (launches on its main path, error, times
@@ -218,10 +249,12 @@ GENRE_SNAPSHOTS = 40
 GENRE_SPLIT = ("dataset.split_ratio=[0.5,0.25,0.25]",)
 GENRE_TRAIN_WINDOWS = 2
 #: Phase 9 cuts it to 16 snapshots in windows of 3 (the trade configs'
-#: window): 3 train, 1 validation, 1 test window.
+#: window), split 1/1/3: one training window, since the whole script passed
+#: 1050 s of its 1200 s with three (phase 24 trains K7/K6 at the same n).
 ENC_IDX_SNAPSHOTS = 16
 ENC_IDX_WINDOW = ("dataset.window_size=3", "dataset.stride=3")
-ENC_IDX_TRAIN_WINDOWS = 3
+ENC_IDX_TRAIN_WINDOWS = 1
+ONE_TRAIN_WINDOW = ("dataset.split_ratio=[0.2,0.2,0.6]",)
 SPARSE_TOL = 1e-4
 #: The flagship field through a sparse control against phase 5's K1 route,
 #: on the flagship data at the trainer's init (relative to max|ref|), and
@@ -293,6 +326,49 @@ DIRECTED_EPOCHS = 1
 BF16_STEP_ROUTE_GRAD_TOL = 5e-3
 BF16_EPOCHS = 1
 BF16 = ("fusion_precision=bf16",)
+#: Phases 22-25: the directed enc_idx field and the bf16 enc_idx route.
+#: Phase 22 holds K7bf to its plain version within one bf16 ulp per element
+#: (the f32 chain's last bits may differ, and rounding then moves an element
+#: a whole ulp) and K6a-bf, K6b-bf to PAIR_TOL (the same bf16 operands;
+#: only the order of the f32 sums differs), at phase 8's shapes and the
+#: trade width (the trade config's last layer, 32 * 8 * 2 = 512). K7bf's
+#: ulp bound allows K7's f32 bound (MODULATE_TOL of max|ref|) besides the
+#: ulp: near zero the chain's f32 sums cancel, and their last bits are many
+#: bf16 ulps of a tiny element. K7bf is also bitwise K7's f32 output rounded
+#: once (the same device code up to the store).
+PAIR_BF16_SHAPES = {**TILED_SHAPES, "trade-H512": dict(n=255, H=512, B=1)}
+K7BF_ULPS = 1.0
+#: Phases 23-25: the reference's directed enc_idx configs at full width, one
+#: training window each on phases 18's and 9's cuts (16 snapshots in windows
+#: of 3: 5 windows, split 1/1/3 by ONE_TRAIN_WINDOW), without the trainer's
+#: evaluation of the initial model (``eval_at_init``): the epoch's own
+#: evaluation checks the same, and each skipped pass over the validation
+#: and test windows costs 4-15 s of the script's 1200 s.
+TRADE_DIR_ENC_IDX_CONFIG = "configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml"
+GENRE_DIR_ENC_IDX_CONFIG = "configs/tgb/genre_perm_equiv_dir_enc_idx_gncde.yaml"
+DIR_ENC_IDX_RUN = ONE_TRAIN_WINDOW + ("eval_at_init=false",)
+#: Phase 25: the directed enc_idx field at benchmarks/enc_idx_micro.py's
+#: shapes (``bench_shape``: T = 6 knots on [0, 1], planes uniform * 0.1,
+#: t = 0.37, B = 1, an emb encoder of width 512, output width H) under
+#: bf16, through K7bf -> K6a-bf (backward K6a-bf, K6b-bf), against the plain
+#: versions on the CPU (:func:`enc_idx_bf16_errors`): the field to
+#: ENC_IDX_BF16_TOL (the forward rounds nothing after K7bf's planes, so only
+#: f32 sums differ); the backward from the route's own intermediates, as
+#: phase 21 holds K2bf: it rounds each layer's output cotangent to bf16,
+#: where an f32 last-bit difference upstream flips a whole ulp, and
+#: free-running the c cotangents of a layer drift by up to 2.5e-3 (PERF.md). The modulation
+#: MLPs' and the embedding's gradients are held to
+#: ENC_IDX_BF16_MOD_GRAD_TOL, BF16_STAGE_BASIS_TOL's cap (the chain sums the
+#: plane cotangents over n^2 edges).
+ENC_IDX_MICRO_SHAPES = {"trade": dict(n=255, H=32, L=4, idx_dim=512),
+                        "genre": dict(n=1505, H=8, L=3, idx_dim=512)}
+ENC_IDX_BF16_TOL = 1e-4
+ENC_IDX_BF16_MOD_GRAD_TOL = 5e-3
+ENC_IDX_KERNELS = ("K7", "K6a", "K6b")
+ENC_IDX_BF16_KERNELS = ("K7bf", "K6a-bf", "K6b-bf")
+#: The kernels a directed enc_idx run must not launch: the Hermite-factorised
+#: kernels of either regime (the per-edge MLP breaks the factorisation).
+HERMITE_KERNELS = ("K1", "K2", "K3", "K4", "K1bf", "K2bf")
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -756,7 +832,9 @@ def counters():
             "K11bf": fused_step.fused_step_call.bf16,
             "K3": tiled.fwd2_call, "K4": tiled.bwd2_call, "K5a": tiled.dw2_call,
             "K5b": tiled.dw_call, "K5c": tiled.abar_call, "K6a": pair.pair_call,
-            "K6b": pair.pair_dw_call, "K7": modulate.modulate_pair, "K8": bcsr.bcsr_spmm,
+            "K6b": pair.pair_dw_call, "K7": modulate.modulate_pair,
+            "K7bf": modulate.modulate_pair.bf16, "K6a-bf": pair.pair_call.bf16,
+            "K6b-bf": pair.pair_dw_call.bf16, "K8": bcsr.bcsr_spmm,
             "K9": bcsr.bcsr_sddmm, "K10": ell_spmm.ell_spmm_call,
             "K11": fused_step.fused_step_call, "K12": fused_basis._pallas_forward,
             "K13": pipeline.fused_conv_stream}
@@ -814,7 +892,8 @@ def phase_tgb(torch):
 
 def phase_enc_idx(torch):
     launches = run_tgb(torch, 9, "configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml",
-                       ENC_IDX_SNAPSHOTS, ENC_IDX_TRAIN_WINDOWS, ENC_IDX_WINDOW)
+                       ENC_IDX_SNAPSHOTS, ENC_IDX_TRAIN_WINDOWS,
+                       ENC_IDX_WINDOW + ONE_TRAIN_WINDOW)
     if min(launches["K7"], launches["K6a"], launches["K6b"]) <= 0:
         raise RuntimeError(f"enc_idx kernels not launched on the enc_idx path: {launches}")
     if launches["K3"] or launches["K4"]:
@@ -844,21 +923,26 @@ def make_pair_inputs(torch, n, H, B, seed=0):
                 emb=f(n, 8), mlps=mlps)
 
 
-def pair_bound(name, n, H, B, w=8, depth=2):
+def pair_bound(name, n, H, B, w=8, depth=2, plane_bytes=4, vec_bytes=4):
     """(bound_ms, bound_by) of one enc_idx kernel call: each input read once,
-    each output written once (f32), and the f32 operations the function
-    needs at 67 TFLOP/s."""
+    each output written once (f32 sums, the planes and vectors at their
+    sizes), and the operations the function needs at the peak for their
+    operands' type: f32 at 67 TFLOP/s, the products of bf16 planes and bf16
+    vectors (K6a-bf's backward form, K6b-bf) at the bf16 989 TFLOP/s."""
     nn, nh = n * n * B, n * H * B
-    if name == "K6a":  # A, dA, Mk, Mi -> rowpart, colpart: form B1, B2, two products
-        return bound(2 * 4 * nn + 2 * 4 * nh + 2 * 4 * nh + 16,
-                     (6 * nn + 4 * nn * H, F32_FLOPS))
-    if name == "K6b":  # A, dA, Gr, Mk, Mi, Gc -> dw4: Gr Mk^T, Mi Gc^T, four inner products
-        return bound(2 * 4 * nn + 4 * 4 * nh + 4 * 4 * B,
-                     (4 * nn * H + 8 * nn, F32_FLOPS))
-    # K7: A, dA -> A_m, dA_m; per element and plane: first layer 4w (mul, two
-    # adds, relu), (depth-1) hidden layers 2w^2 + w, head 2w.
+    peak = BF16_FLOPS if plane_bytes == vec_bytes == 2 else F32_FLOPS
+    if name.startswith("K6a"):  # A, dA, Mk, Mi -> rowpart, colpart: B1, B2, two products
+        return bound(2 * plane_bytes * nn + 2 * vec_bytes * nh + 2 * 4 * nh + 16,
+                     (6 * nn, F32_FLOPS), (4 * nn * H, peak))
+    if name.startswith("K6b"):  # A, dA, Gr, Mk, Mi, Gc -> dw4: Gr Mk^T, Mi Gc^T, 4 dots
+        return bound(2 * plane_bytes * nn + 4 * vec_bytes * nh + 4 * 4 * B,
+                     (8 * nn, F32_FLOPS), (4 * nn * H, peak))
+    # K7: A, dA (f32) -> A_m, dA_m (plane_bytes each); per element and plane:
+    # first layer 4w (mul, two adds, relu), (depth-1) hidden layers 2w^2 + w,
+    # head 2w.
     per = 4 * w + (depth - 1) * (2 * w * w + w) + 2 * w
-    return bound(4 * 4 * nn + 2 * 2 * 4 * n * w, (2 * per * nn, F32_FLOPS))
+    return bound(2 * 4 * nn + 2 * plane_bytes * nn + 2 * 2 * 4 * n * w,
+                 (2 * per * nn, F32_FLOPS))
 
 
 def phase_pair(torch, results):
@@ -2102,6 +2186,308 @@ def phase_bf16(torch, cache, results):
     return {k: v[1] for k, v in runs.items()}
 
 
+def bf16_ulps(torch, got, ref, slack=MODULATE_TOL):
+    """Largest distance of two bf16 tensors in units of one bf16 ulp of the
+    reference element plus ``slack`` of max|ref| (the f32 error the two
+    values may carry before their rounding to bf16)."""
+    g, r = got.double(), ref.double()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return float(((g - r).abs() / (ulp + slack * float(r.abs().max()))).max())
+
+
+def phase_pair_bf16(torch, results):
+    """Phase 22: K7bf, K6a-bf (with the forward's f32 vectors and the
+    backward's bf16 ones) and K6b-bf against their plain versions on the
+    same card tensors at :data:`PAIR_BF16_SHAPES`, each timed beside the f32
+    kernel on the same shape."""
+    from gncde_tpu_torch.ops import modulate as tmod
+    from gncde_tpu_torch.ops import pair as tp
+
+    bf = torch.bfloat16
+    for label, s in PAIR_BF16_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        x = make_pair_inputs(torch, n, H, B)
+        ma, md = x["mlps"]
+        A, dA = x["A"].to(bf), x["dA"].to(bf)
+        vb = {k: x[k].to(bf) for k in ("Mk", "Mi", "Gr", "Gc")}
+        f32_pair = (x["A"], x["dA"], x["cvec"], x["Mk"], x["Mi"])
+        f32_dw = tuple(x[k] for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+        # name: (args, kernel, plain, the f32 kernel on this shape, bound sizes)
+        calls = {
+            "K6a-bf": ((A, dA, x["cvec"], x["Mk"], x["Mi"]), tp.pair_call, tp.plain_pair,
+                       lambda: tp.pair_call(*f32_pair), dict(plane_bytes=2)),
+            "K6a-bf-bf16-vectors": ((A, dA, x["cvec"], vb["Mk"], vb["Mi"]), tp.pair_call,
+                                    tp.plain_pair, lambda: tp.pair_call(*f32_pair),
+                                    dict(plane_bytes=2, vec_bytes=2)),
+            "K6b-bf": ((A, dA, vb["Gr"], vb["Mk"], vb["Mi"], vb["Gc"]),
+                       lambda *a: (tp.pair_dw_call(*a),), lambda *a: (tp.plain_pair_dw(*a),),
+                       lambda: tp.pair_dw_call(*f32_dw), dict(plane_bytes=2, vec_bytes=2)),
+        }
+        if label != "genre-H8":  # K7 does not depend on H
+            calls["K7bf"] = ((x["A"], x["dA"], ma, md, x["emb"], bf), tmod.modulate_pair,
+                             tmod.plain_modulate_pair,
+                             lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
+                             dict(plane_bytes=2))
+        for name, (args, kernel, plain, f32_kernel, sizes) in calls.items():
+            with torch.no_grad():
+                got, ref, again = kernel(*args), plain(*args), kernel(*args)
+                torch.cuda.synchronize()
+                errs, rels, worst_abs = [], [], 0.0
+                for a, b, c in zip(got, ref, again):
+                    if (a.shape != b.shape or a.dtype != b.dtype
+                            or not torch.isfinite(a.float()).all()):
+                        raise RuntimeError(f"{name} {label}: bad output {tuple(a.shape)} "
+                                           f"{a.dtype}")
+                    if not torch.equal(a, c):
+                        raise RuntimeError(f"{name} {label}: two launches differ")
+                    rels.append(rel_err(torch, a.float(), b.float())[0])
+                    errs.append(bf16_ulps(torch, a, b) if name == "K7bf" else rels[-1])
+                    worst_abs = max(worst_abs, float((a.float() - b.float()).abs().max()))
+                if name == "K7bf" and not all(
+                        torch.equal(a, b.to(bf)) for a, b in zip(got, f32_kernel())):
+                    raise RuntimeError(f"K7bf {label}: not K7's f32 output rounded once")
+                ms = time_ms(torch, lambda: kernel(*args))
+                plain_ms = time_ms(torch, lambda: plain(*args))
+                f32_ms = time_ms(torch, f32_kernel)
+            bms, by = pair_bound(name, n, H, B, **sizes)
+            tol = K7BF_ULPS if name == "K7bf" else PAIR_TOL
+            extra = {"max_rel_err": max(rels), "f32_kernel_ms": f32_ms}
+            if name == "K7bf":
+                extra["max_bf16_ulps"] = max(errs)
+            emit({"phase": 22, "kernel": name, "shape": label, **s, "max_abs_err": worst_abs,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "tol": tol, **extra})
+            if not max(errs) <= tol:
+                raise RuntimeError(f"phase 22: {name} {label} is {max(errs):.3e} off its plain "
+                                   f"version (> {tol}{' bf16 ulps' if name == 'K7bf' else ''})")
+            results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by, extra)
+
+
+def check_launches(launches, phase, want, forbidden):
+    if min(launches[k] for k in want) <= 0 or any(launches[k] for k in forbidden):
+        raise RuntimeError(f"phase {phase}: launches {launches}; want {want} > 0 and "
+                           f"{forbidden} = 0")
+
+
+def phase_dir_enc_idx(torch, phase, config, snapshots, dataset, extra=()):
+    """Phases 23 (trade) and 24 (genre): one training window of a directed
+    enc_idx config at full width through K7, K6a and K6b."""
+    launches = run_tgb(torch, phase, config, snapshots, 1, extra + DIR_ENC_IDX_RUN,
+                       dataset=dataset)
+    check_launches(launches, phase, ENC_IDX_KERNELS, HERMITE_KERNELS + ENC_IDX_BF16_KERNELS)
+    return launches
+
+
+def enc_idx_micro_case(torch, n, H, L, idx_dim, seed=0, device="cuda"):
+    """benchmarks/enc_idx_micro.py's ``bench_shape`` on ``device``: the
+    directed enc_idx field (emb encoder) with output width H, a control of
+    T = 6 knots on [0, 1] with planes uniform * 0.1 (f32 stacks), the state
+    normal, t = 0.37, B = 1, from ``seed``."""
+    import numpy as np
+
+    from gncde_tpu_torch.interp import (CubicInterpolation, MatrixControl,
+                                        backward_hermite_coefficients)
+    from gncde_tpu_torch.models.vector_fields import PermEquivDirGraphVectorField
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    vf = PermEquivDirGraphVectorField(H, H, H, L, 1, n, enc_idx=True, enc_type="emb",
+                                      idx_dim=idx_dim,
+                                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    ts = torch.linspace(0.0, 1.0, 6, device=dev)[None]
+    A = torch.tensor((rng.uniform(size=(1, 6, n, n)) * 0.1).astype(np.float32), device=dev)
+    ctrl = MatrixControl(CubicInterpolation(ts, backward_hermite_coefficients(ts, A)))
+    y = torch.tensor(rng.normal(size=(1, n, H)).astype(np.float32), device=dev)
+    return vf, ctrl, y, torch.full((1,), 0.37, device=dev)
+
+
+def enc_idx_bf16_errors(torch, vf, ctrl, y, t, seed=0):
+    """The enc_idx field ``vf`` at ``(t, y)`` under fusion_precision bf16
+    (set by the caller) and its gradients of sum(f * W) (W normal from
+    ``seed``) through the kernels (K7bf, K6a-bf, K6b-bf), held against the
+    plain versions on the CPU from the route's own intermediates:
+
+    * ``field``: the value against the plain stack started from K7bf's own
+      planes (K7bf launched again on the field's A(t), dA(t): no reductions,
+      so bitwise its launch in the field); the forward rounds nothing after
+      the planes, so only f32 sums differ;
+    * ``pair``: every plane-pair apply of the route (one per layer), its
+      outputs and its six cotangents from the route's own output cotangents,
+      against the plain versions on the same inputs: ``fwd`` (rowpart,
+      colpart), ``d_M`` (d_Mk, d_Mi), ``d_c`` (the coefficient cotangents,
+      which reach the basis) as relative errors, ``d_planes`` in bf16 ulps
+      beyond PAIR_TOL;
+    * ``modulation``: the gradients of the modulation MLPs and the index
+      encoder against the plain f32 chain's backward from the route's own
+      total plane cotangents (bf16, as the route sums them);
+    * ``free_running``: every gradient against the plain stack run alone
+      from K7bf's planes (reported, not held: the backward rounds each
+      layer's output cotangents to bf16, where f32 last-bit differences flip
+      whole bf16 ulps, and the flips compound over the layers).
+
+    Returns ``(errors, the kernel route's launches, its value)``."""
+    import copy
+
+    from gncde_tpu_torch.models.vector_fields.fields import enc_idx_planes
+    from gncde_tpu_torch.ops import modulate as tmod
+    from gncde_tpu_torch.ops import pair as tp
+
+    class GivenPlanes(torch.autograd.Function):
+        """Forward: the given planes; backward: their cotangent in f32 to
+        the plain chain, as the field's fused modulation does."""
+
+        @staticmethod
+        def forward(ctx, planes, chain):
+            return planes.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return None, g.float()
+
+    records, plane_grads = [], {}
+    apply = tp.plane_pair_apply
+
+    def recording(*args):
+        rec = {"args": tuple(a.detach() for a in args)}
+        out = apply(*args)
+        rec["out"] = tuple(o.detach() for o in out)
+        for k, o in zip(("g_r", "g_c"), out):
+            o.register_hook(lambda g, k=k: rec.__setitem__(k, g))
+        if not records:  # the modulated planes: their total cotangents
+            for k, P in zip(("A", "dA"), args[:2]):
+                P.register_hook(lambda g, k=k: plane_grads.__setitem__(k, g))
+        records.append(rec)
+        return out
+
+    W = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed)).to(y.device)
+    vf.zero_grad(set_to_none=True)
+    y_ = y.detach().clone().requires_grad_(True)
+    before = {k: f.launches for k, f in counters().items()}
+    tp.plane_pair_apply = recording
+    try:
+        out = vf(t, y_, ctrl)
+        (out * W).sum().backward()
+    finally:
+        tp.plane_pair_apply = apply
+    if y.is_cuda:
+        torch.cuda.synchronize()
+    launches = {k: f.launches - before[k] for k, f in counters().items()}
+    grads = {"state": y_.grad, **{k: p.grad for k, p in vf.named_parameters()}}
+
+    # The plain stack on the CPU from K7bf's own planes.
+    with torch.no_grad():
+        A_t, dA_t = enc_idx_planes(ctrl, t, y.shape[0])
+        planes = tmod.modulate_pair(A_t, dA_t, vf.msg_func_adj, vf.msg_func_adj_deriv,
+                                    vf.idx_enc.node_embedding(), torch.bfloat16)
+    vc = copy.deepcopy(vf).cpu()
+    vc.zero_grad(set_to_none=True)
+    emb = vc.idx_enc.node_embedding()
+    chains = (tmod.modulate_matrix(A_t.cpu(), vc.msg_func_adj, emb),
+              tmod.modulate_matrix(dA_t.cpu(), vc.msg_func_adj_deriv, emb))
+    A_m, dA_m = (GivenPlanes.apply(P.cpu(), c) for P, c in zip(planes, chains))
+    yc = y.detach().cpu().requires_grad_(True)
+    ref = tp.tiled_vf_eval_planes(A_m, dA_m, yc, vc)
+    (ref * W.cpu()).sum().backward()
+    ref_grads = {"state": yc.grad, **{k: p.grad for k, p in vc.named_parameters()}}
+    errs = {"field": rel_err(torch, out.detach().cpu(), ref.detach())[0],
+            "free_running": {k: rel_err(torch, g.cpu(), ref_grads[k])[0]
+                             for k, g in grads.items()}}
+
+    # Each plane-pair apply of the route against its plain version, from the
+    # route's own inputs and output cotangents.
+    pair = {"fwd": 0.0, "d_M": 0.0, "d_c": 0.0, "d_planes": 0.0}
+    for rec in records:
+        res = []
+        for dev in (y.device, torch.device("cpu")):  # the route's device, the plain one
+            leaves = [a.detach().to(dev).requires_grad_(True) for a in rec["args"]]
+            o = apply(*leaves)
+            res.append((o, torch.autograd.grad(o, leaves, (rec["g_r"].to(dev),
+                                                           rec["g_c"].to(dev)))))
+        (ko, kg), (po, pg) = res
+        for a, b, c in zip(ko, rec["out"], po):
+            if not torch.equal(a.detach(), b):
+                raise RuntimeError("a plane-pair apply of the route is not repeatable")
+            pair["fwd"] = max(pair["fwd"], rel_err(torch, a.detach().cpu(), c.detach())[0])
+        d_pl = [bf16_ulps(torch, a.cpu(), b, PAIR_TOL) for a, b in zip(kg[:2], pg[:2])]
+        pair["d_planes"] = max(pair["d_planes"], *d_pl)
+        pair["d_c"] = max(pair["d_c"], *(rel_err(torch, a.cpu(), b)[0]
+                                         for a, b in zip(kg[2:4], pg[2:4])))
+        pair["d_M"] = max(pair["d_M"], *(rel_err(torch, a.cpu(), b)[0]
+                                         for a, b in zip(kg[4:], pg[4:])))
+    errs["pair"] = pair
+
+    # The modulation's gradients from the route's own plane cotangents.
+    vc.zero_grad(set_to_none=True)
+    emb = vc.idx_enc.node_embedding()
+    chains = (tmod.modulate_matrix(A_t.cpu(), vc.msg_func_adj, emb),
+              tmod.modulate_matrix(dA_t.cpu(), vc.msg_func_adj_deriv, emb))
+    torch.autograd.backward(chains, (plane_grads["A"].float().cpu(),
+                                     plane_grads["dA"].float().cpu()))
+    errs["modulation"] = {k: rel_err(torch, grads[k].cpu(), p.grad)[0]
+                          for k, p in vc.named_parameters()
+                          if k.startswith(("idx_enc", "msg_func_adj"))}
+    errs["layers_records"] = len(records)
+    return errs, launches, out.detach()
+
+
+def check_enc_idx_bf16(errs, what):
+    """Raise unless :func:`enc_idx_bf16_errors` are within phase 25's bounds:
+    the field ENC_IDX_BF16_TOL; each pair apply's outputs PAIR_TOL, its d_M
+    and d_c (the state's and the layers' gradients are these through f32
+    glue) K2_TOL, its bf16 plane cotangents one ulp; the modulation's
+    gradients ENC_IDX_BF16_MOD_GRAD_TOL."""
+    p = errs["pair"]
+    bad = {k: v for k, v, tol in (
+        ("field", errs["field"], ENC_IDX_BF16_TOL), ("pair fwd", p["fwd"], PAIR_TOL),
+        ("pair d_M", p["d_M"], K2_TOL), ("pair d_c", p["d_c"], K2_TOL),
+        ("pair d_planes (bf16 ulps)", p["d_planes"], K7BF_ULPS),
+        *((f"modulation {k}", v, ENC_IDX_BF16_MOD_GRAD_TOL)
+          for k, v in errs["modulation"].items())) if not v <= tol}
+    if bad:
+        raise RuntimeError(f"{what}: off the plain versions: {bad}")
+
+
+def phase_enc_idx_bf16(torch):
+    """Phase 25: fusion_precision bf16 on the enc_idx route. The directed
+    enc_idx field at :data:`ENC_IDX_MICRO_SHAPES` through K7bf -> K6a-bf
+    (backward K6a-bf, K6b-bf) against the plain versions
+    (:func:`enc_idx_bf16_errors`), and its distance to the f32 route
+    (finite and nonzero: the witness that the bf16 kernels ran); then one
+    bf16 training window of phase 23's config. Returns that window's
+    launches."""
+    from gncde_tpu_torch import ops
+
+    ops.set_fusion_precision("bf16")
+    try:
+        for label, s in ENC_IDX_MICRO_SHAPES.items():
+            vf, ctrl, y, t = enc_idx_micro_case(torch, **s)
+            errs, launches, out = enc_idx_bf16_errors(torch, vf, ctrl, y, t)
+            ops.set_fusion_precision("f32")
+            with torch.no_grad():
+                out32 = vf(t, y, ctrl)
+            ops.set_fusion_precision("bf16")
+            f32_dist = rel_err(torch, out, out32)[0]
+            emit({"phase": 25, "shape": label, **s, **errs, "f32_route_rel_dist": f32_dist,
+                  "launches": launches})
+            what = f"phase 25 {label}"
+            L = s["L"]
+            if (launches["K7bf"], launches["K6a-bf"], launches["K6b-bf"]) != (1, 2 * L, L) or any(
+                    launches[k] for k in ENC_IDX_KERNELS + HERMITE_KERNELS):
+                raise RuntimeError(f"{what}: launches {launches}")
+            check_enc_idx_bf16(errs, what)
+            if not (math.isfinite(f32_dist) and f32_dist > 0.0):
+                raise RuntimeError(f"{what}: the bf16 field's distance to the f32 route must "
+                                   f"be finite and nonzero: {f32_dist}")
+            del vf, ctrl, y, out, out32
+            torch.cuda.empty_cache()
+        launches = run_tgb(torch, 25, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS, 1,
+                           DIR_ENC_IDX_RUN, dataset="tgbn-trade")
+    finally:
+        ops.set_fusion_precision("f32")
+    check_launches(launches, 25, ENC_IDX_BF16_KERNELS, ENC_IDX_KERNELS + HERMITE_KERNELS)
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2140,6 +2526,12 @@ def main() -> int:
         timed(19, phase_genre_dir, torch)
         dir_fused_launches = timed(20, phase_directed_fused_train, torch, cache)
         bf16_launches = timed(21, phase_bf16, torch, cache, results)
+    timed(22, phase_pair_bf16, torch, results)
+    timed(23, phase_dir_enc_idx, torch, 23, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS,
+          "tgbn-trade")
+    timed(24, phase_dir_enc_idx, torch, 24, GENRE_DIR_ENC_IDX_CONFIG, ENC_IDX_SNAPSHOTS,
+          "tgbn-genre", ENC_IDX_WINDOW)
+    enc_bf16_launches = timed(25, phase_enc_idx_bf16, torch)
     emit({"phase_wall_s": walls})
 
     flagship = SHAPES["flagship"]
@@ -2252,6 +2644,23 @@ def main() -> int:
                         "launches": launches, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None, "shape": "flagship", **extra})
+    # The bf16 enc_idx kernels at the trade width (n=255, H=512: the trade
+    # config's last layer); their launches are phase 25's training window's.
+    for name, src, rep in (
+        ("K7bf", "gncde_tpu_torch/csrc/modulate.cu", "gncde_tpu/ops/pallas/modulate.py:146"),
+        ("K6a-bf", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:572"),
+        ("K6b-bf", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:638"),
+    ):
+        err, ms, plain_ms, bms, by, extra = results[name]["trade-H512"]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": enc_bf16_launches[name], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "shape": "trade (n=255, B=1)" if name == "K7bf" else "trade-H512", **extra}
+        if name == "K6a-bf":  # the backward's form: bf16 vectors
+            err, ms, plain_ms, bms, by, extra = results["K6a-bf-bf16-vectors"]["trade-H512"]
+            row["bf16_vectors"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bms, "bound_by": by, **extra}
+        kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

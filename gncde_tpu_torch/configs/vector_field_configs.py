@@ -1,12 +1,12 @@
 """Vector-field factory config (counterpart of
 ``gncde_tpu/configs/vector_field_configs.py``). Every name of the JAX
-schema validates; ``PermEquivGraphVectorField`` (with or without
-``enc_idx``) and ``PermEquivDirGraphVectorField`` (without it) build in
-the port.
+schema validates; ``PermEquivGraphVectorField`` and
+``PermEquivDirGraphVectorField``, each with or without ``enc_idx``, build
+in the port.
 
-One rule differs from the JAX package: a controlled enc_idx field emits
-``H * E * 2`` entries like every other controlled field, so that the CDE
-wrapper can contract it with the data path. The JAX rule gives it ``H``
+One rule differs from the JAX package: a controlled enc_idx field (of
+either basis) emits ``H * E * 2`` entries like every other controlled
+field, so that the CDE wrapper can contract it with the data path. The JAX rule gives it ``H``
 entries, and ``TGBGraphNeuralCDE`` then fails the wrapper's reshape
 (ROADMAP Queue 3 item 3, closed by ruling: ``H * E * 2`` stands)."""
 
@@ -46,10 +46,6 @@ class VectorFieldCfg(Schema):
     idx_dim: int = 512
 
     def validate(self) -> None:
-        if self.name == "PermEquivDirGraphVectorField" and self.enc_idx:
-            raise NotImplementedError(
-                f"vector field {self.name!r} with enc_idx modulation is not ported yet "
-                "(ROADMAP Queue 1 item 6, the directed enc_idx field)")
         if self.name not in _PORTED:
             raise NotImplementedError(
                 f"vector field {self.name!r} is not ported yet (see ROADMAP)")

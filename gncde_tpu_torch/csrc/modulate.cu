@@ -1,7 +1,8 @@
 // K7: the enc_idx per-edge MLP modulation of both planes, in one pass.
 //
 // Replaces the TPU kernel gncde_tpu/ops/pallas/modulate.py (_mod_kernel /
-// modulate_pair). For every element (b, i, j) and each plane X of (A, dA),
+// modulate_pair), with out_dtype f32 (K7) or bf16 (K7bf, under
+// fusion_precision bf16: models/vector_fields/fields.py). For every element (b, i, j) and each plane X of (A, dA),
 // with that plane's MLP of width W (a template parameter, compiled for the
 // reference's 8):
 //
@@ -11,7 +12,9 @@
 //
 // Ei (n, 2W) holds both MLPs' node-i terms side by side, Ej (2W, n) their
 // node-j terms; both come from two small products outside the kernel
-// (ops/modulate.py).
+// (ops/modulate.py). The chain runs in f32 for either output type; K7bf
+// rounds each output once to bf16 (__float2bfloat16_rn), as the TPU
+// kernel's store does (outA_ref[:] = oA.astype(out_dtype)).
 //
 // Layout. Planes (B, n, n) f32, unpadded. One CTA of NT threads owns NT
 // consecutive columns j of one row i of one batch element (grid
@@ -26,6 +29,7 @@
 // read, one write), so arithmetic and memory are about equal. This first
 // version is plain FMA in registers, one element per thread; it keeps the
 // planes' one read and one write, which is the floor for the bytes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace md {
@@ -75,12 +79,17 @@ __device__ __forceinline__ float chain(float x, const float* p, const float* ei,
   return out;
 }
 
-template <int W>
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <int W, typename OT>
 __global__ void __launch_bounds__(NT)
 modulate_kernel(const float* __restrict__ A, const float* __restrict__ dA, int n,
                 int depth, const float* __restrict__ wts, const float* __restrict__ Ei,
-                const float* __restrict__ Ej, float* __restrict__ outA,
-                float* __restrict__ outD) {
+                const float* __restrict__ Ej, OT* __restrict__ outA,
+                OT* __restrict__ outD) {
   extern __shared__ float sm[];  // [2][wstride] weights, then the row's 2W Ei terms
   const int i = blockIdx.y, b = blockIdx.z;
   const int ws = wstride<W>(depth);
@@ -91,24 +100,33 @@ modulate_kernel(const float* __restrict__ A, const float* __restrict__ dA, int n
   const int j = blockIdx.x * NT + threadIdx.x;
   if (j >= n) return;
   const long long off = ((long long)b * n + i) * n + j;
-  outA[off] = chain<W>(__ldg(A + off), sm, ei, Ej, n, j, depth);
-  outD[off] = chain<W>(__ldg(dA + off), sm + ws, ei + W, Ej + (long long)W * n, n, j, depth);
+  store(outA + off, chain<W>(__ldg(A + off), sm, ei, Ej, n, j, depth));
+  store(outD + off,
+        chain<W>(__ldg(dA + off), sm + ws, ei + W, Ej + (long long)W * n, n, j, depth));
 }
 
 }  // namespace md
 
-// K7 at width 8. A, dA, outA, outD: (B, n, n) f32; wts: (2, wstride)
-// packed weights of the A and dA MLPs; Ei: (n, 16); Ej: (16, n).
+// K7 at width 8. A, dA: (B, n, n) f32; wts: (2, wstride) packed weights
+// of the A and dA MLPs; Ei: (n, 16); Ej: (16, n); outA, outD: (B, n, n),
+// f32 (out_bf16 = 0, K7) or bf16 (out_bf16 = 1, K7bf).
 extern "C" int gncde_modulate(const float* A, const float* dA, int n, int B, int depth,
                               const float* wts, int wstride, const float* Ei,
-                              const float* Ej, float* outA, float* outD,
+                              const float* Ej, int out_bf16, void* outA, void* outD,
                               cudaStream_t stream) {
   constexpr int W = 8;
   if (n < 1 || B < 1 || depth < 1 || n > 65535 || B > 65535 ||
       wstride != md::wstride<W>(depth))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (2 * wstride + 2 * W);
-  md::modulate_kernel<W><<<dim3((n + md::NT - 1) / md::NT, n, B), md::NT, smem, stream>>>(
-      A, dA, n, depth, wts, Ei, Ej, outA, outD);
+  const dim3 grid((n + md::NT - 1) / md::NT, n, B);
+  if (out_bf16)
+    md::modulate_kernel<W, __nv_bfloat16><<<grid, md::NT, smem, stream>>>(
+        A, dA, n, depth, wts, Ei, Ej, static_cast<__nv_bfloat16*>(outA),
+        static_cast<__nv_bfloat16*>(outD));
+  else
+    md::modulate_kernel<W, float><<<grid, md::NT, smem, stream>>>(
+        A, dA, n, depth, wts, Ei, Ej, static_cast<float*>(outA),
+        static_cast<float*>(outD));
   return (int)cudaGetLastError();
 }

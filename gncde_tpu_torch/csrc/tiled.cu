@@ -23,10 +23,15 @@
 // K6a/K6b: f32 planes (the modulated A(t), dA(t), functions of trainable
 // parameters), B1/B2 formed in f32, f32 vectors, rectangular (nr, nc)
 // extents (the enc_idx path passes square ones). Every product is
-// accumulated in f32.
+// accumulated in f32. K6a-bf/K6b-bf (fusion_precision bf16): bf16 planes,
+// B1/B2 formed in bf16 as K3 forms them (_pair_kernel casts the
+// coefficients to the planes' dtype); K6a-bf takes f32 vectors (the
+// forward's M: the products of bf16-rounded B values and f32 vectors, in
+// f32, as JAX promotes the dot) or bf16 ones (the backward's cotangents),
+// K6b-bf bf16 vectors (_ppa_bwd's mm_dtype).
 //
-// Layout. Planes are (B, n, n) and vectors M, G (B, n, H) bf16 (K6: f32,
-// (B, nr, nc) and (B, nr | nc, H)), unpadded:
+// Layout. Planes are (B, n, n) and vectors M, G (B, n, H) bf16 (K6: f32 or
+// bf16 as above, (B, nr, nc) and (B, nr | nc, H)), unpadded:
 // every tile load is bound-checked against n, and a tile's overhang is
 // staged as zero. One CTA owns BO indices of one batch element and sweeps
 // the whole reduce extent in BR-deep tiles staged in shared memory as f32:
@@ -442,17 +447,20 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
 }
 
 // ---- K6a -----------------------------------------------------------------
-// The rectangular pair apply of the enc_idx path: f32 planes A, dA
-// (B, nr, nc), B1 = cr0 A + cr1 dA, B2 = cc0 A + cc1 dA formed in f32,
+// The rectangular pair apply of the enc_idx path: planes A, dA (B, nr, nc)
+// of type PT, B1 = cr0 A + cr1 dA, B2 = cc0 A + cc1 dA formed in f32 (PT =
+// float) or in bf16 (PT = bf16: the coefficients rounded to bf16, each
+// product and the sum rounded, COMBO_BF16), vectors of type VT,
 //   row pass: rowpart = B1 Mk   (B, nr, H), Mk (B, nc, H)
 //   col pass: colpart = B2^T Mi (B, nc, H), Mi (B, nr, H)
 // cvec = (cr0, cr1, cc0, cc1). The grid covers max(nr, nc) owned indices;
 // CTAs past their pass's extent exit at once.
-template <int HC>
+template <int HC, typename PT, typename VT>
 __global__ void __launch_bounds__(NT) pair_kernel(Sweep g, const float* cvec,
-                                                  const float* Mk, const float* Mi,
+                                                  const VT* Mk, const VT* Mi,
                                                   float* row_out, float* col_out) {
   constexpr int BO = bo_for(1, HC), PPT = (BO * HC + NT - 1) / NT;
+  constexpr bool BF = std::is_same<PT, bf16>::value;
   __shared__ Smem<1, 1, BO, HC> sm;
   const int b = blockIdx.z;
   const bool trans = blockIdx.y == 1;
@@ -460,14 +468,18 @@ __global__ void __launch_bounds__(NT) pair_kernel(Sweep g, const float* cvec,
   const int own = trans ? g.nc : g.nr;
   if (o0 >= own) return;
   g.v[0] = trans ? Mi : Mk;
-  const float c0 = __ldg(cvec + (trans ? 2 : 0));
-  const float c1 = __ldg(cvec + (trans ? 3 : 1));
+  float c0 = __ldg(cvec + (trans ? 2 : 0));
+  float c1 = __ldg(cvec + (trans ? 3 : 1));
+  if (BF) {
+    c0 = rbf(c0);
+    c1 = rbf(c1);
+  }
   float* out = (trans ? col_out : row_out) + (long long)b * own * g.H;
   float acc[1][PPT];
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 1, 1, BO, HC, COMBO_F32, float, float>(g, sm, b, trans, o0, h0, hc, c0,
-                                                     c1, acc);
+    sweep<2, 1, 1, BO, HC, BF ? COMBO_BF16 : COMBO_F32, PT, VT>(g, sm, b, trans, o0, h0,
+                                                               hc, c0, c1, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
@@ -481,28 +493,30 @@ __global__ void __launch_bounds__(NT) pair_kernel(Sweep g, const float* cvec,
 // The c cotangents of K6a, per element: (<A, Gr Mk^T>, <dA, Gr Mk^T>,
 // <A, Mi Gc^T>, <dA, Mi Gc^T>) = sum_i (Gr . A Mk, Gr . dA Mk, Mi . A Gc,
 // Mi . dA Gc)[i]. Row pass only, vectors (Mk, Gc) over the nc columns, so
-// the rank-H products Gr Mk^T and Mi Gc^T are never formed. part:
-// (B, gridDim.x, 4) per-CTA partials.
-template <int HC>
-__global__ void __launch_bounds__(NT) pair_dw_kernel(Sweep g, const float* Gr,
-                                                     const float* Mi, float* part) {
+// the rank-H products Gr Mk^T and Mi Gc^T are never formed. Planes of type
+// PT and all four vectors of type T (K6b-bf: both bf16, read as the exact
+// f32 values of their bf16 entries). part: (B, gridDim.x, 4) per-CTA
+// partials.
+template <int HC, typename PT, typename T>
+__global__ void __launch_bounds__(NT) pair_dw_kernel(Sweep g, const T* Gr, const T* Mi,
+                                                     float* part) {
   constexpr int BO = bo_for(4, HC), PPT = (BO * HC + NT - 1) / NT;
   __shared__ Smem<2, 2, BO, HC> sm;
   const int b = blockIdx.z;
   const int o0 = blockIdx.x * BO;
-  const float* Grb = Gr + (long long)b * g.nr * g.H;
-  const float* Mib = Mi + (long long)b * g.nr * g.H;
+  const T* Grb = Gr + (long long)b * g.nr * g.H;
+  const T* Mib = Mi + (long long)b * g.nr * g.H;
   float acc[4][PPT];  // (A Mk, A Gc, dA Mk, dA Gc)
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 2, BO, HC, RAW, float, float>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<2, 2, 2, BO, HC, RAW, PT, T>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
       if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
       const long long o = (long long)(o0 + a) * g.H + h0 + h;
-      const float gr = Grb[o], mi = Mib[o];
+      const float gr = ldf(Grb, o), mi = ldf(Mib, o);
       dot[0] = fmaf(acc[0][j], gr, dot[0]);
       dot[1] = fmaf(acc[2][j], gr, dot[1]);
       dot[2] = fmaf(acc[1][j], mi, dot[2]);
@@ -654,35 +668,55 @@ extern "C" int gncde_tiled_dw(const float* d, const float* c, const float* b,
   });
 }
 
-// K6a. A, dA: (B, nr, nc) f32; cvec: device (cr0, cr1, cc0, cc1) f32;
-// Mk: (B, nc, H) f32; Mi: (B, nr, H) f32; row_out: (B, nr, H) f32;
-// col_out: (B, nc, H) f32.
-extern "C" int gncde_pair(const float* A, const float* dA, int nr, int nc,
-                          const float* cvec, const float* Mk, const float* Mi, int B,
-                          int H, float* row_out, float* col_out, cudaStream_t stream) {
-  if (!dims_ok(B, nr, nc, H)) return (int)cudaErrorInvalidValue;
+// K6a and K6a-bf. A, dA: (B, nr, nc), f32 (planes_bf16 = 0) or bf16 (1);
+// cvec: device (cr0, cr1, cc0, cc1) f32; Mk: (B, nc, H), Mi: (B, nr, H),
+// f32 (vecs_bf16 = 0) or bf16 (1, with bf16 planes only); row_out:
+// (B, nr, H) f32; col_out: (B, nc, H) f32.
+extern "C" int gncde_pair(const void* A, const void* dA, int nr, int nc,
+                          const float* cvec, const void* Mk, const void* Mi, int B,
+                          int H, int planes_bf16, int vecs_bf16, float* row_out,
+                          float* col_out, cudaStream_t stream) {
+  if (!dims_ok(B, nr, nc, H) || (vecs_bf16 && !planes_bf16))
+    return (int)cudaErrorInvalidValue;
   const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, nullptr, nullptr, H);
   const int nmax = nr > nc ? nr : nc;
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
-    pair_kernel<HC><<<dim3((nmax + BO - 1) / BO, 2, B), NT, 0, stream>>>(
-        g, cvec, Mk, Mi, row_out, col_out);
+    const dim3 grid((nmax + BO - 1) / BO, 2, B);
+    if (!planes_bf16)
+      pair_kernel<HC, float, float><<<grid, NT, 0, stream>>>(
+          g, cvec, static_cast<const float*>(Mk), static_cast<const float*>(Mi),
+          row_out, col_out);
+    else if (!vecs_bf16)
+      pair_kernel<HC, bf16, float><<<grid, NT, 0, stream>>>(
+          g, cvec, static_cast<const float*>(Mk), static_cast<const float*>(Mi),
+          row_out, col_out);
+    else
+      pair_kernel<HC, bf16, bf16><<<grid, NT, 0, stream>>>(
+          g, cvec, static_cast<const bf16*>(Mk), static_cast<const bf16*>(Mi), row_out,
+          col_out);
     return (int)cudaGetLastError();
   });
 }
 
-// K6b. A, dA: (B, nr, nc) f32; Gr, Mi: (B, nr, H) f32; Mk, Gc: (B, nc, H)
-// f32; part: at least B * ceil(nr / 8) * 4 floats; dw: (B, 4) f32.
-extern "C" int gncde_pair_dw(const float* A, const float* dA, int nr, int nc,
-                             const float* Gr, const float* Mk, const float* Mi,
-                             const float* Gc, int B, int H, float* part, float* dw,
-                             cudaStream_t stream) {
+// K6b and K6b-bf. A, dA: (B, nr, nc); Gr, Mi: (B, nr, H); Mk, Gc: (B, nc,
+// H); all f32 (bf16 = 0) or all bf16 (1); part: at least
+// B * ceil(nr / 8) * 4 floats; dw: (B, 4) f32.
+extern "C" int gncde_pair_dw(const void* A, const void* dA, int nr, int nc,
+                             const void* Gr, const void* Mk, const void* Mi,
+                             const void* Gc, int B, int H, int bf16_in, float* part,
+                             float* dw, cudaStream_t stream) {
   if (!dims_ok(B, nr, nc, H)) return (int)cudaErrorInvalidValue;
   const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, Mk, Gc, H);
   return by_width(H, [&](auto hc) {
     constexpr int HC = decltype(hc)::value, BO = bo_for(4, HC);
     const int nb = (nr + BO - 1) / BO;
-    pair_dw_kernel<HC><<<dim3(nb, 1, B), NT, 0, stream>>>(g, Gr, Mi, part);
+    if (bf16_in)
+      pair_dw_kernel<HC, bf16, bf16><<<dim3(nb, 1, B), NT, 0, stream>>>(
+          g, static_cast<const bf16*>(Gr), static_cast<const bf16*>(Mi), part);
+    else
+      pair_dw_kernel<HC, float, float><<<dim3(nb, 1, B), NT, 0, stream>>>(
+          g, static_cast<const float*>(Gr), static_cast<const float*>(Mi), part);
     const int err = (int)cudaGetLastError();
     return err != 0 ? err : launch_reduce(part, B, nb, 4, dw, stream);
   });

@@ -14,6 +14,7 @@ import typing as tp
 import torch
 from torch import nn
 
+from .. import ops as ops_config
 from ..interp import (
     CubicInterpolation,
     LinearInterpolation,
@@ -30,9 +31,14 @@ from .vector_fields import CDEWrapperVectorField
 def adjacency_control(interpolation: str, ts, coeffs) -> MatrixControl:
     """Slim control from value-channel coefficients (``data/windows.py``):
     ``(d, c, b, a)`` each ``(B, T-1, n, n)`` (cubic) or knots ``(B, T, n, n)``
-    (linear)."""
+    (linear), stored in bfloat16 under ``fusion_precision: bf16`` as the JAX
+    model's ``make_control(slim=True)`` stores them."""
+    bf16 = ops_config.bf16_precision()
     if interpolation == "linear":
-        return MatrixControl(LinearInterpolation(ts, coeffs))
+        return MatrixControl(LinearInterpolation(ts, coeffs.to(torch.bfloat16) if bf16
+                                                 else coeffs))
+    if bf16:
+        coeffs = tuple(c.to(torch.bfloat16) for c in coeffs)
     return with_reductions(MatrixControl(CubicInterpolation(ts, tuple(coeffs))))
 
 

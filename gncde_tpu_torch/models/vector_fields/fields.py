@@ -1,11 +1,11 @@
 """Graph vector fields (the functions the CDE solver integrates).
 
 Counterpart of ``gncde_tpu/models/vector_fields/fields.py`` for the
-permutation-equivariant fields: the undirected one, with or without
-``enc_idx`` modulation, and the directed one without it. Call signature ``vf(t, y, control) -> dy/dt`` with a leading
-batch dim written out: ``t`` is ``(B,)``, ``y`` is ``(B, n, H)`` and the
-control's path holds per-element knots ``(B, T)`` and planes
-``(B, T-1, n, n)``.
+permutation-equivariant fields, undirected and directed, each with or
+without ``enc_idx`` modulation. Call signature ``vf(t, y, control) ->
+dy/dt`` with a leading batch dim written out: ``t`` is ``(B,)``, ``y`` is
+``(B, n, H)`` and the control's path holds per-element knots ``(B, T)`` and
+planes ``(B, T-1, n, n)``.
 """
 
 from __future__ import annotations
@@ -51,18 +51,27 @@ def _mlp_params(mlp):
     return [p for layer in mlp.layers for p in (layer.weight, layer.bias) if p is not None]
 
 
+def _plane_dtype():
+    """The modulated planes' dtype: bf16 under ``fusion_precision: bf16``
+    (the JAX package's ``out_dtype``), else f32."""
+    return torch.bfloat16 if ops_config.bf16_precision() else torch.float32
+
+
 class _FusedModulate(torch.autograd.Function):
-    """Forward: K7 on CUDA planes (its plain version on CPU ones). Backward:
-    autograd through the plain :func:`_modulate_matrix`, recomputed from the
-    saved planes and embedding, as ``_fused_modulate_bwd`` does. Inputs:
-    ``(mlp_a, mlp_d, A, dA, emb, *params of mlp_a, *params of mlp_d)``; the
-    parameters are passed so that autograd returns their gradients."""
+    """Forward: K7 on CUDA planes (its plain version on CPU ones), with bf16
+    outputs (K7bf) under ``fusion_precision: bf16``. Backward: autograd
+    through the plain f32 :func:`_modulate_matrix`, recomputed from the
+    saved planes and embedding, the planes' cotangents cast to f32 first,
+    as ``_fused_modulate_bwd`` differentiates ``_fused_modulate_ref``'s
+    cast. Inputs: ``(mlp_a, mlp_d, A, dA, emb, *params of mlp_a, *params of
+    mlp_d)``; the parameters are passed so that autograd returns their
+    gradients."""
 
     @staticmethod
     def forward(ctx, mlp_a, mlp_d, A, dA, emb, *params):
         ctx.mlps = (mlp_a, mlp_d)
         ctx.save_for_backward(A, dA, emb)
-        return _mod.modulate_pair(A, dA, mlp_a, mlp_d, emb)
+        return _mod.modulate_pair(A, dA, mlp_a, mlp_d, emb, _plane_dtype())
 
     @staticmethod
     def backward(ctx, gA, gD):
@@ -75,39 +84,45 @@ class _FusedModulate(torch.autograd.Function):
                     _modulate_matrix(leaves[1], mlp_d, leaves[2]))
             inputs = leaves + _mlp_params(mlp_a) + _mlp_params(mlp_d)
             wrt = [x for x, need in zip(inputs, needs) if need]
-            grads = iter(torch.autograd.grad(outs, wrt, (gA, gD)))
+            grads = iter(torch.autograd.grad(outs, wrt, (gA.float(), gD.float())))
         return (None, None, *[next(grads) if need else None for need in needs])
 
 
 def fused_modulate(A, dA, mlp_a, mlp_d, emb):
-    """Differentiable fused modulation of both planes, ``(B, n, n)`` f32
-    each (unpadded: the JAX package pads to its consumer's tile)."""
+    """Differentiable fused modulation of both f32 planes, ``(B, n, n)``
+    each in the precision's dtype (unpadded: the JAX package pads to its
+    consumer's tile)."""
     return _FusedModulate.apply(mlp_a, mlp_d, A, dA, emb,
                                 *_mlp_params(mlp_a), *_mlp_params(mlp_d))
 
 
+def enc_idx_planes(control_adj, t, batch):
+    """``(A(t), dA(t))`` ``(B, n, n)`` f32 from a cubic control's interval
+    Hermite planes, as the enc_idx route evaluates them before modulation."""
+    path = control_adj.path
+    ts = path.ts if path.ts.dim() == 2 else path.ts.unsqueeze(0).expand(batch, -1)
+    idx, tau = _mk.interval(ts, t)
+    return _mk.hermite(tuple(path.coeffs), idx, tau)
+
+
 def _enc_idx_pallas_eval(vf, control_adj, t, y):
-    """The enc_idx eval on the plane-pair kernels: ``A(t)``, ``dA(t)`` from
-    the interval Hermite planes, both modulated by K7 (which raises on MLPs
-    it does not take), then
+    """The enc_idx eval on the plane-pair kernels: ``A(t)``, ``dA(t)`` in f32
+    from the interval Hermite planes (bf16 stacks under ``fusion_precision:
+    bf16`` read as stored and upcast), both modulated by K7 (K7bf under
+    bf16) when both MLPs are of its family and share their depth, else by
+    the decomposed :func:`_modulate_matrix` (its planes cast to bf16 under
+    bf16), as the JAX package dispatches; then
     :func:`~gncde_tpu_torch.ops.pair.tiled_vf_eval_planes` (K6 per layer,
     the planes differentiable)."""
-    if ops_config.bf16_precision():
-        raise NotImplementedError(
-            "the enc_idx kernel route under fusion_precision 'bf16' needs K7 with bf16 "
-            "output and K6 on bf16 planes, which are not ported (ROADMAP Queue 2 B2); "
-            "use 'f32'")
-    path = control_adj.path
-    ts = path.ts
-    if ts.dim() == 1:
-        ts = ts.unsqueeze(0).expand(y.shape[0], -1)
-    idx, tau = _mk.interval(ts, t)
-    df, cf, bf, af = _mk.select_planes(tuple(path.coeffs), idx)
-    tt = tau[:, None, None]
-    A_t = ((df * tt + cf) * tt + bf) * tt + af
-    dA_t = (3.0 * df * tt + 2.0 * cf) * tt + bf
+    A_t, dA_t = enc_idx_planes(control_adj, t, y.shape[0])
     emb = vf.idx_enc.node_embedding()
-    A_m, dA_m = fused_modulate(A_t, dA_t, vf.msg_func_adj, vf.msg_func_adj_deriv, emb)
+    mlp_a, mlp_d = vf.msg_func_adj, vf.msg_func_adj_deriv
+    if (_mod.modulate_supported(mlp_a) and _mod.modulate_supported(mlp_d)
+            and mlp_a.depth == mlp_d.depth):
+        A_m, dA_m = fused_modulate(A_t, dA_t, mlp_a, mlp_d, emb)
+    else:
+        A_m = _modulate_matrix(A_t, mlp_a, emb).to(_plane_dtype())
+        dA_m = _modulate_matrix(dA_t, mlp_d, emb).to(_plane_dtype())
     return _pair.tiled_vf_eval_planes(A_m, dA_m, y, vf)
 
 
@@ -218,17 +233,17 @@ class PermEquivGraphVectorField(nn.Module):
 
 class PermEquivDirGraphVectorField(nn.Module):
     """Directed 11-term perm-equiv vf (perm_equiv_dir_graph_vector_field.py),
-    without ``enc_idx`` modulation.
+    with optional ``enc_idx`` modulation.
 
     As the JAX field, it builds the index encoder (``enc_type``, width
     ``idx_dim``) and both modulation MLPs whether or not ``enc_idx`` is set,
     in the JAX field order ``gnn_layers``, ``idx_enc``, ``msg_func_adj``,
     ``msg_func_adj_deriv``, so that parameter lists, optimiser state and
     ``save_weights`` files agree; without ``enc_idx`` the forward never
-    reads them (their gradients are zero). ``enc_idx=True`` raises: the
-    directed enc_idx field is ROADMAP Queue 1 item 6. The dispatch is the
-    undirected field's: K1/K2 for n <= 640, the tiled kernels up to
-    ``TILED_MAX_N``, the layer stack beyond (and for sparse controls), each
+    reads them (their gradients are zero). The dispatch is the undirected
+    field's: with ``enc_idx``, K7 and K6a/K6b up to ``TILED_MAX_N``;
+    without, K1/K2 for n <= 640 and the tiled kernels up to
+    ``TILED_MAX_N``; the layer stack beyond (and for sparse controls), each
     reading the directed basis off the layers.
     """
 
@@ -240,10 +255,6 @@ class PermEquivDirGraphVectorField(nn.Module):
                  enc_idx: bool = False, enc_type: str = "mlp", idx_dim: int = 512, *,
                  generator: torch.Generator, device=None, **_unused):
         super().__init__()
-        if enc_idx:
-            raise NotImplementedError(
-                "the directed field with enc_idx modulation is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
         self.gnn_layers = _make_stack(input_dim, hidden_dim, output_dim, num_layers,
                                       generator, device, ConvEquivFusionDirectedLayer)
         kw = dict(generator=generator, device=device)
@@ -252,9 +263,9 @@ class PermEquivDirGraphVectorField(nn.Module):
         self.msg_func_adj_deriv = MLP(2 * idx_dim + 1, 1, width_size=8, depth=2, **kw)
         self.data_embed_dim = data_embed_dim
         self.num_nodes = num_nodes
-        self.enc_idx = False
+        self.enc_idx = enc_idx
 
     fused_rk_step = _fused_rk_step_hook
-    # The undirected field's dispatch with enc_idx off: every route it takes
-    # reads the basis (8 or 11 terms) off the layers.
+    # The undirected field's dispatch: every route it takes reads the basis
+    # (8 or 11 terms) off the layers.
     forward = PermEquivGraphVectorField.forward

@@ -54,9 +54,9 @@ CPU. The tiled regime (bf16 operands in every precision), the per-layer
 ``pipeline`` / ``pallas`` backends (f32 kernels on A(t) evaluated from the
 bf16 stacks) and the sparse controls (f32, built from the f32 coefficients)
 compute what the JAX package computes under ``"bf16"``. The enc_idx kernel
-route raises under ``"bf16"``: the JAX package switches its modulation to
-bf16 planes there, and K7/K6 on bf16 planes are not ported (ROADMAP Queue 2
-B2).
+route modulates into bf16 planes there, as the JAX package does: K7bf
+writes them, K6a-bf forms B1/B2 from them in bf16, and the backward runs
+K6a-bf and K6b-bf on bf16 operands (``ops/modulate.py``, ``ops/pair.py``).
 """
 
 from __future__ import annotations

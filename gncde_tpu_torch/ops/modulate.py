@@ -14,14 +14,18 @@ pointwise with a tiny width::
 (``csrc/modulate.cu``) for CUDA tensors, counts the launch, and raises on
 what the kernel does not take; on CPU tensors it runs
 :func:`plain_modulate_pair`. Planes are batch-first ``(B, n, n)`` float32
-and unpadded; the embedding and both MLPs are shared by the batch. Forward
-only: the field differentiates through ``fields.fused_modulate``, whose
-backward recomputes the plain decomposed chain (as ``_fused_modulate_bwd``).
+and unpadded; the embedding and both MLPs are shared by the batch. The
+outputs are float32, or under ``fusion_precision: bf16`` bfloat16 (K7bf):
+the chain runs in f32 and each output is rounded once, as the JAX kernel's
+``out_dtype`` store. Forward only: the field differentiates through
+``fields.fused_modulate``, whose backward recomputes the plain decomposed
+chain in f32 (as ``_fused_modulate_bwd``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -70,10 +74,11 @@ def modulate_matrix(mat, mlp, emb):
     return ACTIVATIONS[mlp.final_activation](z)[:, 0]
 
 
-def plain_modulate_pair(A, dA, mlp_a, mlp_d, emb):
+def plain_modulate_pair(A, dA, mlp_a, mlp_d, emb, out_dtype=torch.float32):
     """K7's plain version: ``(A_m, dA_m)``, each plane's decomposed chain
-    built from the MLPs themselves."""
-    return modulate_matrix(A, mlp_a, emb), modulate_matrix(dA, mlp_d, emb)
+    built from the MLPs themselves in f32, rounded once to ``out_dtype``."""
+    return (modulate_matrix(A, mlp_a, emb).to(out_dtype),
+            modulate_matrix(dA, mlp_d, emb).to(out_dtype))
 
 
 def _mlp_scalars(mlp_a, mlp_d):
@@ -100,7 +105,7 @@ def _edge_projections(mlp_a, mlp_d, emb):
 
 
 _ARGTYPES = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P, _build.I,
-             _build.P, _build.P, _build.P, _build.P, _build.P]
+             _build.P, _build.P, _build.I, _build.P, _build.P, _build.P]
 
 
 def _fn():
@@ -123,10 +128,10 @@ def kernel_inputs(mlp_a, mlp_d, emb):
     return mlp_a.depth, wts, Ei.contiguous(), Ej.contiguous()
 
 
-def launch(A, dA, depth, wts, Ei, Ej):
-    """K7's launch on contiguous float32 CUDA planes ``(B, n, n)`` with the
-    inputs of :func:`kernel_inputs`; raises on what the kernel does not
-    take."""
+def launch(A, dA, depth, wts, Ei, Ej, out_dtype=torch.float32):
+    """K7's launch (K7bf's with a bfloat16 ``out_dtype``) on contiguous
+    float32 CUDA planes ``(B, n, n)`` with the inputs of
+    :func:`kernel_inputs`; raises on what the kernel does not take."""
     shape = A.shape
     for P in (A, dA):
         if (P.dim() != 3 or P.shape != shape or shape[1] != shape[2] or not P.is_cuda
@@ -137,28 +142,34 @@ def launch(A, dA, depth, wts, Ei, Ej):
     if Ei.shape != (n, 2 * WIDTH) or Ei.device != A.device:
         raise ValueError(f"K7: node projections {tuple(Ei.shape)} do not match n={n} on "
                          f"the planes' device")
-    outA = torch.empty_like(A)
-    outD = torch.empty_like(dA)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K7: output dtype {out_dtype} is neither float32 nor bfloat16")
+    bf16 = out_dtype == torch.bfloat16
+    outA = torch.empty_like(A, dtype=out_dtype)
+    outD = torch.empty_like(dA, dtype=out_dtype)
     err = _fn()(_build.ptr(A), _build.ptr(dA), n, B, depth, _build.ptr(wts),
-                wts.numel() // 2, _build.ptr(Ei), _build.ptr(Ej), _build.ptr(outA),
-                _build.ptr(outD), _build.stream())
-    _build.check(err, "K7 modulate")
-    modulate_pair.launches += 1
+                wts.numel() // 2, _build.ptr(Ei), _build.ptr(Ej), int(bf16),
+                _build.ptr(outA), _build.ptr(outD), _build.stream())
+    _build.check(err, "K7bf modulate" if bf16 else "K7 modulate")
+    (modulate_pair.bf16 if bf16 else modulate_pair).launches += 1
     return outA, outD
 
 
-def modulate_pair(A, dA, mlp_a, mlp_d, emb):
-    """K7: ``(A_m, dA_m)`` = the per-edge MLP ``mlp_a`` of ``A`` and
-    ``mlp_d`` of ``dA`` with node embeddings ``emb`` ``(n, d)``; planes
-    ``(B, n, n)`` float32. On the card both MLPs must be of the kernel's
-    family (:func:`modulate_supported`) and share their depth."""
+def modulate_pair(A, dA, mlp_a, mlp_d, emb, out_dtype=torch.float32):
+    """K7 (K7bf for a bfloat16 ``out_dtype``): ``(A_m, dA_m)`` = the
+    per-edge MLP ``mlp_a`` of ``A`` and ``mlp_d`` of ``dA`` with node
+    embeddings ``emb`` ``(n, d)``; planes ``(B, n, n)`` float32, outputs in
+    ``out_dtype``. On the card both MLPs must be of the kernel's family
+    (:func:`modulate_supported`) and share their depth."""
     if not A.is_cuda:
-        return plain_modulate_pair(A, dA, mlp_a, mlp_d, emb)
+        return plain_modulate_pair(A, dA, mlp_a, mlp_d, emb, out_dtype)
     if not (modulate_supported(mlp_a) and modulate_supported(mlp_d)
             and mlp_a.depth == mlp_d.depth):
         raise ValueError(f"K7: the MLPs must be relu -> identity with biases, width "
                          f"{WIDTH} and one depth >= 1")
-    return launch(A, dA, *kernel_inputs(mlp_a, mlp_d, emb))
+    return launch(A, dA, *kernel_inputs(mlp_a, mlp_d, emb), out_dtype)
 
 
+#: Launches of the f32-output kernel; ``.bf16.launches`` those of K7bf.
 modulate_pair.launches = 0
+modulate_pair.bf16 = types.SimpleNamespace(launches=0)

@@ -12,9 +12,12 @@ node embedding, so their cotangents flow back through the rank-H products
 Each kernel wrapper (:func:`pair_call`, :func:`pair_dw_call`) launches
 ``csrc/tiled.cu`` for CUDA tensors, counts the launch, and raises on what
 the kernel does not take; on CPU tensors it runs its plain version
-(``plain_pair``, ``plain_pair_dw``). Everything is float32: the JAX path's
-``fusion_precision`` defaults to f32, so the modulated planes, the vectors
-and B1/B2 (formed in f32, unlike K3's bf16) are f32.
+(``plain_pair``, ``plain_pair_dw``). Precision follows the planes, as in
+the JAX package: f32 planes (``fusion_precision: f32``) form B1/B2 in f32
+with f32 vectors; bf16 planes (``bf16``: K7bf's output) form B1/B2 in
+bf16 (K6a-bf, the coefficients and every product and sum rounded to bf16)
+and multiply them with the forward's f32 vectors or the backward's bf16
+cotangents, and K6b-bf takes bf16 vectors; every sum is f32.
 
 Shapes are batch-first: planes ``(B, nr, nc)``, ``Mk`` ``(B, nc, H)``,
 ``Mi`` ``(B, nr, H)``, unpadded (the kernels bound-check nr and nc). The
@@ -25,6 +28,7 @@ over it.
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -32,28 +36,34 @@ from . import _build
 from .tiled import MAX_H, TILED_MAX_N, rank_terms
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 
 
 def plain_pair(A, dA, cvec, Mk, Mi):
-    """K6a's plain version: ``(B1 @ Mk, B2^T @ Mi)`` with B1 = cvec[0] A +
-    cvec[1] dA and B2 = cvec[2] A + cvec[3] dA, all f32."""
-    B1 = cvec[0] * A + cvec[1] * dA
-    B2 = cvec[2] * A + cvec[3] * dA
-    return B1 @ Mk, B2.transpose(-2, -1) @ Mi
+    """K6a's plain version: ``(B1 @ Mk, B2^T @ Mi)`` f32 with B1 = cvec[0] A
+    + cvec[1] dA and B2 = cvec[2] A + cvec[3] dA, formed in the planes'
+    dtype (bf16: the coefficients rounded first, then each product and the
+    sum, as ``_pair_kernel``), the products of their values with the
+    vectors' in f32."""
+    c = cvec.to(A.dtype)
+    B1 = (c[0] * A + c[1] * dA).float()
+    B2 = (c[2] * A + c[3] * dA).float()
+    return B1 @ Mk.float(), B2.transpose(-2, -1) @ Mi.float()
 
 
 def plain_pair_dw(A, dA, Gr, Mk, Mi, Gc):
     """K6b's plain version: ``(B, 4)`` = (<A, Gr Mk^T>, <dA, Gr Mk^T>,
-    <A, Mi Gc^T>, <dA, Mi Gc^T>)."""
-    P = Gr @ Mk.transpose(-2, -1)
-    Q = Mi @ Gc.transpose(-2, -1)
-    return torch.stack([(X * Y).sum((1, 2)) for Y in (P, Q) for X in (A, dA)], -1)
+    <A, Mi Gc^T>, <dA, Mi Gc^T>), the products of the operands' values and
+    the sums in f32."""
+    P = Gr.float() @ Mk.float().transpose(-2, -1)
+    Q = Mi.float() @ Gc.float().transpose(-2, -1)
+    return torch.stack([(X.float() * Y).sum((1, 2)) for Y in (P, Q) for X in (A, dA)], -1)
 
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
-    "gncde_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    "gncde_pair_dw": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "gncde_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gncde_pair_dw": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -65,24 +75,30 @@ def _fn(name: str):
     return fn
 
 
-def _check(what, A, dA, row_vecs, col_vecs) -> tuple[int, int, int, int]:
-    """(B, nr, nc, H) of contiguous f32 CUDA planes ``(B, nr, nc)``, row-side
-    vectors ``(B, nr, H)`` and column-side vectors ``(B, nc, H)`` on one
-    device; raises otherwise."""
+def _check(what, A, dA, row_vecs, col_vecs, vec_dtypes) -> tuple[int, int, int, int]:
+    """(B, nr, nc, H) of contiguous float32 or bfloat16 CUDA planes ``(B, nr,
+    nc)`` of one dtype, row-side vectors ``(B, nr, H)`` and column-side
+    vectors ``(B, nc, H)`` of one dtype in ``vec_dtypes`` on one device;
+    raises otherwise."""
     shape = A.shape
     for P in (A, dA):
-        if (P.dim() != 3 or P.shape != shape or P.dtype != F32 or not P.is_cuda
-                or not P.is_contiguous()):
-            raise ValueError(f"{what}: planes must be contiguous float32 CUDA tensors of "
-                             f"one (B, nr, nc) shape; got {tuple(P.shape)} {P.dtype}")
+        if (P.dim() != 3 or P.shape != shape or P.dtype not in (F32, BF16)
+                or P.dtype != A.dtype or not P.is_cuda or not P.is_contiguous()):
+            raise ValueError(f"{what}: planes must be contiguous float32 or bfloat16 CUDA "
+                             f"tensors of one (B, nr, nc) shape and dtype; got "
+                             f"{tuple(P.shape)} {P.dtype}")
     B, nr, nc = shape
     if max(nr, nc) > TILED_MAX_N:
         raise ValueError(f"{what}: extent {max(nr, nc)} above TILED_MAX_N={TILED_MAX_N}")
     H = row_vecs[0].shape[-1]
+    vdt = row_vecs[0].dtype
+    if vdt not in vec_dtypes:
+        raise ValueError(f"{what}: vectors of dtype {vdt} on {A.dtype} planes; the kernel "
+                         f"takes {vec_dtypes}")
     for V, rows in [(V, nr) for V in row_vecs] + [(V, nc) for V in col_vecs]:
-        if (V.shape != (B, rows, H) or V.dtype != F32 or V.device != A.device
+        if (V.shape != (B, rows, H) or V.dtype != vdt or V.device != A.device
                 or not V.is_contiguous()):
-            raise ValueError(f"{what}: vectors must be contiguous float32 (B={B}, {rows}, "
+            raise ValueError(f"{what}: vectors must be contiguous {vdt} (B={B}, {rows}, "
                              f"H={H}) tensors on the planes' device; got "
                              f"{tuple(V.shape)} {V.dtype}")
     if not 1 <= H <= MAX_H:
@@ -91,53 +107,65 @@ def _check(what, A, dA, row_vecs, col_vecs) -> tuple[int, int, int, int]:
 
 
 def pair_call(A, dA, cvec, Mk, Mi):
-    """K6a: ``(rowpart (B, nr, H), colpart (B, nc, H))`` f32 for f32 planes
+    """K6a: ``(rowpart (B, nr, H), colpart (B, nc, H))`` f32 for planes
     ``(B, nr, nc)``, ``cvec`` = (c_row0, c_row1, c_col0, c_col1), ``Mk``
-    ``(B, nc, H)`` and ``Mi`` ``(B, nr, H)``."""
+    ``(B, nc, H)`` and ``Mi`` ``(B, nr, H)``: f32 planes with f32 vectors,
+    or (K6a-bf) bf16 planes with f32 or bf16 vectors."""
     if not A.is_cuda:
         return plain_pair(A, dA, cvec, Mk, Mi)
-    B, nr, nc, H = _check("K6a", A, dA, (Mi,), (Mk,))
+    bf16 = A.dtype == BF16
+    what = "K6a-bf" if bf16 else "K6a"
+    B, nr, nc, H = _check(what, A, dA, (Mi,), (Mk,), (F32, BF16) if bf16 else (F32,))
     if cvec.shape != (4,) or cvec.dtype != F32 or cvec.device != A.device:
-        raise ValueError("K6a: cvec must be a float32 (4,) tensor on the planes' device")
+        raise ValueError(f"{what}: cvec must be a float32 (4,) tensor on the planes' device")
     row = torch.empty((B, nr, H), device=A.device, dtype=F32)
     col = torch.empty((B, nc, H), device=A.device, dtype=F32)
     err = _fn("gncde_pair")(
         _build.ptr(A), _build.ptr(dA), nr, nc, _build.ptr(cvec), _build.ptr(Mk),
-        _build.ptr(Mi), B, H, _build.ptr(row), _build.ptr(col), _build.stream())
-    _build.check(err, "K6a pair")
-    pair_call.launches += 1
+        _build.ptr(Mi), B, H, int(bf16), int(Mk.dtype == BF16), _build.ptr(row),
+        _build.ptr(col), _build.stream())
+    _build.check(err, f"{what} pair")
+    (pair_call.bf16 if bf16 else pair_call).launches += 1
     return row, col
 
 
 def pair_dw_call(A, dA, Gr, Mk, Mi, Gc):
-    """K6b: per-element ``(B, 4)`` = (<A, Gr Mk^T>, <dA, Gr Mk^T>,
-    <A, Mi Gc^T>, <dA, Mi Gc^T>) for f32 planes ``(B, nr, nc)``, ``Gr``,
-    ``Mi`` ``(B, nr, H)`` and ``Mk``, ``Gc`` ``(B, nc, H)``."""
+    """K6b: per-element ``(B, 4)`` f32 = (<A, Gr Mk^T>, <dA, Gr Mk^T>,
+    <A, Mi Gc^T>, <dA, Mi Gc^T>) for planes ``(B, nr, nc)``, ``Gr``, ``Mi``
+    ``(B, nr, H)`` and ``Mk``, ``Gc`` ``(B, nc, H)``, all f32 or (K6b-bf)
+    all bf16."""
     if not A.is_cuda:
         return plain_pair_dw(A, dA, Gr, Mk, Mi, Gc)
-    B, nr, nc, H = _check("K6b", A, dA, (Gr, Mi), (Mk, Gc))
+    bf16 = A.dtype == BF16
+    what = "K6b-bf" if bf16 else "K6b"
+    B, nr, nc, H = _check(what, A, dA, (Gr, Mi), (Mk, Gc), (A.dtype,))
     part = torch.empty((B, -(-nr // 8), 4), device=A.device, dtype=F32)  # least BO is 8
     dw = torch.empty((B, 4), device=A.device, dtype=F32)
     err = _fn("gncde_pair_dw")(
         _build.ptr(A), _build.ptr(dA), nr, nc, _build.ptr(Gr), _build.ptr(Mk),
-        _build.ptr(Mi), _build.ptr(Gc), B, H, _build.ptr(part), _build.ptr(dw),
+        _build.ptr(Mi), _build.ptr(Gc), B, H, int(bf16), _build.ptr(part), _build.ptr(dw),
         _build.stream())
-    _build.check(err, "K6b pair_dw")
-    pair_dw_call.launches += 1
+    _build.check(err, f"{what} pair_dw")
+    (pair_dw_call.bf16 if bf16 else pair_dw_call).launches += 1
     return dw
 
 
+#: Launches of the f32 kernels; ``.bf16.launches`` those of K6a-bf, K6b-bf.
 for _f in (pair_call, pair_dw_call):
     _f.launches = 0
+    _f.bf16 = types.SimpleNamespace(launches=0)
 
 
 class PlanePairApply(torch.autograd.Function):
     """``(B1 @ Mk, B2^T @ Mi)`` with B1 = c_row . (A, dA), B2 = c_col .
-    (A, dA); every input differentiable. Backward (``_ppa_bwd``): ``d_Mi``
-    and ``d_Mk`` from one K6a with the coefficient pairs swapped, the ``c``
+    (A, dA); every input differentiable. Backward (``_ppa_bwd``), its
+    operands in the planes' dtype (``mm_dtype``: the cotangents, and for
+    K6b ``Mk`` and ``Mi``, rounded to bf16 under bf16 planes): ``d_Mi`` and
+    ``d_Mk`` from one K6a with the coefficient pairs swapped, the ``c``
     cotangents from K6b, the plane cotangents as the rank-H products
-    ``c_row . g_r Mk^T + c_col . Mi g_c^T`` (``torch.matmul``, as the JAX
-    package leaves them to XLA). Inputs: ``(A, dA, c_row, c_col, Mk, Mi)``.
+    ``c_row . g_r Mk^T + c_col . Mi g_c^T`` (f32 ``torch.matmul``, as the
+    JAX package leaves them to XLA), cast to the planes' dtype. Inputs:
+    ``(A, dA, c_row, c_col, Mk, Mi)``.
     """
 
     @staticmethod
@@ -151,20 +179,22 @@ class PlanePairApply(torch.autograd.Function):
     def backward(ctx, g_r, g_c):
         A, dA, c_row, c_col, Mk, Mi = ctx.saved_tensors
         need_A, need_dA, need_cr, need_cc, need_Mk, need_Mi = ctx.needs_input_grad
-        g_r, g_c = g_r.contiguous(), g_c.contiguous()
+        mm = A.dtype
+        grb, gcb = g_r.to(mm).contiguous(), g_c.to(mm).contiguous()
         d_A = d_dA = d_cr = d_cc = d_Mk = d_Mi = None
         if need_Mk or need_Mi:
             # d_Mi = B2 g_c (row pass, pair c_col); d_Mk = B1^T g_r (column
             # pass, pair c_row): one sweep.
-            d_Mi, d_Mk = pair_call(A, dA, torch.cat([c_col, c_row]), g_c, g_r)
+            d_Mi, d_Mk = pair_call(A, dA, torch.cat([c_col, c_row]), gcb, grb)
         if need_cr or need_cc:
-            dw = pair_dw_call(A, dA, g_r, Mk, Mi, g_c).sum(0)
+            dw = pair_dw_call(A, dA, grb, Mk.to(mm).contiguous(), Mi.to(mm).contiguous(),
+                              gcb).sum(0)
             d_cr, d_cc = dw[:2], dw[2:]
         if need_A or need_dA:
-            GMt = g_r @ Mk.transpose(-2, -1)
-            MGt = Mi @ g_c.transpose(-2, -1)
-            d_A = c_row[0] * GMt + c_col[0] * MGt
-            d_dA = c_row[1] * GMt + c_col[1] * MGt
+            GMt = g_r.float() @ Mk.float().transpose(-2, -1)
+            MGt = Mi.float() @ g_c.float().transpose(-2, -1)
+            d_A = (c_row[0] * GMt + c_col[0] * MGt).to(A.dtype)
+            d_dA = (c_row[1] * GMt + c_col[1] * MGt).to(dA.dtype)
         return (d_A if need_A else None, d_dA if need_dA else None,
                 d_cr if need_cr else None, d_cc if need_cc else None,
                 d_Mk if need_Mk else None, d_Mi if need_Mi else None)
@@ -177,23 +207,29 @@ def plane_pair_apply(A, dA, c_row, c_col, Mk, Mi):
 
 
 def tiled_vf_eval_planes(A, dA, Z, vf):
-    """Evaluate a :class:`PermEquivGraphVectorField` on materialised planes
-    ``A``, ``dA`` ``(B, n, n)`` f32 (the enc_idx path's modulated planes)
-    through K6a per layer, differentiable in the planes, ``Z`` ``(B, n, H)``
-    and the field's parameters.
+    """Evaluate a :class:`PermEquivGraphVectorField` or
+    :class:`PermEquivDirGraphVectorField` on materialised planes ``A``,
+    ``dA`` ``(B, n, n)`` (the enc_idx path's modulated planes: f32, or bf16
+    under ``fusion_precision: bf16``) through K6a per layer, differentiable
+    in the planes, ``Z`` ``(B, n, H)`` and the field's parameters.
 
-    The reductions ``rA``, ``dgA``, ``sA`` (and of ``dA``) are functions of
-    the planes too, so plane gradients flow through them as well as through
-    K6's rank-H cotangents. The undirected rank terms read row sums only,
-    also on the modulated (no longer symmetric) planes, as the JAX package's
-    ``_rank_terms`` does.
+    The reductions -- row sums, diagonals and totals, and for the directed
+    basis the column sums -- come from the planes cast to f32, so their
+    cotangents reach bf16 planes as bf16, as in the JAX package; plane
+    gradients flow through them as well as through K6's rank-H cotangents.
+    The undirected rank terms read row sums only, also on the modulated (no
+    longer symmetric) planes, as the JAX package's ``_rank_terms`` does.
     """
     n = Z.shape[1]
     if A.shape[-2:] != (n, n):
         raise ValueError(f"planes of shape {tuple(A.shape)} do not match n={n}")
-    rA, rdA = A.sum(-1), dA.sum(-1)
-    dgA = torch.diagonal(A, dim1=-2, dim2=-1)
-    dgdA = torch.diagonal(dA, dim1=-2, dim2=-1)
+    Af, dAf = A.float(), dA.float()
+    rA, rdA = Af.sum(-1), dAf.sum(-1)
+    cA = cdA = None
+    if len(vf.gnn_layers[0].params) == 11:
+        cA, cdA = Af.sum(-2), dAf.sum(-2)
+    dgA = torch.diagonal(Af, dim1=-2, dim2=-1)
+    dgdA = torch.diagonal(dAf, dim1=-2, dim2=-1)
     sA, sdA = rA.sum(-1), rdA.sum(-1)
     feats = Z
     L = len(vf.gnn_layers)
@@ -201,7 +237,7 @@ def tiled_vf_eval_planes(A, dA, Z, vf):
         M = layer.conv_layer.transform(feats)  # (B, n, H)
         p = layer.params
         rowp, colp = plane_pair_apply(A, dA, 1.0 + p[0], p[1], M, M)
-        dvec, u, v, c7 = rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA)
+        dvec, u, v, c7 = rank_terms(p, n, rA, rdA, dgA, dgdA, sA, sdA, cA, cdA)
         s = M.sum(1)  # (B, H)
         w = torch.einsum("bn,bnh->bh", v, M)
         feats = (rowp + colp + dvec[..., None] * M + u[..., None] * s[:, None, :]

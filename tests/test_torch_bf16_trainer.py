@@ -19,9 +19,10 @@ of that distance, as a route run in f32 would not be (measured: dense,
 losses 5.1e-4 and parameters 2.8%; megakernel, 1.2e-3 and 2.2%; against
 2.2e-2 and 28%).
 
-Also: under bf16 the enc_idx kernel route raises, naming ROADMAP Queue 2 B2
-(the JAX package modulates into bf16 planes there, and K7/K6 on bf16 planes
-are not ported).
+Also: under bf16 the enc_idx kernel route runs K7bf and K6a-bf/K6b-bf (on
+the CPU their plain versions) on bf16 planes, as the JAX package modulates
+into bf16 planes there (its parity with the JAX bf16 route:
+tests/test_torch_enc_idx_bf16.py).
 """
 
 import numpy as np
@@ -166,10 +167,17 @@ def test_bf16_two_synced_flagship_steps_track_jax(heat, jax_runs, reset, backend
 
 
 def test_bf16_refuses_the_enc_idx_kernel_route(reset):
-    """The enc_idx field on the kernel route (the megakernel backend) raises
-    under bf16 and names B2; under f32 the same call runs."""
+    """The enc_idx field on the kernel route (the megakernel backend) under
+    bf16, which raised naming B2 until K7bf and K6a-bf/K6b-bf were ported
+    (the name is kept from then): it runs, equals its plain route on the
+    same inputs -- A(t), dA(t) in f32 from the bf16 Hermite stacks, the
+    plain K7bf's bf16 planes, the layer stack on them -- bit for bit, and
+    lies a finite, nonzero distance from the f32 call (the witness that
+    the bf16 planes were used). No kernel launches on the CPU."""
     from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
     from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
+    from gncde_tpu_torch.ops import modulate as tmod
+    from gncde_tpu_torch.ops import pair as tp
 
     n, H, B, T = 12, 4, 2, 4
     rng = np.random.default_rng(0)
@@ -179,10 +187,22 @@ def test_bf16_refuses_the_enc_idx_kernel_route(reset):
     vf = TVF(H, H, H, 2, 1, n, enc_idx=True, enc_type="emb", idx_dim=4,
              generator=torch.Generator().manual_seed(0))
     y = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32))
+    t = ts[:, 1] + 0.05
     ops.set_fusion_backend("megakernel")
-    out = vf(ts[:, 1], y, MatrixControl(CubicInterpolation(ts, planes)))
-    assert out.shape == y.shape
-    ops.set_fusion_precision("bf16")
-    bf16 = MatrixControl(CubicInterpolation(ts, tuple(p.to(torch.bfloat16) for p in planes)))
-    with pytest.raises(NotImplementedError, match="B2"):
-        vf(ts[:, 1], y, bf16)
+    bf16_planes = tuple(p.to(torch.bfloat16) for p in planes)
+    with torch.no_grad():
+        f32 = vf(t, y, MatrixControl(CubicInterpolation(ts, bf16_planes)))
+        ops.set_fusion_precision("bf16")
+        launches = (tmod.modulate_pair.bf16.launches, tp.pair_call.bf16.launches)
+        out = vf(t, y, MatrixControl(CubicInterpolation(ts, bf16_planes)))
+        assert (tmod.modulate_pair.bf16.launches, tp.pair_call.bf16.launches) == launches
+        idx, tau = mk.interval(ts, t)
+        A_t, dA_t = mk.hermite(bf16_planes, idx, tau)
+        A_m, dA_m = tmod.plain_modulate_pair(A_t, dA_t, vf.msg_func_adj,
+                                             vf.msg_func_adj_deriv,
+                                             vf.idx_enc.node_embedding(), torch.bfloat16)
+        ref = tp.tiled_vf_eval_planes(A_m, dA_m, y, vf)
+    assert out.shape == y.shape and out.dtype == torch.float32
+    assert torch.equal(out, ref)
+    gap = float((out - f32).abs().max())
+    assert np.isfinite(gap) and gap > 0.0

@@ -3,8 +3,9 @@ CPU: the dense oracles, ``ConvEquivFusionDirectedLayer`` under every branch
 (dense, pipeline, pallas, ELL and BCSR values), its golden, the plain
 versions of K1, K2 and K11 on the directed basis against the JAX kernels in
 Pallas interpret mode, the directed tiled eval, the field's and the TGB
-model's parameter order, the enc_idx refusal and chip_smoke.py's phase 17
-route check at n=25.
+model's parameter order, the directed enc_idx configs' build (their parity:
+tests/test_torch_dir_enc_idx.py) and chip_smoke.py's phase 17 route check
+at n=25.
 
 Every plane is asymmetric (independent uniform entries), so row and column
 sums differ and a row/column swap in any directed term shows. Inputs are
@@ -523,7 +524,7 @@ def test_directed_tiled_vf_eval_matches_jax(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# 8-9. Parameter order, save_weights, configs and the enc_idx refusal
+# 8-9. Parameter order, save_weights, configs and the enc_idx build
 # ---------------------------------------------------------------------------
 
 
@@ -575,25 +576,31 @@ def test_field_and_tgb_model_follow_jax_flatten_order(tmp_path):
 def test_directed_configs_build_and_enc_idx_is_refused():
     """trade_perm_equiv_dir_gncde.yaml (n=255, 32 x 4 -> 512) and
     genre_perm_equiv_dir_gncde.yaml (n=1505, 8 -> 8 -> 8 -> 128) build at
-    full width; the three *_dir_enc_idx* configs still refuse, naming the
-    queue item of the directed enc_idx field, and so does the field."""
+    full width; the three *_dir_enc_idx* configs, which refused until the
+    directed enc_idx field was ported, now build too (enc_idx set, the same
+    layer widths under the H * E * 2 rule), and so do ``VectorFieldCfg``
+    and the field constructor with enc_idx. The name is kept from when the
+    enc_idx configs refused."""
     for name, n, outs in (("trade_perm_equiv_dir_gncde.yaml", 255, [32, 32, 32, 512]),
                           ("genre_perm_equiv_dir_gncde.yaml", 1505, [8, 8, 128])):
-        model = TGBGraphNeuralCDECfg.from_dict(_cfg(name)["model"]).build(
-            torch.Generator().manual_seed(0))
-        vf = model.vector_field
-        assert isinstance(vf, TDVF) and vf.num_nodes == n and not vf.enc_idx
-        assert [l.conv_layer.linear.out_features for l in vf.gnn_layers] == outs
-        assert all(len(l.params) == 11 for l in vf.gnn_layers)
-    for name in ("genre_perm_equiv_dir_enc_idx_gncde.yaml",
-                 "genre_synth_perm_equiv_dir_enc_idx_gncde.yaml",
-                 "trade_perm_equiv_dir_enc_idx_gncde.yaml"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            TGBGraphNeuralCDECfg.from_dict(_cfg(name)["model"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        VectorFieldCfg.from_dict(dict(name="PermEquivDirGraphVectorField", enc_idx=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TDVF(4, 4, 4, 2, 1, 6, enc_idx=True, generator=torch.Generator())
+        for enc in (False, True):
+            if enc:
+                name = name.replace("_dir_", "_dir_enc_idx_")
+            model = TGBGraphNeuralCDECfg.from_dict(_cfg(name)["model"]).build(
+                torch.Generator().manual_seed(0))
+            vf = model.vector_field
+            assert isinstance(vf, TDVF) and vf.num_nodes == n and vf.enc_idx == enc
+            assert [l.conv_layer.linear.out_features for l in vf.gnn_layers] == outs
+            assert all(len(l.params) == 11 for l in vf.gnn_layers)
+    cfg = _cfg("genre_synth_perm_equiv_dir_enc_idx_gncde.yaml")["model"]
+    assert TGBGraphNeuralCDECfg.from_dict(cfg).build(
+        torch.Generator().manual_seed(0)).vector_field.enc_idx
+    vcfg = VectorFieldCfg.from_dict(dict(name="PermEquivDirGraphVectorField", enc_idx=True,
+                                         hidden_dim=4, data_embed_dim=2, num_layers=2,
+                                         num_nodes=6, idx_dim=4))
+    assert vcfg.build(torch.Generator().manual_seed(0)).enc_idx
+    vf = TDVF(4, 4, 4, 2, 1, 6, enc_idx=True, generator=torch.Generator())
+    assert vf.enc_idx and vf.idx_enc.type == "mlp"
 
 
 # ---------------------------------------------------------------------------

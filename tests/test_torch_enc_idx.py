@@ -485,9 +485,10 @@ def _cfg(name):
 def test_genre_enc_idx_config_builds_and_directed_is_refused():
     """configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml builds at full width
     (n=1505, vf 8 -> 8 -> 8 -> 128, emb idx encoder of width 8, two
-    modulation MLPs of width 8 and depth 2); the directed enc_idx config
-    still raises, naming the queue item of the directed enc_idx field (the
-    directed basis itself is ported)."""
+    modulation MLPs of width 8 and depth 2); the directed enc_idx config,
+    which refused until the directed enc_idx field was ported, builds as
+    well, at the same widths on the directed basis (the name is kept from
+    then; its parity: tests/test_torch_dir_enc_idx.py)."""
     cfg = _cfg("genre_perm_equiv_enc_idx_gncde.yaml")
     model = TGBGraphNeuralCDECfg.from_dict(cfg["model"]).build(torch.Generator().manual_seed(0))
     vf = model.vector_field
@@ -497,8 +498,11 @@ def test_genre_enc_idx_config_builds_and_directed_is_refused():
     for mlp in (vf.msg_func_adj, vf.msg_func_adj_deriv):
         assert (mlp.in_size, mlp.width_size, mlp.depth) == (17, 8, 2)
         assert tmod.modulate_supported(mlp)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TGBGraphNeuralCDECfg.from_dict(_cfg("genre_perm_equiv_dir_enc_idx_gncde.yaml")["model"])
+    dcfg = _cfg("genre_perm_equiv_dir_enc_idx_gncde.yaml")["model"]
+    dvf = TGBGraphNeuralCDECfg.from_dict(dcfg).build(torch.Generator().manual_seed(0)).vector_field
+    assert type(dvf).__name__ == "PermEquivDirGraphVectorField" and dvf.enc_idx
+    assert [l.conv_layer.linear.out_features for l in dvf.gnn_layers] == [8, 8, 128]
+    assert all(len(l.params) == 11 for l in dvf.gnn_layers)
 
 
 def test_tgb_enc_idx_cli_runs_on_cpu(tmp_path):

@@ -7,8 +7,9 @@ path's K7 (modulation, ``csrc/modulate.cu``), K6a and K6b (plane pair,
 step K11 (``csrc/fused_step.cu``), the per-layer fused applies K12 and
 K13 (``csrc/fused_apply.cu``), K1, K2 and K11 on the directed 11-term
 basis (K1d, K2d, K11d: the same sources, the basis a template parameter),
-and their fusion_precision bf16 instantiations on bf16 planes (K1bf, K2bf,
-K11bf, either basis: the precision a second template parameter).
+their fusion_precision bf16 instantiations on bf16 planes (K1bf, K2bf,
+K11bf, either basis: the precision a second template parameter), and the
+bf16 enc_idx route's K7bf (bf16 output), K6a-bf and K6b-bf (bf16 planes).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -1207,4 +1208,108 @@ def test_cuda_bf16_kernels_take_only_bf16_planes(cuda):
     sp, ts, tq, y, h, f0, slayers = _step_inputs(cuda, 40, 2, (8, 8))
     with pytest.raises(ValueError, match="planes must be"):
         tfs.fused_step_call(sp, ts, tq, y, h, f0, slayers, get_tableau("tsit5"), bf16=True)
+    assert [c.launches for c in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 enc_idx route: K7bf, K6a-bf, K6b-bf
+# ---------------------------------------------------------------------------
+# K7bf rounds its f32 chain once to bf16: an f32 last-bit difference moves
+# an element by one bf16 ulp, so it is held to one ulp per element beyond
+# K7's f32 bound (chip_smoke.bf16_ulps), and it equals K7's f32 output
+# rounded once, bit for bit (the same device code up to the store). K6a-bf
+# and K6b-bf take the same bf16 operands as their plain versions and form
+# B1/B2 with the same roundings; only the order of the f32 sums differs
+# (1e-4, as K6a/K6b).
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,B,depth", [(300, 2, 2), (37, 1, 1), (90, 1, 3)],
+                         ids=["n300-d2-B2", "n37-d1", "n90-d3"])
+def test_cuda_modulate_bf16_matches_plain(cuda, n, B, depth):
+    rng = np.random.default_rng(2)
+    A = torch.tensor(rng.uniform(0.0, 1.0, (B, n, n)).astype(np.float32), device=cuda)
+    dA = torch.tensor(rng.normal(0.0, 0.5, (B, n, n)).astype(np.float32), device=cuda)
+    emb = torch.tensor(rng.normal(size=(n, 6)).astype(np.float32), device=cuda)
+    ma, md = _mlp_pair(8, depth, 6, cuda)
+    with torch.no_grad():
+        ref = tmod.plain_modulate_pair(A, dA, ma, md, emb, torch.bfloat16)
+        before = (tmod.modulate_pair.launches, tmod.modulate_pair.bf16.launches)
+        got = tmod.modulate_pair(A, dA, ma, md, emb, torch.bfloat16)
+        again = tmod.modulate_pair(A, dA, ma, md, emb, torch.bfloat16)
+        f32 = tmod.modulate_pair(A, dA, ma, md, emb)
+    torch.cuda.synchronize()
+    assert (tmod.modulate_pair.launches, tmod.modulate_pair.bf16.launches) == (
+        before[0] + 1, before[1] + 2)
+    for a, b, c, d in zip(got, ref, again, f32):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert chip_smoke.bf16_ulps(torch, a, b) <= chip_smoke.K7BF_ULPS
+        assert torch.equal(a, c) and torch.equal(a, d.to(torch.bfloat16))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nr,nc,H,B", PAIR_CASES, ids=PAIR_IDS)
+@pytest.mark.parametrize("kernel", ["K6a-bf-f32-vectors", "K6a-bf-bf16-vectors", "K6b-bf"])
+def test_cuda_pair_bf16_kernel_matches_plain(cuda, kernel, nr, nc, H, B):
+    x = _pair_inputs(cuda, nr, nc, H, B)
+    bf = torch.bfloat16
+    A, dA = x["A"].to(bf), x["dA"].to(bf)
+    vdt = torch.float32 if kernel == "K6a-bf-f32-vectors" else bf
+    V = {k: x[k].to(vdt) for k in ("Mk", "Mi", "Gr", "Gc")}
+    if kernel.startswith("K6a"):
+        args = (A, dA, x["cvec"], V["Mk"], V["Mi"])
+        wrapper, plain = tp.pair_call, tp.plain_pair
+    else:
+        args = (A, dA, V["Gr"], V["Mk"], V["Mi"], V["Gc"])
+        wrapper, plain = tp.pair_dw_call, tp.plain_pair_dw
+    before = (wrapper.launches, wrapper.bf16.launches)
+    got, again, ref = wrapper(*args), wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.bf16.launches) == (before[0], before[1] + 2)
+    if kernel == "K6b-bf":
+        got, again, ref = (got,), (again,), (ref,)
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_enc_idx_bf16_field_matches_plain_stack(cuda):
+    """The directed enc_idx field under bf16 on the card (K7bf, K6a-bf per
+    layer, K6a-bf + K6b-bf per layer backward) against the plain versions
+    on the CPU from the route's own planes, inputs and cotangents
+    (chip_smoke phase 25's check at n = 150), within the script's bounds."""
+    vf, ctrl, y, t = chip_smoke.enc_idx_micro_case(torch, 150, 8, 3, 32)
+    ops.set_fusion_precision("bf16")
+    try:
+        errs, launches, _ = chip_smoke.enc_idx_bf16_errors(torch, vf, ctrl, y, t)
+    finally:
+        ops.set_fusion_precision("f32")
+    assert (launches["K7bf"], launches["K6a-bf"], launches["K6b-bf"]) == (1, 6, 3)
+    assert not any(launches[k] for k in ("K7", "K6a", "K6b", "K1", "K3"))
+    assert errs["layers_records"] == 3
+    chip_smoke.check_enc_idx_bf16(errs, "n=150")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_enc_idx_wrappers_raise_instead_of_falling_back(cuda):
+    """K6a-bf takes bf16 vectors only on bf16 planes, K6b-bf bf16 operands
+    only (and K6b f32 ones only), K7 an f32 or bf16 output only: each
+    refusal raises before any launch."""
+    x = _pair_inputs(cuda, 70, 70, 5, 1)
+    bf = torch.bfloat16
+    counters = (tp.pair_call, tp.pair_call.bf16, tp.pair_dw_call, tp.pair_dw_call.bf16,
+                tmod.modulate_pair, tmod.modulate_pair.bf16)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError):  # f32 planes with bf16 vectors
+        tp.pair_call(x["A"], x["dA"], x["cvec"], x["Mk"].to(bf), x["Mi"].to(bf))
+    with pytest.raises(ValueError):  # planes of two dtypes
+        tp.pair_call(x["A"].to(bf), x["dA"], x["cvec"], x["Mk"], x["Mi"])
+    with pytest.raises(ValueError):  # bf16 planes with f32 K6b operands
+        tp.pair_dw_call(x["A"].to(bf), x["dA"].to(bf), x["Gr"], x["Mk"], x["Mi"], x["Gc"])
+    ma, md = _mlp_pair(8, 2, 6, cuda)
+    with pytest.raises(ValueError):
+        tmod.modulate_pair(x["A"], x["dA"], ma, md, torch.zeros((70, 6), device=cuda),
+                           torch.float16)
     assert [c.launches for c in counters] == before
