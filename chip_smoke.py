@@ -33,8 +33,8 @@ Phases, each printing one line before the last:
      (n=1505, hidden 8, 3 layers) on a tgbn-genre-scale surrogate written by
      tools/fetch_tgb.py (gravity model, seed 2, 1505 nodes, 130,000 edges
      per snapshot) cut from 133 snapshots to 40, in the config's windows of
-     10 (800 constant steps each), split 2/1/1 (2 train, 1 validation, 1
-     test window); every train loss and the validation NDCG@10 must be
+     10 (800 constant steps each), split 1/1/2 (1 train, 1 validation, 2
+     test windows); every train loss and the validation NDCG@10 must be
      finite and K3 and K4 must have launched;
   8. the enc_idx kernels K7 (modulate_pair), K6a (pair) and K6b (pair_dw)
      against their plain versions at the tgbn-genre shape (n=1505, H 8 and
@@ -64,7 +64,7 @@ Phases, each printing one line before the last:
      element, max abs err <= 1e-4 * max|ref| (the same function by another
      route), and the gradients of sum(f * W) with respect to the state and
      every field parameter (K9, K8 on the transposed layout against K2),
-     each within 1e-3 * max|ref|; then three epochs of the flagship config at full width through
+     each within 1e-3 * max|ref|; then one epoch of the flagship config at full width through
      ``gncde_tpu_torch.run.dyn``: finite losses, K8 and K9 launched, K1/K2
      not, and the first train loss within 5e-2 relative of phase 5's (a
      sanity bound: the adaptive controller puts correct routes up to 1.3%
@@ -73,7 +73,9 @@ Phases, each printing one line before the last:
      K9, K1, K2 not;
  13. the scaled BCSR step of benchmarks/bcsr_scale.py: n=32768, a circular
      +-64 band (4.2 M edges per knot), bs=128, H=32, 3 layers, 3 knots; the
-     control built from edge lists (no n x n object anywhere), Heun at dt0
+     control built from edge lists (no n x n object anywhere) with its
+     coefficient tiles stored in bf16, as the JAX script stores them (the
+     evaluated tiles that reach K8/K9 are float32, as in JAX), Heun at dt0
      0.25 (8 evals), one warm-up and three SGD steps at lr 1e-3; finite,
      moving losses, K8 and K9 launched;
  14. K11 (the fused RK step) against its plain version (the stage loop of
@@ -179,6 +181,19 @@ Phases, each printing one line before the last:
      nonzero; then one training window of phase 23's config under
      ``ops.set_fusion_precision("bf16")``: finite losses, K7bf, K6a-bf and
      K6b-bf launched, K7, K6a, K6b and the Hermite kernels not.
+ 26. the megakernel design probes P1-P6 (benchmarks/mk_probe*.py) at their
+     own shape (n=400, H=32, L=3, B=16, T=12, bf16 planes): the probe timer
+     ``gncde_tpu_torch.run.mk_probe`` (10 chained evals, 2 Tsit5 steps, 3
+     blocks) launches every variant -- K1-4mm (P1, P5 v4mm, v4mm_mt,
+     v4mm_bf16), K1bf with the probe flags (P3 red, notr, red_notr; P4's
+     nine ablations), K1bf (P2's arrangements, P3 current, P4 full, P5
+     full, P6 seq) and K11bf (P6 fusedstep); then each eval variant against
+     its plain version layer by layer from its own M within 1e-4 * max|ref|
+     (P4 dma_only 1e-5), P2 fixedslice bitwise P2 current, P6 seq and
+     fusedstep each stage by stage against the plain step on their own
+     stage derivatives, each stage layer by layer (1e-4), and fusedstep against seq (y1 1e-5, err and
+     f1 1e-4), each timed beside its plain version, each with the bound of
+     what its own function reads and does (``probe_bound``).
 Phase 12's route check also computes the gradients twice and requires them
 bitwise equal (the ELL backward has no scatter).
 Then one JSON line of every kernel (launches on its main path, error, times
@@ -242,12 +257,14 @@ TILED_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H
                 "odd": dict(n=300, H=5, B=2)}
 MODULATE_TOL = 1e-5
 PAIR_TOL = 1e-4
-#: Phase 7 cuts the surrogate to 40 snapshots in the config's windows of 10,
-#: split to 2 training windows (the fewest that keeps one validation and one
-#: test window), so the script stays well inside its time limit.
+#: Phase 7 cuts the surrogate to 40 snapshots in the config's windows of 10
+#: (4 windows), split 1/1/2: one training window, cut from two when a whole
+#: script passed 1100 s of its 1200 s (the freed window joins the test
+#: split, as phase 9's did). GENRE_SPLIT (2/1/1) is phase 19's.
 GENRE_SNAPSHOTS = 40
 GENRE_SPLIT = ("dataset.split_ratio=[0.5,0.25,0.25]",)
-GENRE_TRAIN_WINDOWS = 2
+GENRE_ONE_TRAIN_SPLIT = ("dataset.split_ratio=[0.25,0.25,0.5]",)
+GENRE_TRAIN_WINDOWS = 1
 #: Phase 9 cuts it to 16 snapshots in windows of 3 (the trade configs'
 #: window), split 1/1/3: one training window, since the whole script passed
 #: 1050 s of its 1200 s with three (phase 24 trains K7/K6 at the same n).
@@ -267,8 +284,9 @@ SPARSE_GRAD_TOL = 1e-3
 #: CPU, and the card's K1 and BCSR routes 1.3% apart in float32, because the
 #: adaptive controller's reject storms at the graph events amplify rounding.
 SPARSE_LOSS_RTOL = 5e-2
-#: Epochs of phases 11 and 12 (the flagship's main path through K8/K9, K10).
-BCSR_EPOCHS = 3
+#: Epochs of phases 11 and 12 (the flagship's main path through K8/K9, K10);
+#: phase 11 was cut from three when a whole script took 1236 s of its 1200.
+BCSR_EPOCHS = 1
 ELL_EPOCHS = 1
 #: benchmarks/bcsr_scale.py's point.
 SCALED = dict(n=32768, bw=64, bs=128, H=32, L=3, T=3)
@@ -301,8 +319,8 @@ TRADE_SEED = 0
 TRADE_NODES = 255
 TRADE_TRAIN_WINDOWS = 3
 #: Phase 19: the directed genre config in phase 9's windows of 3, cut to 2
-#: training windows (12 snapshots, split 2/1/1 as phase 7's) when the whole
-#: script reached 1061 s of its 1200 s with 3 (16 snapshots).
+#: training windows (12 snapshots, split 2/1/1) when the whole script
+#: reached 1061 s of its 1200 s with 3 (16 snapshots).
 GENRE_DIR_CONFIG = "configs/tgb/genre_perm_equiv_dir_gncde.yaml"
 GENRE_DIR_SNAPSHOTS = 12
 GENRE_DIR_TRAIN_WINDOWS = 2
@@ -340,13 +358,9 @@ PAIR_BF16_SHAPES = {**TILED_SHAPES, "trade-H512": dict(n=255, H=512, B=1)}
 K7BF_ULPS = 1.0
 #: Phases 23-25: the reference's directed enc_idx configs at full width, one
 #: training window each on phases 18's and 9's cuts (16 snapshots in windows
-#: of 3: 5 windows, split 1/1/3 by ONE_TRAIN_WINDOW), without the trainer's
-#: evaluation of the initial model (``eval_at_init``): the epoch's own
-#: evaluation checks the same, and each skipped pass over the validation
-#: and test windows costs 4-15 s of the script's 1200 s.
+#: of 3: 5 windows, split 1/1/3 by ONE_TRAIN_WINDOW).
 TRADE_DIR_ENC_IDX_CONFIG = "configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml"
 GENRE_DIR_ENC_IDX_CONFIG = "configs/tgb/genre_perm_equiv_dir_enc_idx_gncde.yaml"
-DIR_ENC_IDX_RUN = ONE_TRAIN_WINDOW + ("eval_at_init=false",)
 #: Phase 25: the directed enc_idx field at benchmarks/enc_idx_micro.py's
 #: shapes (``bench_shape``: T = 6 knots on [0, 1], planes uniform * 0.1,
 #: t = 0.37, B = 1, an emb encoder of width 512, output width H) under
@@ -369,6 +383,16 @@ ENC_IDX_BF16_KERNELS = ("K7bf", "K6a-bf", "K6b-bf")
 #: The kernels a directed enc_idx run must not launch: the Hermite-factorised
 #: kernels of either regime (the per-edge MLP breaks the factorisation).
 HERMITE_KERNELS = ("K1", "K2", "K3", "K4", "K1bf", "K2bf")
+#: Phase 26, the design probes: each variant against its plain version on
+#: the same bf16 planes, layer by layer from the kernel's own M (as K1bf),
+#: at K1_TOL; P4 dma_only (f32 row sums, no rounding) at PROBE_DMA_TOL. P6:
+#: seq and fusedstep each stage by stage against the plain step, each stage
+#: layer by layer from a K1bf launch's M (bf16 flips compound over free
+#: layers: 1.6e-4 at this shape), at STEP_TOL, and K11bf's y1 against the per-stage
+#: K1bf route at STEP_ROUTE_TOL, its err and f1 at STEP_TOL. The probe timer (``gncde_tpu_torch.run.mk_probe``,
+#: the phase's main path) runs with fewer repetitions than its defaults.
+PROBE_DMA_TOL = 1e-5
+PROBE_TIMER_ARGS = ("--evals", "10", "--steps", "2", "--blocks", "3")
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -472,6 +496,26 @@ def k1_bound(s, bf16=False):
                      (sum(4 * n * n * h * B for h in w[1:]), BF16_FLOPS))
     return bound(4 * 4 * n * n * B + 4 * n * B * (w[0] + w[-1]),
                  (sum(2 * n * n * h * B for h in w[1:]), F32_FLOPS))
+
+
+def probe_bound(key, s):
+    """(bound_ms, bound_by) of one eval of the probe variant ``key`` at shape
+    ``s``, from what its own function reads and does: the bf16 planes it
+    reads (P4 no_hermite only a and b), Z unless dma_only, the red operand
+    (B, n, 4) of P3 red and red_notr, the output; per layer its bf16
+    products, 2 n^2 h FLOPs each: four for K1-4mm (P1, P5 v4mm*), one for
+    P4 no_rowmm / no_colmm, none for dma_only (its n^2 f32 adds), two for
+    the rest (K1bf's :func:`k1_bound`)."""
+    n, B, w = s["n"], s["B"], s["widths"]
+    name = key.split("/")[1]
+    if name == "dma_only":
+        return bound(4 * 2 * n * n * B + 4 * n * B * w[-1], (4 * n * n * B, F32_FLOPS))
+    planes = 2 if name == "no_hermite" else 4
+    extra = 4 * 4 * n * B if name in ("red", "red_notr") else 0
+    products = (4 if name in ("restructured", "v4mm", "v4mm_mt", "v4mm_bf16")
+                else 1 if name in ("no_rowmm", "no_colmm") else 2)
+    return bound(planes * 2 * n * n * B + 4 * n * B * (w[0] + w[-1]) + extra,
+                 (sum(products * 2 * n * n * h * B for h in w[1:]), BF16_FLOPS))
 
 
 def k2_bound(s, bf16=False):
@@ -842,7 +886,10 @@ def counters():
 
 def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="tgbn-genre"):
     """One epoch of a TGB config on the ``dataset`` surrogate (genre or
-    trade) through the CLI's entry point; returns the launch counts of that
+    trade) through the CLI's entry point, without the trainer's evaluation
+    of the initial model (``eval_at_init``: the epoch's own evaluation checks
+    the same, and each skipped pass over the validation and test windows
+    costs 4-50 s of the script's 1200 s); returns the launch counts of that
     run."""
     from gncde_tpu_torch.run import tgb
 
@@ -861,7 +908,7 @@ def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="t
             f"dataset.name={dataset}-synth", "dataset.frequency=None",
             f"dataset.data_dir={tmp}/data", f"dataset.cache_dir={tmp}/cache",
             f"checkpoint_dir={tmp}/ckpt/", "epochs=1", "eval_freq=1", "min_epochs=0",
-            "device=cuda", "wandb.mode=disabled", *extra,
+            "eval_at_init=false", "device=cuda", "wandb.mode=disabled", *extra,
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -884,7 +931,7 @@ def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="t
 
 def phase_tgb(torch):
     launches = run_tgb(torch, 7, "configs/tgb/genre_perm_equiv_gncde.yaml", GENRE_SNAPSHOTS,
-                       GENRE_TRAIN_WINDOWS, GENRE_SPLIT)
+                       GENRE_TRAIN_WINDOWS, GENRE_ONE_TRAIN_SPLIT)
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise RuntimeError(f"tiled kernels not launched on the TGB path: {launches}")
     return launches
@@ -1396,7 +1443,8 @@ def phase_scaled(torch):
     snaps = [(src, dst, (0.1 * rng.random(src.size)).astype(np.float32)) for _ in range(T)]
     t0 = time.perf_counter()
     ctrl = bcsr_control_from_edge_snapshots(np.linspace(0.0, 1.0, T, dtype=np.float32),
-                                            snaps, n, block_size=bs).to(dev)
+                                            snaps, n, block_size=bs,
+                                            dtype=torch.bfloat16).to(dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     coeff_bytes = tensor_bytes([ctrl.path.coeffs, ctrl.path.coeffs_T])
@@ -1436,6 +1484,137 @@ def phase_scaled(torch):
         raise RuntimeError(f"phase 13: losses not finite or not moving: {losses}")
     if launches["K8"] <= 0 or launches["K9"] <= 0:
         raise RuntimeError(f"phase 13: K8/K9 not launched: {launches}")
+    if any(c.dtype != torch.bfloat16 for c in (*ctrl.path.coeffs, *ctrl.path.coeffs_T)):
+        raise RuntimeError("phase 13: the coefficient tiles are not stored in bf16")
+    return launches
+
+
+def probe_stepwise(torch, v, planes, idx, tau, Z, layers, rvec=None):
+    """One launch of a probe eval variant against its plain version, layer
+    by layer from the kernel's own M (read back through ``trace``, as
+    :func:`bf16_k1_stepwise`); P4 dma_only (no layers) on its output alone.
+    Returns the kernel's output and ``({what: rel err}, max abs err)``."""
+    trace, mine = {}, {}
+    got = v(planes, idx, tau, Z, layers, rvec=rvec, trace=trace)
+    if "M" not in trace:
+        return got, errs_of(torch, [("out", got, v.plain(planes, idx, tau, Z, layers,
+                                                         rvec=rvec))])
+    ref = v.plain(planes, idx, tau, Z, layers, rvec=rvec, given_M=trace["M"], trace=mine)
+    pairs = [("out", got, ref)] + [(f"M{l}", a, b)
+                                   for l, (a, b) in enumerate(zip(trace["M"], mine["M"]))]
+    return got, errs_of(torch, pairs)
+
+
+def phase_probes(torch, results):
+    """Phase 26: the megakernel design probes P1-P6 (``ops/mk_probe.py``) at
+    their own shape (n=400, H=32, L=3, B=16, T=12, bf16 planes). First the
+    probe timer, the phase's main path, with every count set to 0 before it
+    and read after it (every variant must have launched); then each variant
+    at t=0.37 against its plain version (:func:`probe_stepwise`; P6 ``seq``
+    and ``fusedstep`` stage by stage against the plain step from their own
+    stage derivatives, each stage layer by layer from the M of a K1bf launch
+    on its input, the free-running distance printed beside, and
+    fusedstep against seq), P2 ``fixedslice`` bitwise ``current`` on the
+    same planes, and the times of every wrapper and plain version, each
+    beside its own bound (:func:`probe_bound`). Returns the timer's
+    launches per variant."""
+    from gncde_tpu_torch.ops import fused_step as tfs
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import mk_probe as mp
+    from gncde_tpu_torch.run import mk_probe as timer
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    ps = mp.PROBE_SHAPE
+    n, H, L, B = ps["n"], ps["H"], ps["L"], ps["B"]
+    shape = dict(n=n, B=B, widths=(H,) * (L + 1))
+    mp.reset_launches()
+    for f in counters().values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    timings = timer.main(list(PROBE_TIMER_ARGS))
+    timer_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in mp.VARIANTS.items()}
+    emit({"phase": 26, "timer_s": timer_s, "timer_args": list(PROBE_TIMER_ARGS),
+          "launches": launches})
+    if any(c <= 0 for c in launches.values()):
+        raise RuntimeError(f"phase 26: variants not launched by the timer: {launches}")
+
+    case = timer.make_case(n, H, L, B, ps["T"], torch.device("cuda"))
+    planes, ts, layers, y = case["planes"], case["ts"], case["layers"], case["y0"]
+    t = torch.full((B,), 0.37, device=y.device)
+    idx, tau = mk.interval(ts, t)
+    sliced = tuple(p[:, 3:4].contiguous() for p in planes)
+    idx3, idx0 = torch.full_like(idx, 3), torch.zeros_like(idx)
+    rows = results.setdefault("probes", {})
+    with torch.no_grad():
+        k1bf = mk.megakernel_vf_eval(planes, idx, tau, y, layers, bf16=True)
+        for key, v in mp.VARIANTS.items():
+            if v.kind != "eval":
+                continue
+            p_, i_ = (sliced, idx0) if key == "P2/fixedslice" else (planes, idx)
+            rvec = mp.red_operand(p_, i_, tau, case["reductions"]) if v.needs_red else None
+            got, (errs, abs_err) = probe_stepwise(torch, v, p_, i_, tau, y, layers, rvec)
+            free = rel_err(torch, got, v.plain(p_, i_, tau, y, layers, rvec=rvec))[0]
+            extra = dict(stepwise_rel_errs=errs, free_running_rel_err=free,
+                         bitwise_k1bf=key != "P2/fixedslice" and torch.equal(got, k1bf))
+            if key == "P2/fixedslice":
+                current = mk.megakernel_vf_eval(planes, idx3, tau, y, layers, bf16=True)
+                extra["bitwise_current"] = torch.equal(got, current)
+                if not extra["bitwise_current"]:
+                    raise RuntimeError("phase 26 P2/fixedslice: not bitwise P2/current on "
+                                       "the same planes")
+            ms = time_ms(torch, lambda: v(p_, i_, tau, y, layers, rvec=rvec))
+            plain_ms = time_ms(torch, lambda: v.plain(p_, i_, tau, y, layers, rvec=rvec),
+                               iters=5, warmup=1)
+            tol = PROBE_DMA_TOL if key == "P4/dma_only" else K1_TOL
+            kbms, kby = probe_bound(key, shape)
+            emit({"phase": 26, "variant": key, "family": v.family, **shape,
+                  "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": kbms,
+                  "bound_by": kby, "timer": timings[key], **extra})
+            check_errs(errs, tol, f"phase 26 {key}")
+            rows[key] = (abs_err, ms, plain_ms, kbms, kby, dict(timer=timings[key], **extra))
+
+        def stage(p_, i_, tau_, yi, layers_):
+            # The plain eval of a stage input, layer by layer from the M of a
+            # K1bf launch on it (K11bf computes bitwise the per-stage K1bf).
+            trace = {}
+            mk.megakernel_vf_eval(p_, i_, tau_, yi, layers_, bf16=True, trace=trace)
+            return mk.plain_vf_eval_bf16(p_, i_, tau_, yi, layers_, given_M=trace["M"])
+
+        tab = get_tableau("tsit5")
+        S = tab.num_stages - 1
+        t, h = torch.full((B,), 0.02, device=y.device), torch.full((B,), 0.09, device=y.device)
+        f0 = mk.megakernel_vf_eval(planes, *mk.interval(ts, t), y, layers, bf16=True)
+        seq, fused = (mp.VARIANTS[f"P6/{k}"] for k in ("seq", "fusedstep"))
+        step = {k: v(planes, ts, t, y, h, f0, layers, tab) for k, v in
+                (("seq", seq), ("fusedstep", fused))}
+        ref = seq.plain(planes, ts, t, y, h, f0, layers, tab)
+        names = ("y1", "err", "f1", "ks")
+        route, _ = errs_of(torch, list(zip(names[:3], step["fusedstep"], step["seq"])))
+        sbms, sby = step_bound(n, B, shape["widths"], S, True)
+        for key, v in (("P6/seq", seq), ("P6/fusedstep", fused)):
+            name = key.split("/")[1]
+            free, _ = errs_of(torch, list(zip(names, step[name], ref)))
+            stepwise = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, True,
+                                           given_ks=step[name][3], stage=stage)
+            errs, abs_err = errs_of(torch, list(zip(names, step[name], stepwise)))
+            ms = time_ms(torch, lambda: v(planes, ts, t, y, h, f0, layers, tab))
+            plain_ms = time_ms(torch, lambda: v.plain(planes, ts, t, y, h, f0, layers, tab),
+                               iters=5, warmup=1)
+            extra = dict(stepwise_rel_errs=errs, free_running_rel_errs=free)
+            if name == "fusedstep":
+                extra.update(rel_errs_vs_seq=route, ctas=B * -(-n // 16),
+                             bitwise_seq=all(torch.equal(a, b) for a, b in
+                                             zip(step["fusedstep"], step["seq"])),
+                             resident_ctas=tfs.capacity(y.device, False, True))
+            emit({"phase": 26, "variant": key, "family": v.family, **shape, "method": "tsit5",
+                  "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": sbms,
+                  "bound_by": sby, "timer": timings[key], **extra})
+            rows[key] = (abs_err, ms, plain_ms, sbms, sby, dict(timer=timings[key], **extra))
+            check_errs(errs, STEP_TOL, f"phase 26 {key} stage by stage")
+        check_errs({"y1": route["y1"]}, STEP_ROUTE_TOL, "phase 26 P6 fusedstep vs seq")
+        check_errs({k: route[k] for k in ("err", "f1")}, STEP_TOL,
+                   "phase 26 P6 fusedstep vs seq")
     return launches
 
 
@@ -2272,7 +2451,7 @@ def check_launches(launches, phase, want, forbidden):
 def phase_dir_enc_idx(torch, phase, config, snapshots, dataset, extra=()):
     """Phases 23 (trade) and 24 (genre): one training window of a directed
     enc_idx config at full width through K7, K6a and K6b."""
-    launches = run_tgb(torch, phase, config, snapshots, 1, extra + DIR_ENC_IDX_RUN,
+    launches = run_tgb(torch, phase, config, snapshots, 1, extra + ONE_TRAIN_WINDOW,
                        dataset=dataset)
     check_launches(launches, phase, ENC_IDX_KERNELS, HERMITE_KERNELS + ENC_IDX_BF16_KERNELS)
     return launches
@@ -2481,7 +2660,7 @@ def phase_enc_idx_bf16(torch):
             del vf, ctrl, y, out, out32
             torch.cuda.empty_cache()
         launches = run_tgb(torch, 25, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS, 1,
-                           DIR_ENC_IDX_RUN, dataset="tgbn-trade")
+                           ONE_TRAIN_WINDOW, dataset="tgbn-trade")
     finally:
         ops.set_fusion_precision("f32")
     check_launches(launches, 25, ENC_IDX_BF16_KERNELS, ENC_IDX_KERNELS + HERMITE_KERNELS)
@@ -2532,6 +2711,7 @@ def main() -> int:
     timed(24, phase_dir_enc_idx, torch, 24, GENRE_DIR_ENC_IDX_CONFIG, ENC_IDX_SNAPSHOTS,
           "tgbn-genre", ENC_IDX_WINDOW)
     enc_bf16_launches = timed(25, phase_enc_idx_bf16, torch)
+    probe_launches = timed(26, phase_probes, torch, results)
     emit({"phase_wall_s": walls})
 
     flagship = SHAPES["flagship"]
@@ -2661,6 +2841,18 @@ def main() -> int:
             row["bf16_vectors"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bms, "bound_by": by, **extra}
         kernels.append(row)
+    # The design probes at their own shape (n=400, B=16, 32 x 4); their
+    # launches are phase 26's timer run's. Bound: one K1bf eval's (P6: one
+    # K11bf step's); no single PyTorch call computes any of them.
+    from gncde_tpu_torch.ops import mk_probe as mp
+
+    for key, v in mp.VARIANTS.items():
+        err, ms, plain_ms, bms, by, extra = results["probes"][key]
+        kernels.append({"name": key, "route": "cuda", "source": v.source,
+                        "replaces": v.replaces, "launches": probe_launches[key],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": None, "family": v.family,
+                        "shape": "probe n=400 B=16 32x4", **extra})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,8 @@
 // 11-term one (DIR = true), whose dvec, u and v also read the column sums
 // cA, cdA of A and dA (fused_coeffs_directed, with its two reference
 // quirks: v takes p4'[0] rA + p4'[1] cdA, and c7 scales both of its
-// operands by sum(A)). The undirected instantiation runs exactly the
-// instructions it ran before the directed basis existed.
+// operands by sum(A)). The undirected instantiation computes bit for bit
+// what it computed before the directed basis existed.
 //
 // Layout: CTAs own BM rows of one batch element (grid
 // (ceil(n/BM), B)); the n x n operands never reach device memory -- each
@@ -46,8 +46,19 @@
 // the tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation):
 // each of the CTA's 8 warps owns one 16 x 8 block of the 16 x 64 output
 // chunk, and both products feed its one accumulator. The rank terms are
-// f32 on the unrounded M. The f32 instantiations (BF = false) run the
-// instructions they ran before BF existed.
+// f32 on the unrounded M. The f32 instantiations (BF = false) compute bit
+// for bit what they computed before BF existed.
+//
+// The design probes (csrc/mk_probe.cu, benchmarks/mk_probe4.py and
+// mk_probe5.py) are K1bf with three more compile-time parameters of
+// prep_rows / fwd_rows, all off by default (the instantiations of K1, K2,
+// K11 and their bf16 and directed forms): D, one of mk_probe5.py's
+// ablations (enum Drop), replaces one component; RED takes the statistics
+// from a (B, n, 4) operand [rA, rdA, diagA, diagdA] made outside, and the
+// prep pass then only transforms layer 0's rows; NOTR stages B2 in its
+// natural layout and feeds it transposed to the product (ldmatrix .trans)
+// instead of forming B2^T tiles. They exist only for BF on the undirected
+// basis.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +81,17 @@ constexpr int MAXOUT = 4096; // widest layer output
 constexpr int PPT = (BM * HC + NT - 1) / NT;  // (row, col) pairs per thread
 constexpr float EPS = 1e-6f;
 constexpr int BKP = BK + 8;  // padded k extent of the bf16 MMA tiles
+constexpr int BMP = BM + 8;  // padded i extent of [k][i] tiles: 48-byte rows
+
+// The probes' ablations, in mk_probe5.py's order (ops/mk_probe.py DROPS):
+// the Hermite (A := a, dA := b), the reductions (:= 1), the transposes
+// (B2^T := B2), the B builds (B1 := Ah, B2^T := dAh^T), the row or the
+// column product (:= M), the norm and linear (M := x), the rank terms, or
+// everything but the plane reads (dma_only, csrc/mk_probe.cu's own kernel).
+enum Drop {
+  FULL = 0, NO_HERMITE, NO_REDUCE, NO_TRANSPOSE, NO_BBUILD, NO_ROWMM, NO_COLMM, NO_NORM,
+  NO_GLUE, DMA_ONLY
+};
 
 // The four Hermite interval plane stacks: float32, or bfloat16 when BF.
 template <bool BF>
@@ -161,6 +183,47 @@ __device__ __forceinline__ void herm3(const Planes<BF>& P, long long off, float 
   }
 }
 
+// herm / herm3 under the probes' ablation D: no_hermite takes the planes
+// a and b as A and dA (and reads no other plane; ddA := 0).
+template <int D, bool BF>
+__device__ __forceinline__ void herm_d(const Planes<BF>& P, long long off, float t, float& A,
+                                       float& dA) {
+  if constexpr (D == NO_HERMITE) {
+    A = ldp(P.a + off);
+    dA = ldp(P.b + off);
+  } else {
+    herm(P, off, t, A, dA);
+  }
+}
+
+template <int D, bool BF>
+__device__ __forceinline__ void herm3_d(const Planes<BF>& P, long long off, float t,
+                                        float& A, float& dA, float& ddA) {
+  if constexpr (D == NO_HERMITE) {
+    herm_d<D>(P, off, t, A, dA);
+    ddA = 0.f;
+  } else {
+    herm3(P, off, t, A, dA, ddA);
+  }
+}
+
+// Statistic K (RA, RDA, DGA or DGDA) of node i from an element's stats
+// rows st: the (NSTAT, n) rows of the prep pass (a row pointer for the
+// sums, one index for the diagonals, as the rank terms read them), or under
+// RED the (n, 4) operand (its columns in the same order); 1 under
+// no_reduce.
+template <int D, bool RED, int K>
+__device__ __forceinline__ float stat_at(const float* st, int n, int i) {
+  if constexpr (D == NO_REDUCE)
+    return 1.f;
+  else if constexpr (RED)
+    return st[(long long)i * 4 + K];
+  else if constexpr (K == DGA || K == DGDA)
+    return st[K * n + i];
+  else
+    return (st + K * n)[i];
+}
+
 // One bf16 operand of a product, its coefficient already rounded: round(c *
 // round(x)), exact in f32 before the rounding (8-bit significands).
 __device__ __forceinline__ float bmul(float c, float x) { return rbf(c * rbf(x)); }
@@ -197,6 +260,37 @@ __device__ __forceinline__ void mma_tile(const unsigned short (*S)[BKP],
     mma_bf16(c, ld_pair(&S[g][ks + q]), ld_pair(&S[g + 8][ks + q]),
              ld_pair(&S[g][ks + q + 8]), ld_pair(&S[g + 8][ks + q + 8]),
              ld_pair(&Bt[nb0 + g][ks + q]), ld_pair(&Bt[nb0 + g][ks + q + 8]));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed on the way into
+// the fragment: lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+
+// c += T^T Bt^T over one BK-deep tile for the warp's 16 x 8 block (columns
+// nb0 .. nb0 + 7), the row operand held transposed: T[k][i]. Matrix m of
+// the x4 load is rows i (m & 1) * 8 .., k (m >> 1) * 8 .. of the operand,
+// i.e. fragment registers a0 .. a3 of mma_tile.
+__device__ __forceinline__ void mma_tile_t(const unsigned short (*T)[BMP],
+                                           const unsigned short (*Bt)[BKP], int nb0,
+                                           float c[4]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = 2 * (lane & 3);
+  const int m = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t a0, a1, a2, a3;
+    ldsm_x4_t(a0, a1, a2, a3, &T[ks + (m >> 1) * 8 + r][(m & 1) * 8]);
+    mma_bf16(c, a0, a1, a2, a3, ld_pair(&Bt[nb0 + g][ks + q]),
+             ld_pair(&Bt[nb0 + g][ks + q + 8]));
+  }
 }
 
 // The warp's accumulator block into D (BM x HC f32): rows g, g + 8, columns
@@ -287,48 +381,59 @@ __device__ __forceinline__ float dir_dvec(const float* q, const float* st, int n
 // column sums are bitwise repeatable like everything else. A device
 // function so that K1 (prep_kernel) and the fused RK step K11
 // (fused_step.cu) run the same arithmetic; it ends on a CTA barrier when
-// DIR, so every thread must reach it.
-template <bool DIR, bool BF>
+// DIR, so every thread must reach it. The probe flags (BF, undirected):
+// RED and no_reduce take no statistics, no_hermite takes them of A := a,
+// dA := b, and no_norm stores layer 0's input rows as its M.
+template <bool DIR, bool BF, int D = FULL, bool RED = false>
 __device__ __forceinline__ void prep_rows(const Planes<BF>& P, long long base, float t,
                                           int b, int r0, int n,
                                           const float* __restrict__ Z, int ldz,
                                           const Layer& l0, float* __restrict__ M0,
                                           int ldm, float* __restrict__ stats) {
+  static_assert((D == FULL && !RED) || (BF && !DIR), "probe flags are K1bf's");
   __shared__ float zn[NW][MAXIN];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* st = stats + (long long)b * NSTAT * n;
   const int rend = min(r0 + BM, n);
   for (int i = r0 + warp; i < rend; i += NW) {
-    float rA = 0.f, rdA = 0.f, rddA = 0.f, gA = 0.f, gdA = 0.f, gddA = 0.f;
-    const long long row = base + (long long)i * n;
-    for (int k = lane; k < n; k += 32) {
-      float A, dA, ddA;
-      herm3(P, row + k, t, A, dA, ddA);
-      rA += A;
-      rdA += dA;
-      rddA += ddA;
-      if (k == i) {
-        gA = A;
-        gdA = dA;
-        gddA = ddA;
+    if constexpr (D != NO_REDUCE && !RED) {
+      float rA = 0.f, rdA = 0.f, rddA = 0.f, gA = 0.f, gdA = 0.f, gddA = 0.f;
+      const long long row = base + (long long)i * n;
+      for (int k = lane; k < n; k += 32) {
+        float A, dA, ddA;
+        herm3_d<D>(P, row + k, t, A, dA, ddA);
+        rA += A;
+        rdA += dA;
+        rddA += ddA;
+        if (k == i) {
+          gA = A;
+          gdA = dA;
+          gddA = ddA;
+        }
+      }
+      rA = warp_sum(rA);
+      rdA = warp_sum(rdA);
+      rddA = warp_sum(rddA);
+      gA = warp_sum(gA);
+      gdA = warp_sum(gdA);
+      gddA = warp_sum(gddA);
+      if (lane == 0) {
+        st[RA * n + i] = rA;
+        st[RDA * n + i] = rdA;
+        st[DGA * n + i] = gA;
+        st[DGDA * n + i] = gdA;
+        st[RDDA * n + i] = rddA;
+        st[DGDDA * n + i] = gddA;
       }
     }
-    rA = warp_sum(rA);
-    rdA = warp_sum(rdA);
-    rddA = warp_sum(rddA);
-    gA = warp_sum(gA);
-    gdA = warp_sum(gdA);
-    gddA = warp_sum(gddA);
-    if (lane == 0) {
-      st[RA * n + i] = rA;
-      st[RDA * n + i] = rdA;
-      st[DGA * n + i] = gA;
-      st[DGDA * n + i] = gdA;
-      st[RDDA * n + i] = rddA;
-      st[DGDDA * n + i] = gddA;
+    const float* z = Z + ((long long)b * n + i) * ldz;
+    float* m0 = M0 + ((long long)b * n + i) * ldm;
+    if constexpr (D == NO_NORM) {
+      for (int h = lane; h < l0.hin; h += 32) m0[h] = z[h];
+      __syncwarp();
+    } else {
+      transform_row(z, l0, zn[warp], m0);
     }
-    transform_row(Z + ((long long)b * n + i) * ldz, l0, zn[warp],
-                  M0 + ((long long)b * n + i) * ldm);
   }
   if constexpr (DIR) {
     constexpr int NSL = NT / BM;  // row slices
@@ -368,22 +473,23 @@ __device__ __forceinline__ void prep_rows(const Planes<BF>& P, long long base, f
   }
 }
 
-template <bool DIR, bool BF>
+template <bool DIR, bool BF, int D = FULL, bool RED = false>
 __global__ void __launch_bounds__(NT)
 prep_kernel(Planes<BF> P, const int* __restrict__ idx, const float* __restrict__ tau,
             int n, const float* __restrict__ Z, int ldz, Layer l0,
             float* __restrict__ M0, int ldm, float* __restrict__ stats) {
   const int b = blockIdx.y;
-  prep_rows<DIR, BF>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n,
-                     Z, ldz, l0, M0, ldm, stats);
+  prep_rows<DIR, BF, D, RED>(P, plane_base(P, idx, b, n), __ldg(tau + b), b,
+                             blockIdx.x * BM, n, Z, ldz, l0, M0, ldm, stats);
 }
 
 // Pass 2 of one CTA (one per layer): out rows = C M + rank terms (+ relu),
 // optionally stored to F, and -- when a next layer exists (then H <= HC) --
 // that layer's M rows; rows r0 .. r0+BM-1 of element b, planes at ``base``,
 // offset t. The output columns are swept in chunks of HC. Shared by K1
-// (fwd_rows_kernel) and K11.
-template <bool DIR, bool BF>
+// (fwd_rows_kernel) and K11. The probe flags (BF, undirected; see the top
+// of this file) read ``stats`` as the (B, n, 4) operand under RED.
+template <bool DIR, bool BF, int D = FULL, bool RED = false, bool NOTR = false>
 __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, float t,
                                          int b, int r0, int n,
                                          const float* __restrict__ stats,
@@ -391,6 +497,7 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
                                          int ldm, float* __restrict__ F, int ldf,
                                          int relu, int has_next, const Layer& ln,
                                          float* __restrict__ Mn, int ldmn) {
+  static_assert((D == FULL && !RED && !NOTR) || (BF && !DIR), "probe flags are K1bf's");
   __shared__ float Cs[BM][BK + 1];
   __shared__ float Ms[BK][HC];
   __shared__ float Fs[BM][HC];
@@ -403,9 +510,7 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
   const int warp = tid / 32;
   const int H = lp.hout;
   const float fn = (float)n, fn2 = fn * fn;
-  const float* st = stats + (long long)b * NSTAT * n;
-  const float* rA = st + RA * n;
-  const float* rdA = st + RDA * n;
+  const float* st = stats + (long long)b * (RED ? 4 : NSTAT) * n;
   const float* Mb = Mc + (long long)b * n * ldm;
   constexpr int NQ = 2 * nbasis<DIR>();
   float q[NQ];
@@ -413,13 +518,16 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
   for (int k = 0; k < NQ; ++k) q[k] = __ldg(lp.basis + k);
 
   // Global sums every CTA needs: sA, sdA.
-  float a0 = 0.f, a1 = 0.f;
-  for (int k = tid; k < n; k += NT) {
-    a0 += rA[k];
-    a1 += rdA[k];
+  float sA = 1.f, sdA = 1.f;
+  if constexpr (D != NO_REDUCE) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int k = tid; k < n; k += NT) {
+      a0 += stat_at<D, RED, RA>(st, n, k);
+      a1 += stat_at<D, RED, RDA>(st, n, k);
+    }
+    sA = block_sum(a0, scratch);
+    sdA = block_sum(a1, scratch);
   }
-  const float sA = block_sum(a0, scratch);
-  const float sdA = block_sum(a1, scratch);
   const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
   float c7, c8;
   if constexpr (DIR) {
@@ -435,7 +543,7 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
     // The chunk's column sums s, w of M (the previous chunk's epilogue has
     // read colS/colW before this barrier).
     __syncthreads();
-    {
+    if constexpr (D != NO_GLUE) {
       const int nsl = NT / hc, h = tid % hc, sl = tid / hc;
       float s_ = 0.f, w_ = 0.f;
       if (sl < nsl) {
@@ -445,7 +553,8 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
           if constexpr (DIR)
             v = dir_v(q, st, n, k, fn);
           else
-            v = (q[8] * rA[k] + q[9] * rdA[k]) / fn;
+            v = (q[8] * stat_at<D, RED, RA>(st, n, k) +
+                 q[9] * stat_at<D, RED, RDA>(st, n, k)) / fn;
           s_ += m;
           w_ += v * m;
         }
@@ -473,7 +582,10 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
       // B1 and B2^T tiles in bf16 (JAX's roundings), M rounded, both
       // products on the tensor cores into the warp's one accumulator, which
       // is staged through Fs (each thread then reads its own (row, col)
-      // pairs, and the epilogue rewrites only those).
+      // pairs, and the epilogue rewrites only those). The probes: NOTR
+      // stages B2 as S2n[k][i]; no_transpose reads B2^T's planes row-major;
+      // no_bbuild takes B1 := Ah, B2^T := dAh^T; no_rowmm / no_colmm skip
+      // a product (the epilogue adds M for it).
       __shared__ __align__(16) unsigned short S1[BM][BKP];
       __shared__ __align__(16) unsigned short S2[BM][BKP];
       __shared__ __align__(16) unsigned short Mt[HC][BKP];
@@ -481,25 +593,62 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
       const int nb0 = warp * 8;
       float c[4] = {0.f, 0.f, 0.f, 0.f};
       for (int k0 = 0; k0 < n; k0 += BK) {
-        for (int e = tid; e < BM * BK; e += NT) {
-          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-          float v = 0.f;
-          if (gi < n && gk < n) {
-            float A, dA;
-            herm(P, base + (long long)gi * n + gk, t, A, dA);
-            v = __fadd_rn(bmul(cb0, A), bmul(cb1, dA));
+        if constexpr (D != NO_ROWMM) {
+          for (int e = tid; e < BM * BK; e += NT) {
+            const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+            float v = 0.f;
+            if (gi < n && gk < n) {
+              float A, dA;
+              herm_d<D>(P, base + (long long)gi * n + gk, t, A, dA);
+              v = D == NO_BBUILD ? A : __fadd_rn(bmul(cb0, A), bmul(cb1, dA));
+            }
+            S1[i][kk] = bf16_bits(v);
           }
-          S1[i][kk] = bf16_bits(v);
         }
-        for (int e = tid; e < BM * BK; e += NT) {
-          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-          float v = 0.f;
-          if (gi < n && gk < n) {
-            float A, dA;
-            herm(P, base + (long long)gk * n + gi, t, A, dA);
-            v = __fadd_rn(bmul(cb2, A), bmul(cb3, dA));
+        if constexpr (NOTR) {  // S2n[k][i] = B2[k, i], fed transposed
+          __shared__ __align__(16) unsigned short S2n[BK][BMP];
+          for (int e = tid; e < BM * BK; e += NT) {
+            const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+            float v = 0.f;
+            if (gi < n && gk < n) {
+              float A, dA;
+              herm_d<D>(P, base + (long long)gk * n + gi, t, A, dA);
+              v = __fadd_rn(bmul(cb2, A), bmul(cb3, dA));
+            }
+            S2n[kk][i] = bf16_bits(v);
           }
-          S2[i][kk] = bf16_bits(v);
+          for (int e = tid; e < BK * HC; e += NT) {
+            const int kk = e / HC, h = e % HC, gk = k0 + kk;
+            Mt[h][kk] = bf16_bits(gk < n && h < hc ? Mb[(long long)gk * ldm + h0 + h] : 0.f);
+          }
+          __syncthreads();
+          if (nb0 < hc) {
+            mma_tile(S1, Mt, nb0, c);
+            mma_tile_t(S2n, Mt, nb0, c);
+          }
+          __syncthreads();
+          continue;
+        } else if constexpr (D != NO_COLMM) {
+          for (int e = tid; e < BM * BK; e += NT) {
+            float v = 0.f;
+            if constexpr (D == NO_TRANSPOSE) {  // B2^T := B2: the planes at (i, k)
+              const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
+              if (gi < n && gk < n) {
+                float A, dA;
+                herm_d<D>(P, base + (long long)gi * n + gk, t, A, dA);
+                v = __fadd_rn(bmul(cb2, A), bmul(cb3, dA));
+              }
+              S2[i][kk] = bf16_bits(v);
+            } else {
+              const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
+              if (gi < n && gk < n) {
+                float A, dA;
+                herm_d<D>(P, base + (long long)gk * n + gi, t, A, dA);
+                v = D == NO_BBUILD ? dA : __fadd_rn(bmul(cb2, A), bmul(cb3, dA));
+              }
+              S2[i][kk] = bf16_bits(v);
+            }
+          }
         }
         for (int e = tid; e < BK * HC; e += NT) {
           const int kk = e / HC, h = e % HC, gk = k0 + kk;
@@ -507,8 +656,8 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
         }
         __syncthreads();
         if (nb0 < hc) {
-          mma_tile(S1, Mt, nb0, c);
-          mma_tile(S2, Mt, nb0, c);
+          if constexpr (D != NO_ROWMM) mma_tile(S1, Mt, nb0, c);
+          if constexpr (D != NO_COLMM) mma_tile(S2, Mt, nb0, c);
         }
         __syncthreads();
       }
@@ -573,13 +722,21 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
           if constexpr (DIR) {
             dvec = dir_dvec(q, st, n, gi, fn, c8);
             u = dir_u(q, st, n, gi, fn);
-          } else {
-            dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
-                   (q[10] * rA[gi] + q[11] * rdA[gi]) / fn + c8 + 1.f;
-            u = (q[6] * rA[gi] + q[7] * rdA[gi]) / fn;
+          } else if constexpr (D != NO_GLUE) {
+            dvec = q[4] * stat_at<D, RED, DGA>(st, n, gi) +
+                   q[5] * stat_at<D, RED, DGDA>(st, n, gi) +
+                   (q[10] * stat_at<D, RED, RA>(st, n, gi) +
+                    q[11] * stat_at<D, RED, RDA>(st, n, gi)) / fn + c8 + 1.f;
+            u = (q[6] * stat_at<D, RED, RA>(st, n, gi) +
+                 q[7] * stat_at<D, RED, RDA>(st, n, gi)) / fn;
           }
           const float m = Mb[(long long)gi * ldm + h0 + h];
-          val = acc[j] + dvec * m + u * colS[h] + (colW[h] + c7 * colS[h]);
+          float part = acc[j];
+          if constexpr (D == NO_ROWMM || D == NO_COLMM) part = m + part;  // the dropped one := M
+          if constexpr (D == NO_GLUE)
+            val = part;
+          else
+            val = part + dvec * m + u * colS[h] + (colW[h] + c7 * colS[h]);
           if (relu) val = fmaxf(val, 0.f);
           if (F != nullptr) F[((long long)b * n + gi) * ldf + h0 + h] = val;
         }
@@ -591,13 +748,20 @@ __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, fl
     __syncthreads();
     for (int i = warp; i < BM; i += NW) {
       const int gi = r0 + i;
-      if (gi < n)
-        transform_row(Fs[i], ln, zn[warp], Mn + ((long long)b * n + gi) * ldmn);
+      if (gi < n) {
+        float* mrow = Mn + ((long long)b * n + gi) * ldmn;
+        if constexpr (D == NO_NORM) {  // M := x
+          for (int h = tid % 32; h < ln.hin; h += 32) mrow[h] = Fs[i][h];
+          __syncwarp();
+        } else {
+          transform_row(Fs[i], ln, zn[warp], mrow);
+        }
+      }
     }
   }
 }
 
-template <bool DIR, bool BF>
+template <bool DIR, bool BF, int D = FULL, bool RED = false, bool NOTR = false>
 __global__ void __launch_bounds__(NT)
 fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                 const float* __restrict__ tau, int n,
@@ -606,8 +770,9 @@ fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                 int ldf, int relu, int has_next, Layer ln,
                 float* __restrict__ Mn, int ldmn) {
   const int b = blockIdx.y;
-  fwd_rows<DIR, BF>(P, plane_base(P, idx, b, n), __ldg(tau + b), b, blockIdx.x * BM, n,
-                    stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn);
+  fwd_rows<DIR, BF, D, RED, NOTR>(P, plane_base(P, idx, b, n), __ldg(tau + b), b,
+                                  blockIdx.x * BM, n, stats, lp, Mc, ldm, F, ldf, relu,
+                                  has_next, ln, Mn, ldmn);
 }
 
 inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {

@@ -134,7 +134,7 @@ def _combine(weights, ks, start):
 
 
 def _step_reference(planes: Planes, ts, t, y, h, f0, layers, tab, bf16: bool = False,
-                    given_ks=None):
+                    given_ks=None, stage=None):
     """Plain version of K11 (with ``bf16``, of K11bf): ``(y1, err, f1, ks)``
     with ``ks`` ``(B, S, n, H)`` the stage derivatives k_1 .. k_S, each stage a
     :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` (or
@@ -144,13 +144,15 @@ def _step_reference(planes: Planes, ts, t, y, h, f0, layers, tab, bf16: bool = F
     Stage by stage: with ``given_ks`` (a kernel's ``ks``) every stage input,
     ``y1`` and ``err`` are formed from the given stage derivatives, so each
     returned stage derivative is one plain eval on the kernel's own stage
-    input and ``y1`` and ``err`` differ from the kernel's only by f32 sums."""
+    input and ``y1`` and ``err`` differ from the kernel's only by f32 sums.
+    ``stage`` replaces the plain eval (called as it is)."""
     _register(tab)
     idx, tau = _stage_nodes(tab, ts, t, h)
     hb = h[:, None, None]
     ks = [f0]
     known = ks if given_ks is None else [f0] + list(given_ks.unbind(1))
-    stage = plain_vf_eval_bf16 if bf16 else plain_vf_eval
+    if stage is None:
+        stage = plain_vf_eval_bf16 if bf16 else plain_vf_eval
     for s in range(1, tab.num_stages):
         acc = _combine(tab.a[s], known, None)
         yi = y if acc is None else y + hb * acc

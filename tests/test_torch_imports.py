@@ -1,9 +1,11 @@
 """The port stands alone: no jax, pydantic, optax or module of the JAX
 package (gncde_tpu) anywhere in gncde_tpu_torch, and no pyyaml or networkx on
 the dyn and TGB paths. Also the YAML-subset reader, the config schemas, the
-CLI smokes of the port and chip_smoke.py's refusal to run without a card.
+CLI smokes of the port, the probe timer without the TPU probe files and
+chip_smoke.py's refusal to run without a card.
 """
 
+import json
 import os
 import pathlib
 import shutil
@@ -170,6 +172,27 @@ def test_schema_rejections():
         "dataset"]["num_nodes"] == 16
     with pytest.raises(ValueError):
         common.apply_overrides({}, ["no_equals_sign"])
+
+
+def test_probe_timer_runs_on_cpu_without_jax_or_the_probe_files():
+    """``ops/mk_probe.py`` and ``run/mk_probe.py`` need nothing of JAX, the
+    JAX package or ``benchmarks/`` (the TPU probes): the probe timer at a
+    tiny size on the CPU (the plain versions) with all three blocked."""
+    code = BLOCKER.format(names=set(NEVER) | {"benchmarks"}) + """
+import runpy
+sys.argv = ["mk_probe", "--device", "cpu", "--n", "20", "--hidden", "8", "--layers", "2",
+            "--batch", "2", "--evals", "2", "--steps", "1", "--blocks", "1",
+            "--only", "P2/current,P1,P3/red,P4/dma_only,P6"]
+runpy.run_module("gncde_tpu_torch.run.mk_probe", run_name="__main__")
+assert sys.modules["jax"] is None and sys.modules["benchmarks"] is None
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    assert sorted(last["results"]) == ["P1/restructured", "P2/current", "P3/red",
+                                       "P4/dma_only", "P6/fusedstep", "P6/seq"]
+    assert last["device"].startswith("cpu")
+    assert last["results"]["P1/restructured"]["rel_dev_vs_current"] < 1e-2
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

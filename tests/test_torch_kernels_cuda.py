@@ -9,7 +9,9 @@ K13 (``csrc/fused_apply.cu``), K1, K2 and K11 on the directed 11-term
 basis (K1d, K2d, K11d: the same sources, the basis a template parameter),
 their fusion_precision bf16 instantiations on bf16 planes (K1bf, K2bf,
 K11bf, either basis: the precision a second template parameter), and the
-bf16 enc_idx route's K7bf (bf16 output), K6a-bf and K6b-bf (bf16 planes).
+bf16 enc_idx route's K7bf (bf16 output), K6a-bf and K6b-bf (bf16 planes),
+and the megakernel design probes' kernels (``csrc/mk_probe.cu``: K1-4mm
+and K1bf's probe flags; ``ops/mk_probe.py``).
 
 These tests need a CUDA card (marker ``requires_cuda``) and skip without
 one. The file imports neither jax nor the JAX package, so it runs on a GPU
@@ -58,6 +60,7 @@ from gncde_tpu_torch.ops import bcsr as tb
 from gncde_tpu_torch.ops import ell_spmm as tell
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import megakernel_bwd as mkb
+from gncde_tpu_torch.ops import mk_probe as mp
 from gncde_tpu_torch.ops import modulate as tmod
 from gncde_tpu_torch.ops import fused_basis as tfb
 from gncde_tpu_torch.ops import fused_step as tfs
@@ -1313,3 +1316,84 @@ def test_cuda_bf16_enc_idx_wrappers_raise_instead_of_falling_back(cuda):
         tmod.modulate_pair(x["A"], x["dA"], ma, md, torch.zeros((70, 6), device=cuda),
                            torch.float16)
     assert [c.launches for c in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# The megakernel design probes (ops/mk_probe.py): K1-4mm (P1, P5 v4mm*),
+# K1bf with the probe flags (P3 red/notr, P4's ablations), and the variants that
+# are K1bf (P2, P3 current, P5 full) or K11bf (P6 fusedstep)
+# ---------------------------------------------------------------------------
+# Each eval variant against its plain version on the same bf16 planes, layer
+# by layer from the kernel's own M (chip_smoke.probe_stepwise), at K1bf's
+# bound (1e-4; P4 dma_only, f32 row sums, 1e-5). P4 full is K1bf's own
+# launch, and P3 notr computes K1bf's arithmetic: both bitwise K1bf.
+
+PROBE_WIDTHS = [(8, 8, 8), (32, 32, 32, 32)]
+PROBE_IDS = ["8x3", "32x4"]
+EVAL_VARIANTS = [k for k, v in mp.VARIANTS.items() if v.kind == "eval"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("widths", PROBE_WIDTHS, ids=PROBE_IDS)
+@pytest.mark.parametrize("key", EVAL_VARIANTS)
+def test_cuda_probe_variant_matches_plain(cuda, key, widths):
+    planes, idx, tau, Z, layers, _ = _inputs(cuda, widths, True, seed=21)
+    planes = _bf16(planes)
+    v = mp.VARIANTS[key]
+    rvec = mp.red_operand(planes, idx, tau) if v.needs_red else None
+    before = v.launches
+    got, (errs, _) = chip_smoke.probe_stepwise(torch, v, planes, idx, tau, Z, layers, rvec)
+    again = v(planes, idx, tau, Z, layers, rvec=rvec)
+    torch.cuda.synchronize()
+    assert v.launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert max(errs.values()) <= (1e-5 if key == "P4/dma_only" else 1e-4), errs
+    if key in ("P4/full", "P3/notr"):
+        assert torch.equal(got, mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_probe_fusedstep_matches_seq(cuda):
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    planes, idx, tau, y, layers, _ = _inputs(cuda, (8, 8, 8), True, seed=22)
+    planes = _bf16(planes)
+    tab = get_tableau("tsit5")
+    ts = torch.linspace(0.0, 1.0, T, device=cuda).expand(B, T).contiguous()
+    t, h = torch.full((B,), 0.1, device=cuda), torch.full((B,), 0.09, device=cuda)
+    f0 = mk.megakernel_vf_eval(planes, *mk.interval(ts, t), y, layers, bf16=True)
+    seq, fused = mp.VARIANTS["P6/seq"], mp.VARIANTS["P6/fusedstep"]
+    before = seq.launches, fused.launches
+    a = seq(planes, ts, t, y, h, f0, layers, tab)
+    b = fused(planes, ts, t, y, h, f0, layers, tab)
+    torch.cuda.synchronize()
+    assert seq.launches == before[0] + 6 and fused.launches >= before[1] + 1
+    for (x, r), tol in zip(zip(b[:3], a[:3]), (1e-5, 1e-4, 1e-4)):
+        _assert_close(x, r, tol)
+    for got in (a, b):  # each stage by stage against the plain step on its own ks
+        ref = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, True, given_ks=got[3])
+        for x, r in zip(got, ref):
+            _assert_close(x, r, 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda):
+    """K1-4mm takes layers up to 64 wide, the probes the undirected basis
+    and bf16 planes, no_norm square layers only: each refusal raises before
+    any launch."""
+    planes, idx, tau, Z, layers, _ = _inputs(cuda, (8, 8, 128), True, seed=23)
+    bf = _bf16(planes)
+    v4, nonorm = mp.VARIANTS["P5/v4mm"], mp.VARIANTS["P4/no_norm"]
+    before = v4.launches, nonorm.launches
+    with pytest.raises(ValueError):  # a 128-wide layer
+        v4(bf, idx, tau, Z, layers)
+    with pytest.raises(ValueError):  # f32 planes
+        v4(planes, idx, tau, Z, layers[:1])
+    with pytest.raises(ValueError):  # not square
+        nonorm(bf, idx, tau, Z, [dict(layers[0], W=layers[0]["W"][:5], lin_b=layers[0]["lin_b"][:5])])
+    dplanes, didx, dtau, dZ, dlayers, _ = _inputs(cuda, (8, 8), True, seed=24, nbasis=11)
+    with pytest.raises(ValueError):  # the directed basis
+        v4(_bf16(dplanes), didx, dtau, dZ, dlayers)
+    with pytest.raises(ValueError):  # no flag: that is K1bf itself
+        mp.launch_k1bf_probe(bf, idx, tau, Z, layers[:1])
+    assert (v4.launches, nonorm.launches) == before
