@@ -27,15 +27,17 @@ Phases, each printing one line before the last:
      max|ref| (the same bf16 operands and B1/B2 roundings on both sides; only
      the order of the f32 sums differs); for K3 also the time of two cuBLAS
      bf16 products on pre-formed B1, B2 as a yardstick (not one call for the
-     same function);
+     same function); every time twice: over 20 wrapper calls with CUDA
+     events (``ms``, host work inside) and as the device time of 20 calls
+     in a torch.profiler trace (``device_ms``, :func:`device_ms`);
   7. the TGB main path: ``gncde_tpu_torch.run.tgb.main`` trains
      configs/tgb/genre_perm_equiv_gncde.yaml for one epoch at full width
      (n=1505, hidden 8, 3 layers) on a tgbn-genre-scale surrogate written by
      tools/fetch_tgb.py (gravity model, seed 2, 1505 nodes, 130,000 edges
-     per snapshot) cut from 133 snapshots to 40, in the config's windows of
-     10 (800 constant steps each), split 1/1/2 (1 train, 1 validation, 2
-     test windows); every train loss and the validation NDCG@10 must be
-     finite and K3 and K4 must have launched;
+     per snapshot) cut from 133 snapshots to 12, in windows of 3 starting
+     every 4 (the config's own are 10 long), split 1/1/1 (1 train, 1
+     validation, 1 test window); every train loss and the validation NDCG@10
+     must be finite and K3 and K4 must have launched;
   8. the enc_idx kernels K7 (modulate_pair), K6a (pair) and K6b (pair_dw)
      against their plain versions at the tgbn-genre shape (n=1505, H 8 and
      128, B=1) and n=300, H=5, B=2; max abs err <= 1e-5 * max|ref| for K7
@@ -45,8 +47,7 @@ Phases, each printing one line before the last:
   9. the enc_idx main path: ``gncde_tpu_torch.run.tgb.main`` trains
      configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml for one epoch at full
      width (n=1505, vf hidden 8, 3 layers, idx_dim 8, two modulation MLPs of
-     width 8 and depth 2) on the same surrogate cut to 16 snapshots, in
-     windows of 3 (5 windows: 1 train, 1 validation, 3 test); every train
+     width 8 and depth 2) on phase 7's surrogate and windows; every train
      loss and the validation NDCG@10 must be finite, K7, K6a and K6b must
      have launched, and K3 and K4 must not have (enc_idx bypasses them);
  10. the sparse controls' kernels K8 (BCSR SpMM), K9 (BCSR SDDMM) and K10
@@ -58,14 +59,18 @@ Phases, each printing one line before the last:
      <= 1e-4 * max|ref| (f32, summation order); beside each, one PyTorch
      library call for the same function as a yardstick (a BSR tensor @ M,
      sparse.sampled_addmm at the block pattern's CSR, a CSR tensor @ M);
+     kernels and library calls timed as in phase 6 (``ms`` and
+     ``device_ms``);
  11. the main path with ``sparse_control=true sparse_format=bcsr``: first
      the flagship field at the trainer's init through the BCSR control
      against phase 5's K1 route on the same data, at three times per
      element, max abs err <= 1e-4 * max|ref| (the same function by another
      route), and the gradients of sum(f * W) with respect to the state and
      every field parameter (K9, K8 on the transposed layout against K2),
-     each within 1e-3 * max|ref|; then one epoch of the flagship config at full width through
-     ``gncde_tpu_torch.run.dyn``: finite losses, K8 and K9 launched, K1/K2
+     each within 1e-3 * max|ref|; then one epoch of the flagship config at
+     full width through ``gncde_tpu_torch.run.dyn``, without the trainer's
+     evaluation (as in phases 12, 16, 20 and 21; phase 15 evaluates after its
+     last epoch, phase 5 after each): finite losses, K8 and K9 launched, K1/K2
      not, and the first train loss within 5e-2 relative of phase 5's (a
      sanity bound: the adaptive controller puts correct routes up to 1.3%
      apart);
@@ -90,7 +95,8 @@ Phases, each printing one line before the last:
      first the step at the trainer's init through K11 against the per-stage
      K1 route on the same (t, y, h, f0), y1 within 1e-5 * max|ref| and the
      gradients of sum(y1 * W) (state, every field parameter) within 1e-3 of
-     K2's per-stage route; then three epochs of the flagship: finite
+     K2's per-stage route; then three epochs of the flagship, evaluated
+     after the last: finite
      losses, K11 and K2 launched, fewer K1 launches than phase 5, the first
      loss within 5e-2 of phase 5's;
  16. the flagship with ``fusion_backend=pipeline`` and then
@@ -116,13 +122,12 @@ Phases, each printing one line before the last:
      configs/tgb/trade_perm_equiv_dir_gncde.yaml for one epoch at full
      width (n=255, hidden 32, 4 layers, last layer 512, windows of 3) on
      tools/fetch_tgb.py's tgbn-trade surrogate (seed 0, whose first 16
-     snapshots touch all 255 nodes) cut to 16 snapshots: 5 windows, 3
-     train, 1 validation, 1 test; finite losses and NDCG@10, directed K1
+     snapshots touch all 255 nodes) cut to 16 snapshots, windows of 3
+     starting every 5, split 1/1/1; finite losses and NDCG@10, directed K1
      and K2 launched, K3 and K4 not;
  19. the genre main path on the directed basis:
      configs/tgb/genre_perm_equiv_dir_gncde.yaml at full width (n=1505, 3
-     layers, last 128) on the surrogate cut to 12 snapshots in phase 9's
-     windows of 3, split 2/1/1 (2 train, 1 validation, 1 test window); K3
+     layers, last 128) on phase 7's surrogate and windows; K3
      and K4 launched, K1 and K2 not, finite losses and NDCG;
  20. the directed flagship (``model.vector_field.name=
      PermEquivDirGraphVectorField``) with the fused step on, on phase 5's
@@ -160,12 +165,12 @@ Phases, each printing one line before the last:
  23. configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml (the directed
      enc_idx field: n=255, hidden 32, 4 layers, last layer 512, an mlp
      index encoder of width 512) through ``gncde_tpu_torch.run.tgb.main``
-     on phase 18's surrogate and cut (16 snapshots in windows of 3), split
-     1/1/3: one training window, no evaluation of the initial model; finite
+     on phase 18's surrogate and windows, no evaluation of the initial
+     model; finite
      losses and NDCG@10, K7, K6a and K6b launched, the Hermite kernels
      (K1-K4) and the bf16 ones not;
  24. configs/tgb/genre_perm_equiv_dir_enc_idx_gncde.yaml (n=1505, 8 -> 8
-     -> 8 -> 128) on phase 9's cut, split 1/1/3, with the same checks;
+     -> 8 -> 128) on phase 7's surrogate and windows, with the same checks;
  25. fusion_precision bf16 on the enc_idx route: the directed enc_idx field
      at benchmarks/enc_idx_micro.py's two shapes (trade n=255, H=32, 4
      layers; genre n=1505, H=8, 3 layers; idx_dim 512, T=6 knots, planes
@@ -196,8 +201,10 @@ Phases, each printing one line before the last:
      what its own function reads and does (``probe_bound``).
 Phase 12's route check also computes the gradients twice and requires them
 bitwise equal (the ELL backward has no scatter).
-Then one JSON line of every kernel (launches on its main path, error, times
-and the bound: the larger of the bytes its function must move at 3.35 TB/s
+Then one JSON line of every kernel (launches on its main path: calls of its
+wrapper, each counted once where it launches its kernel; a K3 call whose
+reduce extent is split makes two CUDA launches, the parts and their sum;
+error, times and the bound: the larger of the bytes its function must move at 3.35 TB/s
 and the products that function needs at the card's peak for their operands'
 type). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -257,21 +264,21 @@ TILED_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H
                 "odd": dict(n=300, H=5, B=2)}
 MODULATE_TOL = 1e-5
 PAIR_TOL = 1e-4
-#: Phase 7 cuts the surrogate to 40 snapshots in the config's windows of 10
-#: (4 windows), split 1/1/2: one training window, cut from two when a whole
-#: script passed 1100 s of its 1200 s (the freed window joins the test
-#: split, as phase 9's did). GENRE_SPLIT (2/1/1) is phase 19's.
-GENRE_SNAPSHOTS = 40
-GENRE_SPLIT = ("dataset.split_ratio=[0.5,0.25,0.25]",)
-GENRE_ONE_TRAIN_SPLIT = ("dataset.split_ratio=[0.25,0.25,0.5]",)
-GENRE_TRAIN_WINDOWS = 1
-#: Phase 9 cuts it to 16 snapshots in windows of 3 (the trade configs'
-#: window), split 1/1/3: one training window, since the whole script passed
-#: 1050 s of its 1200 s with three (phase 24 trains K7/K6 at the same n).
-ENC_IDX_SNAPSHOTS = 16
-ENC_IDX_WINDOW = ("dataset.window_size=3", "dataset.stride=3")
-ENC_IDX_TRAIN_WINDOWS = 1
-ONE_TRAIN_WINDOW = ("dataset.split_ratio=[0.2,0.2,0.6]",)
+#: The TGB phases (7, 9, 18, 19, 23-25) each run one epoch of three windows
+#: of 3 snapshots (the trade configs' window), split 1/1/1: one training
+#: window, one validation, one test. The genre phases (7, 9, 19, 24) train
+#: on the tgbn-genre surrogate cut to 12 snapshots, windows starting every
+#: 4; the trade phases (18, 23, 25) on the tgbn-trade one cut to 16, every
+#: 5. Each surrogate is written once and shared (:func:`surrogate_dir`).
+#: Depth cuts, each made when a whole script ran past its 1200 s: phase 7
+#: ran the genre config's own windows of 10 (40 snapshots, 275 s of a
+#: 1072 s script on the card) until a script ran past 1200 s on another
+#: machine of the same kind; phases 9, 19, 23-25 had 2-3 test windows, 18
+#: three training windows and 19 two.
+GENRE_SNAPSHOTS = 12
+ONE_EACH = "dataset.split_ratio=[0.34,0.34,0.32]"
+GENRE_WINDOWS = ("dataset.window_size=3", "dataset.stride=4", ONE_EACH)
+TRADE_WINDOWS = ("dataset.window_size=3", "dataset.stride=5", ONE_EACH)
 SPARSE_TOL = 1e-4
 #: The flagship field through a sparse control against phase 5's K1 route,
 #: on the flagship data at the trainer's init (relative to max|ref|), and
@@ -287,6 +294,14 @@ SPARSE_LOSS_RTOL = 5e-2
 #: Epochs of phases 11 and 12 (the flagship's main path through K8/K9, K10);
 #: phase 11 was cut from three when a whole script took 1236 s of its 1200.
 BCSR_EPOCHS = 1
+#: The flagship runs after phase 5 (phases 11, 12, 15, 16, 20 and 21)
+#: evaluate once at most: the trainer evaluates every ``eval_freq`` epochs,
+#: three passes over the validation and test data that take about one
+#: training step's time, so the one-epoch runs skip it (NO_EVAL) and phase
+#: 15 evaluates after its last epoch only. Each of these routes' field and
+#: gradients are held at the trainer's init by the phase's route check;
+#: phase 5 evaluates every epoch. Cut when a whole script ran past its 1200 s.
+NO_EVAL = "eval_freq=2"
 ELL_EPOCHS = 1
 #: benchmarks/bcsr_scale.py's point.
 SCALED = dict(n=32768, bw=64, bs=128, H=32, L=3, T=3)
@@ -312,18 +327,13 @@ DIR_SHAPES = {"flagship": SHAPES["flagship"], "trade": SHAPES["trade"]}
 #: The directed tiled eval of phase 17: the genre config's widths at n=1505.
 DIR_TILED = dict(n=1505, widths=(8, 8, 8, 128), B=1, T=4)
 #: Phase 18: the trade surrogate (seed 0: its first 16 snapshots touch all
-#: 255 nodes) cut to 16 snapshots in the config's windows of 3.
+#: 255 nodes) cut to 16 snapshots.
 TRADE_CONFIG = "configs/tgb/trade_perm_equiv_dir_gncde.yaml"
 TRADE_SNAPSHOTS = 16
 TRADE_SEED = 0
 TRADE_NODES = 255
-TRADE_TRAIN_WINDOWS = 3
-#: Phase 19: the directed genre config in phase 9's windows of 3, cut to 2
-#: training windows (12 snapshots, split 2/1/1) when the whole script
-#: reached 1061 s of its 1200 s with 3 (16 snapshots).
+#: Phase 19: the directed genre config.
 GENRE_DIR_CONFIG = "configs/tgb/genre_perm_equiv_dir_gncde.yaml"
-GENRE_DIR_SNAPSHOTS = 12
-GENRE_DIR_TRAIN_WINDOWS = 2
 #: Phase 20: one epoch of the directed flagship with the fused step.
 DIRECTED_EPOCHS = 1
 #: Phase 21: fusion_precision bf16. The flagship field at init and its
@@ -356,9 +366,8 @@ BF16 = ("fusion_precision=bf16",)
 #: once (the same device code up to the store).
 PAIR_BF16_SHAPES = {**TILED_SHAPES, "trade-H512": dict(n=255, H=512, B=1)}
 K7BF_ULPS = 1.0
-#: Phases 23-25: the reference's directed enc_idx configs at full width, one
-#: training window each on phases 18's and 9's cuts (16 snapshots in windows
-#: of 3: 5 windows, split 1/1/3 by ONE_TRAIN_WINDOW).
+#: Phases 23-25: the reference's directed enc_idx configs at full width, on
+#: phases 18's and 9's cuts.
 TRADE_DIR_ENC_IDX_CONFIG = "configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml"
 GENRE_DIR_ENC_IDX_CONFIG = "configs/tgb/genre_perm_equiv_dir_enc_idx_gncde.yaml"
 #: Phase 25: the directed enc_idx field at benchmarks/enc_idx_micro.py's
@@ -631,6 +640,51 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=20, warmup=3):
+    """``(ms, {kernel name: ms})``: the device time per call of ``fn``
+    without its host work. ``iters`` back-to-back calls are traced with
+    torch.profiler and the durations of their device events (kernels,
+    copies, memsets; ``profile_step_torch.device_events``) summed, in total
+    and by name, over ``iters``. Where the trace holds no device event (no
+    CUPTI), the calls are captured in one CUDA graph and its replay is timed
+    with CUDA events instead (no names)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_step_torch import device_events
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = device_events(path)
+    if events:
+        by_name = {}
+        for name, _, dur in events:
+            by_name[name] = by_name.get(name, 0.0) + dur / iters / 1e3
+        return sum(by_name.values()), by_name
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, {}
+
+
 def rel_err(torch, got, ref):
     scale = float(ref.abs().max())
     return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0), scale
@@ -819,20 +873,27 @@ def phase_tiled(torch, results):
                 errs.append(err)
                 worst_abs = max(worst_abs, float((a - b).abs().max()))
             ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            dev_ms, dev_by_name = device_ms(torch, kernel)
             bms, by = tiled_bound(name, n, H, B)
             line = {"phase": 6, "kernel": name, "shape": label, **s,
                     "max_abs_err": worst_abs, "max_rel_err": max(errs), "ms": ms,
+                    "device_ms": dev_ms, "device_by_name": dev_by_name,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+            extra = {"device_ms": dev_ms}
             if name == "K3":
+                # Two calls on B1, B2 formed beforehand: a yardstick, not one
+                # call for K3's function (which forms them itself).
                 c = cvec.to(torch.bfloat16)
                 B1 = c[0] * A + c[1] * dA
                 B2t = (c[2] * A + c[3] * dA).transpose(-2, -1)
-                line["yardstick_two_cublas_bf16_products_ms"] = time_ms(
-                    torch, lambda: (torch.matmul(B1, M), torch.matmul(B2t, M)))
+                two = lambda: (torch.matmul(B1, M), torch.matmul(B2t, M))  # noqa: E731
+                extra["yardstick_two_cublas_bf16_products_ms"] = time_ms(torch, two)
+                extra["yardstick_device_ms"] = device_ms(torch, two)[0]
+                line.update(extra)
             emit(line)
             if not max(errs) <= TILED_TOL:
                 raise RuntimeError(f"{name} {label}: rel err {max(errs):.3e} > {TILED_TOL}")
-            results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by)
+            results.setdefault(name, {})[label] = (worst_abs, ms, plain_ms, bms, by, extra)
 
 
 def write_surrogate(out: Path, name: str, snapshots: int, seed: int) -> None:
@@ -884,21 +945,36 @@ def counters():
             "K13": pipeline.fused_conv_stream}
 
 
-def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="tgbn-genre"):
+_SURROGATES = {}
+
+
+def surrogate_dir(dataset: str, snapshots: int) -> Path:
+    """The ``dataset`` surrogate (genre or trade) cut to ``snapshots``,
+    written on first use into a temporary directory that lives until the
+    script exits; later phases only read it."""
+    if "root" not in _SURROGATES:
+        _SURROGATES["root"] = tempfile.TemporaryDirectory()
+    out = Path(_SURROGATES["root"].name) / f"{dataset}-{snapshots}"
+    if not out.exists():
+        if dataset == "tgbn-trade":
+            write_trade_surrogate(out, snapshots)
+        else:
+            write_genre_surrogate(out, snapshots)
+    return out
+
+
+def run_tgb(torch, phase, config, snapshots, windows, dataset="tgbn-genre"):
     """One epoch of a TGB config on the ``dataset`` surrogate (genre or
-    trade) through the CLI's entry point, without the trainer's evaluation
-    of the initial model (``eval_at_init``: the epoch's own evaluation checks
-    the same, and each skipped pass over the validation and test windows
-    costs 4-50 s of the script's 1200 s); returns the launch counts of that
-    run."""
+    trade) in ``windows`` (one training window) through the CLI's entry
+    point, without the trainer's evaluation of the initial model
+    (``eval_at_init``: the epoch's own evaluation checks the same, and each
+    skipped pass over the validation and test windows costs 4-50 s of the
+    script's 1200 s); returns the launch counts of that run."""
     from gncde_tpu_torch.run import tgb
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        if dataset == "tgbn-trade":
-            write_trade_surrogate(Path(tmp) / "data", snapshots)
-        else:
-            write_genre_surrogate(Path(tmp) / "data", snapshots)
+        data = surrogate_dir(dataset, snapshots)
         data_s = time.perf_counter() - t0
         for f in counters().values():
             f.launches = 0
@@ -906,9 +982,9 @@ def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="t
         res = tgb.main([
             "--config", config,
             f"dataset.name={dataset}-synth", "dataset.frequency=None",
-            f"dataset.data_dir={tmp}/data", f"dataset.cache_dir={tmp}/cache",
+            f"dataset.data_dir={data}", f"dataset.cache_dir={tmp}/cache",
             f"checkpoint_dir={tmp}/ckpt/", "epochs=1", "eval_freq=1", "min_epochs=0",
-            "eval_at_init=false", "device=cuda", "wandb.mode=disabled", *extra,
+            "eval_at_init=false", "device=cuda", "wandb.mode=disabled", *windows,
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -920,7 +996,7 @@ def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="t
           "validation_metrics": res["validation_metrics"],
           "best_epoch": res["best_epoch"], "device": res["device"],
           "launches": launches, "surrogate_write_s": data_s, "wall_s": wall})
-    if len(losses) != train_windows or not all(math.isfinite(x) for x in losses):
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"phase {phase}: non-finite or missing train losses: {losses}")
     if not math.isfinite(ndcg):
         raise RuntimeError(f"phase {phase}: validation NDCG@10 is not finite: {ndcg}")
@@ -931,7 +1007,7 @@ def run_tgb(torch, phase, config, snapshots, train_windows, extra=(), dataset="t
 
 def phase_tgb(torch):
     launches = run_tgb(torch, 7, "configs/tgb/genre_perm_equiv_gncde.yaml", GENRE_SNAPSHOTS,
-                       GENRE_TRAIN_WINDOWS, GENRE_ONE_TRAIN_SPLIT)
+                       GENRE_WINDOWS)
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise RuntimeError(f"tiled kernels not launched on the TGB path: {launches}")
     return launches
@@ -939,8 +1015,7 @@ def phase_tgb(torch):
 
 def phase_enc_idx(torch):
     launches = run_tgb(torch, 9, "configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml",
-                       ENC_IDX_SNAPSHOTS, ENC_IDX_TRAIN_WINDOWS,
-                       ENC_IDX_WINDOW + ONE_TRAIN_WINDOW)
+                       GENRE_SNAPSHOTS, GENRE_WINDOWS)
     if min(launches["K7"], launches["K6a"], launches["K6b"]) <= 0:
         raise RuntimeError(f"enc_idx kernels not launched on the enc_idx path: {launches}")
     if launches["K3"] or launches["K4"]:
@@ -1258,10 +1333,13 @@ def phase_sparse_kernels(torch, cache, results):
                 err, scale = rel_err(torch, got, ref)
                 abs_err = float((got - ref).abs().max())
                 ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-                library_ms, err_text = None, lib_err
+                dev_ms, dev_by_name = device_ms(torch, kernel)
+                library_ms = library_dev_ms = None
+                library_by_name, err_text = {}, lib_err
                 if name in lib:
                     try:
                         library_ms = time_ms(torch, lib[name])
+                        library_dev_ms, library_by_name = device_ms(torch, lib[name])
                     except Exception as exc:
                         err_text = f"{type(exc).__name__}: {exc}"
             bms, by = sparse_bound(name, x)
@@ -1269,12 +1347,15 @@ def phase_sparse_kernels(torch, cache, results):
             shape.update(kb=x["idx"].shape[-1], K=x["indices"].shape[-1])
             emit({"phase": 10, "kernel": name, "shape": label, **shape, "setup_s": setup_s,
                   "max_abs_err": abs_err, "max_abs_ref": scale, "rel_err": err, "ms": ms,
+                  "device_ms": dev_ms, "device_by_name": dev_by_name,
                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                  "library_ms": library_ms, "library_error": err_text})
+                  "library_ms": library_ms, "library_device_ms": library_dev_ms,
+                  "library_device_by_name": library_by_name, "library_error": err_text})
             if not err <= SPARSE_TOL:
                 raise RuntimeError(f"{name} {label}: rel err {err:.3e} > {SPARSE_TOL}")
             results.setdefault(name, {})[label] = (abs_err, ms, plain_ms, bms, by, library_ms,
-                                                   shape)
+                                                   shape, {"device_ms": dev_ms,
+                                                           "library_device_ms": library_dev_ms})
         del x, mat, calls, lib
         torch.cuda.empty_cache()
 
@@ -1383,7 +1464,7 @@ def phase_sparse_train(torch, phase, fmt, epochs, cache, first_loss_ref):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = dyn.main([
-            "--config", FLAGSHIP, f"epochs={epochs}", "eval_freq=1", "log_freq=1",
+            "--config", FLAGSHIP, f"epochs={epochs}", NO_EVAL, "log_freq=1",
             "min_epochs=0", f"dataset.cache_dir={cache}", f"checkpoint_dir={tmp}/ckpt/",
             "device=cuda", "wandb.mode=disabled", "sparse_control=true",
             f"sparse_format={fmt}", "sparse_block_size=128",
@@ -1400,8 +1481,7 @@ def phase_sparse_train(torch, phase, fmt, epochs, cache, first_loss_ref):
           "first_loss_phase5": first_loss_ref, "first_loss_rel_diff": rel,
           "train_step_s": res["train_step_s"], "solver_steps": res["solver_steps"],
           "solver_attempts_last_step": attempts, "control_bytes": res["control_bytes"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "best_validation_loss": res["validation_loss"], "device": res["device"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), "device": res["device"],
           "launches": launches, "wall_s": wall})
     if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"phase {phase}: non-finite or missing train losses: {losses}")
@@ -1916,8 +1996,9 @@ def phase_fused_step_train(torch, cache, first_loss_ref, k1_phase5):
         try:
             t0 = time.perf_counter()
             res = dyn.main([
-                "--config", FLAGSHIP, f"epochs={FUSED_EPOCHS}", "eval_freq=1", "log_freq=1",
-                "min_epochs=0", f"dataset.cache_dir={cache}", f"checkpoint_dir={tmp}/ckpt/",
+                "--config", FLAGSHIP, f"epochs={FUSED_EPOCHS}", f"eval_freq={FUSED_EPOCHS}",
+                "log_freq=1", "min_epochs=0", f"dataset.cache_dir={cache}",
+                f"checkpoint_dir={tmp}/ckpt/",
                 "device=cuda", "wandb.mode=disabled",
             ])
             torch.cuda.synchronize()
@@ -1974,7 +2055,7 @@ def phase_backend_train(torch, cache, first_loss_ref):
             try:
                 t0 = time.perf_counter()
                 res = dyn.main([
-                    "--config", FLAGSHIP, f"epochs={BACKEND_EPOCHS}", "eval_freq=1",
+                    "--config", FLAGSHIP, f"epochs={BACKEND_EPOCHS}", NO_EVAL,
                     "log_freq=1", "min_epochs=0", f"dataset.cache_dir={cache}",
                     f"checkpoint_dir={tmp}/ckpt/", "device=cuda", "wandb.mode=disabled",
                     f"fusion_backend={backend}",
@@ -1992,8 +2073,7 @@ def phase_backend_train(torch, cache, first_loss_ref):
               "grad_rel_errs_vs_k2_route": grad_errs, "train_losses": losses,
               "first_loss_phase5": first_loss_ref, "first_loss_rel_diff": rel,
               "train_step_s": res["train_step_s"], "solver_steps": res["solver_steps"],
-              "solver_attempts_last_step": attempts,
-              "best_validation_loss": res["validation_loss"], "device": res["device"],
+              "solver_attempts_last_step": attempts, "device": res["device"],
               "launches": launches, "wall_s": wall})
         if len(losses) != BACKEND_EPOCHS or not all(math.isfinite(v) for v in losses):
             raise RuntimeError(f"phase 16 {backend}: non-finite or missing losses: {losses}")
@@ -2137,7 +2217,7 @@ def phase_directed_kernels(torch, cache, results):
 
 def phase_trade(torch):
     """Phase 18: the directed trade config trains through K1d and K2d."""
-    launches = run_tgb(torch, 18, TRADE_CONFIG, TRADE_SNAPSHOTS, TRADE_TRAIN_WINDOWS,
+    launches = run_tgb(torch, 18, TRADE_CONFIG, TRADE_SNAPSHOTS, TRADE_WINDOWS,
                        dataset="tgbn-trade")
     if launches["K1"] <= 0 or launches["K2"] <= 0:
         raise RuntimeError(f"phase 18: directed K1/K2 not launched: {launches}")
@@ -2148,8 +2228,7 @@ def phase_trade(torch):
 
 def phase_genre_dir(torch):
     """Phase 19: the directed genre config trains through K3 and K4."""
-    launches = run_tgb(torch, 19, GENRE_DIR_CONFIG, GENRE_DIR_SNAPSHOTS, GENRE_DIR_TRAIN_WINDOWS,
-                       ENC_IDX_WINDOW + GENRE_SPLIT)
+    launches = run_tgb(torch, 19, GENRE_DIR_CONFIG, GENRE_SNAPSHOTS, GENRE_WINDOWS)
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise RuntimeError(f"phase 19: tiled kernels not launched: {launches}")
     if launches["K1"] or launches["K2"]:
@@ -2172,7 +2251,7 @@ def phase_directed_fused_train(torch, cache):
         try:
             t0 = time.perf_counter()
             res = dyn.main([
-                "--config", FLAGSHIP, f"epochs={DIRECTED_EPOCHS}", "eval_freq=1",
+                "--config", FLAGSHIP, f"epochs={DIRECTED_EPOCHS}", NO_EVAL,
                 "log_freq=1", "min_epochs=0", f"dataset.cache_dir={cache}",
                 f"checkpoint_dir={tmp}/ckpt/", "device=cuda", "wandb.mode=disabled",
                 *DIRECTED_FIELD,
@@ -2186,8 +2265,8 @@ def phase_directed_fused_train(torch, cache):
     emit({"phase": 20, "step_rel_errs_vs_k1d_route": errs,
           "grad_rel_errs_vs_k2d_route": grad_errs, "route_launches": route_launches,
           "train_losses": losses, "train_step_s": res["train_step_s"],
-          "solver_steps": res["solver_steps"], "best_validation_loss": res["validation_loss"],
-          "device": res["device"], "launches": launches, "wall_s": wall})
+          "solver_steps": res["solver_steps"], "device": res["device"],
+          "launches": launches, "wall_s": wall})
     if len(losses) != DIRECTED_EPOCHS or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"phase 20: non-finite or missing train losses: {losses}")
     if not res["device"].startswith("cuda"):
@@ -2278,7 +2357,7 @@ def bf16_train(torch, cache, fused, overrides=()):
         try:
             t0 = time.perf_counter()
             res = dyn.main([
-                "--config", FLAGSHIP, f"epochs={BF16_EPOCHS}", "eval_freq=1", "log_freq=1",
+                "--config", FLAGSHIP, f"epochs={BF16_EPOCHS}", NO_EVAL, "log_freq=1",
                 "min_epochs=0", f"dataset.cache_dir={cache}", f"checkpoint_dir={tmp}/ckpt/",
                 "device=cuda", "wandb.mode=disabled", *BF16, *overrides,
             ])
@@ -2293,8 +2372,8 @@ def bf16_train(torch, cache, fused, overrides=()):
                                       res["solver_steps"].get("num_rejected_steps", []))]
     line = {"fused_step": fused, "directed": bool(overrides), "train_losses": losses,
             "train_step_s": res["train_step_s"], "solver_attempts_last_step": attempts,
-            "solver_steps": res["solver_steps"], "best_validation_loss": res["validation_loss"],
-            "device": res["device"], "launches": launches, "wall_s": wall}
+            "solver_steps": res["solver_steps"], "device": res["device"],
+            "launches": launches, "wall_s": wall}
     what = f"phase 21 ({'fused' if fused else 'per stage'}{', directed' if overrides else ''})"
     if len(losses) != BF16_EPOCHS or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"{what}: non-finite or missing train losses: {losses}")
@@ -2448,11 +2527,10 @@ def check_launches(launches, phase, want, forbidden):
                            f"{forbidden} = 0")
 
 
-def phase_dir_enc_idx(torch, phase, config, snapshots, dataset, extra=()):
+def phase_dir_enc_idx(torch, phase, config, snapshots, windows, dataset):
     """Phases 23 (trade) and 24 (genre): one training window of a directed
     enc_idx config at full width through K7, K6a and K6b."""
-    launches = run_tgb(torch, phase, config, snapshots, 1, extra + ONE_TRAIN_WINDOW,
-                       dataset=dataset)
+    launches = run_tgb(torch, phase, config, snapshots, windows, dataset=dataset)
     check_launches(launches, phase, ENC_IDX_KERNELS, HERMITE_KERNELS + ENC_IDX_BF16_KERNELS)
     return launches
 
@@ -2659,8 +2737,8 @@ def phase_enc_idx_bf16(torch):
                                    f"be finite and nonzero: {f32_dist}")
             del vf, ctrl, y, out, out32
             torch.cuda.empty_cache()
-        launches = run_tgb(torch, 25, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS, 1,
-                           ONE_TRAIN_WINDOW, dataset="tgbn-trade")
+        launches = run_tgb(torch, 25, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS, TRADE_WINDOWS,
+                           dataset="tgbn-trade")
     finally:
         ops.set_fusion_precision("f32")
     check_launches(launches, 25, ENC_IDX_BF16_KERNELS, ENC_IDX_KERNELS + HERMITE_KERNELS)
@@ -2707,9 +2785,9 @@ def main() -> int:
         bf16_launches = timed(21, phase_bf16, torch, cache, results)
     timed(22, phase_pair_bf16, torch, results)
     timed(23, phase_dir_enc_idx, torch, 23, TRADE_DIR_ENC_IDX_CONFIG, TRADE_SNAPSHOTS,
-          "tgbn-trade")
-    timed(24, phase_dir_enc_idx, torch, 24, GENRE_DIR_ENC_IDX_CONFIG, ENC_IDX_SNAPSHOTS,
-          "tgbn-genre", ENC_IDX_WINDOW)
+          TRADE_WINDOWS, "tgbn-trade")
+    timed(24, phase_dir_enc_idx, torch, 24, GENRE_DIR_ENC_IDX_CONFIG, GENRE_SNAPSHOTS,
+          GENRE_WINDOWS, "tgbn-genre")
     enc_bf16_launches = timed(25, phase_enc_idx_bf16, torch)
     probe_launches = timed(26, phase_probes, torch, results)
     emit({"phase_wall_s": walls})
@@ -2740,12 +2818,12 @@ def main() -> int:
                       ("K4", "gncde_tpu/ops/pallas/tiled.py:476"),
                       ("K5a", "gncde_tpu/ops/pallas/tiled.py:748"),
                       ("K5b", "gncde_tpu/ops/pallas/tiled.py:275")):
-        err, ms, plain_ms, bms, by = results[name]["genre-H128"]
+        err, ms, plain_ms, bms, by, extra = results[name]["genre-H128"]
         kernels.append({"name": name, "route": "cuda",
                         "source": "gncde_tpu_torch/csrc/tiled.cu", "replaces": rep,
                         "launches": tgb_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": None, "shape": "genre-H128"})
+                        "library_ms": None, "shape": "genre-H128", **extra})
     for name, src, rep, label in (
         ("K6a", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:572",
          "genre-H128"),
@@ -2766,11 +2844,11 @@ def main() -> int:
         ("K10", "gncde_tpu_torch/csrc/ell_spmm.cu", "gncde_tpu/ops/pallas/sparse_spmm.py:58",
          ell_launches),
     ):
-        err, ms, plain_ms, bms, by, library_ms, shape = results[name]["flagship"]
+        err, ms, plain_ms, bms, by, library_ms, shape, extra = results[name]["flagship"]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": library_ms, "shape": f"flagship {shape}"})
+                        "library_ms": library_ms, "shape": f"flagship {shape}", **extra})
     # No single PyTorch call computes K5c, K11, K11d, K12 or K13 (library_ms null).
     for name, src, rep, label, launches in (
         ("K5c", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:202",

@@ -122,6 +122,10 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} reported by the launch")
 
 
+#: Streaming multiprocessors of the card the launch plans are sized for (an
+#: H100 SXM): K3's split (``tiled.fwd2_splits``) and K10's CTA size.
+SMS = 132
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
@@ -133,7 +137,15 @@ def ptr(t) -> P:
     return P(0 if t is None else t.data_ptr())
 
 
-def stream() -> P:
+def stream(device_index: tp.Optional[int] = None) -> int:
+    """The current CUDA stream of a device (by default the current device)
+    as an integer ``cudaStream_t``. PyTorch's CUDA build answers with a raw
+    query, so no ``torch.cuda.Stream`` object is made per launch."""
     import torch
 
-    return P(torch.cuda.current_stream().cuda_stream)
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if query is None:
+        return torch.cuda.current_stream(device_index).cuda_stream
+    return query(device_index)

@@ -34,6 +34,7 @@ import torch
 from . import _build
 
 F32 = torch.float32
+I32 = torch.int32
 
 
 def batch_of(*xs_core):
@@ -103,49 +104,65 @@ def plain_ell_spmm_t(indices, values, M):
 
 def operand(x, core: int, B):
     """``(x, batch stride)`` of a kernel operand: inner dims contiguous, a
-    batch stride of 0 for an operand shared by the batch."""
+    batch stride of 0 for an operand shared by the batch. Read off the
+    strides (no view is made); copied only where its inner dims are not
+    contiguous (an ``expand`` view over the batch is not copied)."""
     if x.dim() == core:
         return x.contiguous(), 0
-    if not x[0].is_contiguous():
-        x = x.contiguous()
+    if not x.is_contiguous():
+        expect = 1
+        for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+            if size != 1 and stride != expect:
+                x = x.contiguous()
+                break
+            expect *= size
     return x, (x.stride(0) if B > 1 else 0)
 
 
 _ARGTYPES = [_build.P, _build.L, _build.P, _build.L, _build.P, _build.L, _build.P,
-             _build.I, _build.I, _build.I, _build.I, _build.P]
+             _build.I, _build.I, _build.I, _build.I, _build.I, _build.P]
+_FN = None
 
 
 def _fn():
-    fn = _build.load("ell_spmm").gncde_ell_spmm
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    global _FN
+    if _FN is None:
+        _FN = _build.load("ell_spmm").gncde_ell_spmm
+        _FN.argtypes = _ARGTYPES
+        _FN.restype = ctypes.c_int
+    return _FN
 
 
 def ell_spmm_call(indices, values, M):
-    """K10: ``A @ M`` for A in ELL form (shapes in the module docstring)."""
+    """K10: ``A @ M`` for A in ELL form (shapes in the module docstring).
+
+    The host work per call is what the launch needs: the checks below read
+    shapes, strides, dtypes and device indices only (no view is made), the
+    entry point is bound once, and pointers and the raw stream go to it as
+    integers."""
     if not M.is_cuda:
         return plain_ell_spmm(indices, values, M)
-    B = batch_of((indices, 2), (values, 2), (M, 2))
-    n, H = M.shape[-2:]
-    K = indices.shape[-1]
-    if indices.dtype != torch.int32 or values.dtype != F32 or M.dtype != F32:
+    if indices.dtype != I32 or values.dtype != F32 or M.dtype != F32:
         raise ValueError(f"K10: indices must be int32 and values, M float32; got "
                          f"{indices.dtype}, {values.dtype}, {M.dtype}")
-    if indices.shape[-2:] != (n, K) or values.shape[-2:] != (n, K):
-        raise ValueError(f"K10: indices {tuple(indices.shape)} and values "
-                         f"{tuple(values.shape)} must be (n={n}, K) like M's rows")
-    if not (indices.device == values.device == M.device):
+    dev = M.get_device()
+    if indices.get_device() != dev or values.get_device() != dev:
         raise ValueError("K10: indices, values and M must be on one CUDA device")
+    B = batch_of((indices, 2), (values, 2), (M, 2))
+    ish, vsh, (n, H) = indices.shape, values.shape, M.shape[-2:]
+    K = ish[-1]
+    if ish[-2] != n or vsh[-2] != n or vsh[-1] != K:
+        raise ValueError(f"K10: indices {tuple(ish)} and values {tuple(vsh)} must be "
+                         f"(n={n}, K) like M's rows")
     Bk = B or 1
     idx, idx_bs = operand(indices, 2, Bk)
     val, val_bs = operand(values, 2, Bk)
     Mc, m_bs = operand(M, 2, Bk)
-    out = torch.empty((Bk, n, H), device=M.device, dtype=F32)
-    err = _fn()(_build.ptr(idx), idx_bs, _build.ptr(val), val_bs, _build.ptr(Mc), m_bs,
-                _build.ptr(out), Bk, n, K, H, _build.stream())
-    _build.check(err, "K10 ell_spmm")
+    out = M.new_empty((Bk, n, H))
+    err = _fn()(idx.data_ptr(), idx_bs, val.data_ptr(), val_bs, Mc.data_ptr(), m_bs,
+                out.data_ptr(), Bk, n, K, H, _build.SMS, _build.stream(dev))
+    if err:
+        _build.check(err, "K10 ell_spmm")
     ell_spmm_call.launches += 1
     return out if B is not None else out[0]
 

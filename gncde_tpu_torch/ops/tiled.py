@@ -199,7 +199,7 @@ def plain_abar(slabs, wvec, M):
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
-    "gncde_tiled_fwd2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "gncde_tiled_fwd2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     "gncde_tiled_bwd2": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "gncde_tiled_dw2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "gncde_tiled_dw": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
@@ -207,11 +207,16 @@ _ARGTYPES = {
 }
 
 
+_FNS: tp.Dict[str, tp.Any] = {}
+
+
 def _fn(name: str):
-    fn = getattr(_build.load("tiled"), name)
-    if fn.argtypes is None:
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("tiled"), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 
@@ -248,19 +253,51 @@ def _f32(dev, *shape):
     return torch.empty(shape, device=dev, dtype=torch.float32)
 
 
+#: csrc/tiled.cu K3: owned indices per CTA, depth of one reduce tile.
+FWD2_BO, FWD2_BK = 64, 32
+
+
+def fwd2_chunk(H: int) -> int:
+    """K3's column chunk for width H: the least of 8, 32, 128 that holds H
+    (wider H in chunks of 128)."""
+    return 8 if H <= 8 else 32 if H <= 32 else 128
+
+
+def fwd2_splits(B: int, n: int, H: int) -> int:
+    """How many parts K3 splits the reduce extent into: as many as keep the
+    grid (2 passes x row blocks x column chunks x B x S) within two CTAs per
+    SM, and at least 4 reduce tiles a part; 1 when the grid fills the card
+    without a split."""
+    ctas = 2 * B * -(-n // FWD2_BO) * -(-H // fwd2_chunk(H))
+    tiles = -(-n // FWD2_BK)
+    return max(1, min((2 * _build.SMS) // ctas, tiles // 4))
+
+
 def fwd2_call(A, dA, cvec, M):
     """K3: ``(rowpart, colpart)``, each ``(B, n, H)`` f32, for bf16 planes
     ``A``/``dA`` (B, n, n), ``cvec`` = (c_row0, c_row1, c_col0, c_col1) and
-    bf16 ``M`` (B, n, H)."""
+    bf16 ``M`` (B, n, H). The reduce extent goes in :func:`fwd2_splits`
+    parts; with more than one, the kernel sums them in a second launch, so
+    one call (one count in ``launches``) is then two kernel launches."""
     if not A.is_cuda:
         return plain_fwd2(A, dA, cvec, M)
     B, n, H = _check("K3", (A, dA), (M,))
     _check_cvec("K3", cvec, A.device)
-    row, col = _f32(A.device, B, n, H), _f32(A.device, B, n, H)
+    S = fwd2_splits(B, n, H)
+    if not 1 <= S <= -(-n // FWD2_BK):
+        raise ValueError(f"K3: splits={S} outside [1, ceil(n / {FWD2_BK})]")
+    # K3 reads the planes from a 16-byte aligned base; a copy is aligned.
+    if (A.data_ptr() | dA.data_ptr()) & 15:
+        A, dA = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (A, dA))
+    # One allocation: rowpart, colpart and, when split, the parts' slabs.
+    buf = A.new_empty((2 + (2 * S if S > 1 else 0), B, n, H), dtype=torch.float32)
+    row, col = buf[0], buf[1]
     err = _fn("gncde_tiled_fwd2")(
-        _build.ptr(A), _build.ptr(dA), n, _build.ptr(cvec), _build.ptr(M), B, H,
-        _build.ptr(row), _build.ptr(col), _build.stream())
-    _build.check(err, "K3 tiled fwd2")
+        A.data_ptr(), dA.data_ptr(), n, cvec.data_ptr(), M.data_ptr(), B, H,
+        row.data_ptr(), col.data_ptr(), buf[2].data_ptr() if S > 1 else None, S,
+        _build.stream(A.get_device()))
+    if err:
+        _build.check(err, "K3 tiled fwd2")
     fwd2_call.launches += 1
     return row, col
 

@@ -28,7 +28,11 @@ events (kernels, copies, memsets) it reports:
 * ``busy_share_of_unprofiled_wall``: busy time over the mean unprofiled
   kernel-path wall time (the profiler stretches the host, not the kernels);
 * ``busy_share_of_span``: busy time over the traced span;
-* the kernels with the most device time, and the kernels' launch counts.
+* the kernels with the most device time, and the kernels' launch counts
+  (``launches``: wrapper calls, each counted once; a K3 call whose reduce
+  extent is split launches two kernels);
+* ``port_kernels``: every kernel of the port's own CUDA sources (by its
+  namespace), with its device time and count.
 
 Prints the card (``nvidia-smi`` name and power limit) and then one JSON
 object. Fails without a CUDA device.
@@ -39,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,6 +53,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = {"dyn": os.path.join(ROOT, "configs", "dyn", "perm_equiv_gncde.yaml"),
            "tgb": os.path.join(ROOT, "configs", "tgb", "genre_perm_equiv_gncde.yaml")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The namespaces of the kernels in gncde_tpu_torch/csrc.
+PORT_KERNEL = re.compile(r"\b(bcsr|ell|fa|fs|k3|md|mk|mkp|tl)::")
 
 
 def device_events(trace_path: str):
@@ -209,6 +216,8 @@ def main() -> int:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + dur, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    own = sorted((kv for kv in by_name.items() if PORT_KERNEL.search(kv[0])),
+                 key=lambda kv: -kv[1][0])
     mk_wall = sum(r["wall_s"] for r in runs[kernel_path]) / len(runs[kernel_path])
     print(json.dumps({
         "nvidia_smi": smi, "task": args.task, "kernel_path": kernel_path,
@@ -224,6 +233,8 @@ def main() -> int:
             "launches": {k: f.launches for k, f in counters.items()},
             "top_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
                             for k, v in top],
+            "port_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
+                             for k, v in own],
         },
     }), flush=True)
     return 0

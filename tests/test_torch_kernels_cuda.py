@@ -56,6 +56,7 @@ from gncde_tpu_torch import ops
 from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models.vector_fields import PermEquivDirGraphVectorField as TDVF
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
+from gncde_tpu_torch.ops import _build
 from gncde_tpu_torch.ops import bcsr as tb
 from gncde_tpu_torch.ops import ell_spmm as tell
 from gncde_tpu_torch.ops import megakernel as mk
@@ -345,6 +346,105 @@ def test_cuda_tiled_wrappers_raise_instead_of_falling_back(cuda):
         tt.dw_call(tuple(s.to(torch.bfloat16) for s in slabs), G, M)  # bf16 slabs
 
 
+# K3 on the tensor cores: n = 17 (one partial row block and reduce tile), 300,
+# 641 (ragged against the 64-index blocks and 32-deep tiles) and 1505 (the
+# genre n, odd: plane rows start on 2-byte boundaries); H through each
+# column chunk (8, 32, 128), not multiples of 8 (scalar M tiles: 1, 5, 13)
+# and past one chunk (136 = 128 + 8); one and three batch elements.
+K3_NS = [17, 300, 641, 1505]
+K3_HS = [1, 5, 8, 13, 32, 128, 136]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H", K3_HS)
+@pytest.mark.parametrize("n", K3_NS)
+def test_cuda_k3_tensor_cores_match_plain(cuda, n, H, B):
+    A, dA, M, _, _, cvec = _tiled_inputs(cuda, n, H, B, seed=n + H)
+    before = tt.fwd2_call.launches
+    got, again = tt.fwd2_call(A, dA, cvec, M), tt.fwd2_call(A, dA, cvec, M)
+    ref = tt.plain_fwd2(A, dA, cvec, M)
+    torch.cuda.synchronize()
+    assert tt.fwd2_call.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert torch.isfinite(a).all()
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,H", [(641, 8), (1505, 128), (300, 13)])
+def test_cuda_k3_every_split_matches_plain(cuda, n, H, monkeypatch):
+    """The reduce extent in 1, 2, 5 and ceil(n / 32) parts (one tile each;
+    ``fwd2_call`` looks its plan up in the module): each within 1e-4 and
+    bitwise repeatable."""
+    A, dA, M, _, _, cvec = _tiled_inputs(cuda, n, H, 1, seed=7)
+    ref = tt.plain_fwd2(A, dA, cvec, M)
+    for S in (1, 2, 5, -(-n // tt.FWD2_BK)):
+        monkeypatch.setattr(tt, "fwd2_splits", lambda B, n, H, S=S: S)
+        got, again = (tt.fwd2_call(A, dA, cvec, M) for _ in range(2))
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, ref, again):
+            _assert_close(a, b, 1e-4)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("n,H", [(300, 8), (67, 128)])
+def test_cuda_k3_planes_at_any_alignment_match_plain(cuda, n, H, offset):
+    """Planes and M that start ``offset`` elements into their buffers: K3
+    copies each plane row as the aligned 16-byte granules that hold it, from
+    planes whose base is 16-byte aligned (the wrapper copies those that are
+    not) and only up to the planes' end, and takes M by scalar loads when M
+    is not 16-byte aligned."""
+    A, dA, M, _, _, cvec = _tiled_inputs(cuda, n, H, 2, seed=offset)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, device=cuda, dtype=x.dtype)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    As, dAs, Ms = shifted(A), shifted(dA), shifted(M)
+    ref = tt.plain_fwd2(A, dA, cvec, M)
+    got, again = tt.fwd2_call(As, dAs, cvec, Ms), tt.fwd2_call(As, dAs, cvec, Ms)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, again):
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)
+    if offset % 8:  # the entry point itself refuses planes it cannot copy
+        out = torch.empty((2,) + tuple(M.shape), device=cuda, dtype=torch.float32)
+        err = tt._fn("gncde_tiled_fwd2")(
+            As.data_ptr(), dAs.data_ptr(), n, cvec.data_ptr(), Ms.data_ptr(), 2, H,
+            out[0].data_ptr(), out[1].data_ptr(), None, 1, _build.stream())
+        assert err != 0
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k3_raises_on_what_it_does_not_take(cuda, monkeypatch):
+    A, dA, M, _, _, cvec = _tiled_inputs(cuda, 70, 5, 1)
+
+    def split(S):
+        monkeypatch.setattr(tt, "fwd2_splits", lambda B, n, H: S)
+        return tt.fwd2_call(A, dA, cvec, M)
+
+    before = tt.fwd2_call.launches
+    bad = [
+        lambda: tt.fwd2_call(A.float(), dA, cvec, M),  # f32 planes
+        lambda: tt.fwd2_call(A, dA, cvec, M.float()),  # f32 vectors
+        lambda: tt.fwd2_call(A, dA[:, :60, :60].contiguous(), cvec, M),  # shapes differ
+        lambda: tt.fwd2_call(A, dA, cvec, M[:, :60].contiguous()),  # n differs
+        lambda: tt.fwd2_call(A.transpose(1, 2), dA, cvec, M),  # not contiguous
+        lambda: tt.fwd2_call(A, dA, cvec.double(), M),  # f64 coefficients
+        lambda: tt.fwd2_call(A, dA, cvec.cpu(), M),  # coefficients on the CPU
+        lambda: split(0),
+        lambda: split(4),  # more parts than tiles
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert tt.fwd2_call.launches == before
+
+
 # ---------------------------------------------------------------------------
 # The enc_idx path: K7, K6a, K6b
 # ---------------------------------------------------------------------------
@@ -561,6 +661,82 @@ def test_cuda_ell_spmm_matches_plain(cuda, n, K, H, mode):
     torch.cuda.synchronize()
     assert tell.ell_spmm_call.launches == before + 1
     _assert_close(got, ref, 1e-4)
+
+
+# K10 one row per lane group: H = 1 and 3 (scalar gathers, groups of 1 and
+# 4 lanes), 16 and 32 (float4 gathers, 4 and 8 lanes), 33 (32 lanes, two
+# column passes); K = 1, 20 (the flagship's) and 129 (the scaled band's,
+# past four 32-slot chunks).
+K10_HS = [1, 3, 16, 32, 33]
+K10_KS = [1, 20, 129]
+K10_MODES = ["batched", "shared-indices", "shared-values", "shared-M", "misaligned-M"]
+
+
+def _ell_case(dev, n, K, H, B, mode, seed=0):
+    """indices with padding slots (n, and one negative) in most rows and
+    rows 0 and n - 1 all padding; values; M. ``shared-*`` hands that
+    operand over unbatched (batch stride 0); ``misaligned-M`` puts M at a
+    4-byte offset (no float4 gathers)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (B, n, K)).astype(np.int32)
+    idx[rng.random((B, n, K)) < 0.3] = n
+    idx[:, 0, :] = n
+    idx[:, n - 1, :] = n
+    if K > 1:
+        idx[:, 1, 0] = -1
+    indices = torch.tensor(idx, device=dev)
+    values = torch.tensor(rng.normal(size=(B, n, K)).astype(np.float32), device=dev)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=dev)
+    if mode == "shared-indices":
+        indices = indices[0]
+    elif mode == "shared-values":
+        values = values[0]
+    elif mode == "shared-M":
+        M = M[0]
+    elif mode == "misaligned-M":
+        buf = torch.empty(M.numel() + 1, device=dev)
+        M = buf[1:].view(B, n, H).copy_(M)
+    return indices, values, M
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", K10_MODES)
+@pytest.mark.parametrize("K", K10_KS)
+@pytest.mark.parametrize("H", K10_HS)
+def test_cuda_k10_rows_match_plain(cuda, H, K, mode):
+    n, B = 67, 3
+    indices, values, M = _ell_case(cuda, n, K, H, B, mode)
+    before = tell.ell_spmm_call.launches
+    got = tell.ell_spmm_call(indices, values, M)
+    again = tell.ell_spmm_call(indices, values, M)
+    ref = tell.plain_ell_spmm(indices, values, M)
+    torch.cuda.synchronize()
+    assert tell.ell_spmm_call.launches == before + 2
+    assert got.shape == ref.shape == (B, n, H)
+    _assert_close(got, ref, 1e-4)
+    assert torch.equal(got, again)
+    assert not got[:, 0].any() and not got[:, n - 1].any()  # all-padding rows
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k10_raises_on_what_it_does_not_take(cuda):
+    indices, values, M = _ell_case(cuda, 30, 5, 4, 2, "batched")
+    before = tell.ell_spmm_call.launches
+    bad = [
+        (indices.long(), values, M),  # int64 indices
+        (indices, values.double(), M),  # f64 values
+        (indices, values, M.to(torch.bfloat16)),  # bf16 M
+        (indices.cpu(), values, M),  # indices on the CPU
+        (indices, values.cpu(), M),  # values on the CPU
+        (indices[:, :20], values[:, :20], M),  # rows differ from M's
+        (indices, values[..., :4], M),  # K differs
+        (indices, torch.cat([values, values[:1]]), M),  # batches differ
+        (indices[0, 0], values, M),  # 1-d indices
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tell.ell_spmm_call(*args)
+    assert tell.ell_spmm_call.launches == before
 
 
 @pytest.mark.requires_cuda

@@ -30,6 +30,7 @@ from gncde_tpu.ops import sparse as jsp
 from gncde_tpu_torch import interp as tinterp
 from gncde_tpu_torch.interp import bcsr_paths as tbp
 from gncde_tpu_torch.ops import bcsr as tb
+from gncde_tpu_torch.ops import ell_spmm as tell
 from gncde_tpu_torch.ops import sparse as tsp
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -108,6 +109,35 @@ def test_ell_ops_match_jax(B):
             close(v[b] if B else v, ref[k])
         np.testing.assert_array_equal((ell.indices[b] if B else ell.indices).numpy(),
                                       np.asarray(je.indices))
+
+
+def test_kernel_operands_are_read_off_their_strides():
+    """The K8-K10 wrappers hand each operand over as ``(tensor, batch
+    stride)`` without a copy where its inner dims are contiguous: a shared
+    operand (unbatched, or an ``expand`` view) gets batch stride 0, a
+    batched one its own, a batch of one 0; only an operand whose inner dims
+    are not contiguous is copied (2-d cores as K10's, a 4-d one as K8's
+    blocks)."""
+    op = tell.operand
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    assert op(x, 2, 2) == (x, 12)
+    assert op(x[:1], 2, 1)[1] == 0
+    shared = x[0].expand(5, 3, 4)
+    got, bs = op(shared, 2, 5)
+    assert bs == 0 and got.data_ptr() == shared.data_ptr()
+    got, bs = op(x[0], 2, 2)
+    assert bs == 0 and torch.equal(got, x[0])
+    every_other = torch.arange(48, dtype=torch.float32).reshape(4, 3, 4)[::2]
+    got, bs = op(every_other, 2, 2)
+    assert got.data_ptr() == every_other.data_ptr() and bs == 24
+    cols = x.transpose(1, 2)  # (2, 4, 3) with strided rows: copied
+    got, bs = op(cols, 2, 2)
+    assert got.is_contiguous() and torch.equal(got, cols) and bs == 12
+    blocks = torch.arange(2 * 3 * 2 * 4 * 4, dtype=torch.float32).reshape(2, 3, 2, 4, 4)
+    got, bs = op(blocks, 4, 2)
+    assert got.data_ptr() == blocks.data_ptr() and bs == 96
+    got, bs = op(blocks.transpose(3, 4), 4, 2)
+    assert got.is_contiguous() and bs == 96
 
 
 def test_ell_from_edges_matches_jax():

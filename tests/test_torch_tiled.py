@@ -37,6 +37,7 @@ from gncde_tpu.ops.pallas import tiled as jt
 from gncde_tpu_torch import ops
 from gncde_tpu_torch.interp import CubicInterpolation, MatrixControl
 from gncde_tpu_torch.models.vector_fields import PermEquivGraphVectorField as TVF
+from gncde_tpu_torch.ops import _build
 from gncde_tpu_torch.ops import megakernel as mk
 from gncde_tpu_torch.ops import tiled as tt
 
@@ -291,3 +292,35 @@ def test_megakernel_backend_dispatches_n648_to_the_tiled_path(monkeypatch):
     _close(results["megakernel"][0], results["dense"][0], 2e-2)
     for a, b in zip(results["megakernel"][1:], results["dense"][1:]):
         _close(a, b, 5e-2)
+
+
+@pytest.mark.parametrize("B,n,H,want", [
+    (1, 1505, 128, 5), (1, 1505, 8, 5), (2, 300, 5, 2), (1, 17, 1, 1),
+    (3, 641, 136, 2), (1, 641, 8, 5), (4, 2048, 128, 1)])
+def test_k3_split_plan(B, n, H, want):
+    """K3's launch plan (``fwd2_splits``): the genre layer (B = 1, 24 row
+    blocks a pass) splits its reduce extent to fill two CTAs per SM of the
+    132; a grid that fills the card alone, or a short reduce extent (at
+    least four 32-deep tiles a part), is not split."""
+    S = tt.fwd2_splits(B, n, H)
+    assert S == want
+    ctas = 2 * B * -(-n // tt.FWD2_BO) * -(-H // tt.fwd2_chunk(H)) * S
+    assert S == 1 or ctas <= 2 * _build.SMS
+    assert 1 <= S <= max(1, -(-n // tt.FWD2_BK) // 4)
+    assert [tt.fwd2_chunk(h) for h in (1, 8, 9, 32, 33, 128, 136)] == [8, 8, 32, 32, 128,
+                                                                     128, 128]
+
+
+def test_k3_wrapper_on_cpu_runs_its_plain_version(monkeypatch):
+    """On CPU tensors fwd2_call is plain_fwd2 (whatever the split plan says)
+    and counts no launch."""
+    rng = np.random.default_rng(0)
+    A, dA = (torch.tensor(rng.normal(size=(1, 20, 20)).astype(np.float32)).to(torch.bfloat16)
+             for _ in range(2))
+    M = torch.tensor(rng.normal(size=(1, 20, 3)).astype(np.float32)).to(torch.bfloat16)
+    cvec = torch.tensor([1.0, 0.1, -0.2, 0.3])
+    monkeypatch.setattr(tt, "fwd2_splits", lambda B, n, H: 3)
+    before = tt.fwd2_call.launches
+    for got, ref in zip(tt.fwd2_call(A, dA, cvec, M), tt.plain_fwd2(A, dA, cvec, M)):
+        assert torch.equal(got, ref)
+    assert tt.fwd2_call.launches == before
