@@ -216,6 +216,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -264,6 +265,9 @@ TILED_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H
                 "odd": dict(n=300, H=5, B=2)}
 MODULATE_TOL = 1e-5
 PAIR_TOL = 1e-4
+#: K6a's and K6a-bf's rectangular shape in phases 8 and 22: nr != nc, H not a
+#: multiple of 8 (scalar vector tiles), two batch elements.
+PAIR_RECT = {"rect": dict(n=300, nc=211, H=13, B=2)}
 #: The TGB phases (7, 9, 18, 19, 23-25) each run one epoch of three windows
 #: of 3 snapshots (the trade configs' window), split 1/1/1: one training
 #: window, one validation, one test. The genre phases (7, 9, 19, 24) train
@@ -645,9 +649,12 @@ def device_ms(torch, fn, iters=20, warmup=3):
     without its host work. ``iters`` back-to-back calls are traced with
     torch.profiler and the durations of their device events (kernels,
     copies, memsets; ``profile_step_torch.device_events``) summed, in total
-    and by name, over ``iters``. Where the trace holds no device event (no
-    CUPTI), the calls are captured in one CUDA graph and its replay is timed
-    with CUDA events instead (no names)."""
+    and by name, over ``iters``. A trace that holds fewer kernel events than
+    the kernel launches it records lost some (seen on the card after many
+    traces in one process) and is taken again, up to three times. Where no
+    trace holds them all, or a trace holds no device event (no CUPTI), the
+    calls are captured in one CUDA graph and its replay is timed with CUDA
+    events instead (no names)."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
@@ -657,19 +664,23 @@ def device_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        events = device_events(path)
-    if events:
-        by_name = {}
-        for name, _, dur in events:
-            by_name[name] = by_name.get(name, 0.0) + dur / iters / 1e3
-        return sum(by_name.values()), by_name
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            events = device_events(path)
+            launched, kernels = trace_kernel_counts(path)
+        if events and kernels >= launched:
+            by_name = {}
+            for name, _, dur in events:
+                by_name[name] = by_name.get(name, 0.0) + dur / iters / 1e3
+            return sum(by_name.values()), by_name
+        if not events:
+            break
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -683,6 +694,25 @@ def device_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, {}
+
+
+def trace_kernel_counts(path):
+    """(kernel launches the host recorded, kernel events the device
+    recorded) of a Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    launched = kernels = 0
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X":
+            continue
+        if cat in ("cuda_runtime", "cuda_driver") and re.search(r"Launch\w*Kernel",
+                                                                 e.get("name", "")):
+            launched += 1
+        elif cat == "kernel":
+            kernels += 1
+    return launched, kernels
 
 
 def rel_err(torch, got, ref):
@@ -889,7 +919,15 @@ def phase_tiled(torch, results):
                 two = lambda: (torch.matmul(B1, M), torch.matmul(B2t, M))  # noqa: E731
                 extra["yardstick_two_cublas_bf16_products_ms"] = time_ms(torch, two)
                 extra["yardstick_device_ms"] = device_ms(torch, two)[0]
-                line.update(extra)
+            if name == "K4":
+                # K4's four products on its own bf16 operands, four calls: a
+                # yardstick (K4 also forms dM and the inner products).
+                At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
+                four = lambda: (torch.matmul(A, G), torch.matmul(dA, G),  # noqa: E731
+                                torch.matmul(At, G), torch.matmul(dAt, G))
+                extra["yardstick_four_cublas_bf16_products_ms"] = time_ms(torch, four)
+                extra["yardstick_device_ms"] = device_ms(torch, four)[0]
+            line.update(extra)
             emit(line)
             if not max(errs) <= TILED_TOL:
                 raise RuntimeError(f"{name} {label}: rel err {max(errs):.3e} > {TILED_TOL}")
@@ -1023,10 +1061,11 @@ def phase_enc_idx(torch):
     return launches
 
 
-def make_pair_inputs(torch, n, H, B, seed=0):
-    """f32 planes (B, n, n), f32 vectors (B, n, H), the coefficient vector,
-    a node embedding (n, 8) and the two modulation MLPs of the enc_idx
-    config (width 8, depth 2), from ``seed``."""
+def make_pair_inputs(torch, n, H, B, seed=0, nc=None):
+    """f32 planes (B, n, nc), f32 vectors Mi, Gr (B, n, H) and Mk, Gc
+    (B, nc, H) (nc = n by default), the coefficient vector, a node embedding
+    (n, 8) and the two modulation MLPs of the enc_idx config (width 8, depth
+    2), from ``seed``."""
     import numpy as np
 
     from gncde_tpu_torch.nn import MLP
@@ -1039,19 +1078,22 @@ def make_pair_inputs(torch, n, H, B, seed=0):
 
     gen = torch.Generator().manual_seed(seed)
     mlps = [MLP(17, 1, 8, 2, generator=gen).to(dev) for _ in range(2)]
-    return dict(A=f(B, n, n, loc=0.1, scale=0.3), dA=f(B, n, n, scale=0.5),
-                Mk=f(B, n, H), Mi=f(B, n, H), Gr=f(B, n, H), Gc=f(B, n, H),
+    nc = n if nc is None else nc
+    return dict(A=f(B, n, nc, loc=0.1, scale=0.3), dA=f(B, n, nc, scale=0.5),
+                Mk=f(B, nc, H), Mi=f(B, n, H), Gr=f(B, n, H), Gc=f(B, nc, H),
                 cvec=torch.tensor([1.03, 0.071, -0.044, 0.052], device=dev),
                 emb=f(n, 8), mlps=mlps)
 
 
-def pair_bound(name, n, H, B, w=8, depth=2, plane_bytes=4, vec_bytes=4):
-    """(bound_ms, bound_by) of one enc_idx kernel call: each input read once,
-    each output written once (f32 sums, the planes and vectors at their
-    sizes), and the operations the function needs at the peak for their
-    operands' type: f32 at 67 TFLOP/s, the products of bf16 planes and bf16
-    vectors (K6a-bf's backward form, K6b-bf) at the bf16 989 TFLOP/s."""
-    nn, nh = n * n * B, n * H * B
+def pair_bound(name, n, H, B, w=8, depth=2, plane_bytes=4, vec_bytes=4, nc=None):
+    """(bound_ms, bound_by) of one enc_idx kernel call on (B, n, nc) planes
+    (nc = n by default): each input read once, each output written once (f32
+    sums, the planes and vectors at their sizes), and the operations the
+    function needs at the peak for their operands' type: f32 at 67 TFLOP/s,
+    the products of bf16 planes and bf16 vectors (K6a-bf's backward form,
+    K6b-bf) at the bf16 989 TFLOP/s."""
+    nc = n if nc is None else nc
+    nn, nh = n * nc * B, (n + nc) * H * B / 2
     peak = BF16_FLOPS if plane_bytes == vec_bytes == 2 else F32_FLOPS
     if name.startswith("K6a"):  # A, dA, Mk, Mi -> rowpart, colpart: B1, B2, two products
         return bound(2 * plane_bytes * nn + 2 * vec_bytes * nh + 2 * 4 * nh + 16,
@@ -1071,19 +1113,20 @@ def phase_pair(torch, results):
     from gncde_tpu_torch.ops import modulate as tmod
     from gncde_tpu_torch.ops import pair as tp
 
-    for label, s in TILED_SHAPES.items():
-        n, H, B = s["n"], s["H"], s["B"]
-        x = make_pair_inputs(torch, n, H, B)
+    for label, s in {**TILED_SHAPES, **PAIR_RECT}.items():
+        n, H, B, nc = s["n"], s["H"], s["B"], s.get("nc", s["n"])
+        x = make_pair_inputs(torch, n, H, B, nc=nc)
         ma, md = x["mlps"]
         pair_args = (x["A"], x["dA"], x["cvec"], x["Mk"], x["Mi"])
         dw_args = tuple(x[k] for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
         calls = {
             "K6a": (lambda: tp.pair_call(*pair_args), lambda: tp.plain_pair(*pair_args),
                     PAIR_TOL),
-            "K6b": (lambda: (tp.pair_dw_call(*dw_args),),
-                    lambda: (tp.plain_pair_dw(*dw_args),), PAIR_TOL),
         }
-        if label != "genre-H8":  # K7 does not depend on H
+        if label in TILED_SHAPES:  # K6a alone on the rectangular planes
+            calls["K6b"] = (lambda: (tp.pair_dw_call(*dw_args),),
+                            lambda: (tp.plain_pair_dw(*dw_args),), PAIR_TOL)
+        if label in ("genre-H128", "odd"):  # K7 does not depend on H
             calls["K7"] = (
                 lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
                 lambda: tmod.plain_modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
@@ -1102,17 +1145,21 @@ def phase_pair(torch, results):
                     errs.append(err)
                     worst_abs = max(worst_abs, float((a - b).abs().max()))
                 ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-            bms, by = pair_bound(name, n, H, B)
+            bms, by = pair_bound(name, n, H, B, nc=nc)
             line = {"phase": 8, "kernel": name, "shape": label, **s,
                     "max_abs_err": worst_abs, "max_rel_err": max(errs), "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
             extra = {}
             if name == "K6a":
+                # Two calls on B1, B2 formed beforehand: a yardstick, not one
+                # call for K6a's function (which forms them itself).
                 c = x["cvec"]
                 B1 = c[0] * x["A"] + c[1] * x["dA"]
                 B2t = (c[2] * x["A"] + c[3] * x["dA"]).transpose(-2, -1)
-                extra["yardstick_two_cublas_f32_products_ms"] = time_ms(
-                    torch, lambda: (torch.matmul(B1, x["Mk"]), torch.matmul(B2t, x["Mi"])))
+                two = lambda: (torch.matmul(B1, x["Mk"]), torch.matmul(B2t, x["Mi"]))  # noqa: E731
+                extra["device_ms"] = device_ms(torch, kernel)[0]
+                extra["yardstick_two_cublas_f32_products_ms"] = time_ms(torch, two)
+                extra["yardstick_device_ms"] = device_ms(torch, two)[0]
             if name == "K7":
                 # The wrapper's input preparation is a dozen small torch ops;
                 # the launch alone on prepared inputs, for comparison.
@@ -2456,15 +2503,17 @@ def bf16_ulps(torch, got, ref, slack=MODULATE_TOL):
 def phase_pair_bf16(torch, results):
     """Phase 22: K7bf, K6a-bf (with the forward's f32 vectors and the
     backward's bf16 ones) and K6b-bf against their plain versions on the
-    same card tensors at :data:`PAIR_BF16_SHAPES`, each timed beside the f32
-    kernel on the same shape."""
+    same card tensors at :data:`PAIR_BF16_SHAPES` (K6a-bf also on
+    :data:`PAIR_RECT`), each timed beside the f32 kernel on the same shape;
+    K6a-bf also by its device time beside two cuBLAS products on B1, B2
+    formed beforehand."""
     from gncde_tpu_torch.ops import modulate as tmod
     from gncde_tpu_torch.ops import pair as tp
 
     bf = torch.bfloat16
-    for label, s in PAIR_BF16_SHAPES.items():
-        n, H, B = s["n"], s["H"], s["B"]
-        x = make_pair_inputs(torch, n, H, B)
+    for label, s in {**PAIR_BF16_SHAPES, **PAIR_RECT}.items():
+        n, H, B, nc = s["n"], s["H"], s["B"], s.get("nc", s["n"])
+        x = make_pair_inputs(torch, n, H, B, nc=nc)
         ma, md = x["mlps"]
         A, dA = x["A"].to(bf), x["dA"].to(bf)
         vb = {k: x[k].to(bf) for k in ("Mk", "Mi", "Gr", "Gc")}
@@ -2477,15 +2526,20 @@ def phase_pair_bf16(torch, results):
             "K6a-bf-bf16-vectors": ((A, dA, x["cvec"], vb["Mk"], vb["Mi"]), tp.pair_call,
                                     tp.plain_pair, lambda: tp.pair_call(*f32_pair),
                                     dict(plane_bytes=2, vec_bytes=2)),
-            "K6b-bf": ((A, dA, vb["Gr"], vb["Mk"], vb["Mi"], vb["Gc"]),
-                       lambda *a: (tp.pair_dw_call(*a),), lambda *a: (tp.plain_pair_dw(*a),),
-                       lambda: tp.pair_dw_call(*f32_dw), dict(plane_bytes=2, vec_bytes=2)),
         }
-        if label != "genre-H8":  # K7 does not depend on H
+        if label in PAIR_BF16_SHAPES:  # K6a-bf alone on the rectangular planes
+            calls["K6b-bf"] = ((A, dA, vb["Gr"], vb["Mk"], vb["Mi"], vb["Gc"]),
+                               lambda *a: (tp.pair_dw_call(*a),),
+                               lambda *a: (tp.plain_pair_dw(*a),),
+                               lambda: tp.pair_dw_call(*f32_dw),
+                               dict(plane_bytes=2, vec_bytes=2))
+        if label in ("genre-H128", "odd", "trade-H512"):  # K7 does not depend on H
             calls["K7bf"] = ((x["A"], x["dA"], ma, md, x["emb"], bf), tmod.modulate_pair,
                              tmod.plain_modulate_pair,
                              lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
                              dict(plane_bytes=2))
+        cb = x["cvec"].to(bf)
+        B1, B2t = cb[0] * A + cb[1] * dA, (cb[2] * A + cb[3] * dA).transpose(-2, -1)
         for name, (args, kernel, plain, f32_kernel, sizes) in calls.items():
             with torch.no_grad():
                 got, ref, again = kernel(*args), plain(*args), kernel(*args)
@@ -2507,11 +2561,19 @@ def phase_pair_bf16(torch, results):
                 ms = time_ms(torch, lambda: kernel(*args))
                 plain_ms = time_ms(torch, lambda: plain(*args))
                 f32_ms = time_ms(torch, f32_kernel)
-            bms, by = pair_bound(name, n, H, B, **sizes)
+            bms, by = pair_bound(name, n, H, B, nc=nc, **sizes)
             tol = K7BF_ULPS if name == "K7bf" else PAIR_TOL
             extra = {"max_rel_err": max(rels), "f32_kernel_ms": f32_ms}
             if name == "K7bf":
                 extra["max_bf16_ulps"] = max(errs)
+            if name.startswith("K6a-bf"):
+                # Two calls on B1, B2 formed beforehand in bf16: with the f32
+                # vectors as f32 products, with the bf16 ones as bf16 products.
+                P1, P2 = (B1, B2t) if args[3].dtype == bf else (B1.float(), B2t.float())
+                two = lambda: (torch.matmul(P1, args[3]), torch.matmul(P2, args[4]))  # noqa: E731
+                extra["device_ms"] = device_ms(torch, lambda: kernel(*args))[0]
+                extra["yardstick_two_cublas_products_ms"] = time_ms(torch, two)
+                extra["yardstick_device_ms"] = device_ms(torch, two)[0]
             emit({"phase": 22, "kernel": name, "shape": label, **s, "max_abs_err": worst_abs,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "tol": tol, **extra})

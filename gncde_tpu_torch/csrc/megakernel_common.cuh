@@ -275,6 +275,41 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& 
                : "r"(smem_u32(p)));
 }
 
+// Four 8 x 8 bf16 matrices from shared memory into an A fragment (lane l
+// gives the row address of matrix l / 8), and two transposed on the way.
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
+// 16-byte cp.async of src_bytes (0-16) from global memory; the rest of the
+// 16 bytes is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_wait0() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// bf16(bf16(c0 a) + bf16(c1 d)) for both halves of the bf16 words a and d
+// (the B1/B2 rounding chain of the tiled kernels).
+__device__ __forceinline__ uint32_t form_two(uint32_t a, uint32_t d, float c0, float c1) {
+  const float a0 = __uint_as_float(a << 16), a1 = __uint_as_float(a & 0xffff0000u);
+  const float d0 = __uint_as_float(d << 16), d1 = __uint_as_float(d & 0xffff0000u);
+  const float s0 = __fadd_rn(rbf(__fmul_rn(c0, a0)), rbf(__fmul_rn(c1, d0)));
+  const float s1 = __fadd_rn(rbf(__fmul_rn(c0, a1)), rbf(__fmul_rn(c1, d1)));
+  const __nv_bfloat162 v = __floats2bfloat162_rn(s0, s1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // c += T^T Bt^T over one BK-deep tile for the warp's 16 x 8 block (columns
 // nb0 .. nb0 + 7), the row operand held transposed: T[k][i]. Matrix m of
 // the x4 load is rows i (m & 1) * 8 .., k (m >> 1) * 8 .. of the operand,

@@ -48,14 +48,6 @@ using namespace mk;
 
 namespace mkp {
 
-// Two 8 x 8 bf16 matrices from shared memory, transposed on the way into
-// the fragment: lane l gives the row address of matrix (l / 8) % 2.
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
 // c += Mt[hb .. hb+15][k] T[k][ib .. ib+7] over one BK-deep tile: a 16 x 8
 // block of (Mh^T Ah) (rows h, columns i), Mt the row operand (row-major),
 // T[k][i] the column operand read by k pairs through the transposing load.

@@ -1,6 +1,6 @@
-// K3, K4, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K5c:
-// the 4-slab apply behind tiled_abar_apply; K6a, K6b: the plane-pair sweeps
-// of the enc_idx path.
+// K3, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K5c: the
+// 4-slab apply behind tiled_abar_apply; K6b: the plane-pair cotangent sweep
+// of the enc_idx path. K4 and K6a run on the tensor cores in plane_mma.cu.
 //
 // Replace the TPU kernels of gncde_tpu/ops/pallas/tiled.py:
 //   K3  _fwd2_kernel / _fwd2_call   rowpart = B1 M, colpart = B2^T M (its own
@@ -8,31 +8,23 @@
 //   K5c _fwd_kernel / _fwd_call     rowpart = B(w_row) M, colpart =
 //                                   B(w_col)^T M, B(w) = sum_j w_j slab_j
 //                                   over the four Hermite slabs (d, c, b, a)
-//   K4  _bwd2_kernel / _bwd2_call   A g, dA g, A^T g, dA^T g in one sweep,
-//                                   dM parts and the four c cotangents
 //   K5a _dw2_kernel / _dw2_call     <A|dA, G M^T>, <A|dA, M G^T>
 //   K5b _dw_kernel / _dw_call       <slab_j, G M^T>, <slab_j, M G^T>
-//   K6a _pair_kernel / _pair_call   rowpart = B1 Mk, colpart = B2^T Mi
 //   K6b _pair_dw_kernel / _pair_dw_call
 //                                   <A|dA, Gr Mk^T>, <A|dA, Mi Gc^T>
 // K5c: B(w) formed in f32 from the f32 or bf16 slabs, each product and sum
 // rounded once in _fwd_kernel's order ((w0 d + w1 c) + w2 b) + w3 a, entries
 // beyond n zero, then rounded to bf16 (the matmul operand), M in bf16.
-// K3-K5b: B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from
-// the bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded
-// to bf16, every product and sum rounded to bf16, as _fwd2_kernel does).
-// K6a/K6b: f32 planes (the modulated A(t), dA(t), functions of trainable
-// parameters), B1/B2 formed in f32, f32 vectors, rectangular (nr, nc)
-// extents (the enc_idx path passes square ones). Every product is
-// accumulated in f32. K6a-bf/K6b-bf (fusion_precision bf16): bf16 planes,
-// B1/B2 formed in bf16 as K3 forms them (_pair_kernel casts the
-// coefficients to the planes' dtype); K6a-bf takes f32 vectors (the
-// forward's M: the products of bf16-rounded B values and f32 vectors, in
-// f32, as JAX promotes the dot) or bf16 ones (the backward's cotangents),
-// K6b-bf bf16 vectors (_ppa_bwd's mm_dtype).
+// K3: B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from the
+// bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded to
+// bf16, every product and sum rounded to bf16, as _fwd2_kernel does).
+// K6b: f32 planes (the modulated A(t), dA(t), functions of trainable
+// parameters) and f32 vectors, rectangular (nr, nc) extents (the enc_idx
+// path passes square ones); K6b-bf (fusion_precision bf16) bf16 planes and
+// bf16 vectors (_ppa_bwd's mm_dtype). Every product is accumulated in f32.
 //
 // Layout (every kernel but K3, which has its own below). Planes are
-// (B, n, n) and vectors M, G (B, n, H) bf16 (K6: f32 or bf16 as above,
+// (B, n, n) and vectors M, G (B, n, H) bf16 (K6b: f32 or bf16 as above,
 // (B, nr, nc) and (B, nr | nc, H)), unpadded:
 // every tile load is bound-checked against n, and a tile's overhang is
 // staged as zero. One CTA owns BO indices of one batch element and sweeps
@@ -46,18 +38,18 @@
 // CTA, summed in one fixed order, with no float atomics, so results are
 // bitwise repeatable. The price is a second read of the planes (by the col
 // pass), which mostly hits the 50 MB L2 (two bf16 planes at n = 1505 are
-// 9.1 MB). Scalar cotangents (K4, K5a, K5b) are per-CTA partials, reduced in
-// a fixed order by a second kernel.
+// 9.1 MB). Scalar cotangents (K5a, K5b, K6b) are per-CTA partials, reduced
+// in a fixed order by a second kernel.
 //
-// What bounds it on the card: bytes. One sweep must read the two bf16
-// planes (4 n^2 bytes); the products are 8 n^2 H (K4) FLOPs, under the
-// H100's bf16 ridge point for H <= 128. This first version
-// multiplies with f32 FMAs from shared memory (the products of bf16 values
-// are exact in f32) and overlaps the next tile's global loads with the
-// current tile's FMAs through registers; it has no tensor cores, TMA or
-// shared-memory double buffering (later work), and runs far above that
-// bound: at H = 128 it is bound by shared-memory loads and issue, at small H
-// by the latency of its 47 sequential tiles (n = 1505).
+// What bounds it on the card: bytes. One sweep must read the planes
+// (4 n^2 bytes in bf16); the products are under the H100's bf16 ridge point
+// for H <= 128. This first version multiplies with f32 FMAs from shared
+// memory (the products of bf16 values are exact in f32) and overlaps the
+// next tile's global loads with the current tile's FMAs through registers;
+// it has no tensor cores, TMA or shared-memory double buffering (later
+// work), and runs far above that bound: at H = 128 it is bound by
+// shared-memory loads and issue, at small H by the latency of its 47
+// sequential tiles (n = 1505).
 //
 // Widths: any H >= 1. Each kernel is compiled for feature chunks of HC = 8,
 // 32 and 128 columns and launched with the smallest that holds H (or 128),
@@ -109,16 +101,16 @@ __device__ float block_sum(float v, float* red) {
 }
 
 struct Sweep {
-  const void* p[4];   // NPL plane pointers (bf16; f32 for K5b's slabs and K6)
+  const void* p[4];   // NPL plane pointers (bf16; f32 for K5b's slabs and K6b)
   int nr, nc;         // planes (B, nr, nc); K3-K5b are square, nr = nc = n
-  const void* v[2];   // NV vector operands (bf16; f32 for K6): (B, nc, H) in
+  const void* v[2];   // NV vector operands (bf16; f32 for K6b): (B, nc, H) in
                       // the row pass, (B, nr, H) in the column pass
   int H;
   float w[4];         // the four slab weights of a COMBO_SLAB4 tile (K5c)
 };
 
 // How a sweep forms its plane tile from the NPL raw planes.
-enum Combo { RAW = 0, COMBO_BF16 = 1, COMBO_F32 = 2, COMBO_SLAB4 = 3 };
+enum Combo { RAW = 0, COMBO_SLAB4 = 1 };
 
 // Shared tiles of one CTA: NS plane tiles (BO x BR, padded rows) and NV
 // vector tiles (BR x HC), both f32.
@@ -134,17 +126,16 @@ struct Smem {
 //   acc[s * NV + v][j] += sum_r S_s[a_j][r] * V_v[r][h_j]
 // for the (a_j, h_j) = divmod(tid + j NT, hc) pairs of this thread. The row
 // pass owns rows and reduces over the nc columns, the column pass (trans)
-// owns columns and reduces over the nr rows. With COMBO_BF16 the NPL = 2
-// raw planes form one tile S_0 = bf16(bf16(c0 x0) + bf16(c1 x1)) (K3), with
-// COMBO_F32 the f32 tile S_0 = c0 x0 + c1 x1 (K6, each product and the sum
-// rounded once); with RAW each raw plane is its own tile (NS = NPL).
+// owns columns and reduces over the nr rows. With COMBO_SLAB4 the NPL = 4
+// slabs form one tile (K5c); with RAW each raw plane is its own tile
+// (NS = NPL).
 // The next tile's global loads are issued into registers before the current
 // tile is multiplied, so their latency overlaps the FMAs; all loads of one
 // tile are in flight together (unrolled, fixed trip counts).
 template <int NPL, int NS, int NV, int BO, int HC, int COMBO, typename PT,
           typename VT>
 __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool trans,
-                      int o0, int h0, int hc, float c0, float c1,
+                      int o0, int h0, int hc,
                       float (&acc)[NS * NV][(BO * HC + NT - 1) / NT]) {
   constexpr int PPT = (BO * HC + NT - 1) / NT;      // output pairs per thread
   constexpr int PE = (BO * BR + NT - 1) / NT;       // plane elements per thread
@@ -200,11 +191,7 @@ __device__ void sweep(const Sweep& g, Smem<NS, NV, BO, HC>& sm, int b, bool tran
       if (e >= BO * BR) continue;
       const int a = trans ? e % BO : e / BR;
       const int r = trans ? e / BO : e % BR;
-      if (COMBO == COMBO_BF16) {
-        sm.S[0][a][r] = rbf(rbf(c0 * px[0][i]) + rbf(c1 * px[1][i]));
-      } else if (COMBO == COMBO_F32) {
-        sm.S[0][a][r] = __fadd_rn(__fmul_rn(c0, px[0][i]), __fmul_rn(c1, px[1][i]));
-      } else if (COMBO == COMBO_SLAB4) {
+      if (COMBO == COMBO_SLAB4) {
         float x = __fmul_rn(g.w[0], px[0][i]);
 #pragma unroll
         for (int q = 1; q < 4; ++q) x = __fadd_rn(x, __fmul_rn(g.w[q], px[q][i]));
@@ -292,60 +279,13 @@ __global__ void __launch_bounds__(NT) abar_kernel(Sweep g, const float* wvec,
   float acc[1][PPT];
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<4, 1, 1, BO, HC, COMBO_SLAB4, PT, bf16>(g, sm, b, trans, o0, h0, hc, 0.f, 0.f,
-                                                  acc);
+    sweep<4, 1, 1, BO, HC, COMBO_SLAB4, PT, bf16>(g, sm, b, trans, o0, h0, hc, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
       if (pair(j, hc, BO, a, h) && o0 + a < g.nr)
         out[(long long)(o0 + a) * g.H + h0 + h] = acc[0][j];
     }
-  }
-}
-
-// ---- K4 ------------------------------------------------------------------
-// cvec = (c_col0, c_col1, c_row0, c_row1): row pass dM rows
-// c_col . (A g, dA g); col pass dM rows c_row . (A^T g, dA^T g).
-// part: (B, 2 * gridDim.x, 4) partial sums of
-// (<A^T g, M>, <dA^T g, M>, <A g, M>, <dA g, M>).
-template <int HC>
-__global__ void __launch_bounds__(NT) bwd2_kernel(Sweep g, const float* cvec,
-                                                  const bf16* M, float* row_out,
-                                                  float* col_out, float* part) {
-  constexpr int BO = bo_for(2, HC), PPT = (BO * HC + NT - 1) / NT;
-  __shared__ Smem<2, 1, BO, HC> sm;
-  const int b = blockIdx.z;
-  const bool trans = blockIdx.y == 1;
-  const int o0 = blockIdx.x * BO;
-  const float c0 = __ldg(cvec + (trans ? 2 : 0));
-  const float c1 = __ldg(cvec + (trans ? 3 : 1));
-  float* out = (trans ? col_out : row_out) + (long long)b * g.nr * g.H;
-  const bf16* Mb = M + (long long)b * g.nr * g.H;
-  float acc[2][PPT];
-  float dot0 = 0.f, dot1 = 0.f;
-  for (int h0 = 0; h0 < g.H; h0 += HC) {
-    const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 1, BO, HC, RAW, bf16, bf16>(g, sm, b, trans, o0, h0, hc, 0.f, 0.f, acc);
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      int a, h;
-      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
-      const long long o = (long long)(o0 + a) * g.H + h0 + h;
-      out[o] = c0 * acc[0][j] + c1 * acc[1][j];
-      const float m = __bfloat162float(Mb[o]);
-      dot0 = fmaf(acc[0][j], m, dot0);
-      dot1 = fmaf(acc[1][j], m, dot1);
-    }
-  }
-  dot0 = block_sum(dot0, sm.red);
-  dot1 = block_sum(dot1, sm.red);
-  if (threadIdx.x == 0) {
-    float* pp = part + ((long long)b * 2 * gridDim.x + blockIdx.y * gridDim.x +
-                        blockIdx.x) * 4;
-    pp[0] = trans ? dot0 : 0.f;
-    pp[1] = trans ? dot1 : 0.f;
-    pp[2] = trans ? 0.f : dot0;
-    pp[3] = trans ? 0.f : dot1;
   }
 }
 
@@ -365,7 +305,7 @@ __global__ void __launch_bounds__(NT) dw2_kernel(Sweep g, float* part) {
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 2, BO, HC, RAW, bf16, bf16>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<2, 2, 2, BO, HC, RAW, bf16, bf16>(g, sm, b, false, o0, h0, hc, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
@@ -403,7 +343,7 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
   for (int q = 0; q < 8; ++q) dot[q] = 0.f;
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<4, 4, 2, BO, HC, RAW, float, bf16>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<4, 4, 2, BO, HC, RAW, float, bf16>(g, sm, b, false, o0, h0, hc, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
@@ -421,49 +361,6 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
   for (int q = 0; q < 8; ++q) {
     const float s = block_sum(dot[q], sm.red);
     if (threadIdx.x == 0) pp[q] = s;
-  }
-}
-
-// ---- K6a -----------------------------------------------------------------
-// The rectangular pair apply of the enc_idx path: planes A, dA (B, nr, nc)
-// of type PT, B1 = cr0 A + cr1 dA, B2 = cc0 A + cc1 dA formed in f32 (PT =
-// float) or in bf16 (PT = bf16: the coefficients rounded to bf16, each
-// product and the sum rounded, COMBO_BF16), vectors of type VT,
-//   row pass: rowpart = B1 Mk   (B, nr, H), Mk (B, nc, H)
-//   col pass: colpart = B2^T Mi (B, nc, H), Mi (B, nr, H)
-// cvec = (cr0, cr1, cc0, cc1). The grid covers max(nr, nc) owned indices;
-// CTAs past their pass's extent exit at once.
-template <int HC, typename PT, typename VT>
-__global__ void __launch_bounds__(NT) pair_kernel(Sweep g, const float* cvec,
-                                                  const VT* Mk, const VT* Mi,
-                                                  float* row_out, float* col_out) {
-  constexpr int BO = bo_for(1, HC), PPT = (BO * HC + NT - 1) / NT;
-  constexpr bool BF = std::is_same<PT, bf16>::value;
-  __shared__ Smem<1, 1, BO, HC> sm;
-  const int b = blockIdx.z;
-  const bool trans = blockIdx.y == 1;
-  const int o0 = blockIdx.x * BO;
-  const int own = trans ? g.nc : g.nr;
-  if (o0 >= own) return;
-  g.v[0] = trans ? Mi : Mk;
-  float c0 = __ldg(cvec + (trans ? 2 : 0));
-  float c1 = __ldg(cvec + (trans ? 3 : 1));
-  if (BF) {
-    c0 = rbf(c0);
-    c1 = rbf(c1);
-  }
-  float* out = (trans ? col_out : row_out) + (long long)b * own * g.H;
-  float acc[1][PPT];
-  for (int h0 = 0; h0 < g.H; h0 += HC) {
-    const int hc = min(HC, g.H - h0);
-    sweep<2, 1, 1, BO, HC, BF ? COMBO_BF16 : COMBO_F32, PT, VT>(g, sm, b, trans, o0, h0,
-                                                               hc, c0, c1, acc);
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      int a, h;
-      if (pair(j, hc, BO, a, h) && o0 + a < own)
-        out[(long long)(o0 + a) * g.H + h0 + h] = acc[0][j];
-    }
   }
 }
 
@@ -488,7 +385,7 @@ __global__ void __launch_bounds__(NT) pair_dw_kernel(Sweep g, const T* Gr, const
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
   for (int h0 = 0; h0 < g.H; h0 += HC) {
     const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 2, BO, HC, RAW, PT, T>(g, sm, b, false, o0, h0, hc, 0.f, 0.f, acc);
+    sweep<2, 2, 2, BO, HC, RAW, PT, T>(g, sm, b, false, o0, h0, hc, acc);
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       int a, h;
@@ -573,7 +470,7 @@ int by_width(int H, F f) {
 // M tiles (32 x HB, row-major) reach the B operand by ldmatrix .trans.
 //
 // The operands are bitwise those of the first version of K3 (the shared
-// sweep, COMBO_BF16): B1 = bf16(bf16(c0 A) + bf16(c1 dA)) with the
+// shared sweep it has left): B1 = bf16(bf16(c0 A) + bf16(c1 dA)) with the
 // coefficients rounded to bf16 first, formed in f32 and stored to shared
 // memory as bf16. The planes are unpadded (B, n, n) bf16, so a row starts
 // on a 2-byte boundary only (n = 1505: 3,010 bytes a row) and TMA cannot
@@ -636,36 +533,13 @@ __host__ __device__ constexpr int smem_bytes() {
   return 2 * (RS * 2 * PS + PS + MS * BK * mld<HB>());
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(mk::smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(mk::smem_u32(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(mk::smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_wait0() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// bf16(bf16(c0 a) + bf16(c1 d)) for both halves of the words a and d.
-__device__ __forceinline__ uint32_t form_two(uint32_t a, uint32_t d, float c0, float c1) {
-  const float a0 = __uint_as_float(a << 16), a1 = __uint_as_float(a & 0xffff0000u);
-  const float d0 = __uint_as_float(d << 16), d1 = __uint_as_float(d & 0xffff0000u);
-  const float s0 = __fadd_rn(tl::rbf(__fmul_rn(c0, a0)), tl::rbf(__fmul_rn(c1, d0)));
-  const float s1 = __fadd_rn(tl::rbf(__fmul_rn(c0, a1)), tl::rbf(__fmul_rn(c1, d1)));
-  const __nv_bfloat162 v = __floats2bfloat162_rn(s0, s1);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using mk::cp_async16;
+using mk::cp_commit;
+using mk::cp_wait0;
+using mk::cp_wait1;
+using mk::form_two;
+using mk::ldsm_x2_t;
+using mk::ldsm_x4;
 
 struct Args {
   const unsigned short* A;
@@ -979,24 +853,6 @@ extern "C" int gncde_tiled_abar(const void* d, const void* c, const void* b,
   });
 }
 
-// K4. cvec: device (c_col0, c_col1, c_row0, c_row1) f32; G, M: (B, n, H)
-// bf16; part: scratch of at least B * 2 * ceil(n / 16) * 4 floats; dw: (B, 4).
-extern "C" int gncde_tiled_bwd2(const void* A, const void* dA, int n,
-                                const float* cvec, const void* G, const void* M,
-                                int B, int H, float* row_out, float* col_out,
-                                float* part, float* dw, cudaStream_t stream) {
-  if (!dims_ok(B, n, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, n, n, G, nullptr, H);
-  return by_width(H, [&](auto hc) {
-    constexpr int HC = decltype(hc)::value, BO = bo_for(2, HC);
-    const int nb = (n + BO - 1) / BO;
-    bwd2_kernel<HC><<<dim3(nb, 2, B), NT, 0, stream>>>(
-        g, cvec, static_cast<const bf16*>(M), row_out, col_out, part);
-    const int err = (int)cudaGetLastError();
-    return err != 0 ? err : launch_reduce(part, B, 2 * nb, 4, dw, stream);
-  });
-}
-
 // K5a. A, dA: (B, n, n) bf16; G, M: (B, n, H) bf16; part: at least
 // B * ceil(n / 8) * 4 floats; dw: (B, 4) f32.
 extern "C" int gncde_tiled_dw2(const void* A, const void* dA, int n, const void* G,
@@ -1027,37 +883,6 @@ extern "C" int gncde_tiled_dw(const float* d, const float* c, const float* b,
     dw_kernel<HC><<<dim3(nb, 1, B), NT, 0, stream>>>(g, part);
     const int err = (int)cudaGetLastError();
     return err != 0 ? err : launch_reduce(part, B, nb, 8, dw, stream);
-  });
-}
-
-// K6a and K6a-bf. A, dA: (B, nr, nc), f32 (planes_bf16 = 0) or bf16 (1);
-// cvec: device (cr0, cr1, cc0, cc1) f32; Mk: (B, nc, H), Mi: (B, nr, H),
-// f32 (vecs_bf16 = 0) or bf16 (1, with bf16 planes only); row_out:
-// (B, nr, H) f32; col_out: (B, nc, H) f32.
-extern "C" int gncde_pair(const void* A, const void* dA, int nr, int nc,
-                          const float* cvec, const void* Mk, const void* Mi, int B,
-                          int H, int planes_bf16, int vecs_bf16, float* row_out,
-                          float* col_out, cudaStream_t stream) {
-  if (!dims_ok(B, nr, nc, H) || (vecs_bf16 && !planes_bf16))
-    return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, nullptr, nullptr, H);
-  const int nmax = nr > nc ? nr : nc;
-  return by_width(H, [&](auto hc) {
-    constexpr int HC = decltype(hc)::value, BO = bo_for(1, HC);
-    const dim3 grid((nmax + BO - 1) / BO, 2, B);
-    if (!planes_bf16)
-      pair_kernel<HC, float, float><<<grid, NT, 0, stream>>>(
-          g, cvec, static_cast<const float*>(Mk), static_cast<const float*>(Mi),
-          row_out, col_out);
-    else if (!vecs_bf16)
-      pair_kernel<HC, bf16, float><<<grid, NT, 0, stream>>>(
-          g, cvec, static_cast<const float*>(Mk), static_cast<const float*>(Mi),
-          row_out, col_out);
-    else
-      pair_kernel<HC, bf16, bf16><<<grid, NT, 0, stream>>>(
-          g, cvec, static_cast<const bf16*>(Mk), static_cast<const bf16*>(Mi), row_out,
-          col_out);
-    return (int)cudaGetLastError();
   });
 }
 

@@ -21,9 +21,10 @@ glue between them. Off by default (``ops.set_fused_step``), as in JAX.
   recomputed. The JAX package takes ``jax.vjp`` of the per-stage
   composition instead for n above its backward kernel's VMEM limit
   (``_bwd_max_n``); the port's K2 serves every n the hook takes (n <= 640),
-  so the chain rule serves every step. A gradient with respect to the
-  coefficient planes raises, as :class:`~gncde_tpu_torch.ops.megakernel.MegakernelVF`
-  does.
+  so the chain rule serves every step. Where a coefficient plane needs a
+  gradient, every cotangent comes from autograd of the plain step, as the
+  JAX package takes ``jax.vjp`` of ``_step_reference`` then (and
+  :class:`~gncde_tpu_torch.ops.megakernel.MegakernelVF` of the plain eval).
 
 Shapes are batch-first: ``t``, ``h`` ``(B,)``; ``y``, ``f0`` ``(B, n, H)``;
 planes ``(B, T-1, n, n)`` or ``(T-1, n, n)``; knots ``(B, T)``. The layers
@@ -58,6 +59,7 @@ from .megakernel import (
     launch_args,
     plain_vf_eval,
     plain_vf_eval_bf16,
+    plain_vjp,
     scratch_width,
 )
 from .megakernel_bwd import megakernel_vf_bwd
@@ -345,9 +347,19 @@ class FusedRKStep(torch.autograd.Function):
         # needs[k]: input k of (ts, t, y, h, f0, d, c, b, a, *flat).
         needs = ctx.needs_input_grad[3:]
         if any(needs[5:9]):
-            raise NotImplementedError(
-                "gradients with respect to the coefficient planes are not served "
-                "by the fused step's backward")
+            # A plane needs a cotangent: the JAX package's semantics for the
+            # case (its ``_bwd`` takes ``jax.vjp`` of ``_step_reference``
+            # when the planes are perturbed), not a fallback. Every
+            # cotangent comes from autograd of the plain step.
+            tab, nbasis, bf16 = ctx.tab, ctx.nbasis, ctx.bf16
+
+            def f(t, y, h, f0, d, c, b, a, *flat):
+                return _step_reference((d, c, b, a), ts, t, y, h, f0,
+                                       _unflatten(flat, nbasis), tab, bf16)[:3]
+
+            grads = plain_vjp(f, (t, y, h, f0, d, c, b, a, *flat), needs[1:],
+                              (g_y1, g_err, g_f1))
+            return (None, None, None, None, *grads)
         need_vf = any(needs[9:])
 
         tbar, ybar, hbar, f0bar, d_flat = step_vjp(

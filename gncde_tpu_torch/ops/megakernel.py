@@ -19,7 +19,10 @@ basis for the whole stack.
   (``csrc/megakernel_fwd.cu``; with ``bf16`` its tensor-core instantiation
   on bf16 planes) for CUDA tensors and raises if it cannot.
 * :class:`MegakernelVF` is the ``autograd.Function`` the vector field
-  calls: forward is K1, backward is K2 (``ops/megakernel_bwd.py``).
+  calls: forward is K1, backward is K2 (``ops/megakernel_bwd.py``), or,
+  where a coefficient plane needs a gradient, autograd of the plain
+  version, as the JAX package's ``_mk_bwd`` takes ``jax.vjp`` of
+  ``_xla_reference`` then.
 
 Planes are ``(T-1, n, n)`` (shared by the batch) or ``(B, T-1, n, n)``
 (one stack per element, as the trainer's irregular time grids need):
@@ -219,8 +222,10 @@ def bf16_layer(st: Bf16Stats, M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def plain_vf_eval_bf16(planes: Planes, idx, tau, Z, layers, given_M=None, trace=None):
-    """Plain PyTorch version of K1bf (either basis). Not differentiable:
-    :class:`MegakernelVF` takes its gradients from K2bf.
+    """Plain PyTorch version of K1bf (either basis). :class:`MegakernelVF`
+    takes its gradients from K2bf, and from autograd of this version (each
+    bf16 rounding passing its cotangent through) only where a plane needs
+    one.
 
     Layer by layer: with ``given_M`` (a kernel's per-layer M, read back
     through :func:`megakernel_vf_eval`'s ``trace``) each layer applies the
@@ -400,10 +405,18 @@ class MegakernelVF(torch.autograd.Function):
 
         idx, tau, Z, d, c, b, a, *flat = ctx.saved_tensors
         if any(ctx.needs_input_grad[5:9]):
-            raise NotImplementedError(
-                "gradients with respect to the coefficient planes are not "
-                "served by the megakernel backward"
-            )
+            # A plane needs a cotangent, which K2 does not form. This is the
+            # JAX package's own semantics for the case, not a fallback:
+            # ``_mk_bwd`` takes ``jax.vjp`` of ``_xla_reference`` for every
+            # cotangent when the planes are perturbed. Here every cotangent
+            # comes from autograd of the plain version at the saved inputs.
+            plain, nbasis = (plain_vf_eval_bf16 if ctx.bf16 else plain_vf_eval), ctx.nbasis
+
+            def f(tau, Z, d, c, b, a, *flat):
+                return plain((d, c, b, a), idx, tau, Z, _unflatten(flat, nbasis))
+
+            grads = plain_vjp(f, (tau, Z, d, c, b, a, *flat), ctx.needs_input_grad[3:], (g,))
+            return (None, None, None, *grads)
         layers = _unflatten(flat, ctx.nbasis)
         need_tau = ctx.needs_input_grad[3]
         dtau, dZ, per_layer = megakernel_vf_bwd(
@@ -412,6 +425,19 @@ class MegakernelVF(torch.autograd.Function):
         )
         return (None, None, None, dtau if need_tau else None, dZ, None, None, None, None,
                 *flat_grads(per_layer))
+
+
+def plain_vjp(fn, inputs, needs, cotangents):
+    """The cotangents of ``fn(*inputs)`` (a plain version, one output or a
+    tuple) for ``cotangents``, by autograd at the given inputs: one entry per
+    input, None where its ``needs`` flag is off."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(need)) for x, need in zip(inputs, needs)]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        wrt = [x for x, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
+    return [next(grads) if need else None for need in needs]
 
 
 def flat_grads(per_layer) -> tp.List[torch.Tensor]:

@@ -10,8 +10,9 @@ node embedding, so their cotangents flow back through the rank-H products
 ``c . (g_r Mk^T, Mi g_c^T)``.
 
 Each kernel wrapper (:func:`pair_call`, :func:`pair_dw_call`) launches
-``csrc/tiled.cu`` for CUDA tensors, counts the launch, and raises on what
-the kernel does not take; on CPU tensors it runs its plain version
+``csrc/plane_mma.cu`` (K6a) or ``csrc/tiled.cu`` (K6b) for CUDA tensors,
+counts the launch, and raises on what the kernel does not take; on CPU
+tensors it runs its plain version
 (``plain_pair``, ``plain_pair_dw``). Precision follows the planes, as in
 the JAX package: f32 planes (``fusion_precision: f32``) form B1/B2 in f32
 with f32 vectors; bf16 planes (``bf16``: K7bf's output) form B1/B2 in
@@ -32,8 +33,8 @@ import types
 
 import torch
 
-from . import _build
-from .tiled import MAX_H, TILED_MAX_N, rank_terms
+from . import _build, tiled
+from .tiled import MAX_H, TILED_MAX_N, aligned_planes, rank_terms
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -62,13 +63,15 @@ def plain_pair_dw(A, dA, Gr, Mk, Mi, Gc):
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
-    "gncde_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gncde_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "gncde_pair_dw": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
 def _fn(name: str):
-    fn = getattr(_build.load("tiled"), name)
+    # K6a runs on the tensor cores (csrc/plane_mma.cu), K6b on the shared
+    # sweep of csrc/tiled.cu.
+    fn = getattr(_build.load("plane_mma" if name == "gncde_pair" else "tiled"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -110,7 +113,10 @@ def pair_call(A, dA, cvec, Mk, Mi):
     """K6a: ``(rowpart (B, nr, H), colpart (B, nc, H))`` f32 for planes
     ``(B, nr, nc)``, ``cvec`` = (c_row0, c_row1, c_col0, c_col1), ``Mk``
     ``(B, nc, H)`` and ``Mi`` ``(B, nr, H)``: f32 planes with f32 vectors,
-    or (K6a-bf) bf16 planes with f32 or bf16 vectors."""
+    or (K6a-bf) bf16 planes with f32 or bf16 vectors. The reduce extents go
+    in :func:`~gncde_tpu_torch.ops.tiled.mma_splits` parts; a split call
+    (one count in ``launches``) is two CUDA launches, the sweep and the
+    parts' sum."""
     if not A.is_cuda:
         return plain_pair(A, dA, cvec, Mk, Mi)
     bf16 = A.dtype == BF16
@@ -118,12 +124,18 @@ def pair_call(A, dA, cvec, Mk, Mi):
     B, nr, nc, H = _check(what, A, dA, (Mi,), (Mk,), (F32, BF16) if bf16 else (F32,))
     if cvec.shape != (4,) or cvec.dtype != F32 or cvec.device != A.device:
         raise ValueError(f"{what}: cvec must be a float32 (4,) tensor on the planes' device")
-    row = torch.empty((B, nr, H), device=A.device, dtype=F32)
-    col = torch.empty((B, nc, H), device=A.device, dtype=F32)
+    A, dA = aligned_planes(A, dA)
+    S = tiled.mma_splits(B, nr, nc, H)
+    # One allocation: rowpart, colpart and, when split, the parts' slabs.
+    buf = torch.empty((1 + (S if S > 1 else 0)) * B * (nr + nc) * H, device=A.device,
+                      dtype=F32)
+    row = buf[:B * nr * H].view(B, nr, H)
+    col = buf[B * nr * H:B * (nr + nc) * H].view(B, nc, H)
     err = _fn("gncde_pair")(
         _build.ptr(A), _build.ptr(dA), nr, nc, _build.ptr(cvec), _build.ptr(Mk),
         _build.ptr(Mi), B, H, int(bf16), int(Mk.dtype == BF16), _build.ptr(row),
-        _build.ptr(col), _build.stream())
+        _build.ptr(col), buf[B * (nr + nc) * H:].data_ptr() if S > 1 else None, S,
+        _build.stream())
     _build.check(err, f"{what} pair")
     (pair_call.bf16 if bf16 else pair_call).launches += 1
     return row, col

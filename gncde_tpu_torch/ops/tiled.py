@@ -16,11 +16,11 @@ branches of ``_tf2_bwd``: the training step's merged sweep K4 (dM and the
 gradient needs).
 
 Each kernel wrapper (:func:`fwd2_call`, :func:`bwd2_call`, :func:`dw2_call`,
-:func:`dw_call`) launches ``csrc/tiled.cu`` for CUDA tensors, counts the
-launch, and raises on what the kernel does not take; on CPU tensors it runs
-its plain PyTorch version (``plain_*``), which keeps the TPU kernels'
-rounding points: bf16 planes and vectors, B1/B2 formed in bf16 from
-coefficients rounded to bf16, and f32 accumulation.
+:func:`dw_call`) launches ``csrc/tiled.cu`` (K4: ``csrc/plane_mma.cu``) for
+CUDA tensors, counts the launch, and raises on what the kernel does not
+take; on CPU tensors it runs its plain PyTorch version (``plain_*``), which
+keeps the TPU kernels' rounding points: bf16 planes and vectors, B1/B2
+formed in bf16 from coefficients rounded to bf16, and f32 accumulation.
 
 Shapes are batch-first: planes ``(B, n, n)``, vectors ``(B, n, H)``,
 per-element ``tau`` and Hermite weights ``(B, 4)``; the ``c`` coefficients
@@ -200,7 +200,7 @@ def plain_abar(slabs, wvec, M):
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
     "gncde_tiled_fwd2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
-    "gncde_tiled_bwd2": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "gncde_tiled_bwd2": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "gncde_tiled_dw2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "gncde_tiled_dw": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "gncde_tiled_abar": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
@@ -208,12 +208,15 @@ _ARGTYPES = {
 
 
 _FNS: tp.Dict[str, tp.Any] = {}
+#: The library of each entry point: K4 (and K6a, ops/pair.py) run on the
+#: tensor cores in csrc/plane_mma.cu, the rest in csrc/tiled.cu.
+_LIB = {"gncde_tiled_bwd2": "plane_mma"}
 
 
 def _fn(name: str):
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(_build.load("tiled"), name)
+        fn = getattr(_build.load(_LIB.get(name, "tiled")), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -263,14 +266,44 @@ def fwd2_chunk(H: int) -> int:
     return 8 if H <= 8 else 32 if H <= 32 else 128
 
 
+def _fill_splits(B: int, blocks: int, chunks: int, tiles: int) -> int:
+    """Parts of a reduce extent of ``tiles`` 32-deep tiles for a grid of 2
+    passes x ``blocks`` owned blocks x ``chunks`` column chunks x B: as many
+    as keep it within two CTAs per SM, and at least 4 tiles a part; 1 when
+    the grid fills the card without a split."""
+    return max(1, min((2 * _build.SMS) // (2 * B * blocks * chunks), tiles // 4))
+
+
 def fwd2_splits(B: int, n: int, H: int) -> int:
-    """How many parts K3 splits the reduce extent into: as many as keep the
-    grid (2 passes x row blocks x column chunks x B x S) within two CTAs per
-    SM, and at least 4 reduce tiles a part; 1 when the grid fills the card
-    without a split."""
-    ctas = 2 * B * -(-n // FWD2_BO) * -(-H // fwd2_chunk(H))
-    tiles = -(-n // FWD2_BK)
-    return max(1, min((2 * _build.SMS) // ctas, tiles // 4))
+    """How many parts K3 splits the reduce extent into (:func:`_fill_splits`
+    for its 64-index blocks and column chunks)."""
+    return _fill_splits(B, -(-n // FWD2_BO), -(-H // fwd2_chunk(H)), -(-n // FWD2_BK))
+
+
+#: csrc/plane_mma.cu (K4, K6a): owned indices per CTA, depth of one reduce tile.
+MMA_BO, MMA_BK = 64, 32
+
+
+def mma_chunk(H: int) -> int:
+    """K4's and K6a's column chunk for width H: the least of 8, 32, 64 that
+    holds H (wider H in chunks of 64, each its own CTAs)."""
+    return 8 if H <= 8 else 32 if H <= 32 else 64
+
+
+def mma_splits(B: int, nr: int, nc: int, H: int) -> int:
+    """How many parts K4 and K6a split their reduce extents into, on planes
+    ``(B, nr, nc)`` (:func:`_fill_splits` for blocks of the longer extent and
+    tiles of the shorter)."""
+    return _fill_splits(B, -(-max(nr, nc) // MMA_BO), -(-H // mma_chunk(H)),
+                        -(-min(nr, nc) // MMA_BK))
+
+
+def aligned_planes(A, dA):
+    """The planes, each copied where its base is not 16-byte aligned (the
+    tensor-core sweeps read them by 16-byte granules from an aligned base)."""
+    if (A.data_ptr() | dA.data_ptr()) & 15:
+        return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in (A, dA))
+    return A, dA
 
 
 def fwd2_call(A, dA, cvec, M):
@@ -286,9 +319,7 @@ def fwd2_call(A, dA, cvec, M):
     S = fwd2_splits(B, n, H)
     if not 1 <= S <= -(-n // FWD2_BK):
         raise ValueError(f"K3: splits={S} outside [1, ceil(n / {FWD2_BK})]")
-    # K3 reads the planes from a 16-byte aligned base; a copy is aligned.
-    if (A.data_ptr() | dA.data_ptr()) & 15:
-        A, dA = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (A, dA))
+    A, dA = aligned_planes(A, dA)
     # One allocation: rowpart, colpart and, when split, the parts' slabs.
     buf = A.new_empty((2 + (2 * S if S > 1 else 0), B, n, H), dtype=torch.float32)
     row, col = buf[0], buf[1]
@@ -305,21 +336,29 @@ def fwd2_call(A, dA, cvec, M):
 def bwd2_call(A, dA, cvec, G, M):
     """K4: ``(rowp, colp, dw4)`` -- the dM parts ``(B, n, H)`` f32 and the
     per-element ``(B, 4)`` inner products, for ``cvec`` = (c_col0, c_col1,
-    c_row0, c_row1) and bf16 ``G``, ``M`` (B, n, H)."""
+    c_row0, c_row1) and bf16 ``G``, ``M`` (B, n, H). The reduce extent goes
+    in :func:`mma_splits` parts; one call (one count in ``launches``) is two
+    CUDA launches, three when split: the sweep, the parts' sum, the inner
+    products' sum."""
     if not A.is_cuda:
         return plain_bwd2(A, dA, cvec, G, M)
     B, n, H = _check("K4", (A, dA), (G, M))
     _check_cvec("K4", cvec, A.device)
-    row, col = _f32(A.device, B, n, H), _f32(A.device, B, n, H)
-    part = _f32(A.device, B, 2 * -(-n // 16), 4)  # tiled.cu: the least BO of K4 is 16
+    A, dA = aligned_planes(A, dA)
+    S = mma_splits(B, n, n, H)
+    chunks = -(-H // mma_chunk(H))
+    # One allocation: rowp, colp and, when split, the parts' slabs.
+    buf = _f32(A.device, 2 + (2 * S if S > 1 else 0), B, n, H)
+    dwpart = _f32(A.device, B, -(-n // MMA_BO) * 2 * S * chunks, 4)
     dw = _f32(A.device, B, 4)
     err = _fn("gncde_tiled_bwd2")(
-        _build.ptr(A), _build.ptr(dA), n, _build.ptr(cvec), _build.ptr(G),
-        _build.ptr(M), B, H, _build.ptr(row), _build.ptr(col), _build.ptr(part),
-        _build.ptr(dw), _build.stream())
-    _build.check(err, "K4 tiled bwd2")
+        A.data_ptr(), dA.data_ptr(), n, cvec.data_ptr(), G.data_ptr(), M.data_ptr(), B, H,
+        buf[0].data_ptr(), buf[1].data_ptr(), buf[2].data_ptr() if S > 1 else None,
+        dwpart.data_ptr(), dw.data_ptr(), S, _build.stream(A.get_device()))
+    if err:
+        _build.check(err, "K4 tiled bwd2")
     bwd2_call.launches += 1
-    return row, col, dw
+    return buf[0], buf[1], dw
 
 
 def dw2_call(A, dA, G, M):

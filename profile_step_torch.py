@@ -54,7 +54,7 @@ CONFIGS = {"dyn": os.path.join(ROOT, "configs", "dyn", "perm_equiv_gncde.yaml"),
            "tgb": os.path.join(ROOT, "configs", "tgb", "genre_perm_equiv_gncde.yaml")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: The namespaces of the kernels in gncde_tpu_torch/csrc.
-PORT_KERNEL = re.compile(r"\b(bcsr|ell|fa|fs|k3|md|mk|mkp|tl)::")
+PORT_KERNEL = re.compile(r"\b(bcsr|ell|fa|fs|k3|md|mk|mkp|pk|tl)::")
 
 
 def device_events(trace_path: str):

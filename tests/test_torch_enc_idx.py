@@ -249,6 +249,23 @@ def test_plain_pair_kernels_match_pallas(kernel, nr, nc):
             _close(got[b], np.asarray(dw)[0], 1e-5, "dw")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6a_wrapper_on_cpu_runs_its_plain_version(dtype, monkeypatch):
+    """On CPU tensors pair_call is plain_pair, on rectangular planes of
+    either dtype, whatever the split plan (``ops.tiled.mma_splits``) says,
+    and counts no launch."""
+    from gncde_tpu_torch.ops import tiled as tt
+
+    x = _pair_inputs(20, 13, 5, 2, 8)
+    A, dA = _t(x["A"]).to(dtype), _t(x["dA"]).to(dtype)
+    args = (A, dA, _t(x["cvec"]), _t(x["Mk"]), _t(x["Mi"]))
+    monkeypatch.setattr(tt, "mma_splits", lambda B, nr, nc, H: 3)
+    before = (tp.pair_call.launches, tp.pair_call.bf16.launches)
+    for got, ref in zip(tp.pair_call(*args), tp.plain_pair(*args)):
+        assert torch.equal(got, ref)
+    assert (tp.pair_call.launches, tp.pair_call.bf16.launches) == before
+
+
 @pytest.mark.parametrize("nr,nc", PAIR_SHAPES, ids=PAIR_IDS)
 def test_plane_pair_apply_cotangents_match_jax(nr, nc, monkeypatch):
     """The six cotangents of PlanePairApply against jax.vjp of

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1 and K2
 (the vector-field kernels, n <= 640), K3, K4, K5a, K5b, K5c (the tiled
-regime's plane sweeps and the 4-slab apply, ``csrc/tiled.cu``), the enc_idx
-path's K7 (modulation, ``csrc/modulate.cu``), K6a and K6b (plane pair,
+regime's plane sweeps and the 4-slab apply, ``csrc/tiled.cu``; K4 on the
+tensor cores, ``csrc/plane_mma.cu``), the enc_idx path's K7 (modulation,
+``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/plane_mma.cu`` and
 ``csrc/tiled.cu``), the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
 ``csrc/bcsr.cu``) and K10 (ELL SpMM, ``csrc/ell_spmm.cu``), the fused RK
 step K11 (``csrc/fused_step.cu``), the per-layer fused applies K12 and
@@ -31,7 +32,8 @@ form B1/B2 with the same roundings; only the order of the f32 sums differs,
 so they are held to 1e-4 of each output's scale, and the field's tiled path
 (kernels on the card against the plain versions on the CPU) to 1e-3. K7 has
 no reductions (1e-5); K6a/K6b take f32 planes and vectors on both sides and
-sum in another order (1e-4); the enc_idx field on its kernels against its
+sum in another order (1e-4; K6a multiplies as 3xTF32, whose split leaves
+about 2^-21 of each product, far inside that bound); the enc_idx field on its kernels against its
 dense path 1e-4 for values and 1e-3 for gradients, as K1/K2. K8, K9 and
 K10 are f32 on both sides and sum in another order (1e-4); their autograd
 functions against autograd of the plain versions 1e-4. K11 against its plain
@@ -206,8 +208,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 
 
 # n = 70, 130 and 100 are ragged against the owned blocks and the 32-deep
-# reduce tiles; the widths reach each compiled chunk width of csrc/tiled.cu:
-# H = 5 (8, not a multiple of 8), H = 16 (32) and H = 130 (128, two sweeps).
+# reduce tiles; the widths reach each compiled chunk width of csrc/tiled.cu
+# (K4: csrc/plane_mma.cu, chunks of 8, 32, 64): H = 5 (8, not a multiple of
+# 8), H = 16 (32) and H = 130 (128, two sweeps; K4 three chunks).
 TILED_CASES = [(70, 5, 2), (130, 16, 1), (100, 130, 1)]
 TILED_IDS = ["n70-H5-B2", "n130-H16", "n100-H130"]
 
@@ -445,13 +448,191 @@ def test_cuda_k3_raises_on_what_it_does_not_take(cuda, monkeypatch):
     assert tt.fwd2_call.launches == before
 
 
+# K4 and K6a on the tensor cores (csrc/plane_mma.cu): the main path's shapes
+# (genre n = 1505 at H = 8 and 128, trade n = 255 at H = 32 and 512, the odd
+# n = 300, H = 5, B = 2), rectangular planes (K6a), and H = 1, 5, 129, 512
+# (scalar vector tiles where H is not a multiple of a granule, chunks of 64
+# past one). K4 takes square bf16 planes only; K6a its three forms: f32
+# planes (3xTF32), bf16 planes with the forward's f32 vectors (bf16 B
+# against split f32 vectors) and with the backward's bf16 vectors (bf16
+# MMA).
+MMA_SHAPES = [(1505, 1505, 8, 1), (1505, 1505, 128, 1), (255, 255, 32, 1), (255, 255, 512, 1),
+              (300, 300, 5, 2), (300, 200, 13, 2), (45, 70, 1, 1), (100, 100, 129, 1),
+              (64, 64, 512, 1), (17, 17, 5, 3)]
+MMA_IDS = [f"{nr}x{nc}-H{H}-B{B}" for nr, nc, H, B in MMA_SHAPES]
+MMA_KERNELS = ["K4", "K6a", "K6a-bf-f32-vectors", "K6a-bf-bf16-vectors"]
+
+
+def _mma_case(dev, kernel, nr, nc, H, B, seed=0, shift=lambda x: x):
+    """(wrapper, counter, kernel args, plain args) for one kernel at one
+    shape; ``shift`` places the planes and vectors the kernel gets."""
+    if kernel == "K4":
+        A, dA, M, G, _, cvec = _tiled_inputs(dev, nr, H, B, seed=seed)
+        plain = (A, dA, cvec, G, M)
+        return tt.bwd2_call, tt.bwd2_call, (shift(A), shift(dA), cvec, shift(G), shift(M)), plain
+    x = _pair_inputs(dev, nr, nc, H, B, seed=seed)
+    bf, vdt = torch.bfloat16, torch.bfloat16 if kernel.endswith("bf16-vectors") else None
+    A, dA = (x["A"], x["dA"]) if kernel == "K6a" else (x["A"].to(bf), x["dA"].to(bf))
+    Mk, Mi = (x["Mk"], x["Mi"]) if vdt is None else (x["Mk"].to(vdt), x["Mi"].to(vdt))
+    plain = (A, dA, x["cvec"], Mk, Mi)
+    counter = tp.pair_call if kernel == "K6a" else tp.pair_call.bf16
+    return tp.pair_call, counter, (shift(A), shift(dA), x["cvec"], shift(Mk), shift(Mi)), plain
+
+
+def _mma_plain(kernel, args):
+    return tt.plain_bwd2(*args) if kernel == "K4" else tp.plain_pair(*args)
+
+
+def _check_mma(kernel, wrapper, counter, args, plain_args):
+    """Two launches against the plain version: within 1e-4 of each output's
+    scale, bitwise equal, two counts."""
+    before = counter.launches
+    got, again = wrapper(*args), wrapper(*args)
+    ref = _mma_plain(kernel, plain_args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        _assert_close(a, b, 1e-4)
+        assert torch.equal(a, c)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nr,nc,H,B", MMA_SHAPES, ids=MMA_IDS)
+@pytest.mark.parametrize("kernel", MMA_KERNELS)
+def test_cuda_mma_sweeps_match_plain(cuda, kernel, nr, nc, H, B):
+    if kernel == "K4" and nr != nc:
+        pytest.skip("K4 sweeps square planes only")
+    _check_mma(kernel, *_mma_case(cuda, kernel, nr, nc, H, B, seed=nr + H))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nr,nc,H", [(1505, 1505, 128), (300, 200, 13), (641, 641, 8)])
+@pytest.mark.parametrize("kernel", MMA_KERNELS)
+def test_cuda_mma_sweeps_every_split_match_plain(cuda, kernel, nr, nc, H, monkeypatch):
+    """The reduce extents in 1, 2, 5 and ceil(min(nr, nc) / 32) parts (the
+    wrappers look their plan up in ops.tiled): each within 1e-4 and bitwise
+    repeatable."""
+    if kernel == "K4" and nr != nc:
+        pytest.skip("K4 sweeps square planes only")
+    case = _mma_case(cuda, kernel, nr, nc, H, 1, seed=5)
+    for S in (1, 2, 5, -(-min(nr, nc) // tt.MMA_BK)):
+        monkeypatch.setattr(tt, "mma_splits", lambda B, nr, nc, H, S=S: S)
+        _check_mma(kernel, *case)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("kernel", MMA_KERNELS)
+def test_cuda_mma_sweeps_at_any_alignment_match_plain(cuda, kernel, offset):
+    """Planes and vectors that start ``offset`` elements into their buffers:
+    the wrappers copy planes whose base is not 16-byte aligned, the kernels
+    take such vectors by scalar loads, and the entry points themselves
+    refuse planes they cannot read by granules."""
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, device=cuda, dtype=x.dtype)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    nr, nc, H = (300, 300, 16) if kernel == "K4" else (300, 210, 16)
+    wrapper, counter, args, plain = _mma_case(cuda, kernel, nr, nc, H, 2, seed=offset,
+                                              shift=shifted)
+    _check_mma(kernel, wrapper, counter, args, plain)
+    out = torch.empty(2 * 2 * max(nr, nc) * H, device=cuda)
+    if kernel == "K4":
+        A, dA, cvec, G, M = args
+        dwpart = torch.empty(2 * 64 * 4, device=cuda)
+        err = tt._fn("gncde_tiled_bwd2")(
+            A.data_ptr(), dA.data_ptr(), nr, cvec.data_ptr(), G.data_ptr(), M.data_ptr(), 2, H,
+            out.data_ptr(), out.data_ptr(), None, dwpart.data_ptr(), out.data_ptr(), 1,
+            _build.stream())
+    else:
+        A, dA, cvec, Mk, Mi = args
+        err = tp._fn("gncde_pair")(
+            A.data_ptr(), dA.data_ptr(), nr, nc, cvec.data_ptr(), Mk.data_ptr(), Mi.data_ptr(),
+            2, H, int(A.dtype == torch.bfloat16), int(Mk.dtype == torch.bfloat16),
+            out.data_ptr(), out.data_ptr(), None, 1, _build.stream())
+    assert err != 0
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mma_sweeps_raise_on_what_they_do_not_take(cuda, monkeypatch):
+    A, dA, M, G, _, cvec = _tiled_inputs(cuda, 70, 5, 1)
+    x = _pair_inputs(cuda, 70, 45, 8, 1)
+    before = (tt.bwd2_call.launches, tp.pair_call.launches, tp.pair_call.bf16.launches)
+
+    def split(S):
+        monkeypatch.setattr(tt, "mma_splits", lambda B, nr, nc, H: S)
+        return tt.bwd2_call(A, dA, cvec, G, M)
+
+    bad = [
+        lambda: tt.bwd2_call(A.float(), dA, cvec, G, M),  # f32 planes
+        lambda: tt.bwd2_call(A, dA, cvec, G.float(), M),  # f32 vectors
+        lambda: tt.bwd2_call(A, dA, cvec.double(), G, M),  # f64 coefficients
+        lambda: tp.pair_call(x["A"], x["dA"], x["cvec"], x["Mk"].to(torch.bfloat16),
+                             x["Mi"].to(torch.bfloat16)),  # bf16 vectors on f32 planes
+        lambda: tp.pair_call(x["A"], x["dA"].to(torch.bfloat16), x["cvec"], x["Mk"],
+                             x["Mi"]),  # planes of two dtypes
+        lambda: tp.pair_call(x["A"], x["dA"], x["cvec"], x["Mi"], x["Mk"]),  # Mk, Mi swapped
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    for S in (0, 4):  # 3 reduce tiles at n = 70: no part may be empty of tiles
+        with pytest.raises(RuntimeError):
+            split(S)
+    assert (tt.bwd2_call.launches, tp.pair_call.launches,
+            tp.pair_call.bf16.launches) == before
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("directed", [False, True])
+def test_cuda_plane_grads_launch_k1_and_k11(cuda, directed):
+    """Planes that need gradients on the card: the forward still launches
+    K1 (and K11 for the fused step), and every cotangent, the planes' too,
+    is autograd of the plain version at the saved inputs (as the JAX
+    package takes jax.vjp of its reference): the same numbers as autograd
+    through the plain version alone."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    nbasis = 11 if directed else 8
+    planes, idx, tau, Z, layers, _ = _inputs(cuda, (8, 8, 8), nbasis=nbasis)
+    flat = [t for lp in layers for t in (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"],
+                                         *lp["basis"].unbind(0))]
+    leaves = [p.clone().requires_grad_() for p in planes]
+    Zl = Z.clone().requires_grad_()
+    before = mk.megakernel_vf_eval.launches
+    out = mk.MegakernelVF.apply(nbasis, False, idx, tau, Zl, *leaves, *flat)
+    assert mk.megakernel_vf_eval.launches == before + 1
+    W = torch.randn_like(out)
+    got = torch.autograd.grad((out * W).sum(), leaves + [Zl])
+    ref_leaves = [p.clone().requires_grad_() for p in planes] + [Z.clone().requires_grad_()]
+    ref = mk.plain_vf_eval(tuple(ref_leaves[:4]), idx, tau, ref_leaves[4], layers)
+    want = torch.autograd.grad((ref * W).sum(), ref_leaves)
+    for a, b in zip(got, want):
+        _assert_close(a, b, 1e-3)
+    if directed:
+        return
+    # The fused step: one K11 launch forward, the plain step's autograd back.
+    B, n, H = Z.shape
+    ts = torch.cumsum(torch.full((B, planes[0].shape[1] + 1), 0.2, device=cuda), 1)
+    t, h = ts[:, 2] + 0.01, torch.full((B,), 0.05, device=cuda)
+    leaves = [p.clone().requires_grad_() for p in planes]
+    before = tfs.fused_step_call.launches
+    y1, err, f1 = tfs.FusedRKStep.apply(get_tableau("tsit5"), nbasis, False, ts, t, Z, h,
+                                        torch.zeros_like(Z), *leaves, *flat)
+    assert tfs.fused_step_call.launches == before + 1
+    g = torch.autograd.grad((y1 * W).sum() + err.sum() + f1.sum(), leaves)
+    assert all(torch.isfinite(x).all() and float(x.abs().max()) > 0 for x in g)
+
+
 # ---------------------------------------------------------------------------
 # The enc_idx path: K7, K6a, K6b
 # ---------------------------------------------------------------------------
 
 # Ragged against K6's owned blocks and reduce tiles and K7's 256-column
-# CTAs; H reaches each compiled chunk width of csrc/tiled.cu (8, 32, 128
-# with two sweeps at 130); (n70, n45) is a rectangular pair.
+# CTAs; H reaches each compiled chunk width (csrc/plane_mma.cu K6a: 8, 32,
+# 64 with three chunks at 130; csrc/tiled.cu K6b: 8, 32, 128 with two
+# sweeps at 130); (n70, n45) is a rectangular pair.
 PAIR_CASES = [(70, 70, 5, 2), (300, 300, 16, 1), (100, 100, 130, 1), (70, 45, 8, 2)]
 PAIR_IDS = ["n70-H5-B2", "n300-H16", "n100-H130", "rect-70x45-H8-B2"]
 

@@ -311,6 +311,39 @@ def test_k3_split_plan(B, n, H, want):
                                                                      128, 128]
 
 
+@pytest.mark.parametrize("B,nr,nc,H,want", [
+    (1, 1505, 1505, 128, 2), (1, 1505, 1505, 8, 5), (1, 255, 255, 512, 2),
+    (1, 255, 255, 32, 2), (2, 300, 300, 5, 2), (1, 17, 17, 1, 1), (1, 300, 200, 13, 1),
+    (1, 200, 1505, 8, 1), (4, 2048, 2048, 128, 1)])
+def test_mma_sweep_split_plan(B, nr, nc, H, want):
+    """K4's and K6a's launch plan (``mma_splits``): the genre layers (B = 1,
+    24 row blocks a pass, two column chunks of 64 at H = 128) and the trade
+    ones split their reduce extents to fill two CTAs per SM of the 132; a
+    grid that fills the card alone, or a short extent (at least four 32-deep
+    tiles of the shorter extent a part), is not split."""
+    S = tt.mma_splits(B, nr, nc, H)
+    assert S == want
+    ctas = 2 * B * -(-max(nr, nc) // tt.MMA_BO) * -(-H // tt.mma_chunk(H)) * S
+    assert S == 1 or ctas <= 2 * _build.SMS
+    assert 1 <= S <= max(1, -(-min(nr, nc) // tt.MMA_BK) // 4)
+    assert [tt.mma_chunk(h) for h in (1, 8, 9, 32, 33, 64, 128, 512)] == [8, 8, 32, 32, 64,
+                                                                        64, 64, 64]
+
+
+def test_k4_wrapper_on_cpu_runs_its_plain_version(monkeypatch):
+    """On CPU tensors bwd2_call is plain_bwd2 (whatever the split plan says)
+    and counts no launch."""
+    rng = np.random.default_rng(1)
+    A, dA, G, M = (torch.tensor(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+                   for s in ((1, 20, 20), (1, 20, 20), (1, 20, 3), (1, 20, 3)))
+    cvec = torch.tensor([1.0, 0.1, -0.2, 0.3])
+    monkeypatch.setattr(tt, "mma_splits", lambda B, nr, nc, H: 3)
+    before = tt.bwd2_call.launches
+    for got, ref in zip(tt.bwd2_call(A, dA, cvec, G, M), tt.plain_bwd2(A, dA, cvec, G, M)):
+        assert torch.equal(got, ref)
+    assert tt.bwd2_call.launches == before
+
+
 def test_k3_wrapper_on_cpu_runs_its_plain_version(monkeypatch):
     """On CPU tensors fwd2_call is plain_fwd2 (whatever the split plan says)
     and counts no launch."""

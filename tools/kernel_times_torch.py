@@ -1,14 +1,29 @@
-"""Developer tool: time K3 (tiled fwd2) and K10 (ELL SpMM) of the PyTorch
-port on a CUDA card, with and without their host work, and compare two
-checkouts' kernels in one run. ``chip_smoke.py`` phases 6 and 10 give the
-same times on every run; this tool adds what a redesign of these two
-kernels needs beside them.
+"""Developer tool: time kernels of the PyTorch port on a CUDA card, with
+and without their host work, and compare two checkouts' kernels in one run.
+``chip_smoke.py`` gives wrapper times on every run; this tool adds what a
+redesign needs beside them: device times, yardsticks, ptxas reports.
 
-    python3 tools/kernel_times_torch.py [--only K3,K10] [--splits 1,2,4] [--root DIR]
+    python3 tools/kernel_times_torch.py [--only K3,K4,K6a,K6a-bf,K10] [--splits 1,2,4]
+                                        [--root DIR]
+    python3 tools/kernel_times_torch.py --only K1,K2,K1d,K2d,K11
 
-At ``chip_smoke.py``'s shapes (K3: genre-H8, genre-H128 and odd, phase 6;
-K10: flagship, scaled and odd, phase 10) it prints one JSON line per kernel
-and shape:
+Shapes:
+
+* K3: genre-H8, genre-H128 and odd (phase 6); K10: flagship, scaled and odd
+  (phase 10);
+* K4: genre-H8, genre-H128 (phases 7 and 19) and odd;
+* K6a, K6a-bf: genre-H8, genre-H128 (phases 9, 24), trade-H32,
+  trade-H512 (phases 23, 25) and odd; K6a-bf with the forward's f32
+  vectors and with the backward's bf16 ones;
+* K6a-ablation: K6a's f32 sweep at genre-H128 and trade-H512 with one part
+  of its work dropped at a time (``K6A_ABLATION``: the MMA, the forming of
+  B1/B2, the plane copies, the vector copies, one pass), device ms each;
+* K1, K2, K1d, K2d: the flagship (n=400, B=4, 16-16-16) and trade (n=255,
+  B=4, 32x4-512) shapes of phases 3, 4 and 17; K11: the flagship and bench
+  step shapes of phase 14 (Tsit5; its layers must map the state width to
+  itself, so no trade shape).
+
+It prints one JSON line per kernel and shape:
 
 * ``ms``: CUDA events over 20 back-to-back wrapper calls after 3 warm-ups
   (``chip_smoke.time_ms``, phase 6's and 10's figure). The host's work is
@@ -18,14 +33,19 @@ and shape:
 * ``plain_ms``, ``bound_ms``, ``bound_by`` as phases 6 and 10 compute them;
 * the yardstick, timed both ways: K3's two cuBLAS bf16 products on B1 and B2
   formed beforehand (``yardstick_*``; two calls on pre-formed operands, not
-  one call for K3's function), K10's ``A_csr @ M`` (``library_*``, with its
-  cuSPARSE kernels' names);
-* ``splits``: K3 at genre shapes with the reduce extent split in S parts
-  (``ops.tiled.fwd2_splits`` replaced by the constant S for the run), where
-  the checkout's K3 has that plan.
+  one call for K3's function); K6a's two cuBLAS products on B1, B2 formed
+  beforehand (f32 planes: f32 B and vectors; K6a-bf: the bf16-formed B as
+  f32 with the f32 vectors, or bf16 with the bf16 vectors); K4's four bf16
+  cuBLAS products ``A g``, ``dA g``, ``A^T g``, ``dA^T g``; K10's ``A_csr @
+  M`` (``library_*``, with its cuSPARSE kernels' names). K1, K2 and K11
+  have none;
+* ``splits``: K3, K4 and K6a at genre shapes with the reduce extent split in
+  S parts (``ops.tiled.fwd2_splits`` or ``mma_splits`` replaced by the
+  constant S for the run), where the checkout's kernel has that plan.
 
 Then the ``ptxas -v`` lines (registers, spills, shared memory) of each
-timed kernel's entry points, from ``build/gncde_tpu_torch/<lib>.ptxas.log``.
+timed kernel's entry points, from ``build/gncde_tpu_torch/<lib>.ptxas.log``
+(K4 and K6a: ``plane_mma``, or ``tiled`` in an older checkout).
 
 ``--root DIR`` times the ``gncde_tpu_torch`` of another checkout (such as a
 parent commit unpacked under ``build/``) with this script's helpers, so two
@@ -122,6 +142,183 @@ def k3_lines(cs, torch, splits, saved):
         torch.cuda.empty_cache()
 
 
+def line_of(cs, torch, kernel, label, s, got, ref, kernel_fn, plain_fn, bms, by,
+            yardstick=None, yardstick_name=None, saved=None):
+    """One timing line: errors against the plain version, wrapper and device
+    ms, plain ms, bound and (where given) a yardstick timed both ways."""
+    if saved is not None:
+        saved[f"{kernel}/{label}"] = [x.float().cpu() for x in got]
+    again = kernel_fn()
+    ms, dev, by_name = time_both(cs, torch, kernel_fn)
+    line = {"kernel": kernel, "shape": label, **s,
+            "rel_err": max(cs.rel_err(torch, a.float(), b.float())[0]
+                           for a, b in zip(got, ref)),
+            "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "ms": ms, "device_ms": dev, "device_by_name": by_name,
+            "plain_ms": cs.time_ms(torch, plain_fn), "bound_ms": bms, "bound_by": by}
+    if yardstick is not None:
+        y_ms, y_dev, y_by = time_both(cs, torch, yardstick)
+        line.update({yardstick_name: y_ms, "yardstick_device_ms": y_dev,
+                     "yardstick_device_by_name": y_by})
+    cs.emit(line)
+
+
+#: K4's and K6a's shapes (K4 on the genre ones and the odd one only).
+PAIR_SHAPES = {"genre-H8": dict(n=1505, H=8, B=1), "genre-H128": dict(n=1505, H=128, B=1),
+               "trade-H32": dict(n=255, H=32, B=1), "trade-H512": dict(n=255, H=512, B=1),
+               "odd": dict(n=300, H=5, B=2)}
+
+
+def split_lines(cs, torch, name, label, kernel, plain, splits):
+    """K4 or K6a with its reduce extents split in each of ``splits`` parts
+    (``ops.tiled.mma_splits`` replaced by the constant for the run): error
+    against the plain version and device ms per count."""
+    from gncde_tpu_torch.ops import tiled as tt
+
+    plan, ref, out = tt.mma_splits, plain(), {}
+    try:
+        for S in splits:
+            tt.mma_splits = lambda B, nr, nc, H, S=S: S
+            got = kernel()
+            out[S] = {"rel_err": max(cs.rel_err(torch, a.float(), b.float())[0]
+                                     for a, b in zip(got, ref)),
+                      "device_ms": cs.device_ms(torch, kernel)[0]}
+    finally:
+        tt.mma_splits = plan
+    cs.emit({"kernel": name, "shape": label, "splits": out})
+
+
+def k4_lines(cs, torch, saved, splits=()):
+    from gncde_tpu_torch.ops import tiled as tt
+
+    for label, s in PAIR_SHAPES.items():
+        if label.startswith("trade"):
+            continue
+        n, H, B = s["n"], s["H"], s["B"]
+        A, dA, M, G, _, cvec = cs.make_tiled_inputs(torch, n, H, B)
+        kernel = lambda: tt.bwd2_call(A, dA, cvec, G, M)  # noqa: E731
+        plain = lambda: tt.plain_bwd2(A, dA, cvec, G, M)  # noqa: E731
+        At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
+        four = lambda: (torch.matmul(A, G), torch.matmul(dA, G),  # noqa: E731
+                        torch.matmul(At, G), torch.matmul(dAt, G))
+        line_of(cs, torch, "K4", label, s, kernel(), plain(), kernel, plain,
+                *cs.tiled_bound("K4", n, H, B), four,
+                "yardstick_four_cublas_bf16_products_ms", saved)
+        if splits and label.startswith("genre"):
+            split_lines(cs, torch, "K4", label, kernel, plain, splits)
+        del A, dA, M, G
+        torch.cuda.empty_cache()
+
+
+def k6a_lines(cs, torch, saved, bf16, splits=()):
+    from gncde_tpu_torch.ops import pair as tp
+
+    forms = [("K6a-bf", False), ("K6a-bf-bf16-vectors", True)] if bf16 else [("K6a", False)]
+    for label, s in PAIR_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        x = cs.make_pair_inputs(torch, n, H, B)
+        c = x["cvec"]
+        A, dA = (x["A"], x["dA"]) if not bf16 else (x["A"].to(torch.bfloat16),
+                                                    x["dA"].to(torch.bfloat16))
+        cc = c.to(A.dtype)
+        B1, B2t = cc[0] * A + cc[1] * dA, (cc[2] * A + cc[3] * dA).transpose(-2, -1)
+        for name, bvec in forms:
+            Mk, Mi = (x["Mk"], x["Mi"]) if not bvec else (x["Mk"].to(torch.bfloat16),
+                                                          x["Mi"].to(torch.bfloat16))
+            P1, P2 = (B1, B2t) if bvec or not bf16 else (B1.float(), B2t.float())
+            args = (A, dA, c, Mk, Mi)
+            kernel = lambda: tp.pair_call(*args)  # noqa: E731
+            plain = lambda: tp.plain_pair(*args)  # noqa: E731
+            two = lambda: (torch.matmul(P1, Mk), torch.matmul(P2, Mi))  # noqa: E731
+            sizes = dict(plane_bytes=2 if bf16 else 4, vec_bytes=2 if bvec else 4)
+            line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                    *cs.pair_bound(name, n, H, B, **sizes), two,
+                    f"yardstick_two_cublas_{'bf16' if bvec else 'f32'}_products_ms", saved)
+            if splits and label.startswith("genre"):
+                split_lines(cs, torch, name, label, kernel, plain, splits)
+        del x, A, dA, B1, B2t
+        torch.cuda.empty_cache()
+
+
+#: The variants of ``gncde_pair_probe`` (csrc/plane_mma.cu, flag D): K6a's
+#: f32 sweep with one part of its work dropped.
+K6A_ABLATION = {"full": 0, "no_mma": 1, "no_form": 2, "no_plane_copies": 4,
+                "no_vector_copies": 8, "copies_only": 3, "loop_only": 15,
+                "row_pass_only": 16, "col_pass_only": 32}
+
+
+def k6a_ablation_lines(cs, torch):
+    """K6a on f32 planes at genre-H128 and trade-H512: the device ms of each
+    :data:`K6A_ABLATION` variant (the sweep kernel and the parts' sum)."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import tiled as tt
+
+    fn = _build.load("plane_mma").gncde_pair_probe
+    P, I = _build.P, _build.I
+    fn.argtypes = [P, P, I, I, P, P, P, I, I, P, P, P, I, I, P]
+    fn.restype = ctypes.c_int
+    for label in ("genre-H128", "trade-H512"):
+        s = PAIR_SHAPES[label]
+        n, H, B = s["n"], s["H"], s["B"]
+        x = cs.make_pair_inputs(torch, n, H, B)
+        S = tt.mma_splits(B, n, n, H)
+        buf = torch.empty((1 + (S if S > 1 else 0)) * 2 * B * n * H, device="cuda")
+        line = {"kernel": "K6a-ablation", "shape": label, **s, "splits": S}
+        for name, drop in K6A_ABLATION.items():
+            def call(drop=drop):
+                _build.check(fn(x["A"].data_ptr(), x["dA"].data_ptr(), n, n,
+                                x["cvec"].data_ptr(), x["Mk"].data_ptr(), x["Mi"].data_ptr(),
+                                B, H, buf.data_ptr(), buf[B * n * H:].data_ptr(),
+                                buf[2 * B * n * H:].data_ptr() if S > 1 else None, S, drop,
+                                _build.stream()), "K6a probe")
+            line[f"{name}_device_ms"] = cs.device_ms(torch, call)[0]
+        cs.emit(line)
+        del x, buf
+        torch.cuda.empty_cache()
+
+
+def megakernel_lines(cs, torch, names, saved):
+    """K1, K2, K1d, K2d at the flagship and trade shapes and K11 at the
+    step shapes: wrapper ms beside device ms (no yardstick: no single call
+    computes them)."""
+    from gncde_tpu_torch.ops import fused_step as tfs
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    for name in ("K1", "K2", "K1d", "K2d"):
+        if name not in names:
+            continue
+        nbasis = 11 if name.endswith("d") else 8
+        for label in ("flagship", "trade"):
+            s = cs.SHAPES[label]
+            planes, idx, tau, Z, layers, G = cs.make_inputs(torch, **s, nbasis=nbasis)
+            if name.startswith("K1"):
+                kernel = lambda: (mk.megakernel_vf_eval(planes, idx, tau, Z, layers),)  # noqa: E731
+                plain = lambda: (mk.plain_vf_eval(planes, idx, tau, Z, layers),)  # noqa: E731
+                bms, by = cs.k1_bound(s)
+            else:
+                kernel = lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
+                plain = lambda: mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
+                bms, by = cs.k2_bound(s)
+            line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain, bms, by,
+                    saved=saved)
+            del planes, Z, layers, G
+            torch.cuda.empty_cache()
+    if "K11" in names:
+        tab = get_tableau("tsit5")
+        for label, s in cs.STEP_SHAPES.items():
+            planes, ts, t, y, h, f0, layers = cs.make_step_inputs(torch, **s)
+            kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)[:3]  # noqa: E731
+            plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)[:3]  # noqa: E731
+            line_of(cs, torch, "K11", label, s, kernel(), plain(), kernel, plain,
+                    *cs.step_bound(s["n"], s["B"], s["widths"], 6), saved=saved)
+            del planes, y, f0, layers
+            torch.cuda.empty_cache()
+
+
 def k10_lines(cs, torch, saved):
     from gncde_tpu_torch.ops import ell_spmm as tell
 
@@ -171,8 +368,11 @@ def compare(dir1, dir2) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--only", default="K3,K10", help="comma-separated: K3, K10")
-    ap.add_argument("--splits", default="", help="K3: split counts to time, e.g. 1,2,4")
+    ap.add_argument("--only", default="K3,K4,K6a,K6a-bf,K10",
+                    help="comma-separated: K3, K4, K6a, K6a-bf, K10, K1, K2, K1d, K2d, K11, "
+                         "K6a-ablation")
+    ap.add_argument("--splits", default="",
+                    help="K3, K4, K6a: split counts to time at the genre shapes, e.g. 1,2,4")
     ap.add_argument("--root", default=str(HERE), help="checkout whose gncde_tpu_torch runs")
     ap.add_argument("--save", help="directory to keep the kernels' outputs in")
     ap.add_argument("--compare", nargs=2, metavar="DIR", help="compare two saved runs")
@@ -196,14 +396,31 @@ def main() -> int:
     saved = {}
     if "K3" in only:
         k3_lines(cs, torch, splits, saved)
+    if "K4" in only:
+        k4_lines(cs, torch, saved, splits)
+    if "K6a" in only:
+        k6a_lines(cs, torch, saved, False, splits)
+    if "K6a-bf" in only:
+        k6a_lines(cs, torch, saved, True, splits)
+    if "K6a-ablation" in only:
+        k6a_ablation_lines(cs, torch)
     if "K10" in only:
         k10_lines(cs, torch, saved)
+    megakernel_lines(cs, torch, only, saved)
     if args.save:
         Path(args.save).mkdir(parents=True, exist_ok=True)
         torch.save(saved, Path(args.save) / "outputs.pt")
     ptx = {}
-    if "K3" in only:
-        ptx["tiled"] = ptxas_lines(root, "tiled", r"fwd2")
+    tiled = "|".join(p for k, p in (("K3", "fwd2"), ("K4", "bwd2"), ("K6a", "pair"),
+                                     ("K6a-bf", "pair")) if k in only)
+    if tiled:  # a parent checkout may still hold K4 and K6a in tiled.cu
+        ptx["tiled"] = ptxas_lines(root, "tiled", tiled)
+    if any(k in only for k in ("K4", "K6a", "K6a-bf")):
+        ptx["plane_mma"] = ptxas_lines(root, "plane_mma", r".")
+    for lib, ks in (("megakernel_fwd", ("K1", "K1d")), ("megakernel_bwd", ("K2", "K2d")),
+                    ("fused_step", ("K11",))):
+        if any(k in only for k in ks):
+            ptx[lib] = ptxas_lines(root, lib, r".")
     if "K10" in only:
         ptx["ell_spmm"] = ptxas_lines(root, "ell_spmm", r"ell")
     cs.emit({"ptxas": ptx})
