@@ -10,10 +10,15 @@ Phases, each printing one line before the last:
      seconds per source);
   3. K1 (forward vf kernel) against its plain PyTorch version at the
      flagship shape (n=400, B=4, widths 16 -> 16 -> 16), the bench shape
-     (widths 32 x 4) and the trade shape (n=255, B=4, widths 32 -> 32 -> 32
+     (widths 32 x 4), the trade shape (n=255, B=4, widths 32 -> 32 -> 32
      -> 32 -> 512: the CDE-wrapper field of configs/tgb/trade_*, whose last
-     layer the kernels sweep in chunks of 64 columns), per-element planes
-     and (idx, tau); max abs err <= 1e-4 * max|ref|;
+     layer the row pass runs in four column groups) and the largest n
+     (640, B=1, widths 64 x 3), per-element planes and (idx, tau); max abs
+     err <= 1e-4 * max|ref|; each line with the row pass's plan per layer
+     (ops.megakernel.row_plan), the device ms of the call and, but at
+     n=640, of each launch (prep, layer 1 .. L) and the yardstick: per layer
+     one cuBLAS f32 bmm on C formed beforehand (not one call for K1's
+     function);
   4. K2 (backward vf kernel) against the plain autograd version at the same
      shapes, with and without the tau cotangent; every cotangent within
      1e-3 * max|ref|;
@@ -50,7 +55,8 @@ Phases, each printing one line before the last:
      width 8 and depth 2) on phase 7's surrogate and windows; every train
      loss and the validation NDCG@10 must be finite, K7, K6a and K6b must
      have launched, and K3 and K4 must not have (enc_idx bypasses them);
- 10. the sparse controls' kernels K8 (BCSR SpMM), K9 (BCSR SDDMM) and K10
+ 10. the sparse controls' kernels K8 (BCSR SpMM; its line with its plan,
+     ops.bcsr.spmm_plan), K9 (BCSR SDDMM) and K10
      (ELL SpMM) against their plain versions at three shapes: the flagship
      (B=4, n=400, bs=128, the flagship data's own union pattern at one t,
      H=16; ELL with that data's K), the scaled point (B=1, n=32768, bs=128,
@@ -107,6 +113,8 @@ Phases, each printing one line before the last:
  17. the directed 11-term basis: K1, K2 (with and without the tau
      cotangent) and K11 with its backward on the directed basis (K1d, K2d,
      K11d) against their plain versions at the flagship and trade shapes
+     (K1d also at the bench shape and n=640, with phase 3's plan, device
+     times and yardstick)
      (K11d: flagship and bench), make_inputs with an (11, 2) basis on
      planes whose column sums differ from their row sums by more than a
      tenth of their scale (so a row/column swap cannot pass); bounds K1d
@@ -229,6 +237,11 @@ SHAPES = {
     "bench": dict(n=400, B=4, widths=(32, 32, 32, 32)),
     "trade": dict(n=255, B=4, widths=(32, 32, 32, 32, 512)),
 }
+#: Phases 3 and 17 also hold K1 and K1d at the largest n the vf kernels
+#: serve (ops.megakernel.MEGAKERNEL_MAX_N), one element of 64-wide layers
+#: (errors, wrapper ms, plan and device ms; its per-launch times and
+#: yardstick are the timer's, tools/kernel_times_torch.py).
+K1_EDGE = {"edge-640": dict(n=640, B=1, widths=(64, 64, 64))}
 K1_TOL = 1e-4
 K2_TOL = 1e-3
 #: The bf16 kernels (phase 21) against their plain versions, layer by layer.
@@ -406,6 +419,16 @@ HERMITE_KERNELS = ("K1", "K2", "K3", "K4", "K1bf", "K2bf")
 #: the phase's main path) runs with fewer repetitions than its defaults.
 PROBE_DMA_TOL = 1e-5
 PROBE_TIMER_ARGS = ("--evals", "10", "--steps", "2", "--blocks", "3")
+#: The device entry points of the kernels whose design changed since their
+#: port (the kernels line names them): K1's and K2's forward (the prep pass
+#: and the f32 row pass on its plan; K2's reverse sweep and reduction) and K8.
+ENTRY_POINTS = {
+    "K1": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (plan: "
+           "ops.megakernel.row_plan)"],
+    "K2": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (K1's plan)",
+           "bwd_rows_kernel<TAU, DIR, false>", "reduce_blocks_kernel"],
+    "K8": ["bcsr::spmm_kernel<RT, CT> (plan: ops.bcsr.spmm_plan)"],
+}
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -696,6 +719,71 @@ def device_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters, {}
 
 
+def launch_device_ms(torch, fn, pattern=r"\bmk::|\breduce_blocks_kernel", iters=20,
+                     warmup=3):
+    """``[{"name", "ms"}]``: the device time of each kernel launch of one
+    call of ``fn`` whose name matches ``pattern``, in launch order (K1:
+    the prep pass, then layer 1 .. L), averaged over ``iters`` traced
+    calls; None when no trace holds every kernel event its launches
+    recorded (lost events, or no CUPTI), in three tries (the last traces
+    the device alone, without the host's operator events: fewer events to
+    lose)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_step_torch import device_events
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for activities in (acts, acts, acts[1:]):
+        with profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            events = sorted((e for e in device_events(path) if re.search(pattern, e[0])),
+                            key=lambda e: e[1])
+            launched, kernels = trace_kernel_counts(path)
+        if events and kernels >= launched and len(events) % iters == 0:
+            k = len(events) // iters
+            return [{"name": events[i][0][:90],
+                     "ms": sum(events[c * k + i][2] for c in range(iters)) / iters / 1e3}
+                    for i in range(k)]
+    return None
+
+
+def k1_yardstick(torch, planes, idx, tau, layers, Ms):
+    """The products of K1's row passes, ranked on their own: per layer one
+    cuBLAS f32 ``torch.bmm(C_l, M_l)`` on ``C_l = (1 + p1_0) A + (1 + p1_1)
+    dA + p2_0 A^T + p2_1 dA^T`` formed beforehand by the plain version and
+    the kernel's own M_l (``trace``). Not one call for K1's function: it
+    leaves out the Hermite, the statistics, the rank terms and the
+    transforms."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    A, dA = mk.hermite(planes, idx, tau)
+    At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
+    Cs = [((1 + lp["basis"][0, 0]) * A + (1 + lp["basis"][0, 1]) * dA
+           + lp["basis"][1, 0] * At + lp["basis"][1, 1] * dAt).contiguous() for lp in layers]
+    Ms = [m.contiguous() for m in Ms]
+    return lambda: [torch.bmm(C, M) for C, M in zip(Cs, Ms)]
+
+
+def k1_row_plans(s):
+    """The f32 row pass's launch plan per layer at shape ``s``
+    (``ops.megakernel.row_plans``), or None for a package without one."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    plans = getattr(mk, "row_plans", None)
+    return None if plans is None else [p._asdict() for p in plans(s["n"], s["B"],
+                                                                   s["widths"])]
+
+
 def trace_kernel_counts(path):
     """(kernel launches the host recorded, kernel events the device
     recorded) of a Chrome trace."""
@@ -750,15 +838,30 @@ def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8, bf16=F
             err = max(errs.values())
         else:
             abs_err = float((got - ref).abs().max())
-        ms = time_ms(torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16))
+        kernel = lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16)  # noqa: E731
+        ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch, lambda: plain_eval(planes, idx, tau, Z, layers))
         bms, by = k1_bound(s, bf16)
+        dev = {}
+        if not bf16:
+            extra["plan"] = k1_row_plans(s)
+        if not bf16 and label in K1_EDGE:
+            dev = {"device_ms": device_ms(torch, kernel)[0]}
+            extra.update(dev)
+        elif not bf16:  # the row pass's device times, yardstick
+            trace = {}
+            mk.megakernel_vf_eval(planes, idx, tau, Z, layers, trace=trace)
+            dev = {"device_ms": device_ms(torch, kernel)[0],
+                   "launch_device_ms": launch_device_ms(torch, kernel),
+                   "yardstick_bmm_device_ms": device_ms(torch, k1_yardstick(
+                       torch, planes, idx, tau, layers, trace["M"]))[0]}
+            extra.update(dev)
         emit({"phase": phase, "kernel": name, "shape": label, **s,
               "max_abs_err": abs_err, "max_abs_ref": scale, "rel_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **extra})
         if not err <= K1_TOL:
             raise RuntimeError(f"{name} {label}: rel err {err:.3e} > {K1_TOL}")
-        results.setdefault(name, []).append((label, abs_err, ms, plain_ms))
+        results.setdefault(name, []).append((label, abs_err, ms, plain_ms, dev))
 
 
 def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8, bf16=False):
@@ -1392,6 +1495,9 @@ def phase_sparse_kernels(torch, cache, results):
             bms, by = sparse_bound(name, x)
             shape = {k: x[k] for k in ("n", "bs", "H", "B")}
             shape.update(kb=x["idx"].shape[-1], K=x["indices"].shape[-1])
+            if name == "K8":
+                shape["plan"] = tb.spmm_plan(x["M"].shape[0], x["idx"].shape[-2], x["bs"],
+                                             x["H"])._asdict()
             emit({"phase": 10, "kernel": name, "shape": label, **shape, "setup_s": setup_s,
                   "max_abs_err": abs_err, "max_abs_ref": scale, "rel_err": err, "ms": ms,
                   "device_ms": dev_ms, "device_by_name": dev_by_name,
@@ -2219,7 +2325,8 @@ def phase_directed_kernels(torch, cache, results):
     """Phase 17: K1d, K2d and K11d against their plain versions, the
     directed flagship field at init through every other route, and the
     directed tiled eval."""
-    phase_k1(torch, results, "K1d", 17, DIR_SHAPES, NBASIS_DIRECTED)
+    phase_k1(torch, results, "K1d", 17, {**DIR_SHAPES, "bench": SHAPES["bench"], **K1_EDGE},
+             NBASIS_DIRECTED)
     phase_k2(torch, results, "K2d", 17, DIR_SHAPES, NBASIS_DIRECTED)
     for label, s in STEP_SHAPES.items():
         results.setdefault("K11d", {})[label] = check_k11(torch, label, s, "K11d", 17,
@@ -2822,7 +2929,7 @@ def main() -> int:
     timed(1, phase_device, torch)
     timed(2, phase_build)
     results = {}
-    timed(3, phase_k1, torch, results)
+    timed(3, phase_k1, torch, results, "K1", 3, {**SHAPES, **K1_EDGE})
     timed(4, phase_k2, torch, results)
     with tempfile.TemporaryDirectory() as cache:  # phases 5, 10-12, 15-17, 20, 21 share the flagship data
         dyn_launches, dyn_losses = timed(5, phase_train, torch, cache)
@@ -2870,12 +2977,17 @@ def main() -> int:
         ("K2d", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
          "gncde_tpu/ops/pallas/megakernel_bwd.py:249", k2_bound(flagship), dir_launches["K2"]),
     ):
-        _, err, ms, plain_ms = results[name][0]  # flagship shape
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": None,
-                        "shape": "flagship"})
+        _, err, ms, plain_ms, *dev = results[name][0]  # flagship shape
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "entry_points": ENTRY_POINTS[name[:2]], "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+               "bound_by": by, "library_ms": None, "shape": "flagship", **(dev[0] if dev else {})}
+        if name in ("K1", "K1d"):  # the trade field, K1d's main path
+            _, t_err, t_ms, t_plain, t_dev = next(r for r in results[name] if r[0] == "trade")
+            t_bms, t_by = k1_bound(SHAPES["trade"])
+            row["trade"] = {"max_abs_err": t_err, "ms": t_ms, "plain_ms": t_plain,
+                            "bound_ms": t_bms, "bound_by": t_by, **t_dev}
+        kernels.append(row)
     for name, rep in (("K3", "gncde_tpu/ops/pallas/tiled.py:345"),
                       ("K4", "gncde_tpu/ops/pallas/tiled.py:476"),
                       ("K5a", "gncde_tpu/ops/pallas/tiled.py:748"),
@@ -2908,6 +3020,7 @@ def main() -> int:
     ):
         err, ms, plain_ms, bms, by, library_ms, shape, extra = results[name]["flagship"]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **({"entry_points": ENTRY_POINTS[name]} if name == "K8" else {}),
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": library_ms, "shape": f"flagship {shape}", **extra})
@@ -2951,7 +3064,7 @@ def main() -> int:
          "gncde_tpu/ops/pallas/megakernel_bwd.py:65", k2_bound(flagship, True),
          dfused["K2bf"]),
     ):
-        _, err, ms, plain_ms = results[name][0]  # flagship shape
+        _, err, ms, plain_ms, *_ = results[name][0]  # flagship shape
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,

@@ -4,8 +4,9 @@
 // Replaces gncde_tpu/ops/pallas/megakernel_bwd.py (_make_bwd_kernel /
 // bwd_call / bwd_call_batched, both values of its ``directed`` flag),
 // which holds about 38 n^2 bytes per eval in
-// one TensorCore's VMEM. Here the forward is recomputed on the row tiling
-// of K1 (megakernel_common.cuh), keeping each layer's M and input x in
+// one TensorCore's VMEM. Here the forward is recomputed by K1's own row
+// pass on K1's plan (megakernel_common.cuh rows_kernel; K2bf: fwd_rows),
+// so M_l and x_l are K1's bit for bit, keeping each layer's M and input x in
 // device memory ((L, B, n, H) floats of scratch), then one row pass per
 // layer walks the stack in reverse. For its BM rows a CTA regenerates the
 // row and column tiles of A and dA (and ddA when tau needs a gradient) from
@@ -619,9 +620,9 @@ static int layer_ptot(const int* dims, int l, int nb) {
 template <bool DIR, bool BF>
 static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
                   const float* G, int B, int n, int L, const int* dims,
-                  const void* const* ptrs, int need_tau, float* stats, float* Mbuf,
-                  float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
-                  float* red, cudaStream_t stream) {
+                  const void* const* ptrs, const int* plan, int need_tau, float* stats,
+                  float* Mbuf, float* Xbuf, float* gbuf, int ldm, float* dZ, float* part,
+                  int ptot, float* red, cudaStream_t stream) {
   const int nblk = (n + BM - 1) / BM;
   const dim3 grid(nblk, B);
   const long long lstride = (long long)B * n * ldm;
@@ -633,11 +634,19 @@ static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const f
                                                 stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int l = 0; l + 1 < L; ++l) {
-    fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
-        P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
-        ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
-        Mbuf + (l + 1) * lstride, ldm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if constexpr (BF) {
+      fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
+          P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
+          ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
+          Mbuf + (l + 1) * lstride, ldm);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    } else {  // K1's row pass on K1's plan: M_l and x_l bitwise K1's
+      const int e = launch_rows<DIR>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
+                                     Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride, ldm,
+                                     1, 1, layer_from(ptrs, dims, l + 1),
+                                     Mbuf + (l + 1) * lstride, ldm, plan + 3 * l, stream);
+      if (e != 0) return e;
+    }
   }
 
   // Reverse sweep.
@@ -673,32 +682,34 @@ template <bool BF>
 static int mk_bwd_basis(const void* d, const void* c, const void* b, const void* a,
                         long long bstride, const int* idx, const float* tau,
                         const float* Z, const float* G, int B, int n, int L,
-                        const int* dims, const void* const* ptrs, int directed,
-                        int need_tau, float* stats, float* Mbuf, float* Xbuf, float* gbuf,
-                        int ldm, float* dZ, float* part, int ptot, float* red,
-                        cudaStream_t stream) {
+                        const int* dims, const void* const* ptrs, const int* plan,
+                        int directed, int need_tau, float* stats, float* Mbuf,
+                        float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
+                        float* red, cudaStream_t stream) {
   using T = typename Planes<BF>::T;
   const Planes<BF> P{static_cast<const T*>(d), static_cast<const T*>(c),
                      static_cast<const T*>(b), static_cast<const T*>(a), bstride};
   if (directed)
-    return mk_bwd<true, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
-                            Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
-  return mk_bwd<false, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
-                           Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+    return mk_bwd<true, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, need_tau, stats,
+                            Mbuf, Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+  return mk_bwd<false, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, need_tau, stats,
+                           Mbuf, Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
 }
 
 // directed: the layers' basis is the (11, 2) directed stack (else (8, 2));
-// planes float32, or bfloat16 when bf16 (K2bf).
+// planes float32, or bfloat16 when bf16 (K2bf). plan: host array of K1's
+// row-pass plan per layer (bm, cc, groups; ops/megakernel.py row_plan), the
+// forward recompute's (unread by K2bf).
 extern "C" int gncde_mk_bwd(const void* d, const void* c, const void* b,
                             const void* a, long long plane_bstride,
                             const int* idx, const float* tau, const float* Z,
                             const float* G, int B, int n, int L,
-                            const int* dims, const void* const* ptrs, int directed,
-                            int bf16, int need_tau, float* stats, float* Mbuf,
+                            const int* dims, const void* const* ptrs, const int* plan,
+                            int directed, int bf16, int need_tau, float* stats, float* Mbuf,
                             float* Xbuf, float* gbuf, int ldm, float* dZ,
                             float* part, int ptot, float* red,
                             cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm))
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm) || (!bf16 && plan == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nb = directed ? NBASIS_D : NBASIS_U;
   int want = 0;
@@ -706,9 +717,9 @@ extern "C" int gncde_mk_bwd(const void* d, const void* c, const void* b,
   if (want != ptot) return (int)cudaErrorInvalidValue;
   if (bf16)
     return mk_bwd_basis<true>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
-                              ptrs, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm, dZ,
-                              part, ptot, red, stream);
+                              ptrs, plan, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm,
+                              dZ, part, ptot, red, stream);
   return mk_bwd_basis<false>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
-                             ptrs, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm, dZ,
-                             part, ptot, red, stream);
+                             ptrs, plan, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm,
+                             dZ, part, ptot, red, stream);
 }

@@ -22,9 +22,12 @@
 //
 // Layout: CTAs own BM rows of one batch element (grid
 // (ceil(n/BM), B)); the n x n operands never reach device memory -- each
-// CTA regenerates its (BM x BK) tiles of C from the planes, in shared
-// memory, once per layer and chunk of HC output columns. All reductions are
-// in a fixed order, so results are bitwise reproducible run to run.
+// CTA of fwd_rows regenerates its (BM x BK) tiles of C from the planes, in
+// shared memory, once per layer and chunk of HC output columns. K1's and
+// K2's f32 row pass is rows_kernel (below): the same arithmetic bit for
+// bit on a launch plan of its own, C's rows formed once per layer; fwd_rows
+// serves K11 and the bf16 kernels. All reductions are in a fixed order, so
+// results are bitwise reproducible run to run.
 //
 // Widths: a layer's input is at most MAXIN = 64 wide; its output any width
 // up to MAXOUT, swept in chunks of HC = 64 columns (one chunk, and the
@@ -80,6 +83,7 @@ constexpr int HC = 64;       // output columns per sweep
 constexpr int MAXOUT = 4096; // widest layer output
 constexpr int PPT = (BM * HC + NT - 1) / NT;  // (row, col) pairs per thread
 constexpr float EPS = 1e-6f;
+constexpr int MAXN = 640;    // largest n (ops/megakernel.py MEGAKERNEL_MAX_N)
 constexpr int BKP = BK + 8;  // padded k extent of the bf16 MMA tiles
 constexpr int BMP = BM + 8;  // padded i extent of [k][i] tiles: 48-byte rows
 
@@ -149,6 +153,14 @@ __device__ __forceinline__ unsigned short bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
+// A(t), dA(t) of f32 plane values (the row pass evaluates values it
+// loaded ahead).
+__device__ __forceinline__ void herm_vals(float d, float c, float b, float a, float t,
+                                          float& A, float& dA) {
+  A = ((d * t + c) * t + b) * t + a;
+  dA = (3.0f * d * t + 2.0f * c) * t + b;
+}
+
 // A(t), dA(t) (and d(dA)/dt) at one plane element. BF: each product and sum
 // rounded once, in the plain version's order.
 template <bool BF>
@@ -161,8 +173,7 @@ __device__ __forceinline__ void herm(const Planes<BF>& P, long long off, float t
     dA = __fadd_rn(
         __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(3.0f, d), t), __fmul_rn(2.0f, c)), t), b);
   } else {
-    A = ((d * t + c) * t + b) * t + a;
-    dA = (3.0f * d * t + 2.0f * c) * t + b;
+    herm_vals(d, c, b, a, t, A, dA);
   }
 }
 
@@ -810,6 +821,530 @@ fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                                   has_next, ln, Mn, ldmn);
 }
 
+// ---- The f32 row pass of K1 and K2's forward recompute -------------------
+// rows_kernel<DIR, CC> computes what fwd_rows<DIR, false> computes, bit for
+// bit (the same expressions, each output one FMA chain over k in order, the
+// column sums in fwd_rows's slices and order), on another plan
+// (ops/megakernel.py row_plan, one per layer):
+//  * grid (ceil(n / bm), groups, B): a CTA owns bm rows (16, 8 or 4) and
+//    one group of cw = 512 CC / bm output columns (32, 64 or 128; wider
+//    outputs take several groups, so the trade's 512-wide last layer runs
+//    256 CTAs, not 64);
+//  * it forms its bm rows of C = B1 + B2^T over all n columns once, into
+//    dynamic shared memory (fwd_rows regenerates them from the planes for
+//    every 64-column chunk: 8 times a layer at the trade's last layer),
+//    while the first tiles of M arrive;
+//  * M comes in KT = 32-row tiles of the group's columns through a ring of
+//    three stages, two tiles ahead (16-byte cp.async; 4-byte copies where
+//    M's rows are not 16-byte aligned), and the column sums s, w of M are
+//    taken from the same tiles as they pass (each thread's slice of rows,
+//    in fwd_rows's order), with v precomputed once per CTA;
+//  * each thread owns 2 rows x CC columns and reads C as float4 along k:
+//    two C loads and four M loads (CC-vectors) per 8 CC FMAs;
+//  * the next layer's transform (RMSNorm -> Linear, transform_row's
+//    arithmetic) stages W in chunks of RWCH rows through shared memory,
+//    read coalesced, one output column a thread: transform_row reads W
+//    row-strided from every lane, which took 0.13 ms of the trade's layer
+//    before its 512-wide last one (NVIDIA H100 80GB HBM3, 700.00 W).
+// Its device time is the CTA's serial chain (plane loads, ring, products),
+// not the card's throughput: the trade's 316 MFLOP are 4.7 us at an H100's
+// f32 peak, and the planes 2 MB an element read twice, mostly from L2.
+constexpr int RKT = 32;     // rows of M per ring tile
+constexpr int RSTAGES = 3;  // ring stages
+constexpr int RWCH = 128;   // rows of the next layer's W per staged chunk
+constexpr int RU = 8;       // plane elements a thread loads before it forms them
+
+// The row pass's design probes (tools/kernel_times_torch.py K1-ablation,
+// csrc/row_probe.cu gncde_mk_fwd_probe): the template parameter PROBE of
+// rows_kernel, 0 on every launch of the main path. Bits 1-32 drop one part
+// of its work each, so the device time of what remains can be read; RP_TF32
+// takes the products as 3xTF32 on the tensor cores (mma.sync m16n8k8 on
+// big/small TF32 splits, K6a's arithmetic in csrc/plane_mma.cu) in place of
+// the f32 FMA loop: an f32-accurate product in another summation order.
+enum RowProbe {
+  RP_NO_PLANES = 1,   // form C from its indices, without the plane reads
+  RP_NO_FORM = 2,     // no forming of C at all
+  RP_NO_PRODUCT = 4,  // no C M products
+  RP_NO_RING = 8,     // no copies of M's tiles
+  RP_NO_COLSUM = 16,  // no column sums
+  RP_NO_NEXT = 32,    // no transform of the next layer's M
+  RP_TF32 = 64        // the products as 3xTF32 mma.sync
+};
+
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// c += a b on one m16n8k8 TF32 fragment (f32 accumulation).
+__device__ __forceinline__ void mma_tf32x1(float c[4], const uint32_t a[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ constexpr int rows_npad(int n) { return (n + RKT - 1) / RKT * RKT; }
+// The ring's row width: the group's columns, or H rounded up to 4 where
+// one group holds the whole layer. Its row stride: the width, plus 8 floats
+// under RP_TF32 (so that a B fragment's rows q and q + 4 fall on other
+// banks).
+__host__ __device__ constexpr int rows_width(int cw, int H) {
+  return cw < ((H + 3) & ~3) ? cw : ((H + 3) & ~3);
+}
+__host__ __device__ constexpr int rows_stride(int cw, int H, bool mma) {
+  return rows_width(cw, H) + (mma ? 8 : 0);
+}
+// Dynamic shared memory of one CTA, in floats: v, then C's rows bm x (npad
+// + 4) and the ring, which the next layer's W chunks (RWCH x (H + 1): H is
+// that layer's input, so at most MAXIN) reuse once the products are done.
+__host__ __device__ constexpr int rows_wchunk_floats(int H) {
+  return H <= MAXIN ? RWCH * (H + 1) : 0;
+}
+__host__ __device__ constexpr int rows_smem_floats(int n, int bm, int rs, int H) {
+  return rows_npad(n) + (bm * (rows_npad(n) + 4) + RSTAGES * RKT * rs > rows_wchunk_floats(H)
+                             ? bm * (rows_npad(n) + 4) + RSTAGES * RKT * rs
+                             : rows_wchunk_floats(H));
+}
+
+template <bool DIR, int CC, int PROBE>
+__global__ void __launch_bounds__(NT)
+rows_kernel(Planes<false> P, const int* __restrict__ idx, const float* __restrict__ tau,
+            int n, const float* __restrict__ stats, Layer lp,
+            const float* __restrict__ Mc, int ldm, float* __restrict__ F, int ldf,
+            int relu, int has_next, Layer ln, float* __restrict__ Mn, int ldmn, int bm,
+            int vec_m) {
+  constexpr bool MMA = (PROBE & RP_TF32) != 0;
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ float colS[128], colW[128];
+  __shared__ float red[2][2][NT];
+  __shared__ float scratch[NW];
+  __shared__ float Fs[BM][HC];
+  __shared__ float zrows[BM][MAXIN];
+
+  const int b = blockIdx.z, r0 = blockIdx.x * bm;
+  const long long base = plane_base(P, idx, b, n);
+  const float t = __ldg(tau + b);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int H = lp.hout;
+  const int cw = 512 * CC / bm;
+  const int g0 = blockIdx.y * cw, wg = min(cw, H - g0);  // the group's columns
+  const int rw = rows_width(cw, H), rs = rows_stride(cw, H, MMA);
+  const int npad = rows_npad(n), ldc = npad + 4;
+  float* vsh = dyn;               // [npad]
+  float* Cs = vsh + npad;         // [bm][ldc]
+  float* ring = Cs + bm * ldc;    // [RSTAGES][RKT][rs]
+  const float fn = (float)n, fn2 = fn * fn;
+  const float* st = stats + (long long)b * NSTAT * n;
+  const float* Mb = Mc + (long long)b * n * ldm;
+  constexpr int NQ = 2 * nbasis<DIR>();
+  float q[NQ];
+#pragma unroll
+  for (int k = 0; k < NQ; ++k) q[k] = __ldg(lp.basis + k);
+
+  // Tile t of M: rows t RKT .., the group's columns, into stage t % RSTAGES.
+  auto fetch = [&](int tile) {
+    float* T = ring + (tile % RSTAGES) * RKT * rs;
+    const int k0 = tile * RKT;
+    if (vec_m) {
+      const int gpr = rw / 4;
+      for (int e = tid; e < RKT * gpr; e += NT) {
+        const int kk = e / gpr, c = 4 * (e - kk * gpr), k = k0 + kk;
+        const int nbytes = (k < n && c < wg) ? 4 * min(4, wg - c) : 0;
+        cp_async16(T + kk * rs + c, nbytes ? Mb + (long long)k * ldm + g0 + c : Mc, nbytes);
+      }
+    } else {
+      for (int e = tid; e < RKT * rw; e += NT) {
+        const int kk = e / rw, c = e - kk * rw, k = k0 + kk;
+        const bool ok = k < n && c < wg;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_u32(T + kk * rs + c)),
+                     "l"(ok ? Mb + (long long)k * ldm + g0 + c : Mc), "r"(ok ? 4 : 0));
+      }
+    }
+  };
+  const int ntiles = npad / RKT;
+  constexpr bool ring_on = !(PROBE & RP_NO_RING);
+  if (ring_on) fetch(0);
+  cp_commit();
+  if (ntiles > 1 && ring_on) fetch(1);
+  cp_commit();
+
+  // Global sums every CTA needs: sA, sdA (fwd_rows's order).
+  float a0 = 0.f, a1 = 0.f;
+  for (int k = tid; k < n; k += NT) {
+    a0 += (st + RA * n)[k];
+    a1 += (st + RDA * n)[k];
+  }
+  const float sA = block_sum(a0, scratch);
+  const float sdA = block_sum(a1, scratch);
+  const float b10 = 1.f + q[0], b11 = 1.f + q[1], b20 = q[2], b21 = q[3];
+  float c7, c8;
+  if constexpr (DIR) {
+    c7 = (q[18] + q[19]) * sA / fn2;
+    c8 = (q[20] * sA + q[21] * sdA) / fn2;
+  } else {
+    c7 = (q[12] + q[13]) * sA / fn2;
+    c8 = (q[14] * sA + q[15] * sdA) / fn2;
+  }
+  for (int k = tid; k < n; k += NT) {
+    float v;
+    if constexpr (DIR)
+      v = dir_v(q, st, n, k, fn);
+    else
+      v = (q[8] * (st + RA * n)[k] + q[9] * (st + RDA * n)[k]) / fn;
+    vsh[k] = v;
+  }
+  // C's rows, once: the row part B1[i, k] (coalesced along k), then the
+  // column part B2[k, i] added (coalesced along i). Each thread loads RU
+  // elements' four plane values before it evaluates any (4 RU loads in
+  // flight: the pass is bound by their latency).
+  constexpr bool form = !(PROBE & RP_NO_FORM), planes = !(PROBE & RP_NO_PLANES);
+  for (int e0 = tid; form && e0 < bm * npad; e0 += NT * RU) {
+    float pd[RU], pc[RU], pb[RU], pa[RU];
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
+      const bool ok = e < bm * npad && gi < n && k < n;
+      const long long off = base + (long long)gi * n + k;
+      pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
+      pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
+      pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
+      pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
+      if (e >= bm * npad) continue;
+      float v = 0.f;
+      if (gi < n && k < n) {
+        float A, dA;
+        herm_vals(pd[u], pc[u], pb[u], pa[u], t, A, dA);
+        v = b10 * A + b11 * dA;
+      }
+      Cs[i * ldc + k] = v;
+    }
+  }
+  __syncthreads();
+  for (int e0 = tid; form && e0 < bm * n; e0 += NT * RU) {
+    float pd[RU], pc[RU], pb[RU], pa[RU];
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
+      const bool ok = e < bm * n && gi < n;
+      const long long off = base + (long long)k * n + gi;
+      pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
+      pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
+      pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
+      pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
+      if (e >= bm * n || gi >= n) continue;
+      float A, dA;
+      herm_vals(pd[u], pc[u], pb[u], pa[u], t, A, dA);
+      Cs[i * ldc + k] += b20 * A + b21 * dA;
+    }
+  }
+
+  // The column sums' slices of fwd_rows: per 64-column chunk of the group
+  // (hc its width), thread (h, sl) = (tid % hc, tid / hc) sums rows k = sl,
+  // sl + nsl, ... (nsl = NT / hc) in order.
+  const int nchunk = (wg + HC - 1) / HC;
+  int hcw[2], knext[2];
+  float s_[2] = {0.f, 0.f}, w_[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    hcw[c] = c < nchunk ? min(HC, wg - c * HC) : 1;
+    const int nsl = NT / hcw[c], sl = tid / hcw[c];
+    knext[c] = (c < nchunk && sl < nsl) ? sl : n;
+  }
+
+  // The thread's outputs: rows rg, rg + bm / 2; columns cb .. cb + CC - 1.
+  const int rgw = bm / 2, cgw = 32 / rgw;
+  const int rg = lane / cgw, cb = (warp * cgw + lane % cgw) * CC;
+  float acc[2][CC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
+  const float* C0 = Cs + rg * ldc;
+  const float* C1 = Cs + (rg + rgw) * ldc;
+
+  // RP_TF32: the group's ntn n-tiles of 8 columns and each ring tile's 4
+  // k-steps of 8 rows are dealt to the warps, ksp k-step slots of nwn warps
+  // (ksp = 1, 2 or 4 as ntn falls, so every warp has work; at most 2
+  // n-tiles a warp). A fragment: rows gid, gid + 8 of C (zero at or past
+  // bm); B fragment: rows q4, q4 + 4 of the tile, column gid of the n-tile.
+  const int ntn = (wg + 7) / 8;
+  const int ksp = ntn >= NW ? 1 : ntn >= NW / 2 ? 2 : 4, nwn = NW / ksp;
+  const int gid = lane / 4, q4 = lane % 4, mwn = warp % nwn, mks = warp / nwn;
+  const bool ra = gid < bm, rb8 = gid + 8 < bm;
+  float cm[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cm[j][e] = 0.f;
+  auto tf32_tile = [&](const float* T, int k0) {
+    const float* Ca = Cs + gid * ldc + k0 + q4;
+    for (int ks = mks; ks < RKT / 8; ks += ksp) {
+      const float* ca = Ca + ks * 8;
+      float af[4];
+      af[0] = ra ? ca[0] : 0.f;
+      af[1] = rb8 ? ca[8 * ldc] : 0.f;
+      af[2] = ra ? ca[4] : 0.f;
+      af[3] = rb8 ? ca[8 * ldc + 4] : 0.f;
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ab[e] = tf32_of(af[e]);
+        as[e] = tf32_of(af[e] - __uint_as_float(ab[e]));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = (mwn + j * nwn) * 8 + gid;
+        if (mwn + j * nwn >= ntn) break;  // warp-uniform
+        const float* tp = T + (ks * 8 + q4) * rs + col;
+        const float v0 = col < wg ? tp[0] : 0.f, v1 = col < wg ? tp[4 * rs] : 0.f;
+        const uint32_t bb0 = tf32_of(v0), bb1 = tf32_of(v1);
+        const uint32_t bs0 = tf32_of(v0 - __uint_as_float(bb0));
+        const uint32_t bs1 = tf32_of(v1 - __uint_as_float(bb1));
+        mma_tf32x1(cm[j], ab, bs0, bs1);
+        mma_tf32x1(cm[j], as, bb0, bb1);
+        mma_tf32x1(cm[j], ab, bb0, bb1);
+      }
+    }
+  };
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_wait1();
+    __syncthreads();  // tile's stage landed; C and v complete (first tile)
+    if (tile + 2 < ntiles && ring_on) fetch(tile + 2);
+    cp_commit();
+    const float* T = ring + (tile % RSTAGES) * RKT * rs;
+    const int k0 = tile * RKT, kend = min(k0 + RKT, n);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int nsl = NT / hcw[c], h = c * HC + tid % hcw[c];
+      for (; knext[c] < kend && !(PROBE & RP_NO_COLSUM); knext[c] += nsl) {
+        const float m = T[(knext[c] - k0) * rs + h];
+        s_[c] += m;
+        w_[c] += vsh[knext[c]] * m;
+      }
+    }
+    if constexpr (MMA) {
+      tf32_tile(T, k0);
+    } else if (cb < wg && !(PROBE & RP_NO_PRODUCT)) {
+#pragma unroll
+      for (int kk = 0; kk < RKT; kk += 4) {
+        const float4 x0 = *reinterpret_cast<const float4*>(C0 + k0 + kk);
+        const float4 x1 = *reinterpret_cast<const float4*>(C1 + k0 + kk);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* mrow = T + (kk + u) * rs + cb;
+          float m[CC];
+          if constexpr (CC == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(mrow);
+            m[0] = v.x; m[1] = v.y; m[2] = v.z; m[3] = v.w;
+          } else if constexpr (CC == 2) {
+            const float2 v = *reinterpret_cast<const float2*>(mrow);
+            m[0] = v.x; m[1] = v.y;
+          } else {
+            m[0] = mrow[0];
+          }
+          const float c0 = u == 0 ? x0.x : u == 1 ? x0.y : u == 2 ? x0.z : x0.w;
+          const float c1 = u == 0 ? x1.x : u == 1 ? x1.y : u == 2 ? x1.z : x1.w;
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            acc[0][c] = fmaf(c0, m[c], acc[0][c]);
+            acc[1][c] = fmaf(c1, m[c], acc[1][c]);
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (MMA) {
+    // The fragments to shared memory (over the ring, done with: its last
+    // groups were empty), the k-step slots' parts added in slot order, then
+    // read back in the FMA loop's layout for the epilogue.
+    __syncthreads();
+    float* Pm = ring;  // [bm][rs]
+    for (int sl = 0; sl < ksp; ++sl) {
+      if (mks == sl) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int nt = mwn + j * nwn;
+          if (nt >= ntn) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = gid + (e >= 2 ? 8 : 0), c = nt * 8 + 2 * q4 + (e & 1);
+            if (i < bm && c < wg) Pm[i * rs + c] = sl == 0 ? cm[j][e] : Pm[i * rs + c] + cm[j][e];
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < CC; ++c)
+        if (cb + c < wg) acc[r][c] = Pm[(rg + r * rgw) * rs + cb + c];
+  }
+
+  // The slices' sums, in slice order.
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    red[c][0][tid] = s_[c];
+    red[c][1][tid] = w_[c];
+  }
+  __syncthreads();
+  for (int c = 0; c < nchunk; ++c) {
+    const int hc = hcw[c], nsl = NT / hc;
+    if (tid < hc) {
+      float ss = 0.f, ww = 0.f;
+      for (int s2 = 0; s2 < nsl; ++s2) {
+        ss += red[c][0][s2 * hc + tid];
+        ww += red[c][1][s2 * hc + tid];
+      }
+      colS[c * HC + tid] = ss;
+      colW[c * HC + tid] = ww;
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = rg + r * rgw, gi = r0 + i;
+    if (gi >= n || cb >= wg) continue;
+    float dvec, u;
+    if constexpr (DIR) {
+      dvec = dir_dvec(q, st, n, gi, fn, c8);
+      u = dir_u(q, st, n, gi, fn);
+    } else {
+      dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+             (q[10] * (st + RA * n)[gi] + q[11] * (st + RDA * n)[gi]) / fn + c8 + 1.f;
+      u = (q[6] * (st + RA * n)[gi] + q[7] * (st + RDA * n)[gi]) / fn;
+    }
+#pragma unroll
+    for (int c = 0; c < CC; ++c) {
+      const int hl = cb + c, h = g0 + hl;
+      if (hl >= wg) continue;
+      const float m = Mb[(long long)gi * ldm + h];
+      float val = acc[r][c] + dvec * m + u * colS[hl] + (colW[hl] + c7 * colS[hl]);
+      if (relu) val = fmaxf(val, 0.f);
+      if (F != nullptr) F[((long long)b * n + gi) * ldf + h] = val;
+      if (has_next) Fs[i][hl] = val;
+    }
+  }
+  if (has_next && !(PROBE & RP_NO_NEXT)) {  // then H <= MAXIN: one group a row
+    __syncthreads();
+    // transform_row's RMSNorm, one warp a row.
+    const int hin = ln.hin;
+    for (int i = warp; i < bm; i += NW) {
+      if (r0 + i >= n) continue;
+      float ss = 0.f;
+      for (int j = lane; j < hin; j += 32) {
+        const float v = Fs[i][j];
+        ss += v * v;
+      }
+      ss = warp_sum(ss);
+      const float inv = rsqrtf(ss / (float)hin + EPS);
+      for (int j = lane; j < hin; j += 32)
+        zrows[i][j] = Fs[i][j] * inv * __ldg(ln.nw + j) + __ldg(ln.nb + j);
+    }
+    // Its Linear, W in chunks of RWCH rows (over C and the ring, done with).
+    float* Ws = Cs;  // [RWCH][hin + 1]
+    const int ldw = hin + 1, hh = tid % RWCH;
+    for (int h0 = 0; h0 < ln.hout; h0 += RWCH) {
+      const int rows_w = min(RWCH, ln.hout - h0);
+      __syncthreads();  // the previous chunk consumed (first: zrows written)
+      for (int e = tid; e < rows_w * hin; e += NT) {
+        const int r = e / hin, j = e - r * hin;
+        Ws[r * ldw + j] = __ldg(ln.W + (long long)h0 * hin + e);
+      }
+      __syncthreads();
+      if (hh < rows_w) {
+        const float lb = __ldg(ln.lb + h0 + hh);
+        for (int i = tid / RWCH; i < bm; i += NT / RWCH) {
+          const int gi = r0 + i;
+          if (gi >= n) continue;
+          float acc = 0.f;
+          for (int j = 0; j < hin; ++j) acc += zrows[i][j] * Ws[hh * ldw + j];
+          Mn[((long long)b * n + gi) * ldmn + h0 + hh] = acc + lb;
+        }
+      }
+    }
+  }
+}
+
+// One row pass of layer l on plan (bm, cc, groups): rows_kernel<DIR, cc,
+// PROBE> on grid (ceil(n / bm), groups, B). The shared-memory allowance (the
+// largest plan's, n = MAXN, with RP_TF32's padded ring) is set once per
+// device and instantiation.
+template <bool DIR, int CC, int PROBE>
+static int launch_rows_cc(const Planes<false>& P, const int* idx, const float* tau, int B,
+                          int n, const float* stats, const Layer& lp, const float* Mc,
+                          int ldm, float* F, int ldf, int relu, int has_next,
+                          const Layer& ln, float* Mn, int ldmn, int bm, int groups,
+                          cudaStream_t stream) {
+  static bool allowed[64];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= 64 || !allowed[dev]) {
+    constexpr int most =
+        rows_smem_floats(MAXN, BM, rows_stride(128, MAXOUT, true), MAXIN) * (int)sizeof(float);
+    err = (int)cudaFuncSetAttribute(rows_kernel<DIR, CC, PROBE>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != 0) return err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  const int cw = 512 * CC / bm;
+  const int vec_m = ldm % 4 == 0 && ((uintptr_t)Mc & 15) == 0;
+  const int bytes =
+      rows_smem_floats(n, bm, rows_stride(cw, lp.hout, (PROBE & RP_TF32) != 0), lp.hout) *
+      (int)sizeof(float);
+  rows_kernel<DIR, CC, PROBE><<<dim3((n + bm - 1) / bm, groups, B), NT, bytes, stream>>>(
+      P, idx, tau, n, stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn, bm, vec_m);
+  return (int)cudaGetLastError();
+}
+
+// plan: (bm, cc, groups) of this layer; refused unless cw = 512 cc / bm is
+// 32, 64 or 128, the groups cover H, and a layer that feeds another is one
+// group. PROBE: RowProbe bits, 0 on the main path; a probe takes no plan of
+// cc = 2 (none of the ablation's shapes has one).
+template <bool DIR, int PROBE = 0>
+static int launch_rows(const Planes<false>& P, const int* idx, const float* tau, int B,
+                       int n, const float* stats, const Layer& lp, const float* Mc, int ldm,
+                       float* F, int ldf, int relu, int has_next, const Layer& ln, float* Mn,
+                       int ldmn, const int* plan, cudaStream_t stream) {
+  const int bm = plan[0], cc = plan[1], groups = plan[2];
+  if ((bm != 4 && bm != 8 && bm != 16) || (cc != 1 && cc != 2 && cc != 4) || groups < 1 ||
+      groups > 65535 || n > MAXN)
+    return (int)cudaErrorInvalidValue;
+  const int cw = 512 * cc / bm;
+  if (cw < 32 || cw > 128 || (long long)groups * cw < lp.hout ||
+      (long long)(groups - 1) * cw >= lp.hout || (has_next && groups != 1))
+    return (int)cudaErrorInvalidValue;
+  switch (cc) {
+    case 1:
+      return launch_rows_cc<DIR, 1, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf,
+                                           relu, has_next, ln, Mn, ldmn, bm, groups, stream);
+    case 2:
+      if constexpr (PROBE == 0)
+        return launch_rows_cc<DIR, 2, 0>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf, relu,
+                                         has_next, ln, Mn, ldmn, bm, groups, stream);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return launch_rows_cc<DIR, 4, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf,
+                                           relu, has_next, ln, Mn, ldmn, bm, groups, stream);
+  }
+}
+
 inline Layer layer_from(const void* const* ptrs, const int* dims, int l) {
   Layer lp;
   lp.nw = static_cast<const float*>(ptrs[5 * l + 0]);
@@ -833,6 +1368,45 @@ inline bool dims_ok(const int* dims, int L, int ldm) {
     if (l > 0 && dims[2 * l] != dims[2 * l - 1]) return false;
   }
   return true;
+}
+
+// K1's passes: the prep pass, then one row pass per layer (f32: on the
+// layer's plan, plan + 3 l; bf16: fwd_rows), layer l's M in Mbuf's l-th
+// (B, n, ldm) buffer, the last layer's output in out. PROBE: the f32 row
+// passes' RowProbe bits (0 on the main path). Returns the first CUDA error.
+template <bool DIR, bool BF, int PROBE = 0>
+static int mk_fwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
+                  int B, int n, int L, const int* dims, const void* const* ptrs,
+                  const int* plan, float* stats, float* Mbuf, int ldm, float* out,
+                  cudaStream_t stream) {
+  const dim3 grid((n + BM - 1) / BM, B);
+  const long long mstride = (long long)B * n * ldm;
+  Layer l0 = layer_from(ptrs, dims, 0);
+  prep_kernel<DIR, BF><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0], l0, Mbuf,
+                                                ldm, stats);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int l = 0; l < L; ++l) {
+    const bool last = l == L - 1;
+    Layer lp = layer_from(ptrs, dims, l);
+    Layer ln = last ? lp : layer_from(ptrs, dims, l + 1);
+    float* Mc = Mbuf + l * mstride;
+    float* Mn = last ? nullptr : Mbuf + (l + 1) * mstride;
+    if constexpr (BF) {
+      fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
+          P, idx, tau, n, stats, lp, Mc, ldm, last ? out : nullptr,
+          dims[2 * l + 1], last ? 0 : 1, last ? 0 : 1, ln, Mn, ldm);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    } else {
+      const int e = launch_rows<DIR, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm,
+                                            last ? out : nullptr, dims[2 * l + 1],
+                                            last ? 0 : 1, last ? 0 : 1, ln, Mn, ldm,
+                                            plan + 3 * l, stream);
+      if (e != 0) return e;
+    }
+  }
+  return 0;
 }
 
 }  // namespace mk

@@ -162,15 +162,47 @@ def bcsr_sddmm_plain(block_idx, X, Y, block_size: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _P, _L, _I = _build.P, _build.L, _build.I
-_ARGTYPES = [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = {"gncde_bcsr_spmm": [_P, _L, _P, _L, _P, _L, _P] + [_I] * 7 + [_P],
+             "gncde_bcsr_sddmm": [_P, _L, _P, _L, _P, _L, _P] + [_I] * 6 + [_P]}
 
 
 def _fn(name: str):
     fn = getattr(_build.load("bcsr"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+#: K8's ring stages (``csrc/bcsr.cu`` NSTAGE).
+SPMM_STAGES = 3
+
+
+class SpmmPlan(tp.NamedTuple):
+    """K8's launch plan: ``rb`` rows of a block row per CTA (the one figure
+    the kernel takes), ``hc`` columns of H per CTA (the kernel derives it
+    from H), the grid's CTAs and each CTA's dynamic shared memory."""
+
+    rb: int
+    hc: int
+    ctas: int
+    smem_bytes: int
+
+
+def spmm_plan(B: int, nb: int, bs: int, H: int) -> SpmmPlan:
+    """The strip height ``rb`` in {32, 16, 8}: the largest whose grid (one
+    CTA per element, strip of a block row and column chunk) still fills the
+    card's SMs (``_build.SMS``), else 8; columns in chunks of 16 for H <= 16,
+    else 32. Shared memory: three stages of the strip's block rows and the
+    gathered M tile (``csrc/bcsr.cu`` ``spmm_stage_floats``)."""
+    hc = 16 if H <= 16 else 32
+    chunks = _cdiv(H, hc)
+    for rb in (32, 16, 8):
+        if rb <= max(8, bs) and B * nb * chunks * _cdiv(bs, rb) >= _build.SMS:
+            break
+    bsr = _cdiv(bs, 4) * 4
+    smem = SPMM_STAGES * (rb * (bsr + 4) + bsr * hc) * 4
+    return SpmmPlan(rb, hc, B * nb * chunks * _cdiv(bs, rb), smem)
 
 
 def _check(what, block_idx, bs, tensors, n):
@@ -206,9 +238,10 @@ def bcsr_spmm(b: BCSR, M: torch.Tensor) -> torch.Tensor:
     blk, blk_bs = operand(b.blocks, 4, Bk)
     Mc, m_bs = operand(M, 2, Bk)
     out = torch.empty((Bk, n, H), device=M.device, dtype=F32)
+    plan = spmm_plan(Bk, nb, bs, H)
     err = _fn("gncde_bcsr_spmm")(
         _build.ptr(idx), idx_bs, _build.ptr(blk), blk_bs, _build.ptr(Mc), m_bs,
-        _build.ptr(out), Bk, nb, kb, bs, n, H, _build.stream())
+        _build.ptr(out), Bk, nb, kb, bs, n, H, plan.rb, _build.stream())
     _build.check(err, "K8 bcsr_spmm")
     bcsr_spmm.launches += 1
     return out if B is not None else out[0]

@@ -16,8 +16,9 @@ basis for the whole stack.
   read and evaluated in f32, the two n x n products on bf16 operands
   rounded where JAX rounds them, with f32 sums; everything else f32.
 * :func:`megakernel_vf_eval` launches the CUDA kernel
-  (``csrc/megakernel_fwd.cu``; with ``bf16`` its tensor-core instantiation
-  on bf16 planes) for CUDA tensors and raises if it cannot.
+  (``csrc/megakernel_fwd.cu``: the prep pass, then one row pass per layer
+  on that layer's :func:`row_plan`; with ``bf16`` its tensor-core
+  instantiation on bf16 planes) for CUDA tensors and raises if it cannot.
 * :class:`MegakernelVF` is the ``autograd.Function`` the vector field
   calls: forward is K1, backward is K2 (``ops/megakernel_bwd.py``), or,
   where a coefficient plane needs a gradient, autograd of the plain
@@ -32,6 +33,7 @@ float32, or bfloat16 for the bf16 kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import types
 import typing as tp
 
@@ -45,9 +47,11 @@ from .equiv_basis import fusion_matrix_dense, fusion_matrix_dense_directed
 #: dispatch the same shapes.
 MEGAKERNEL_MAX_N = 640
 #: Widest layer input and output the kernels take
-#: (csrc/megakernel_common.cuh MAXIN, MAXOUT): outputs are swept in chunks
-#: of 64 columns, so the CDE wrapper's wide last layers (H * E * 2: 512 for
-#: the trade configs, 1024 for england) are served.
+#: (csrc/megakernel_common.cuh MAXIN, MAXOUT): the f32 row pass runs wide
+#: outputs in column groups of up to 128 (:func:`row_plan`), the bf16 one
+#: sweeps them in chunks of 64 columns, so the CDE wrapper's wide last
+#: layers (H * E * 2: 512 for the trade configs, 1024 for england) are
+#: served.
 MAX_IN = 64
 MAX_OUT = 4096
 
@@ -315,11 +319,93 @@ def scratch_width(layers) -> int:
     return max(max(lp["W"].shape) for lp in layers)
 
 
+#: The f32 row pass (``csrc/megakernel_common.cuh`` ``rows_kernel``): rows of
+#: M per ring tile (``RKT``) and ring stages (``RSTAGES``).
+ROW_KT = 32
+ROW_STAGES = 3
+
+
+class RowPlan(tp.NamedTuple):
+    """One layer's launch plan of the f32 row pass: ``bm`` rows per CTA,
+    ``cc`` output columns per thread, ``cw = 512 cc / bm`` columns per CTA,
+    ``groups`` CTAs across the output's width; the grid's CTAs and each
+    CTA's dynamic shared memory."""
+
+    bm: int
+    cc: int
+    cw: int
+    groups: int
+    ctas: int
+    smem_bytes: int
+
+
+#: Rows of the next layer's W per chunk the row pass stages (``RWCH``).
+ROW_WCH = 128
+
+
+def row_smem_bytes(n: int, bm: int, cw: int, H: int) -> int:
+    """Dynamic shared memory of one row-pass CTA (``rows_smem_floats``): v;
+    its rows of C over n rounded up to the ring tile and the ring (rows of
+    ``cw`` columns, or of H rounded up to 4 where one group holds the
+    layer), or, where they need more, the next layer's W chunks
+    (``ROW_WCH`` rows of H + 1; only a layer at most ``MAX_IN`` wide feeds
+    another)."""
+    npad = -(-n // ROW_KT) * ROW_KT
+    rs = min(cw, -(-H // 4) * 4)
+    wchunk = ROW_WCH * (H + 1) if H <= MAX_IN else 0
+    return 4 * (npad + max(bm * (npad + 4) + ROW_STAGES * ROW_KT * rs, wchunk))
+
+
+#: The CTA heights :func:`row_plan` tries, tallest first (a tool or test
+#: that times or checks one height sets this to it).
+ROW_BMS = (16, 8, 4)
+
+
+def row_plan(n: int, B: int, H: int, bms=None) -> RowPlan:
+    """The row pass's plan for an ``H``-wide layer at ``n`` nodes and batch
+    ``B``: the tallest CTA (``bm`` of ``bms``, by default :data:`ROW_BMS`:
+    16, 8, then 4 rows) whose grid still runs at least ``_build.SMS`` CTAs
+    (else the last); per
+    ``bm``, the fewest columns per thread whose CTA holds the whole layer
+    (``cw`` up to 128; wider layers take ``ceil(H / 128)`` groups). Every
+    plan gives the same bits: only the work's partition changes."""
+    for bm in ROW_BMS if bms is None else bms:
+        ccs = [cc for cc in (1, 2, 4) if 32 <= 512 * cc // bm <= 128]
+        cc = next((c for c in ccs if 512 * c // bm >= H), ccs[-1])
+        cw = 512 * cc // bm
+        groups = -(-H // cw)
+        ctas = -(-n // bm) * groups * B
+        if ctas >= _build.SMS:
+            break
+    return RowPlan(bm, cc, cw, groups, ctas, row_smem_bytes(n, bm, cw, H))
+
+
+def row_plans(n: int, B: int, widths, bms=None) -> tp.List[RowPlan]:
+    """:func:`row_plan` of every layer of a stack of ``widths`` (input, then
+    each layer's output)."""
+    return [row_plan(n, B, h, bms) for h in widths[1:]]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(n: int, B: int, widths: tp.Tuple[int, ...], bms: tp.Tuple[int, ...]):
+    flat = [x for p in row_plans(n, B, widths, bms) for x in (p.bm, p.cc, p.groups)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def plan_array(n: int, B: int, layers):
+    """The row plans of ``layers`` as the C entry points take them: a host
+    array of (bm, cc, groups) per layer, built once per shape, stack of
+    widths and :data:`ROW_BMS` (the C side only reads it)."""
+    widths = (layers[0]["W"].shape[1],) + tuple(lp["W"].shape[0] for lp in layers)
+    return _plan_array(n, B, widths, tuple(ROW_BMS))
+
+
 _FWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P,  # idx, tau, Z
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P, _build.I, _build.I,  # dims, ptrs (host arrays), directed, bf16
+    _build.P, _build.P, _build.P,  # dims, ptrs, row plans (host arrays)
+    _build.I, _build.I,  # directed, bf16
     _build.P, _build.P, _build.I,  # stats, Mbuf, ldm
     _build.P, _build.P,  # out, stream
 ]
@@ -349,7 +435,9 @@ def _launch_fwd(planes: Planes, idx, tau, Z, layers, bf16: bool, trace=None):
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z),
         B, n, len(layers), ctypes.cast(dims, _build.P),
-        ctypes.cast(ptrs, _build.P), int(nbasis == NBASIS_DIRECTED), int(bool(bf16)),
+        ctypes.cast(ptrs, _build.P),
+        None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
+        int(nbasis == NBASIS_DIRECTED), int(bool(bf16)),
         _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(out),
         _build.stream(),
     )

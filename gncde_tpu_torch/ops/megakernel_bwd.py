@@ -50,6 +50,7 @@ from .megakernel import (
     hermite3,
     launch_args,
     plain_layer_stack,
+    plan_array,
     rbf,
     scratch_width,
     transform,
@@ -229,7 +230,8 @@ _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P, _build.I, _build.I,  # dims, ptrs (host arrays), directed, bf16
+    _build.P, _build.P, _build.P,  # dims, ptrs, row plans (host arrays)
+    _build.I, _build.I,  # directed, bf16
     _build.I,  # need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
@@ -278,7 +280,9 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-        int(nbasis == NBASIS_DIRECTED), int(bool(bf16)), int(bool(need_tau)),
+        None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
+        int(nbasis == NBASIS_DIRECTED),
+        int(bool(bf16)), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
         ldm, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
         _build.stream(),

@@ -1754,3 +1754,151 @@ def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # no flag: that is K1bf itself
         mp.launch_k1bf_probe(bf, idx, tau, Z, layers[:1])
     assert (v4.launches, nonorm.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# K8's and the f32 row pass's redesigns: shapes, plans, bitwise invariants
+# ---------------------------------------------------------------------------
+
+# K8: block sizes 1, 5 (4-byte copies), 32 and 128; H 1, 16 (one 16-wide
+# chunk), 32, 33 (a partial second chunk, 4-byte M copies) and 64; n is
+# 3 bs + bs / 2 + 1 (not a multiple of bs above bs 1); padded slots; shared
+# operands with batch stride 0.
+K8_BS = [1, 5, 32, 128]
+K8_HS = [1, 16, 32, 33, 64]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["batched", "shared-matrix", "shared-pattern"])
+@pytest.mark.parametrize("H", K8_HS)
+@pytest.mark.parametrize("bs", K8_BS)
+def test_cuda_k8_matches_plain_and_repeats(cuda, bs, H, mode):
+    n, B = 3 * bs + bs // 2 + 1, 3
+    idx, blocks, nblocks, rng = _bcsr_batch(cuda, n, bs, B)
+    assert float(tb.slot_mask(idx, nblocks).min()) == 0.0  # padded slots exist
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    bi, bl, Mo = _bcsr_operands(mode, idx, blocks, M)
+    before = tb.bcsr_spmm.launches
+    got = tb.bcsr_spmm(tb.BCSR(bi, bl, n), Mo)
+    again = tb.bcsr_spmm(tb.BCSR(bi, bl, n), Mo)
+    ref = tb.bcsr_spmm_plain(tb.BCSR(bi, bl, n), Mo)
+    torch.cuda.synchronize()
+    assert tb.bcsr_spmm.launches == before + 2
+    _assert_close(got, ref, 1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rb", [8, 16, 32])
+@pytest.mark.parametrize("bs,H", [(128, 16), (128, 40), (37, 5)], ids=["bs128-H16",
+                                                                      "bs128-H40", "bs37-H5"])
+def test_cuda_k8_every_strip_height_gives_the_same_bits(cuda, bs, H, rb, monkeypatch):
+    """Each output is one FMA chain over the slots and the block's columns
+    in order, whatever the plan's strip height: every instantiation gives
+    the default plan's bits."""
+    n, B = 3 * bs + bs // 2 + 1, 2
+    idx, blocks, _, rng = _bcsr_batch(cuda, n, bs, B)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    mat = tb.BCSR(idx, blocks, n)
+    default = tb.bcsr_spmm(mat, M)
+    plan = tb.spmm_plan
+    monkeypatch.setattr(tb, "spmm_plan", lambda *a: plan(*a)._replace(rb=rb))
+    got = tb.bcsr_spmm(mat, M)
+    torch.cuda.synchronize()
+    _assert_close(got, tb.bcsr_spmm_plain(mat, M), 1e-4)
+    assert torch.equal(got, default)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k8_largest_plan_launches_at_n640(cuda):
+    """The largest shared memory K8's plans ask for (bs 128, strips of 32
+    rows, 32-column chunks: 99,840 bytes) at n=640: the kernel's own
+    allowance (``cudaFuncSetAttribute``) covers it, and it matches the plain
+    version bit-repeatably."""
+    n, bs, H, B = 640, 128, 64, 4
+    idx, blocks, _, rng = _bcsr_batch(cuda, n, bs, B)
+    M = torch.tensor(rng.normal(size=(B, n, H)).astype(np.float32), device=cuda)
+    assert tb.spmm_plan(B, n // bs, bs, H)[::3] == (32, 99_840)
+    mat = tb.BCSR(idx, blocks, n)
+    assert mat.nb == n // bs
+    got, again = tb.bcsr_spmm(mat, M), tb.bcsr_spmm(mat, M)
+    torch.cuda.synchronize()
+    _assert_close(got, tb.bcsr_spmm_plain(mat, M), 1e-4)
+    assert torch.equal(got, again)
+
+
+# The f32 row pass of K1/K1d: the trade field (n=255, 32 x 4 -> 512), the
+# largest n (640, 64-wide layers), england's widths (n=129, last layer 1024,
+# eight column groups) and an odd shape (n=77, widths 13 -> 37 -> 70: a
+# partial column group, 4-byte M copies where the scratch rows are not a
+# multiple of 4 floats).
+K1_ROW_CASES = [(255, 2, (32, 32, 32, 32, 512)), (640, 1, (64, 64, 64)),
+                (129, 2, (64, 64, 64, 1024)), (77, 3, (13, 37, 70))]
+K1_ROW_IDS = ["trade-n255", "n640-64x3", "england-n129", "odd-n77"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+@pytest.mark.parametrize("n,nb,widths", K1_ROW_CASES, ids=K1_ROW_IDS)
+def test_cuda_k1_row_pass_matches_plain(cuda, n, nb, widths, nbasis):
+    planes, idx, tau, Z, layers, _ = chip_smoke.make_inputs(torch, n, nb, widths,
+                                                            nbasis=nbasis)
+    got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+    again = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+    ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, 1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bm", [16, 8, 4])
+@pytest.mark.parametrize("n,nb,widths", K1_ROW_CASES[::3], ids=K1_ROW_IDS[::3])
+def test_cuda_k1_every_row_plan_gives_the_same_bits(cuda, n, nb, widths, bm, monkeypatch):
+    """The row pass's plan only partitions the work: every CTA height gives
+    the default plan's output and per-layer M bit for bit."""
+    planes, idx, tau, Z, layers, _ = chip_smoke.make_inputs(torch, n, nb, widths, nbasis=11)
+    t0, t1 = {}, {}
+    default = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, trace=t0)
+    monkeypatch.setattr(mk, "ROW_BMS", (bm,))
+    got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, trace=t1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, default)
+    assert all(torch.equal(a, b) for a, b in zip(t0["M"], t1["M"]))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k1_largest_row_plan_launches_at_n640(cuda, monkeypatch):
+    """The largest shared memory the row pass's plans ask for (n=640, CTAs
+    of 16 rows, 128-column groups: 92,928 bytes) within the kernel's own
+    allowance, on both bases, matching the plain version."""
+    n, widths = 640, (64, 64, 512)
+    monkeypatch.setattr(mk, "ROW_BMS", (16,))
+    assert max(p.smem_bytes for p in mk.row_plans(n, 1, widths)) == 92_928
+    for nbasis in (8, 11):
+        planes, idx, tau, Z, layers, _ = chip_smoke.make_inputs(torch, n, 1, widths,
+                                                                nbasis=nbasis)
+        got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+        ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+@pytest.mark.parametrize("n,nb,widths", K1_ROW_CASES[:3:2], ids=K1_ROW_IDS[:3:2])
+def test_cuda_k2_recompute_is_bitwise_k1(cuda, n, nb, widths, nbasis):
+    """K2 recomputes the forward with K1's row pass on K1's plan: its M_l
+    are K1's bit for bit, and its gradients still match the plain
+    version's."""
+    planes, idx, tau, Z, layers, G = chip_smoke.make_inputs(torch, n, nb, widths,
+                                                            nbasis=nbasis)
+    t1, t2 = {}, {}
+    mk.megakernel_vf_eval(planes, idx, tau, Z, layers, trace=t1)
+    got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, True, trace=t2)
+    ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, True)
+    torch.cuda.synchronize()
+    assert len(t1["M"]) == len(t2["M"]) == len(layers)
+    assert all(torch.equal(a, b) for a, b in zip(t1["M"], t2["M"]))
+    _assert_close(got[1], ref[1], 1e-3)
+    _assert_close(got[0], ref[0], 1e-3)

@@ -133,3 +133,49 @@ def test_kernel_input_check_takes_the_wide_cde_wrapper_layers(name):
     else:
         with pytest.raises(ValueError, match="inputs up to 64"):
             mk._check_inputs(planes, idx, tau, Z, layers)
+
+
+# The card's shared memory a CTA can use (H100: 227 KB of the SM's 256 KB),
+# and the row pass's static shared memory (colS, colW, the slices' sums,
+# Fs, zrows, scratch: csrc/megakernel_common.cuh rows_kernel).
+SMEM_LIMIT = 227 * 1024
+ROW_STATIC_BYTES = 4 * (2 * 128 + 2 * 2 * 256 + 8 + 16 * 64 + 16 * 64)
+WIDTHS = [1, 2, 3, 5, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256,
+          511, 512, 1000, 1024, 2047, 4095, 4096]
+
+
+def _check_plan(p, n, B, H):
+    assert p.bm in (4, 8, 16) and p.cc in (1, 2, 4) and p.cw == 512 * p.cc // p.bm
+    assert p.cw in (32, 64, 128)
+    assert (p.groups - 1) * p.cw < H <= p.groups * p.cw  # no empty group
+    assert H > mk.MAX_IN or p.groups == 1  # a layer that feeds another is one group
+    assert p.ctas == -(-n // p.bm) * p.groups * B
+    assert p.smem_bytes + ROW_STATIC_BYTES <= SMEM_LIMIT
+
+
+def test_k1_row_plan_fits_the_card_at_every_n_and_width():
+    """The f32 row pass's plan (``row_plan``, plain Python) for every n the
+    kernels serve and widths up to MAX_OUT: a CTA shape the kernel is built
+    for (csrc/megakernel_common.cuh launch_rows refuses any other) and
+    shared memory within the card's 227 KB (the largest n at every width
+    1 .. 4096, which bounds the rest)."""
+    for n in range(1, mk.MEGAKERNEL_MAX_N + 1):
+        for H in WIDTHS:
+            for B in (1, 4):
+                _check_plan(mk.row_plan(n, B, H), n, B, H)
+    for H in range(1, mk.MAX_OUT + 1):
+        _check_plan(mk.row_plan(mk.MEGAKERNEL_MAX_N, 1, H), mk.MEGAKERNEL_MAX_N, 1, H)
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512)),
+                                        (400, 4, (32, 32, 32, 32))],
+                         ids=["flagship", "trade", "bench"])
+def test_k1_row_plan_fills_the_card_at_the_main_path_shapes(n, B, widths):
+    """Every layer's row pass runs at least one CTA per SM (132) at the
+    flagship, trade and bench shapes; the trade's 512-wide last layer in
+    four column groups of 16-row CTAs."""
+    plans = mk.row_plans(n, B, widths)
+    assert len(plans) == len(widths) - 1
+    assert min(p.ctas for p in plans) >= 132
+    if widths[-1] == 512:
+        assert (plans[-1].bm, plans[-1].groups, plans[-1].ctas) == (16, 4, 256)

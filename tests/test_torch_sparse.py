@@ -607,3 +607,30 @@ def test_chip_smoke_route_check_holds_the_sparse_field_and_grads(tmp_path, fmt):
     assert len(grad_errs) == 1 + len(list(model.vector_field.parameters()))
     assert vf_err <= chip_smoke.SPARSE_VF_TOL
     assert max(grad_errs.values()) <= chip_smoke.SPARSE_GRAD_TOL, grad_errs
+
+
+# The card's shared memory a CTA can use (H100: 227 KB of the SM's 256 KB).
+SMEM_LIMIT = 227 * 1024
+
+
+@pytest.mark.parametrize("H", [1, 5, 16, 17, 32, 33, 64, 130, 4096])
+def test_k8_plan_fits_the_card_and_covers_the_operands(H):
+    """K8's launch plan (``spmm_plan``, plain Python) for every block size
+    the kernel takes: a strip height it is built for, the column chunk of
+    the kernel's rule, shared memory within the card's 227 KB and the grid's
+    CTAs as the launch counts them."""
+    for bs in range(1, tb.MAX_BS + 1):
+        for B, nb in ((1, 1), (4, 4), (1, 256)):
+            p = tb.spmm_plan(B, nb, bs, H)
+            assert p.rb in (8, 16, 32) and p.rb <= max(8, bs)
+            assert p.hc == (16 if H <= 16 else 32)
+            assert p.smem_bytes <= SMEM_LIMIT
+            assert p.ctas == B * nb * -(-H // p.hc) * -(-bs // p.rb)
+
+
+def test_k8_plan_fills_the_card_at_the_main_path_shapes():
+    """At the flagship (B=4, n=400: nb=4, bs 128, H 16) and the n=32768 band
+    (nb=256, bs 128, H 32) K8's grid runs at least one CTA per SM (132)."""
+    flagship, scaled = tb.spmm_plan(4, 4, 128, 16), tb.spmm_plan(1, 256, 128, 32)
+    assert (flagship.rb, flagship.ctas) == (8, 256)
+    assert (scaled.rb, scaled.ctas) == (32, 1024)

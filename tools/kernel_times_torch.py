@@ -15,13 +15,24 @@ Shapes:
 * K6a, K6a-bf: genre-H8, genre-H128 (phases 9, 24), trade-H32,
   trade-H512 (phases 23, 25) and odd; K6a-bf with the forward's f32
   vectors and with the backward's bf16 ones;
+* K8-ablation, K1-ablation: K8 at the flagship and scaled shapes, and K1's
+  f32 row pass at the flagship, trade and n=640 shapes, with parts of
+  their work dropped or (K1) the products as 3xTF32 (``K8_ABLATION``,
+  ``K1_ABLATION``; the probe instantiations of ``csrc/bcsr.cu`` and
+  ``csrc/row_probe.cu``), and under each plan (K8's strip heights, the row
+  pass's CTA heights), device ms each;
 * K6a-ablation: K6a's f32 sweep at genre-H128 and trade-H512 with one part
   of its work dropped at a time (``K6A_ABLATION``: the MMA, the forming of
   B1/B2, the plane copies, the vector copies, one pass), device ms each;
-* K1, K2, K1d, K2d: the flagship (n=400, B=4, 16-16-16) and trade (n=255,
-  B=4, 32x4-512) shapes of phases 3, 4 and 17; K11: the flagship and bench
-  step shapes of phase 14 (Tsit5; its layers must map the state width to
-  itself, so no trade shape).
+* K8: flagship, scaled and odd (phase 10), beside cuSPARSE's ``BSR @ M``;
+* K1, K2, K1d, K2d: the flagship (n=400, B=4, 16-16-16), trade (n=255,
+  B=4, 32x4-512) and n=640 (B=1, 64-64-64) shapes of phases 3, 4 and 17,
+  with each launch's device ms in order (``launch_device_ms``: K1's prep
+  pass, then layer 1 .. L); K1 and K1d with the row pass's plan and, as
+  their yardstick, one cuBLAS f32 bmm per layer on C formed beforehand;
+  K11: the flagship and bench step shapes of phase 14 (Tsit5; its layers
+  must map the state width to itself, so no trade shape); K1bf, K1dbf (flagship,
+  trade) and K11bf (step shapes) on bf16 planes, kept for ``--compare``.
 
 It prints one JSON line per kernel and shape:
 
@@ -98,8 +109,25 @@ def ptxas_lines(root: Path, lib: str, pattern: str):
     return out
 
 
+def host_us(fn, calls=2000):
+    """Microseconds of host time per call of ``fn`` (``calls`` calls)."""
+    import time
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def time_both(cs, torch, fn):
-    dev, by_name = cs.device_ms(torch, fn)
+    """``(ms, device ms, device ms by name)``. The device time is None where
+    every trace lost events and ``fn`` cannot be captured in a CUDA graph
+    (K11 copies its stage nodes from the host): the run goes on, and still
+    keeps every kernel's outputs for ``--compare``."""
+    try:
+        dev, by_name = cs.device_ms(torch, fn)
+    except RuntimeError as e:
+        dev, by_name = None, {"not measured": str(e)[:90]}
     return cs.time_ms(torch, fn), dev, {k[:90]: v for k, v in by_name.items()}
 
 
@@ -143,9 +171,10 @@ def k3_lines(cs, torch, splits, saved):
 
 
 def line_of(cs, torch, kernel, label, s, got, ref, kernel_fn, plain_fn, bms, by,
-            yardstick=None, yardstick_name=None, saved=None):
+            yardstick=None, yardstick_name=None, saved=None, extra=None):
     """One timing line: errors against the plain version, wrapper and device
-    ms, plain ms, bound and (where given) a yardstick timed both ways."""
+    ms, plain ms, bound, (where given) a yardstick timed both ways and
+    ``extra`` fields."""
     if saved is not None:
         saved[f"{kernel}/{label}"] = [x.float().cpu() for x in got]
     again = kernel_fn()
@@ -160,7 +189,7 @@ def line_of(cs, torch, kernel, label, s, got, ref, kernel_fn, plain_fn, bms, by,
         y_ms, y_dev, y_by = time_both(cs, torch, yardstick)
         line.update({yardstick_name: y_ms, "yardstick_device_ms": y_dev,
                      "yardstick_device_by_name": y_by})
-    cs.emit(line)
+    cs.emit({**line, **(extra or {})})
 
 
 #: K4's and K6a's shapes (K4 on the genre ones and the odd one only).
@@ -280,9 +309,16 @@ def k6a_ablation_lines(cs, torch):
 
 
 def megakernel_lines(cs, torch, names, saved):
-    """K1, K2, K1d, K2d at the flagship and trade shapes and K11 at the
-    step shapes: wrapper ms beside device ms (no yardstick: no single call
-    computes them)."""
+    """K1, K2, K1d, K2d at the flagship, trade and n=640 shapes and K11 at
+    the step shapes: wrapper ms beside device ms, and each launch's device
+    ms in launch order (K1: prep, layer 1 .. L; K2: prep, the recompute's
+    layers 1 .. L-1, the reverse sweep's layers L .. 1, the reduction).
+    K1 and K1d also get the row pass's plan, the products' yardstick
+    (:func:`chip_smoke.k1_yardstick`: per layer one cuBLAS f32 bmm on C
+    formed beforehand; not one call for K1's function) and, where the
+    checkout caches its plan arrays (``_plan_array``), the wrapper's ms with
+    the plan array rebuilt on every call, as it was before the cache, and
+    the host microseconds of one plan array, rebuilt and cached."""
     from gncde_tpu_torch.ops import fused_step as tfs
     from gncde_tpu_torch.ops import megakernel as mk
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
@@ -292,43 +328,261 @@ def megakernel_lines(cs, torch, names, saved):
         if name not in names:
             continue
         nbasis = 11 if name.endswith("d") else 8
-        for label in ("flagship", "trade"):
-            s = cs.SHAPES[label]
+        for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
+                         **cs.K1_EDGE}.items():
             planes, idx, tau, Z, layers, G = cs.make_inputs(torch, **s, nbasis=nbasis)
+            yardstick = yname = None
+            extra = {}
             if name.startswith("K1"):
                 kernel = lambda: (mk.megakernel_vf_eval(planes, idx, tau, Z, layers),)  # noqa: E731
                 plain = lambda: (mk.plain_vf_eval(planes, idx, tau, Z, layers),)  # noqa: E731
                 bms, by = cs.k1_bound(s)
+                trace = {}
+                mk.megakernel_vf_eval(planes, idx, tau, Z, layers, trace=trace)
+                yardstick = cs.k1_yardstick(torch, planes, idx, tau, layers, trace["M"])
+                yname = "yardstick_bmm_per_layer_ms"
+                saved[f"{name}-M/{label}"] = [m.cpu() for m in trace["M"]]
+                extra["plan"] = cs.k1_row_plans(s)
+                cached = getattr(mk, "_plan_array", None)
+                if cached is not None:
+                    try:
+                        mk._plan_array = cached.__wrapped__
+                        extra["ms_plan_rebuilt_each_call"] = cs.time_ms(torch, kernel)
+                        extra["plan_array_host_us_rebuilt"] = host_us(
+                            lambda: mk.plan_array(s["n"], s["B"], layers))
+                    finally:
+                        mk._plan_array = cached
+                    extra["plan_array_host_us_cached"] = host_us(
+                        lambda: mk.plan_array(s["n"], s["B"], layers))
             else:
                 kernel = lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
                 plain = lambda: mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
                 bms, by = cs.k2_bound(s)
+                trace = {}
+                mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, trace=trace)
+                saved[f"{name}-recompute-M/{label}"] = [m.cpu() for m in trace["M"]]
+            extra["launch_device_ms"] = cs.launch_device_ms(torch, kernel)
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain, bms, by,
-                    saved=saved)
+                    yardstick, yname, saved=saved, extra=extra)
             del planes, Z, layers, G
             torch.cuda.empty_cache()
-    if "K11" in names:
+    for name in ("K1bf", "K1dbf"):  # the bf16 row pass (outputs kept for --compare)
+        if name not in names:
+            continue
+        nbasis = 11 if name == "K1dbf" else 8
+        for label in ("flagship", "trade"):
+            s = cs.SHAPES[label]
+            planes, idx, tau, Z, layers, _ = cs.make_inputs(torch, **s, nbasis=nbasis)
+            planes = tuple(p.to(torch.bfloat16) for p in planes)
+            kernel = lambda: (mk.megakernel_vf_eval(planes, idx, tau, Z, layers, True),)  # noqa: E731
+            plain = lambda: (mk.plain_vf_eval_bf16(planes, idx, tau, Z, layers),)  # noqa: E731
+            line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                    *cs.k1_bound(s, True), saved=saved)
+            del planes, Z, layers
+            torch.cuda.empty_cache()
+    for name in ("K11", "K11bf"):
+        if name not in names:
+            continue
         tab = get_tableau("tsit5")
         for label, s in cs.STEP_SHAPES.items():
             planes, ts, t, y, h, f0, layers = cs.make_step_inputs(torch, **s)
-            kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)[:3]  # noqa: E731
-            plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab)[:3]  # noqa: E731
-            line_of(cs, torch, "K11", label, s, kernel(), plain(), kernel, plain,
-                    *cs.step_bound(s["n"], s["B"], s["widths"], 6), saved=saved)
+            if name == "K11bf":
+                planes = tuple(p.to(torch.bfloat16) for p in planes)
+            bf = name == "K11bf"
+            kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab, bf)[:3]  # noqa: E731
+            plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, bf)[:3]  # noqa: E731
+            line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                    *cs.step_bound(s["n"], s["B"], s["widths"], 6, bf),
+                    saved=saved)
             del planes, y, f0, layers
+            torch.cuda.empty_cache()
+
+
+def sparse_cases(cs, torch, cache):
+    """Phase 10's three sparse shapes, made on demand."""
+    sc = cs.SCALED
+    return {"flagship": lambda: cs.flagship_sparse_inputs(torch, cache),
+            "scaled": lambda: cs.scaled_sparse_inputs(torch, sc["n"], sc["bw"], sc["bs"],
+                                                      sc["H"]),
+            "odd": lambda: cs.odd_sparse_inputs(torch)}
+
+
+def k8_lines(cs, torch, saved):
+    """K8 at phase 10's shapes beside cuSPARSE's ``BSR @ M`` (the batch as
+    one block-diagonal matrix), both timed both ways; the launch plan where
+    the checkout's K8 has one (``ops.bcsr.spmm_plan``)."""
+    from gncde_tpu_torch.ops import bcsr as tb
+
+    plan = getattr(tb, "spmm_plan", None)
+    with tempfile.TemporaryDirectory() as cache:
+        for label, make in sparse_cases(cs, torch, cache).items():
+            x = make()
+            mat = tb.BCSR(x["idx"], x["blocks"], x["n"])
+            kernel = lambda: (tb.bcsr_spmm(mat, x["M"]),)  # noqa: E731
+            plain = lambda: (tb.bcsr_spmm_plain(mat, x["M"]),)  # noqa: E731
+            s = {k: x[k] for k in ("n", "bs", "H", "B")}
+            s["kb"] = x["idx"].shape[-1]
+            extra = {}
+            if plan is not None:
+                B = x["M"].shape[0] if x["M"].dim() == 3 else 1
+                extra["plan"] = plan(B, x["idx"].shape[-2], x["bs"], x["H"])._asdict()
+            line_of(cs, torch, "K8", label, s, kernel(), plain(), kernel, plain,
+                    *cs.sparse_bound("K8", x), cs.sparse_library_calls(torch, x)["K8"],
+                    "library_bsr_matmul_ms", saved, extra)
+            del x, mat
+            torch.cuda.empty_cache()
+
+
+#: K8's ablation (``gncde_bcsr_spmm_probe``, csrc/bcsr.cu SpmmProbe bits).
+K8_ABLATION = {"full": 0, "no_block_copies": 1, "no_m_copies": 2, "no_products": 4,
+               "products_only": 3, "skeleton": 7}
+#: The f32 row pass's design probes (``gncde_mk_fwd_probe`` in csrc/row_probe.cu,
+#: csrc/megakernel_common.cuh RowProbe bits), every row pass of an eval
+#: launched with the same bits: parts of the work dropped, or (``tf32_products``)
+#: the products as 3xTF32 ``mma.sync`` in place of the f32 FMA loop. ``full``
+#: is the main path's kernel through its own entry point.
+K1_ABLATION = {"full": 0, "no_plane_reads": 1, "no_forming": 2, "no_products": 4,
+               "no_m_copies": 8, "no_column_sums": 16, "no_next_transform": 32,
+               "copies_only": 2 | 4 | 16 | 32, "skeleton": 63, "tf32_products": 64}
+
+
+def k8_probe_call(torch, mat, M, probe):
+    """One K8 launch with the ablation bits ``probe`` (the wrapper's
+    operands, plan and output)."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import bcsr as tb
+    from gncde_tpu_torch.ops.ell_spmm import batch_of, operand
+
+    fn = _build.load("bcsr").gncde_bcsr_spmm_probe
+    P, L, I = _build.P, _build.L, _build.I
+    fn.argtypes = [P, L, P, L, P, L, P] + [I] * 8 + [P]
+    fn.restype = ctypes.c_int
+    bs, nb, kb = mat.block_size, mat.nb, mat.kb
+    n, H = M.shape[-2:]
+    Bk = batch_of((mat.block_idx, 2), (mat.blocks, 4), (M, 2)) or 1
+    idx, idx_bs = operand(mat.block_idx, 2, Bk)
+    blk, blk_bs = operand(mat.blocks, 4, Bk)
+    Mc, m_bs = operand(M, 2, Bk)
+    out = torch.empty((Bk, n, H), device=M.device)
+    plan = tb.spmm_plan(Bk, nb, bs, H)
+    return lambda: _build.check(fn(
+        _build.ptr(idx), idx_bs, _build.ptr(blk), blk_bs, _build.ptr(Mc), m_bs,
+        _build.ptr(out), Bk, nb, kb, bs, n, H, plan.rb, probe, _build.stream()),
+        "K8 probe")
+
+
+def k8_ablation_lines(cs, torch):
+    """K8 at the flagship and n=32768 shapes: the device ms of each
+    :data:`K8_ABLATION` variant, and of the default kernel under each strip
+    height (``spmm_plan`` forced)."""
+    from gncde_tpu_torch.ops import bcsr as tb
+
+    with tempfile.TemporaryDirectory() as cache:
+        cases = sparse_cases(cs, torch, cache)
+        for label in ("flagship", "scaled"):
+            x = cases[label]()
+            mat = tb.BCSR(x["idx"], x["blocks"], x["n"])
+            line = {"kernel": "K8-ablation", "shape": label}
+            for name, bits in K8_ABLATION.items():
+                line[f"{name}_device_ms"] = cs.device_ms(torch, k8_probe_call(
+                    torch, mat, x["M"], bits))[0]
+            plan = tb.spmm_plan
+            try:
+                for rb in (8, 16, 32):
+                    tb.spmm_plan = lambda *a, rb=rb: plan(*a)._replace(rb=rb)
+                    line[f"rb{rb}_device_ms"] = cs.device_ms(
+                        torch, lambda: tb.bcsr_spmm(mat, x["M"]))[0]
+            finally:
+                tb.spmm_plan = plan
+            cs.emit(line)
+            del x, mat
+            torch.cuda.empty_cache()
+
+
+def k1_probe_call(torch, planes, idx, tau, Z, layers, probe):
+    """``(call, out)``: one K1 eval (f32 planes, undirected) with every row
+    pass launched with the probe bits ``probe`` (the wrapper's operands,
+    plans and buffers), and the buffer it writes the output to; bits 0 are
+    the main path's wrapper itself."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    if probe == 0:
+        out = [None]
+
+        def wrapper():
+            out[0] = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+        wrapper()
+        return wrapper, out
+    fn = _build.load("row_probe").gncde_mk_fwd_probe
+    P, L, I = _build.P, _build.L, _build.I
+    fn.argtypes = [P, P, P, P, L, P, P, P, I, I, I, P, P, P, I, P, P, I, P, I, P]
+    fn.restype = ctypes.c_int
+    nbasis = mk.basis_size(layers)
+    B, n, _ = Z.shape
+    bstride, idx32, tau32, dims, ptrs, keep = mk.launch_args(planes, idx, tau, layers)
+    plan = mk.plan_array(n, B, layers)
+    ldm = mk.scratch_width(layers)
+    stats = torch.empty((B, mk.NSTAT, n), device=Z.device)
+    mbuf = torch.empty((len(layers), B, n, ldm), device=Z.device)
+    out = torch.empty((B, n, layers[-1]["W"].shape[0]), device=Z.device)
+
+    def call():
+        _ = keep  # the parameter copies the pointers point into
+        _build.check(fn(*[_build.ptr(p) for p in planes], bstride, _build.ptr(idx32),
+                        _build.ptr(tau32), _build.ptr(Z), B, n, len(layers),
+                        ctypes.cast(dims, P), ctypes.cast(ptrs, P), ctypes.cast(plan, P),
+                        int(nbasis == mk.NBASIS_DIRECTED), _build.ptr(stats),
+                        _build.ptr(mbuf), ldm, _build.ptr(out), probe, _build.stream()),
+                     "K1 probe")
+    call()
+    return call, [out]
+
+
+def k1_ablation_lines(cs, torch):
+    """K1 at the flagship, trade and n=640 shapes: the device ms of each
+    :data:`K1_ABLATION` variant (in total and per launch), the 3xTF32
+    variant's error against the plain version beside the main path's, and
+    the default kernel's device ms under each CTA height (``ROW_BMS``
+    forced)."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    for name, nbasis in (("K1", 8),):
+        for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
+                         **cs.K1_EDGE}.items():
+            planes, idx, tau, Z, layers, _ = cs.make_inputs(torch, **s, nbasis=nbasis)
+            ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+            line = {"kernel": f"{name}-ablation", "shape": label}
+            for var, bits in K1_ABLATION.items():
+                call, out = k1_probe_call(torch, planes, idx, tau, Z, layers, bits)
+                if var in ("full", "tf32_products"):
+                    torch.cuda.synchronize()
+                    line[f"{var}_rel_err"] = cs.rel_err(torch, out[0], ref)[0]
+                line[f"{var}_device_ms"] = cs.device_ms(torch, call)[0]
+                launches = cs.launch_device_ms(torch, call)
+                line[f"{var}_launch_ms"] = launches and [round(x["ms"], 5) for x in launches]
+            bms = mk.ROW_BMS
+            try:
+                for bm in (16, 8, 4):
+                    mk.ROW_BMS = (bm,)
+                    line[f"bm{bm}_device_ms"] = cs.device_ms(
+                        torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers))[0]
+            finally:
+                mk.ROW_BMS = bms
+            cs.emit(line)
+            del planes, Z, layers
             torch.cuda.empty_cache()
 
 
 def k10_lines(cs, torch, saved):
     from gncde_tpu_torch.ops import ell_spmm as tell
 
-    sc = cs.SCALED
     with tempfile.TemporaryDirectory() as cache:
-        cases = {"flagship": lambda: cs.flagship_sparse_inputs(torch, cache),
-                 "scaled": lambda: cs.scaled_sparse_inputs(torch, sc["n"], sc["bw"],
-                                                           sc["bs"], sc["H"]),
-                 "odd": lambda: cs.odd_sparse_inputs(torch)}
-        for label, make in cases.items():
+        for label, make in sparse_cases(cs, torch, cache).items():
             x = make()
             kernel = lambda: tell.ell_spmm_call(x["indices"], x["values"], x["M"])  # noqa: E731
             got = kernel()
@@ -365,12 +619,36 @@ def compare(dir1, dir2) -> int:
     return 0
 
 
+def kernel_lines(cs, torch, only, splits, saved):
+    """The lines of every kernel in ``only``, each kernel's outputs kept in
+    ``saved``."""
+    if "K3" in only:
+        k3_lines(cs, torch, splits, saved)
+    if "K4" in only:
+        k4_lines(cs, torch, saved, splits)
+    if "K6a" in only:
+        k6a_lines(cs, torch, saved, False, splits)
+    if "K6a-bf" in only:
+        k6a_lines(cs, torch, saved, True, splits)
+    if "K6a-ablation" in only:
+        k6a_ablation_lines(cs, torch)
+    if "K8" in only:
+        k8_lines(cs, torch, saved)
+    if "K8-ablation" in only:
+        k8_ablation_lines(cs, torch)
+    if "K1-ablation" in only:
+        k1_ablation_lines(cs, torch)
+    if "K10" in only:
+        k10_lines(cs, torch, saved)
+    megakernel_lines(cs, torch, only, saved)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default="K3,K4,K6a,K6a-bf,K10",
-                    help="comma-separated: K3, K4, K6a, K6a-bf, K10, K1, K2, K1d, K2d, K11, "
-                         "K6a-ablation")
+                    help="comma-separated: K3, K4, K6a, K6a-bf, K8, K10, K1, K2, K1d, K2d, "
+                         "K11, K1bf, K1dbf, K11bf, K6a-ablation, K8-ablation, K1-ablation")
     ap.add_argument("--splits", default="",
                     help="K3, K4, K6a: split counts to time at the genre shapes, e.g. 1,2,4")
     ap.add_argument("--root", default=str(HERE), help="checkout whose gncde_tpu_torch runs")
@@ -394,22 +672,12 @@ def main() -> int:
     splits = [int(s) for s in args.splits.split(",") if s]
     cs.emit({"root": str(root), "package": gncde_tpu_torch.__file__, "nvidia_smi": smi})
     saved = {}
-    if "K3" in only:
-        k3_lines(cs, torch, splits, saved)
-    if "K4" in only:
-        k4_lines(cs, torch, saved, splits)
-    if "K6a" in only:
-        k6a_lines(cs, torch, saved, False, splits)
-    if "K6a-bf" in only:
-        k6a_lines(cs, torch, saved, True, splits)
-    if "K6a-ablation" in only:
-        k6a_ablation_lines(cs, torch)
-    if "K10" in only:
-        k10_lines(cs, torch, saved)
-    megakernel_lines(cs, torch, only, saved)
-    if args.save:
-        Path(args.save).mkdir(parents=True, exist_ok=True)
-        torch.save(saved, Path(args.save) / "outputs.pt")
+    try:
+        kernel_lines(cs, torch, only, splits, saved)
+    finally:  # what ran is kept for --compare, even if a later line fails
+        if args.save:
+            Path(args.save).mkdir(parents=True, exist_ok=True)
+            torch.save(saved, Path(args.save) / "outputs.pt")
     ptx = {}
     tiled = "|".join(p for k, p in (("K3", "fwd2"), ("K4", "bwd2"), ("K6a", "pair"),
                                      ("K6a-bf", "pair")) if k in only)
@@ -417,10 +685,12 @@ def main() -> int:
         ptx["tiled"] = ptxas_lines(root, "tiled", tiled)
     if any(k in only for k in ("K4", "K6a", "K6a-bf")):
         ptx["plane_mma"] = ptxas_lines(root, "plane_mma", r".")
-    for lib, ks in (("megakernel_fwd", ("K1", "K1d")), ("megakernel_bwd", ("K2", "K2d")),
-                    ("fused_step", ("K11",))):
+    for lib, ks in (("megakernel_fwd", ("K1", "K1d", "K1bf", "K1dbf")),
+                    ("megakernel_bwd", ("K2", "K2d")), ("fused_step", ("K11", "K11bf"))):
         if any(k in only for k in ks):
             ptx[lib] = ptxas_lines(root, lib, r".")
+    if "K8" in only:
+        ptx["bcsr"] = ptxas_lines(root, "bcsr", r"spmm")
     if "K10" in only:
         ptx["ell_spmm"] = ptxas_lines(root, "ell_spmm", r"ell")
     cs.emit({"ptxas": ptx})
