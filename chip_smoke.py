@@ -21,7 +21,10 @@ Phases, each printing one line before the last:
      function);
   4. K2 (backward vf kernel) against the plain autograd version at the same
      shapes, with and without the tau cotangent; every cotangent within
-     1e-3 * max|ref|;
+     1e-3 * max|ref|; each line with the reverse sweep's plan per layer
+     (ops.megakernel_bwd.bwd_row_plan), the call's device ms and (without
+     tau) the yardstick: per layer two cuBLAS f32 calls, C^T g on C^T formed
+     beforehand and [A; dA] [M | g] (not one call for K2's function);
   5. the main path: ``gncde_tpu_torch.run.dyn.main`` trains the flagship
      config configs/dyn/perm_equiv_gncde.yaml for 3 epochs at full width
      on the card; every train loss must be finite and both kernels must
@@ -93,7 +96,9 @@ Phases, each printing one line before the last:
      plain vf evals) at the flagship (B=4, n=400, 16 -> 16 -> 16, Tsit5) and
      bench (widths 32 x 4) shapes, y1, err and f1 within 1e-4 * max|ref|,
      two launches bitwise equal, and its backward (one K2 per stage) against
-     autograd of the plain step within 1e-3; K12 and K13 (the dense
+     autograd of the plain step within 1e-3; with the device ms of its step
+     kernel beside that of the six K1 launches of the per-stage route on the
+     same stage inputs, and its stages' row-pass plans; K12 and K13 (the dense
      per-layer fused apply) at the flagship layer (B=4, n=400, H=16) and
      n=300, H=5, B=2, and K5c (tiled_abar_apply's 4-slab apply) at n=1505,
      H 8 and 128, and n=300, H=5, B=2, each within 1e-4;
@@ -114,8 +119,8 @@ Phases, each printing one line before the last:
      cotangent) and K11 with its backward on the directed basis (K1d, K2d,
      K11d) against their plain versions at the flagship and trade shapes
      (K1d also at the bench shape and n=640, with phase 3's plan, device
-     times and yardstick)
-     (K11d: flagship and bench), make_inputs with an (11, 2) basis on
+     times and yardstick; K2d with phase 4's)
+     (K11d: flagship and bench, with phase 14's device times), make_inputs with an (11, 2) basis on
      planes whose column sums differ from their row sums by more than a
      tenth of their scale (so a row/column swap cannot pass); bounds K1d
      1e-4, K2d 1e-3 per cotangent, K11d 1e-4 forward and 1e-3 backward;
@@ -426,8 +431,12 @@ ENTRY_POINTS = {
     "K1": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (plan: "
            "ops.megakernel.row_plan)"],
     "K2": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (K1's plan)",
-           "bwd_rows_kernel<TAU, DIR, false>", "reduce_blocks_kernel"],
+           "mk::bwd_sweep_kernel<DIR, CC, 0> (plan: ops.megakernel_bwd.bwd_row_plan)",
+           "mk::bwd_finish_kernel<DIR> (layers of several column groups)",
+           "mk::bwd_reduce_kernel"],
     "K8": ["bcsr::spmm_kernel<RT, CT> (plan: ops.bcsr.spmm_plan)"],
+    "K11": ["fs::step_rows_kernel<DIR> (cooperative; each stage's layers "
+            "mk::rows_body<DIR, 1, 0> on ops.fused_step.step_plans)"],
 }
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
@@ -757,6 +766,37 @@ def launch_device_ms(torch, fn, pattern=r"\bmk::|\breduce_blocks_kernel", iters=
     return None
 
 
+def named_device_ms(torch, fn, pattern, per_call, iters=20, warmup=3):
+    """The device ms per call of ``fn``'s kernels whose name matches
+    ``pattern``, from a torch.profiler trace of ``iters`` calls, where the
+    trace holds all ``per_call`` such kernels of every call (up to three
+    traces, the last of the device alone); None otherwise. A trace that
+    lost other events (K11's stage-node copies from the host, seen to leave
+    the totals short) still times these kernels."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_step_torch import device_events
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for activities in (acts, acts, acts[1:]):
+        with profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            events = [e for e in device_events(path) if re.search(pattern, e[0])]
+        if len(events) == per_call * iters:
+            return sum(d for _, _, d in events) / iters / 1e3
+    return None
+
+
 def k1_yardstick(torch, planes, idx, tau, layers, Ms):
     """The products of K1's row passes, ranked on their own: per layer one
     cuBLAS f32 ``torch.bmm(C_l, M_l)`` on ``C_l = (1 + p1_0) A + (1 + p1_1)
@@ -772,6 +812,40 @@ def k1_yardstick(torch, planes, idx, tau, layers, Ms):
            + lp["basis"][1, 0] * At + lp["basis"][1, 1] * dAt).contiguous() for lp in layers]
     Ms = [m.contiguous() for m in Ms]
     return lambda: [torch.bmm(C, M) for C, M in zip(Cs, Ms)]
+
+
+def k2_yardstick(torch, planes, idx, tau, layers, G, trace):
+    """The products of K2's reverse sweep, ranked on their own: per layer
+    two cuBLAS f32 calls, ``torch.bmm(C_l^T, g_l)`` on C^T formed
+    beforehand by the plain version and ``torch.bmm([A; dA], [M_l | g_l])``
+    (the basis dots' four products in one), with the kernel's own M_l and
+    output cotangent g_l (``trace``: G for the last layer, the masked
+    cotangent of the next layer's input before it). Not one call for K2's
+    function: it leaves out the recompute, the Hermite, the column sums,
+    the rank terms and the transforms' backward."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    A, dA = mk.hermite(planes, idx, tau)
+    At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
+    L = len(layers)
+    Cts = [((1 + lp["basis"][0, 0]) * A + (1 + lp["basis"][0, 1]) * dA
+            + lp["basis"][1, 0] * At + lp["basis"][1, 1] * dAt).transpose(-2, -1).contiguous()
+           for lp in layers]
+    gs = [(G if l == L - 1 else trace["g"][l + 1]).contiguous() for l in range(L)]
+    AdA = torch.cat([A, dA], 1).contiguous()
+    Mg = [torch.cat([m, g], -1).contiguous() for m, g in zip(trace["M"], gs)]
+    return lambda: [(torch.bmm(C, g), torch.bmm(AdA, mg)) for C, g, mg in zip(Cts, gs, Mg)]
+
+
+def k2_bwd_plans(s, need_tau=False):
+    """K2's f32 reverse sweep's launch plan per layer at shape ``s``
+    (``ops.megakernel_bwd.bwd_row_plans``), or None for a package without
+    one."""
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    plans = getattr(mkb, "bwd_row_plans", None)
+    return None if plans is None else [p._asdict() for p in plans(s["n"], s["B"],
+                                                                   s["widths"], need_tau)]
 
 
 def k1_row_plans(s):
@@ -897,12 +971,24 @@ def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8, bf16=F
             plain_ms = time_ms(torch, lambda: plain_bwd(
                 planes, idx, tau, Z, layers, G, need_tau))
             bms, by = k2_bound(s, bf16)
+            dev = {}
+            if not bf16:  # the reverse sweep's plan, device ms and yardstick
+                kernel = lambda: mkb.megakernel_vf_bwd(  # noqa: E731
+                    planes, idx, tau, Z, layers, G, need_tau)
+                dev = {"plan": k2_bwd_plans(s, need_tau),
+                       "device_ms": device_ms(torch, kernel)[0]}
+                if not need_tau:
+                    trace = {}
+                    mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, trace=trace)
+                    dev["yardstick_two_bmm_device_ms"] = device_ms(torch, k2_yardstick(
+                        torch, planes, idx, tau, layers, G, trace))[0]
+                extra.update(dev)
             emit({"phase": phase, "kernel": name, "shape": label, **s,
                   "need_tau": need_tau, "max_rel_err": worst,
                   "max_abs_err": worst_abs, "rel_errs": errs,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **extra})
             check_errs(errs, K2_TOL, f"{name} {label} need_tau={need_tau}")
-            results.setdefault(name, []).append((label, worst_abs, ms, plain_ms))
+            results.setdefault(name, []).append((label, worst_abs, ms, plain_ms, dev))
 
 
 def phase_train(torch, cache):
@@ -1986,6 +2072,14 @@ def check_k11(torch, label, s, name, phase, nbasis=8, bf16=False):
                        BF16_STAGE_BASIS_TOL, f"{name} {label} backward, stage {S - i}")
     fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
     bms, by = step_bound(s["n"], s["B"], s["widths"], S, bf16)
+    dev = {"device_ms": named_device_ms(torch, kernel, r"\bfs::step", 1)}
+    if not bf16:  # what it replaces: six K1 (K1d) launches on the same stage inputs
+        dev["per_stage_k1_device_ms"] = named_device_ms(
+            torch, lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab,
+                                               stage=mk.megakernel_vf_eval),
+            r"\bmk::", S * (1 + len(layers)))
+        dev["plan"] = [p._asdict() for p in tfs.step_plans(s["n"], s["B"], s["widths"])]
+    extra.update(dev)
     emit({"phase": phase, "kernel": name, "shape": label, **s, "method": "tsit5",
           "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED, bf16),
           "ctas": s["B"] * -(-s["n"] // 16),
@@ -1997,7 +2091,7 @@ def check_k11(torch, label, s, name, phase, nbasis=8, bf16=False):
         raise RuntimeError(f"{name} {label} backward: rel err {max(bwd_errs):.3e} > "
                            f"{STEP_GRAD_TOL}")
     return (worst_abs, ms, plain_ms, bms, by,
-            dict(fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms))
+            dict(fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms, **dev))
 
 
 def phase_fused_kernels(torch, results):
@@ -3040,6 +3134,8 @@ def main() -> int:
     ):
         err, ms, plain_ms, bms, by, extra = results[name][label]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **({"entry_points": ENTRY_POINTS["K11"]} if name.startswith("K11")
+                           else {}),
                         "launches": launches, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None, "shape": label, **extra,

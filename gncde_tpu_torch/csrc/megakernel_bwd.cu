@@ -8,9 +8,18 @@
 // pass on K1's plan (megakernel_common.cuh rows_kernel; K2bf: fwd_rows),
 // so M_l and x_l are K1's bit for bit, keeping each layer's M and input x in
 // device memory ((L, B, n, H) floats of scratch), then one row pass per
-// layer walks the stack in reverse. For its BM rows a CTA regenerates the
-// row and column tiles of A and dA (and ddA when tau needs a gradient) from
-// the planes and accumulates, in one sweep over k,
+// layer walks the stack in reverse.
+//
+// The f32 kernels (K2, K2d) run the reverse sweep of bwd_sweep.cuh on a
+// plan of their own per layer (ops/megakernel_bwd.py bwd_row_plan): each
+// CTA forms its rows of C^T and of the planes' values once a layer, M's
+// and g's tiles come through a cp.async ring, and the basis cotangents are
+// inner products of A, dA (ddA) with P = g M^T.
+//
+// K2bf (BF, _make_bwd_kernel(bf16=True)), bwd_rows_kernel below: for its BM
+// rows a CTA regenerates the row and column tiles of A and dA (and ddA when
+// tau needs a gradient) from the planes and accumulates, in one sweep over
+// k,
 //
 //   C^T g  (the dM operand),  A M, dA M, A g, dA g  (the basis dots),
 //   ddA M, ddA g                                     (only for dtau),
@@ -24,10 +33,6 @@
 // (deterministic, no atomics). The per-element parameter cotangents are
 // summed over the batch by the wrapper, as the JAX side does.
 //
-// What bounds it on the card: bytes, as in K1 -- 8 plane reads per tile
-// element per layer (12 with ddA), about 32 n^2 bytes per element and layer
-// against 10 n H FLOPs per element; the planes mostly hit L2.
-//
 // The directed basis (DIR) changes only O(n) terms: the recomputed forward
 // reads the column sums of K1's directed prep pass, and the rank-term
 // cotangents (p4 .. p6', megakernel_bwd.py:249-268) and the directed dtau
@@ -35,14 +40,16 @@
 // beside the row sums. The reduction vector's basis block grows from 16 to
 // 22 entries.
 //
-// K2bf (BF, _make_bwd_kernel(bf16=True)): bfloat16 planes, the forward
-// recomputed as K1bf computes it; per layer C^T = ((b1_0 Ah^T + b1_1 dAh^T)
+// K2bf's planes are bfloat16, the forward recomputed as K1bf computes it;
+// per layer C^T = ((b1_0 Ah^T + b1_1 dAh^T)
 // + b2_0 Ah) + b2_1 dAh is formed in bf16 in that order (each product and
 // sum rounded) and dM's product C^T gb runs on the tensor cores with g
 // rounded to bf16; the basis dots <A|dA|ddA, gb Mb^T> keep the f32 planes
 // and take g and M rounded (P and Q of the JAX kernel are products of the
-// rounded g and M), multiplied in f32. Everything else is f32.
-#include "megakernel_common.cuh"
+// rounded g and M), multiplied in f32. Everything else is f32. What bounds
+// it on the card: bytes, 4 plane reads per tile element per layer and
+// chunk (6 with ddA), mostly from L2.
+#include "bwd_sweep.cuh"
 
 using namespace mk;
 
@@ -56,10 +63,10 @@ bwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                 const float* __restrict__ G, int ldg, float* __restrict__ Gp,
                 int ldgp, int mask_prev, float* __restrict__ part, int ptot,
                 int poff) {
+  static_assert(BF, "the f32 sweep is bwd_sweep_kernel (bwd_sweep.cuh)");
   __shared__ float Ar[BM][BK + 1];
   __shared__ float dAr[BM][BK + 1];
   __shared__ float ddAr[TAU ? BM : 1][BK + 1];
-  __shared__ float Cop[BM][BK + 1];
   __shared__ float Ms[BK][HC];
   __shared__ float Gs[BK][HC];
   __shared__ float dMs[BM][HC];
@@ -185,7 +192,7 @@ bwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
     for (int j = 0; j < PPT; ++j)
       aDM[j] = aAM[j] = adAM[j] = aAg[j] = adAg[j] = addAM[j] = addAg[j] = 0.f;
 
-    if constexpr (BF) {
+    {
       // Row tiles of A, dA (ddA) in f32 and the chunk's M and g rounded to
       // bf16 (held in f32) for the basis dots; g's bit patterns transposed
       // as the MMA's right operand; then C^T in bf16 from the column tiles
@@ -271,74 +278,6 @@ bwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
       for (int j = 0; j < PPT; ++j) {
         const int pp = tid + j * NT;
         if (pp < BM * hc) aDM[j] = dMs[pp / hc][pp % hc];
-      }
-    } else {
-      for (int k0 = 0; k0 < n; k0 += BK) {
-        // Row tiles A[i, k], dA[i, k] (ddA); Cop starts as B2[i, k].
-        for (int e = tid; e < BM * BK; e += NT) {
-          const int i = e / BK, kk = e % BK, gi = r0 + i, gk = k0 + kk;
-          float A = 0.f, dA = 0.f, ddA = 0.f;
-          if (gi < n && gk < n) {
-            const long long off = base + (long long)gi * n + gk;
-            if (TAU)
-              herm3(P, off, t, A, dA, ddA);
-            else
-              herm(P, off, t, A, dA);
-          }
-          Ar[i][kk] = A;
-          dAr[i][kk] = dA;
-          if (TAU) ddAr[i][kk] = ddA;
-          Cop[i][kk] = b20 * A + b21 * dA;
-        }
-        for (int e = tid; e < BK * hc; e += NT) {
-          const int kk = e / hc, h = e % hc, gk = k0 + kk;
-          const bool ok = gk < n;
-          Ms[kk][h] = ok ? Mb[(long long)gk * ldm + h0 + h] : 0.f;
-          Gs[kk][h] = ok ? Gb[(long long)gk * ldg + h0 + h] : 0.f;
-        }
-        __syncthreads();
-        // Column tiles: Cop[i, k] += B1[k, i], so Cop = (B1 + B2^T)^T = C^T.
-        for (int e = tid; e < BM * BK; e += NT) {
-          const int kk = e / BM, i = e % BM, gi = r0 + i, gk = k0 + kk;
-          if (gi < n && gk < n) {
-            float A, dA;
-            herm(P, base + (long long)gk * n + gi, t, A, dA);
-            Cop[i][kk] += b10 * A + b11 * dA;
-          }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const int pp = tid + j * NT;
-          if (pp < BM * hc) {
-            const int i = pp / hc, h = pp % hc;
-            float x0 = aDM[j], x1 = aAM[j], x2 = adAM[j], x3 = aAg[j], x4 = adAg[j];
-            float x5 = addAM[j], x6 = addAg[j];
-#pragma unroll 4
-            for (int kk = 0; kk < BK; ++kk) {
-              const float g = Gs[kk][h], m = Ms[kk][h];
-              const float ar = Ar[i][kk], dar = dAr[i][kk];
-              x0 += Cop[i][kk] * g;
-              x1 += ar * m;
-              x2 += dar * m;
-              x3 += ar * g;
-              x4 += dar * g;
-              if (TAU) {
-                const float ddar = ddAr[i][kk];
-                x5 += ddar * m;
-                x6 += ddar * g;
-              }
-            }
-            aDM[j] = x0;
-            aAM[j] = x1;
-            adAM[j] = x2;
-            aAg[j] = x3;
-            adAg[j] = x4;
-            addAM[j] = x5;
-            addAg[j] = x6;
-          }
-        }
-        __syncthreads();
       }
     }
 
@@ -610,43 +549,33 @@ static int layer_ptot(const int* dims, int l, int nb) {
   return 2 * hin + hout * hin + hout + 2 * nb + 1;
 }
 
-// Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward (Xbuf[0]
-// unused: layer 0 reads Z), ldm >= every layer's width. gbuf: (L, B, n, ldm),
-// gbuf[l] the masked cotangent of x_l for l >= 1 (gbuf[0] unused: layer
-// 0 writes dZ), so the caller can read every layer's inputs back. stats:
-// (B, NSTAT, n).
-// part: (B, nblk, ptot) partials; red: (B, ptot) reduced per-element
-// grads, layer blocks in order. dZ: (B, n, hin0).
-template <bool DIR, bool BF>
-static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
-                  const float* G, int B, int n, int L, const int* dims,
-                  const void* const* ptrs, const int* plan, int need_tau, float* stats,
-                  float* Mbuf, float* Xbuf, float* gbuf, int ldm, float* dZ, float* part,
-                  int ptot, float* red, cudaStream_t stream) {
+// K2bf: Mbuf, Xbuf: (L, B, n, ldm) scratch for the recomputed forward
+// (Xbuf[0] unused: layer 0 reads Z), ldm >= every layer's width. gbuf: (L,
+// B, n, ldm), gbuf[l] the masked cotangent of x_l for l >= 1 (gbuf[0]
+// unused: layer 0 writes dZ), so the caller can read every layer's inputs
+// back. stats: (B, NSTAT, n). part: (B, nblk, ptot) partials; red: (B,
+// ptot) reduced per-element grads, layer blocks in order. dZ: (B, n, hin0).
+template <bool DIR>
+static int mk_bwd_bf16(const Planes<true>& P, const int* idx, const float* tau, const float* Z,
+                       const float* G, int B, int n, int L, const int* dims,
+                       const void* const* ptrs, int need_tau, float* stats, float* Mbuf,
+                       float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
+                       float* red, cudaStream_t stream) {
   const int nblk = (n + BM - 1) / BM;
   const dim3 grid(nblk, B);
   const long long lstride = (long long)B * n * ldm;
   cudaError_t err;
 
   // Forward recompute: M_l for every layer, x_l for l >= 1.
-  prep_kernel<DIR, BF><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
-                                                layer_from(ptrs, dims, 0), Mbuf, ldm,
-                                                stats);
+  prep_kernel<DIR, true><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
+                                                  layer_from(ptrs, dims, 0), Mbuf, ldm, stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int l = 0; l + 1 < L; ++l) {
-    if constexpr (BF) {
-      fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
-          P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride,
-          ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
-          Mbuf + (l + 1) * lstride, ldm);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    } else {  // K1's row pass on K1's plan: M_l and x_l bitwise K1's
-      const int e = launch_rows<DIR>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
-                                     Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride, ldm,
-                                     1, 1, layer_from(ptrs, dims, l + 1),
-                                     Mbuf + (l + 1) * lstride, ldm, plan + 3 * l, stream);
-      if (e != 0) return e;
-    }
+    fwd_rows_kernel<DIR, true><<<grid, NT, 0, stream>>>(
+        P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride, ldm,
+        Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
+        Mbuf + (l + 1) * lstride, ldm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
   // Reverse sweep.
@@ -661,11 +590,11 @@ static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const f
     float* Gp = l == 0 ? dZ : gbuf + l * lstride;
     const int ldgp = l == 0 ? dims[0] : ldm;
     if (need_tau)
-      bwd_rows_kernel<true, DIR, BF><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<true, DIR, true><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     else
-      bwd_rows_kernel<false, DIR, BF><<<grid, NT, 0, stream>>>(
+      bwd_rows_kernel<false, DIR, true><<<grid, NT, 0, stream>>>(
           P, idx, tau, n, stats, lp, X, ldx, Mbuf + l * lstride, ldm, g_in, ldg,
           Gp, ldgp, l > 0, part, ptot, poff);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -678,48 +607,49 @@ static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const f
   return 0;
 }
 
-template <bool BF>
-static int mk_bwd_basis(const void* d, const void* c, const void* b, const void* a,
-                        long long bstride, const int* idx, const float* tau,
-                        const float* Z, const float* G, int B, int n, int L,
-                        const int* dims, const void* const* ptrs, const int* plan,
-                        int directed, int need_tau, float* stats, float* Mbuf,
-                        float* Xbuf, float* gbuf, int ldm, float* dZ, float* part, int ptot,
-                        float* red, cudaStream_t stream) {
-  using T = typename Planes<BF>::T;
-  const Planes<BF> P{static_cast<const T*>(d), static_cast<const T*>(c),
-                     static_cast<const T*>(b), static_cast<const T*>(a), bstride};
-  if (directed)
-    return mk_bwd<true, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, need_tau, stats,
-                            Mbuf, Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
-  return mk_bwd<false, BF>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, need_tau, stats,
-                           Mbuf, Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
-}
-
 // directed: the layers' basis is the (11, 2) directed stack (else (8, 2));
-// planes float32, or bfloat16 when bf16 (K2bf). plan: host array of K1's
-// row-pass plan per layer (bm, cc, groups; ops/megakernel.py row_plan), the
-// forward recompute's (unread by K2bf).
+// planes float32 (K2, K2d: bwd_sweep.cuh mk_bwd_f32), or bfloat16 when bf16
+// (K2bf). plan: host array of K1's row-pass plan per layer (bm, cc, groups;
+// ops/megakernel.py row_plan), the f32 forward recompute's; bplan: host
+// array of the f32 reverse sweep's plan per layer (bm, cc, groups;
+// ops/megakernel_bwd.py bwd_row_plan). part: f32, the layers' partial
+// blocks (ops/megakernel_bwd.py bwd_layout), part_floats of them; bf16,
+// (B, ceil(n / 16), ptot). work: the f32 sweep's scratch for its layers of
+// several column groups, work_floats (may be NULL when none has). Both
+// plans, work and the sizes are unread for bf16.
 extern "C" int gncde_mk_bwd(const void* d, const void* c, const void* b,
                             const void* a, long long plane_bstride,
                             const int* idx, const float* tau, const float* Z,
                             const float* G, int B, int n, int L,
                             const int* dims, const void* const* ptrs, const int* plan,
-                            int directed, int bf16, int need_tau, float* stats, float* Mbuf,
-                            float* Xbuf, float* gbuf, int ldm, float* dZ,
-                            float* part, int ptot, float* red,
+                            const int* bplan, int directed, int bf16, int need_tau,
+                            float* stats, float* Mbuf, float* Xbuf, float* gbuf, int ldm,
+                            float* dZ, float* part, long long part_floats, float* work,
+                            long long work_floats, int ptot, float* red,
                             cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm) || (!bf16 && plan == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm)) return (int)cudaErrorInvalidValue;
   const int nb = directed ? NBASIS_D : NBASIS_U;
   int want = 0;
   for (int l = 0; l < L; ++l) want += layer_ptot(dims, l, nb);
   if (want != ptot) return (int)cudaErrorInvalidValue;
-  if (bf16)
-    return mk_bwd_basis<true>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
-                              ptrs, plan, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm,
-                              dZ, part, ptot, red, stream);
-  return mk_bwd_basis<false>(d, c, b, a, plane_bstride, idx, tau, Z, G, B, n, L, dims,
-                             ptrs, plan, directed, need_tau, stats, Mbuf, Xbuf, gbuf, ldm,
-                             dZ, part, ptot, red, stream);
+  if (bf16) {
+    const Planes<true> P{static_cast<const mk::bf16*>(d), static_cast<const mk::bf16*>(c),
+                         static_cast<const mk::bf16*>(b), static_cast<const mk::bf16*>(a),
+                         plane_bstride};
+    if (directed)
+      return mk_bwd_bf16<true>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                               Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+    return mk_bwd_bf16<false>(P, idx, tau, Z, G, B, n, L, dims, ptrs, need_tau, stats, Mbuf,
+                              Xbuf, gbuf, ldm, dZ, part, ptot, red, stream);
+  }
+  const Planes<false> P{static_cast<const float*>(d), static_cast<const float*>(c),
+                        static_cast<const float*>(b), static_cast<const float*>(a),
+                        plane_bstride};
+  if (directed)
+    return mk_bwd_f32<true>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, bplan, need_tau,
+                            stats, Mbuf, Xbuf, gbuf, ldm, dZ, part, part_floats, work,
+                            work_floats, ptot, red, stream);
+  return mk_bwd_f32<false>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, bplan, need_tau,
+                           stats, Mbuf, Xbuf, gbuf, ldm, dZ, part, part_floats, work,
+                           work_floats, ptot, red, stream);
 }

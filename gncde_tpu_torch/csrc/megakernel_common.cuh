@@ -25,9 +25,11 @@
 // CTA of fwd_rows regenerates its (BM x BK) tiles of C from the planes, in
 // shared memory, once per layer and chunk of HC output columns. K1's and
 // K2's f32 row pass is rows_kernel (below): the same arithmetic bit for
-// bit on a launch plan of its own, C's rows formed once per layer; fwd_rows
-// serves K11 and the bf16 kernels. All reductions are in a fixed order, so
-// results are bitwise reproducible run to run.
+// bit on a launch plan of its own, C's rows formed once per layer; K11's f32
+// stages run its device function rows_body inside their cooperative launch;
+// fwd_rows serves the bf16 kernels (K1bf, K2bf's recompute, K11bf). All
+// reductions are in a fixed order, so results are bitwise reproducible run
+// to run.
 //
 // Widths: a layer's input is at most MAXIN = 64 wide; its output any width
 // up to MAXOUT, swept in chunks of HC = 64 columns (one chunk, and the
@@ -821,7 +823,7 @@ fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
                                   has_next, ln, Mn, ldmn);
 }
 
-// ---- The f32 row pass of K1 and K2's forward recompute -------------------
+// ---- The f32 row pass of K1, K2's forward recompute and K11's stages -----
 // rows_kernel<DIR, CC> computes what fwd_rows<DIR, false> computes, bit for
 // bit (the same expressions, each output one FMA chain over k in order, the
 // column sums in fwd_rows's slices and order), on another plan
@@ -909,28 +911,42 @@ __host__ __device__ constexpr int rows_smem_floats(int n, int bm, int rs, int H)
                              : rows_wchunk_floats(H));
 }
 
-template <bool DIR, int CC, int PROBE>
-__global__ void __launch_bounds__(NT)
-rows_kernel(Planes<false> P, const int* __restrict__ idx, const float* __restrict__ tau,
-            int n, const float* __restrict__ stats, Layer lp,
-            const float* __restrict__ Mc, int ldm, float* __restrict__ F, int ldf,
-            int relu, int has_next, Layer ln, float* __restrict__ Mn, int ldmn, int bm,
-            int vec_m) {
-  constexpr bool MMA = (PROBE & RP_TF32) != 0;
-  extern __shared__ __align__(16) float dyn[];
-  __shared__ float colS[128], colW[128];
-  __shared__ float red[2][2][NT];
-  __shared__ float scratch[NW];
-  __shared__ float Fs[BM][HC];
-  __shared__ float zrows[BM][MAXIN];
+// The row pass's static shared memory, declared once by each kernel that
+// runs it (rows_kernel; K11's step_kernel for every layer and plan).
+struct RowShared {
+  float colS[128], colW[128];
+  float red[2][2][NT];
+  float scratch[NW];
+  float Fs[BM][HC];
+  float zrows[BM][MAXIN];
+};
 
-  const int b = blockIdx.z, r0 = blockIdx.x * bm;
-  const long long base = plane_base(P, idx, b, n);
-  const float t = __ldg(tau + b);
+// One CTA of the row pass: rows rb bm .. of element b (planes at ``base``,
+// offset t), column group gr; dyn the plan's dynamic shared memory. A
+// device function so that rows_kernel and K11 (fused_step.cu) run the same
+// arithmetic; every thread of the CTA must reach it.
+template <bool DIR, int CC, int PROBE>
+__device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn,
+                                          const Planes<false>& P, long long base, float t,
+                                          int b, int rb, int gr, int n,
+                                          const float* __restrict__ stats, const Layer& lp,
+                                          const float* __restrict__ Mc, int ldm,
+                                          float* __restrict__ F, int ldf, int relu,
+                                          int has_next, const Layer& ln,
+                                          float* __restrict__ Mn, int ldmn, int bm, int vec_m) {
+  constexpr bool MMA = (PROBE & RP_TF32) != 0;
+  float* colS = sh.colS;
+  float* colW = sh.colW;
+  float(*red)[2][NT] = sh.red;
+  float* scratch = sh.scratch;
+  float(*Fs)[HC] = sh.Fs;
+  float(*zrows)[MAXIN] = sh.zrows;
+
+  const int r0 = rb * bm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int H = lp.hout;
   const int cw = 512 * CC / bm;
-  const int g0 = blockIdx.y * cw, wg = min(cw, H - g0);  // the group's columns
+  const int g0 = gr * cw, wg = min(cw, H - g0);  // the group's columns
   const int rw = rows_width(cw, H), rs = rows_stride(cw, H, MMA);
   const int npad = rows_npad(n), ldc = npad + 4;
   float* vsh = dyn;               // [npad]
@@ -1279,6 +1295,21 @@ rows_kernel(Planes<false> P, const int* __restrict__ idx, const float* __restric
       }
     }
   }
+}
+
+template <bool DIR, int CC, int PROBE>
+__global__ void __launch_bounds__(NT)
+rows_kernel(Planes<false> P, const int* __restrict__ idx, const float* __restrict__ tau,
+            int n, const float* __restrict__ stats, Layer lp,
+            const float* __restrict__ Mc, int ldm, float* __restrict__ F, int ldf,
+            int relu, int has_next, Layer ln, float* __restrict__ Mn, int ldmn, int bm,
+            int vec_m) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ RowShared sh;
+  const int b = blockIdx.z;
+  rows_body<DIR, CC, PROBE>(sh, dyn, P, plane_base(P, idx, b, n), __ldg(tau + b), b,
+                            blockIdx.x, blockIdx.y, n, stats, lp, Mc, ldm, F, ldf, relu,
+                            has_next, ln, Mn, ldmn, bm, vec_m);
 }
 
 // One row pass of layer l on plan (bm, cc, groups): rows_kernel<DIR, cc,

@@ -12,7 +12,10 @@ glue between them. Off by default (``ops.set_fused_step``), as in JAX.
   :func:`~gncde_tpu_torch.ops.megakernel.plain_vf_eval` (with ``bf16``,
   ``plain_vf_eval_bf16``) stage by stage. CPU tensors take it.
 * :func:`fused_step_call` launches K11 for CUDA tensors (raising on what the
-  kernel does not take) and returns the stage derivatives ``ks`` too.
+  kernel does not take) and returns the stage derivatives ``ks`` too. Its
+  f32 stages run K1's row pass on :func:`step_plans` (``rows_body`` in one
+  grid of resident CTAs that walk each phase's virtual CTAs,
+  :func:`step_walk`), so a step is the per-stage K1 route's bit for bit.
 * :class:`FusedRKStep` is the differentiable step: forward K11, backward the
   explicit-RK chain rule written out (``_fused_step_vjp._bwd``): per stage,
   in reverse, one K2 (:func:`~gncde_tpu_torch.ops.megakernel_bwd.megakernel_vf_bwd`)
@@ -60,6 +63,8 @@ from .megakernel import (
     plain_vf_eval,
     plain_vf_eval_bf16,
     plain_vjp,
+    plan_array,
+    row_plans,
     scratch_width,
 )
 from .megakernel_bwd import megakernel_vf_bwd
@@ -169,7 +174,8 @@ _ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.P,  # idx, tau, h, y, f0
     _build.I, _build.I, _build.I, _build.I, _build.I,  # Btot, b0, nb, n, S
     _build.P, _build.P, _build.P,  # amat, bvec, berr (host arrays)
-    _build.I, _build.P, _build.P, _build.I, _build.I,  # L, dims, ptrs, directed, bf16
+    _build.I, _build.P, _build.P, _build.P,  # L, dims, ptrs, row plans (host arrays)
+    _build.I, _build.I,  # directed, bf16
     _build.P, _build.P, _build.I, _build.P, _build.P,  # stats, Mbuf, ldm, Yi, ks
     _build.P, _build.P, _build.P, _build.P,  # y1, err, f1, stream
 ]
@@ -181,26 +187,60 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.gncde_fused_step_capacity.argtypes = [_build.I, _build.I]
+        lib.gncde_fused_step_capacity.argtypes = [_build.I, _build.I, _build.I]
         lib.gncde_fused_step_capacity.restype = ctypes.c_int
     return lib
 
 
-_CAPACITY: tp.Dict[tp.Tuple[int, bool, bool], int] = {}
+_CAPACITY: tp.Dict[tp.Tuple[int, bool, bool, int], int] = {}
 
 
-def capacity(device, directed: bool = False, bf16: bool = False) -> int:
+def capacity(device, directed: bool = False, bf16: bool = False, smem: int = 0) -> int:
     """How many K11 CTAs (of the directed basis's build or not, the bf16
-    one or not) can be resident at once on ``device`` (a cooperative launch
-    needs them all resident)."""
+    one or not; the f32 kernel with ``smem`` bytes of dynamic shared memory,
+    :func:`step_smem_bytes`) can be resident at once on ``device`` (a
+    cooperative launch needs them all resident)."""
     dev = torch.device(device).index
     dev = torch.cuda.current_device() if dev is None else dev
-    key = (dev, bool(directed), bool(bf16))
+    key = (dev, bool(directed), bool(bf16), 0 if bf16 else int(smem))
     if key not in _CAPACITY:
         with torch.cuda.device(dev):
-            _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(int(bool(directed)),
-                                                                  int(bool(bf16))))
+            _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(
+                int(bool(directed)), int(bool(bf16)), key[3]))
     return _CAPACITY[key]
+
+
+#: The CTA heights of the f32 kernel's stage plans: 8 or 4 rows, whose
+#: plans take one column a thread for any layer of the step (at most
+#: ``MAX_IN`` wide), so one instantiation of the row pass serves them all.
+STEP_BMS = (8, 4)
+
+
+def step_plans(n: int, B: int, widths):
+    """The f32 kernel's row-pass plan per layer
+    (:func:`~gncde_tpu_torch.ops.megakernel.row_plans` on :data:`STEP_BMS`;
+    any plan gives the per-stage K1 route's bits)."""
+    return row_plans(n, B, widths, STEP_BMS)
+
+
+def step_smem_bytes(n: int, B: int, layers) -> int:
+    """The f32 kernel's dynamic shared memory at ``n`` nodes and batch
+    ``B``: the largest of its layers' row-pass plans (:func:`step_plans`)."""
+    widths = (layers[0]["W"].shape[1],) + tuple(lp["W"].shape[0] for lp in layers)
+    return max(p.smem_bytes for p in step_plans(n, B, widths))
+
+
+def step_walk(n: int, B: int, plans) -> tp.List[tp.List[tp.Tuple[int, int, int]]]:
+    """The virtual CTAs of one stage of the f32 kernel, phase by phase, in
+    the order its grid walks them: the prep's (element, 16-row block, 0),
+    then each layer's (element, row block, column group) of its plan. CTA
+    ``g`` of a grid of ``G`` takes entries ``g, g + G, ...`` of each phase."""
+    nrb = -(-n // 16)
+    phases = [[(b, r, 0) for b in range(B) for r in range(nrb)]]
+    for p in plans:
+        per = -(-n // p.bm) * p.groups
+        phases.append([(b, w // p.groups, w % p.groups) for b in range(B) for w in range(per)])
+    return phases
 
 
 def _host_floats(a: np.ndarray):
@@ -224,7 +264,12 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays, bf16: b
         raise ValueError("K11: the layer stack must map the state width to itself")
     lib = _lib()
     nrb = -(-n // 16)  # csrc/megakernel_common.cuh BM
-    per_launch = capacity(y.device, directed, bf16) // nrb
+    # f32: every chunk's stages run on the whole batch's row plans (any plan
+    # gives the same bits); the kernel walks them with at most the resident
+    # CTAs.
+    plans = None if bf16 else plan_array(n, B, layers, STEP_BMS)
+    smem = 0 if bf16 else step_smem_bytes(n, B, layers)
+    per_launch = capacity(y.device, directed, bf16, smem) // nrb
     if per_launch < 1:
         raise RuntimeError(f"K11: not even one batch element ({nrb} CTAs) fits a "
                            f"cooperative launch on this device")
@@ -247,6 +292,7 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays, bf16: b
             _build.ptr(tau32), _build.ptr(h32), _build.ptr(y), _build.ptr(f0),
             B, b0, nb, n, S, *[ctypes.cast(a, _build.P) for a in host],
             len(layers), ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
+            None if bf16 else ctypes.cast(plans, _build.P),
             int(directed), int(bool(bf16)), _build.ptr(stats), _build.ptr(mbuf), ldm,
             _build.ptr(yi), _build.ptr(ks), _build.ptr(y1), _build.ptr(err), _build.ptr(f1),
             _build.stream())

@@ -392,12 +392,13 @@ def _plan_array(n: int, B: int, widths: tp.Tuple[int, ...], bms: tp.Tuple[int, .
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def plan_array(n: int, B: int, layers):
-    """The row plans of ``layers`` as the C entry points take them: a host
-    array of (bm, cc, groups) per layer, built once per shape, stack of
-    widths and :data:`ROW_BMS` (the C side only reads it)."""
+def plan_array(n: int, B: int, layers, bms=None):
+    """The row plans of ``layers`` (CTA heights ``bms``, by default
+    :data:`ROW_BMS`) as the C entry points take them: a host array of (bm,
+    cc, groups) per layer, built once per shape, stack of widths and heights
+    (the C side only reads it)."""
     widths = (layers[0]["W"].shape[1],) + tuple(lp["W"].shape[0] for lp in layers)
-    return _plan_array(n, B, widths, tuple(ROW_BMS))
+    return _plan_array(n, B, widths, tuple(ROW_BMS if bms is None else bms))
 
 
 _FWD_ARGTYPES = [

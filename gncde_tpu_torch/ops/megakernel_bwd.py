@@ -21,7 +21,9 @@ with P = 8 for the undirected basis and 11 for the directed one
   computes it (not autograd of the bf16 forward: the JAX kernel rounds g
   and M for its products, and reads the unrounded planes for the basis
   cotangents).
-* :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` (with
+* :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` (f32: the
+  forward recompute on K1's row pass, then the reverse sweep of
+  ``csrc/bwd_sweep.cuh`` on :func:`bwd_row_plan`'s plan per layer; with
   ``bf16``, its tensor-core instantiation on bf16 planes) for CUDA tensors
   and raises if it cannot.
 """
@@ -29,12 +31,13 @@ with P = 8 for the undirected basis and 11 for the directed one
 from __future__ import annotations
 
 import ctypes
+import functools
 import types
 import typing as tp
 
 import torch
 
-from . import _build
+from . import _build, megakernel
 from .megakernel import (
     NBASIS_DIRECTED,
     NSTAT,
@@ -226,16 +229,140 @@ def plain_vf_bwd_bf16(planes: Planes, idx, tau, Z, layers: tp.Sequence[LayerPara
     return dtau, g, per_layer
 
 
+# ---------------------------------------------------------------------------
+# The f32 reverse sweep's launch plan (csrc/bwd_sweep.cuh)
+# ---------------------------------------------------------------------------
+
+#: Ring stages of the sweep's M and g tiles (``BSTAGES``), the dynamic shared
+#: memory a plan may take (``BWD_SMEM_MAX``: with the sweep's static shared
+#: memory it stays inside an H100 CTA's 227 KB) and the most layers one f32
+#: K2 call takes (``BWD_LMAX``).
+BWD_STAGES = 3
+BWD_SMEM_MAX = 204_800
+BWD_MAX_LAYERS = 16
+#: The CTA heights :func:`bwd_row_plan` tries, tallest first (a tool or test
+#: that times or checks one height sets this to it).
+BWD_BMS = (16, 8, 4)
+#: Sweep CTAs an SM holds at once: at most two by registers (128 a thread,
+#: ptxas), fewer where shared memory binds: the SM's 228 KB over the plan's
+#: dynamic and the sweep's static shared memory (``BwdShared``) and 1 KB the
+#: card keeps per CTA.
+BWD_CTAS_BY_REGISTERS = 2
+SM_SMEM_BYTES = 228 * 1024
+BWD_STATIC_BYTES = 4 * (3 * 128 + 3 * 256 + 8 + 2 * 16 * 64 + 16 + 16 * 3 + 16 * 2 + 8 * 14)
+
+
+class BwdPlan(tp.NamedTuple):
+    """One layer's plan of the f32 reverse sweep: ``bm`` rows per CTA, ``cc``
+    output columns per thread, ``cw = 512 cc / bm`` columns per CTA,
+    ``groups`` CTAs across the output's width; the grid's CTAs and each
+    CTA's dynamic shared memory."""
+
+    bm: int
+    cc: int
+    cw: int
+    groups: int
+    ctas: int
+    smem_bytes: int
+
+
+def bwd_smem_bytes(n: int, bm: int, cw: int, H: int, tau: bool) -> int:
+    """Dynamic shared memory of one sweep CTA (``bwd_smem_floats``): u over
+    n rounded up to the ring tile; the row operands C^T, A, dA at (i, k) and
+    (k, i) (and ddA at both under ``tau``), bm rows of npad + 4; the CTA's
+    rows of g (ring width + 64 / bm); the ring of M and g tiles, rows of
+    ``cw`` columns, or of H rounded up to 4 where one group holds the
+    layer."""
+    npad = -(-n // megakernel.ROW_KT) * megakernel.ROW_KT
+    rw = min(cw, -(-H // 4) * 4)
+    nrow = 7 if tau else 5
+    return 4 * (npad + nrow * bm * (npad + 4) + bm * (rw + 64 // bm)
+                + BWD_STAGES * 2 * megakernel.ROW_KT * rw)
+
+
+def bwd_waves(p: BwdPlan) -> int:
+    """How many rounds of resident CTAs the plan's grid takes on the card
+    (``_build.SMS`` SMs, :data:`BWD_CTAS_BY_REGISTERS` CTAs an SM at most)."""
+    per_sm = min(BWD_CTAS_BY_REGISTERS,
+                 SM_SMEM_BYTES // (p.smem_bytes + BWD_STATIC_BYTES + 1024))
+    return -(-p.ctas // (_build.SMS * per_sm))
+
+
+def bwd_row_plan(n: int, B: int, H: int, tau: bool, bms=None) -> BwdPlan:
+    """The sweep's plan for an ``H``-wide layer at ``n`` nodes and batch
+    ``B`` (``tau``: the dtau operands too). Per CTA height ``bm`` of ``bms``
+    (by default :data:`BWD_BMS`: 16, 8, 4 rows), the fewest columns per
+    thread whose CTA holds the whole layer (``cw`` up to 128; wider layers
+    take ``ceil(H / cw)`` groups), narrowed where its shared memory would
+    pass :data:`BWD_SMEM_MAX`; of those, the one whose grid takes the fewest
+    waves of resident CTAs (:func:`bwd_waves`: a CTA's time is its own
+    serial chain, so a second wave doubles it), then the one with the most
+    CTAs (the shortest chains). Raises where none fits."""
+    cands = []
+    for bm in BWD_BMS if bms is None else bms:
+        ccs = [cc for cc in (1, 2, 4) if 32 <= 512 * cc // bm <= 128]
+        first = next((i for i, c in enumerate(ccs) if 512 * c // bm >= H), len(ccs) - 1)
+        for cc in reversed(ccs[:first + 1]):
+            cw = 512 * cc // bm
+            smem = bwd_smem_bytes(n, bm, cw, H, tau)
+            if smem <= BWD_SMEM_MAX:
+                groups = -(-H // cw)
+                cands.append(BwdPlan(bm, cc, cw, groups, -(-n // bm) * groups * B, smem))
+                break
+    if not cands:
+        raise ValueError(f"no sweep plan fits n={n}, H={H} in {BWD_SMEM_MAX} bytes")
+    return min(cands, key=lambda p: (bwd_waves(p), -p.ctas))
+
+
+def bwd_row_plans(n: int, B: int, widths, tau: bool, bms=None) -> tp.List[BwdPlan]:
+    """:func:`bwd_row_plan` of every layer of a stack of ``widths``."""
+    return [bwd_row_plan(n, B, h, tau, bms) for h in widths[1:]]
+
+
+class BwdLayout(tp.NamedTuple):
+    """What one f32 K2 call launches and allocates: the sweep's plans as
+    the C entry point takes them (a host array of (bm, cc, groups) per
+    layer), the floats of the layers' partial blocks (B, ceil(n / bm),
+    ptot_l) and of the scratch of its layers of several groups."""
+
+    plans: tp.Any
+    part_floats: int
+    work_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_layout(n: int, B: int, sizes: tp.Tuple[tp.Tuple[int, int], ...], nbasis: int,
+                tau: bool, bms: tp.Tuple[int, ...]) -> BwdLayout:
+    widths = (sizes[0][0],) + tuple(ho for _, ho in sizes)
+    plans = bwd_row_plans(n, B, widths, tau, bms)
+    part = work = 0
+    for (hi, ho), p in zip(sizes, plans):
+        nrb = -(-n // p.bm)
+        part += B * nrb * (2 * hi + ho * hi + ho + 2 * nbasis + 1)
+        if p.groups > 1:
+            work = max(work, B * p.groups * (n * (hi + 3) + nrb * 8))
+    flat = [x for p in plans for x in (p.bm, p.cc, p.groups)]
+    return BwdLayout((ctypes.c_int * len(flat))(*flat), part, work)
+
+
+def bwd_layout(n: int, B: int, layers, nbasis: int, tau: bool) -> BwdLayout:
+    """The f32 K2 call's :class:`BwdLayout` (cached per shape, basis, tau and
+    :data:`BWD_BMS`)."""
+    return _bwd_layout(n, B, tuple(_layer_sizes(layers)), nbasis, bool(tau), tuple(BWD_BMS))
+
+
 _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P, _build.L,  # planes, stride
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
-    _build.P, _build.P, _build.P,  # dims, ptrs, row plans (host arrays)
+    _build.P, _build.P,  # dims, ptrs (host arrays)
+    _build.P, _build.P,  # K1's row plans, the sweep's plans (host arrays)
     _build.I, _build.I,  # directed, bf16
     _build.I,  # need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
-    _build.P, _build.I, _build.P,  # part, ptot, red
+    _build.P, _build.L, _build.P, _build.L,  # part, its floats, work, its floats
+    _build.I, _build.P,  # ptot, red
     _build.P,  # stream
 ]
 
@@ -266,7 +393,8 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     sizes = _layer_sizes(layers)
     ptot = sum(2 * hi + ho * hi + ho + 2 * nbasis + 1 for hi, ho in sizes)
-    nblk = -(-n // 16)
+    if not bf16 and L > BWD_MAX_LAYERS:
+        raise ValueError(f"K2 takes up to {BWD_MAX_LAYERS} layers; got {L}")
     f32 = dict(device=dev, dtype=torch.float32)
     stats = torch.empty((B, NSTAT, n), **f32)
     ldm = scratch_width(layers)
@@ -274,17 +402,25 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
     xbuf = torch.empty((L, B, n, ldm), **f32)
     gbuf = torch.empty((L, B, n, ldm), **f32)
     dZ = torch.empty((B, n, hin0), **f32)
-    part = torch.empty((B, nblk, ptot), **f32)
+    if bf16:  # K2bf: one 16-row block a CTA, every layer
+        lay, work = None, None
+        part = torch.empty((B * -(-n // 16) * ptot,), **f32)
+    else:
+        lay = bwd_layout(n, B, layers, nbasis, need_tau)
+        part = torch.empty((lay.part_floats,), **f32)
+        work = torch.empty((lay.work_floats,), **f32) if lay.work_floats else None
     red = torch.empty((B, ptot), **f32)
     err = fn(
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
         None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
+        None if bf16 else ctypes.cast(lay.plans, _build.P),
         int(nbasis == NBASIS_DIRECTED),
         int(bool(bf16)), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
-        ldm, _build.ptr(dZ), _build.ptr(part), ptot, _build.ptr(red),
+        ldm, _build.ptr(dZ), _build.ptr(part), part.numel(), _build.ptr(work),
+        0 if work is None else work.numel(), ptot, _build.ptr(red),
         _build.stream(),
     )
     _build.check(err, "K2bf megakernel_bwd" if bf16 else "K2 megakernel_bwd")

@@ -143,7 +143,7 @@ sys.argv = ["tgb", "--config", {cfg!r}, "epochs=1", "eval_freq=1", "log_freq=1",
 runpy.run_module("gncde_tpu_torch.run.tgb", run_name="__main__")
 """.format(cfg=str(ROOT / "configs" / "tgb" / "trade_perm_equiv_dir_gncde.yaml"),
            tmp=str(tmp_path))
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")  # one torch thread
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -246,3 +246,38 @@ def test_adaptive_solve_with_fused_step_matches_per_stage(megakernel, monkeypatc
     _close(on.ys.detach(), off.ys.detach(), 1e-5)
     for a, b in zip(g_on, g_off):
         _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (400, 4, (32, 32, 32, 32)),
+                                        (640, 1, (64, 64, 64)), (77, 3, (8, 8))],
+                         ids=["flagship", "bench", "n640", "odd-n77"])
+@pytest.mark.parametrize("G", [1, 7, 132, 264, 10_000])
+def test_fused_step_walk_visits_every_virtual_cta_once(n, B, widths, G):
+    """K11's f32 grid of G CTAs walks each phase's virtual CTAs (the prep's
+    16-row blocks, then each layer's row blocks and column groups of its
+    row-pass plan, per element) so that each is taken by exactly one CTA
+    and every (element, row, column) of a layer by exactly one virtual CTA;
+    its shared memory is the largest of its plans', within the card's 227
+    KB."""
+    plans = tfs.step_plans(n, B, widths)
+    assert all(p.bm in (8, 4) and p.cc == 1 and p.groups == 1 for p in plans)
+    phases = tfs.step_walk(n, B, plans)
+    assert len(phases) == 1 + len(plans)
+    for phase in phases:
+        taken = [v for g in range(min(G, len(phase))) for v in phase[g::G]]
+        assert sorted(taken) == sorted(phase) and len(set(taken)) == len(phase)
+    rows = np.zeros((B, n), np.int64)
+    for b, r, _ in phases[0]:
+        rows[b, r * 16:(r + 1) * 16] += 1
+    assert (rows == 1).all()
+    for p, H, phase in zip(plans, widths[1:], phases[1:]):
+        seen = np.zeros((B, n, H), np.int64)
+        for b, rb, gr in phase:
+            seen[b, rb * p.bm:(rb + 1) * p.bm, gr * p.cw:(gr + 1) * p.cw] += 1
+        assert (seen == 1).all()
+    layers = [dict(W=torch.zeros(ho, hi)) for hi, ho in zip(widths[:-1], widths[1:])]
+    assert tfs.step_smem_bytes(n, B, layers) == max(p.smem_bytes for p in plans)
+    # RowShared and prep_rows's static arrays beside the largest plan.
+    static = 4 * (2 * 128 + 2 * 2 * 256 + 8 + 2 * 16 * 64 + 8 * 64 + 3 * 256)
+    assert tfs.step_smem_bytes(n, B, layers) + static <= 227 * 1024
+

@@ -38,7 +38,7 @@ FLAGSHIP_PATH_FREE = NEVER + ("yaml", "networkx")
 
 
 def _run(code, timeout=120):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")  # one torch thread
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 

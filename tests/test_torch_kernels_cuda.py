@@ -143,22 +143,51 @@ def test_cuda_k1_matches_plain(cuda, widths, per_element):
     _assert_close(got, ref, 1e-4)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("need_tau", [False, True])
-@pytest.mark.parametrize("widths,per_element", CASES, ids=IDS)
-def test_cuda_k2_matches_plain(cuda, widths, per_element, need_tau):
-    planes, idx, tau, Z, layers, G = _inputs(cuda, widths, per_element, seed=1)
+# K2's reverse sweep at the main paths' shapes beside CASES: the trade field
+# (n=255, last layer 512: four or eight column groups and the finish pass),
+# the largest n (640, 64-wide layers), england's widths (n=129, last layer
+# 1024) and an odd shape (n=77, widths 13 -> 37 -> 70: a partial group, rows
+# not a multiple of 4 floats, so 4-byte copies of the last layer's g).
+K2_WIDE = [(255, 2, (32, 32, 32, 32, 512)), (640, 1, (64, 64, 64)),
+           (129, 2, (64, 64, 64, 1024)), (77, 3, (13, 37, 70))]
+K2_WIDE_IDS = ["trade-n255", "n640-64x3", "england-n129", "odd-n77"]
+
+
+def _k2_case(dev, case, seed, nbasis=8):
+    """K2's inputs for a CASES entry ``(widths, per_element)`` (n = N) or a
+    K2_WIDE one ``(n, B, widths)``."""
+    if len(case) == 2:
+        return _inputs(dev, case[0], case[1], seed=seed, nbasis=nbasis)
+    n, nb, widths = case
+    return chip_smoke.make_inputs(torch, n, nb, widths, seed=seed, nbasis=nbasis)
+
+
+def _check_k2(inputs, need_tau, nbasis):
+    """K2 within 1e-3 of every cotangent's scale of the plain version, one
+    launch counted, and a second launch bitwise equal."""
+    planes, idx, tau, Z, layers, G = inputs
     before = mkb.megakernel_vf_bwd.launches
     got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
+    again = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
     ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
     torch.cuda.synchronize()
-    assert mkb.megakernel_vf_bwd.launches == before + 1
+    assert mkb.megakernel_vf_bwd.launches == before + 2
     _assert_close(got[1], ref[1], 1e-3)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
     if need_tau:
         _assert_close(got[0], ref[0], 1e-3)
-    for gl, rl in zip(got[2], ref[2]):
-        for a, b in zip(gl, rl):
+    for gl, rl, al in zip(got[2], ref[2], again[2]):
+        assert gl[4].shape == (Z.shape[0], nbasis, 2)
+        for a, b, c in zip(gl, rl, al):
             _assert_close(a, b, 1e-3)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("need_tau", [False, True])
+@pytest.mark.parametrize("case", [*CASES, *K2_WIDE], ids=[*IDS, *K2_WIDE_IDS])
+def test_cuda_k2_matches_plain(cuda, case, need_tau):
+    _check_k2(_k2_case(cuda, case, seed=1), need_tau, 8)
 
 
 @pytest.mark.requires_cuda
@@ -1292,22 +1321,11 @@ def test_cuda_k1_directed_matches_plain(cuda, widths, per_element):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("need_tau", [False, True])
-@pytest.mark.parametrize("widths,per_element", DIR_CASES, ids=DIR_IDS)
-def test_cuda_k2_directed_matches_plain(cuda, widths, per_element, need_tau):
-    planes, idx, tau, Z, layers, G = _inputs(cuda, widths, per_element, seed=8, nbasis=11)
-    _assert_asymmetric(planes, idx, tau)
-    before = mkb.megakernel_vf_bwd.launches
-    got = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
-    ref = mkb.plain_vf_bwd(planes, idx, tau, Z, layers, G, need_tau)
-    torch.cuda.synchronize()
-    assert mkb.megakernel_vf_bwd.launches == before + 1
-    _assert_close(got[1], ref[1], 1e-3)
-    if need_tau:
-        _assert_close(got[0], ref[0], 1e-3)
-    for gl, rl in zip(got[2], ref[2]):
-        assert gl[4].shape == (B, 11, 2)
-        for a, b in zip(gl, rl):
-            _assert_close(a, b, 1e-3)
+@pytest.mark.parametrize("case", [*DIR_CASES, *K2_WIDE], ids=[*DIR_IDS, *K2_WIDE_IDS])
+def test_cuda_k2_directed_matches_plain(cuda, case, need_tau):
+    inputs = _k2_case(cuda, case, seed=8, nbasis=11)
+    _assert_asymmetric(*inputs[:3])
+    _check_k2(inputs, need_tau, 11)
 
 
 @pytest.mark.requires_cuda
@@ -1882,6 +1900,70 @@ def test_cuda_k1_largest_row_plan_launches_at_n640(cuda, monkeypatch):
         ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
         torch.cuda.synchronize()
         _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k2_largest_sweep_plan_launches_at_n640(cuda, monkeypatch):
+    """The largest shared memory the reverse sweep's plans ask for (n=640,
+    dtau's operands, CTAs of 8 rows, 64-column groups: 198,272 bytes) within
+    the kernel's own allowance, on both bases, matching the plain version."""
+    n, widths = 640, (64, 64, 512)
+    monkeypatch.setattr(mkb, "BWD_BMS", (8,))
+    plans = mkb.bwd_row_plans(n, 1, widths, True)
+    assert max(p.smem_bytes for p in plans) == 198_272 <= mkb.BWD_SMEM_MAX
+    assert plans[-1].groups == 8
+    for nbasis in (8, 11):
+        inputs = chip_smoke.make_inputs(torch, n, 1, widths, nbasis=nbasis)
+        _check_k2(inputs, True, nbasis)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bm", [16, 8, 4])
+def test_cuda_k2_every_sweep_plan_matches_plain(cuda, bm, monkeypatch):
+    """Every CTA height of the sweep (the trade field, directed, with dtau)
+    within K2's bound, bitwise repeatable."""
+    monkeypatch.setattr(mkb, "BWD_BMS", (bm,))
+    inputs = chip_smoke.make_inputs(torch, *K2_WIDE[0], seed=3, nbasis=11)
+    _check_k2(inputs, True, 11)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+@pytest.mark.parametrize("shape", ["flagship", "bench"])
+def test_cuda_fused_step_is_bitwise_the_per_stage_route(cuda, shape, nbasis):
+    """K11 (K11d) runs each stage on K1's row pass and plans: y1, err, f1
+    and every stage derivative bit for bit the per-stage route's (six K1 or
+    K1d launches and the solver's stage combinations)."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    s = chip_smoke.STEP_SHAPES[shape]
+    planes, ts, t, y, h, f0, layers = chip_smoke.make_step_inputs(torch, **s, nbasis=nbasis)
+    got = tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)
+    ref = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab,
+                              stage=mk.megakernel_vf_eval)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_step_largest_row_plan_launches_at_n640(cuda, monkeypatch):
+    """K11's largest stage plan (n=640, 64-wide layers, CTAs of 8 rows:
+    47,744 bytes of dynamic shared memory) launches within its allowance
+    and equals the per-stage route bit for bit."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("bosh3")
+    monkeypatch.setattr(tfs, "STEP_BMS", (8,))
+    planes, ts, t, y, h, f0, layers = chip_smoke.make_step_inputs(torch, 640, 1, (64, 64, 64))
+    assert tfs.step_smem_bytes(640, 1, layers) == 47_744
+    got = tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab)
+    ref = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab,
+                              stage=mk.megakernel_vf_eval)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.requires_cuda

@@ -179,3 +179,81 @@ def test_k1_row_plan_fills_the_card_at_the_main_path_shapes(n, B, widths):
     assert min(p.ctas for p in plans) >= 132
     if widths[-1] == 512:
         assert (plans[-1].bm, plans[-1].groups, plans[-1].ctas) == (16, 4, 256)
+
+
+# K2's f32 reverse sweep's static shared memory (csrc/bwd_sweep.cuh
+# BwdShared: colS, colG, colU, the slices' sums, scratch, zn, dz, inv, the
+# row dots, the rows' dvec and v, the warps' rank-term dots).
+BWD_STATIC_BYTES = 4 * (3 * 128 + 3 * 256 + 8 + 2 * 16 * 64 + 16 + 16 * 3 + 16 * 2 + 8 * 14)
+
+
+def _check_bwd_plan(p, n, B, H, tau):
+    assert p.bm in (4, 8, 16) and p.cc in (1, 2, 4) and p.cw == 512 * p.cc // p.bm
+    assert p.cw in (32, 64, 128)
+    assert (p.groups - 1) * p.cw < H <= p.groups * p.cw  # no empty group
+    assert p.ctas == -(-n // p.bm) * p.groups * B
+    assert p.smem_bytes == mkb.bwd_smem_bytes(n, p.bm, p.cw, H, tau) <= mkb.BWD_SMEM_MAX
+    assert mkb.BWD_SMEM_MAX + BWD_STATIC_BYTES <= SMEM_LIMIT
+    assert mkb.BWD_STATIC_BYTES == BWD_STATIC_BYTES
+
+
+def test_k2_sweep_plan_fits_the_card_at_every_n_and_width():
+    """K2's reverse-sweep plan (``bwd_row_plan``, plain Python) for every n
+    the kernels serve and widths up to MAX_OUT, with and without dtau's
+    operands: a CTA shape the sweep is built for (csrc/bwd_sweep.cuh
+    mk_bwd_f32 refuses any other) and shared memory within the card's 227
+    KB (the largest n at every width 1 .. 4096, which bounds the rest)."""
+    for tau in (False, True):
+        for n in range(1, mk.MEGAKERNEL_MAX_N + 1, 3):
+            for H in WIDTHS:
+                _check_bwd_plan(mkb.bwd_row_plan(n, 4, H, tau), n, 4, H, tau)
+        for H in range(1, mk.MAX_OUT + 1, 5):
+            n = mk.MEGAKERNEL_MAX_N
+            _check_bwd_plan(mkb.bwd_row_plan(n, 1, H, tau), n, 1, H, tau)
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512)),
+                                        (640, 1, (64, 64, 64)), (129, 2, (64, 64, 64, 1024)),
+                                        (77, 3, (13, 37, 70))],
+                         ids=["flagship", "trade", "n640", "england-n129", "odd-n77"])
+@pytest.mark.parametrize("tau", [False, True])
+def test_k2_sweep_plan_visits_every_row_block_and_group_once(n, B, widths, tau):
+    """The sweep's grid (row blocks, column groups) of every layer covers
+    each (row, output column) exactly once, and the layers' partial blocks
+    and the several-group scratch are what the launch allocates
+    (``bwd_layout``)."""
+    plans = mkb.bwd_row_plans(n, B, widths, tau)
+    for p, H in zip(plans, widths[1:]):
+        seen = np.zeros((n, H), np.int64)
+        for rb in range(-(-n // p.bm)):
+            for gr in range(p.groups):
+                seen[rb * p.bm:(rb + 1) * p.bm, gr * p.cw:(gr + 1) * p.cw] += 1
+        assert (seen == 1).all()
+    nb = 8
+    layers = [dict(W=torch.zeros(ho, hi)) for hi, ho in zip(widths[:-1], widths[1:])]
+    lay = mkb.bwd_layout(n, B, layers, nb, tau)
+    part = sum(B * -(-n // p.bm) * (2 * hi + ho * hi + ho + 2 * nb + 1)
+               for p, hi, ho in zip(plans, widths[:-1], widths[1:]))
+    assert lay.part_floats == part
+    assert list(lay.plans) == [x for p in plans for x in (p.bm, p.cc, p.groups)]
+    assert (lay.work_floats > 0) == any(p.groups > 1 for p in plans)
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512))],
+                         ids=["flagship", "trade"])
+def test_k2_sweep_plan_fills_the_card_at_the_main_path_shapes(n, B, widths):
+    """Every layer's sweep runs at least one CTA per SM (132), all in one
+    wave, at the flagship and trade shapes without dtau (the main paths'
+    calls), but the trade's 512-wide layer: column groups of 16-row CTAs in
+    two waves (one CTA an SM, its shared memory), fewer than any other plan
+    takes."""
+    plans = mkb.bwd_row_plans(n, B, widths, False)
+    assert min(p.ctas for p in plans) >= 132
+    assert [mkb.bwd_waves(p) for p in plans[:-1]] == [1] * (len(plans) - 1)
+    if widths[-1] == 512:
+        assert plans[-1].bm == 16 and plans[-1].groups == 4 and mkb.bwd_waves(plans[-1]) == 2
+    else:
+        assert mkb.bwd_waves(plans[-1]) == 1
+    for p, h in zip(plans, widths[1:]):
+        others = [mkb.bwd_row_plan(n, B, h, False, (bm,)) for bm in (16, 8, 4)]
+        assert mkb.bwd_waves(p) == min(mkb.bwd_waves(o) for o in others)

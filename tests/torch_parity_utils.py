@@ -13,6 +13,14 @@ import torch
 from gncde_tpu.nn.module import _leaf_key
 from gncde_tpu_torch.nn import convert
 
+# The suite runs in several pytest-xdist workers on one CPU. By default torch
+# gives each of them one OpenMP thread per core, and those threads spin
+# against each other and against the JAX workers: a port test then runs ten
+# times slower or more than alone. One intra-op thread a process keeps each
+# worker on its own core. Every worker imports this module while it collects
+# the port's tests, so the setting holds for all of them.
+torch.set_num_threads(1)
+
 
 def jax_leaves(tree) -> dict:
     """{leaf path: numpy array} of a gncde_tpu module (module.py _leaf_key)."""

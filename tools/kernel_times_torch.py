@@ -30,9 +30,21 @@ Shapes:
   with each launch's device ms in order (``launch_device_ms``: K1's prep
   pass, then layer 1 .. L); K1 and K1d with the row pass's plan and, as
   their yardstick, one cuBLAS f32 bmm per layer on C formed beforehand;
-  K11: the flagship and bench step shapes of phase 14 (Tsit5; its layers
-  must map the state width to itself, so no trade shape); K1bf, K1dbf (flagship,
-  trade) and K11bf (step shapes) on bf16 planes, kept for ``--compare``.
+  K2 and K2d with the reverse sweep's plan and, as theirs, two cuBLAS f32
+  calls per layer (``chip_smoke.k2_yardstick``);
+* K11, K11d: the flagship and bench step shapes of phase 14 (Tsit5; its
+  layers must map the state width to itself, so no trade shape), with the
+  step kernel's device ms by name (``step_kernel_device_ms``) beside the
+  per-stage route's on the same stage inputs (``per_stage_k1_device_ms``:
+  its six K1 or K1d launches) and the stages' plans;
+* K1bf, K1dbf (flagship, trade), K2bf, K2dbf (flagship, trade), K11bf,
+  K11dbf (step shapes) on bf16 planes; K6b, K6b-bf (genre-H128,
+  trade-H512), K7, K7bf (genre and trade planes), K12, K13 (phase 14's
+  apply shapes): device ms beside the wrapper ms that ``chip_smoke.py``
+  prints, and the outputs for ``--compare``;
+* K2-ablation: K2 at the flagship, trade and n=640 shapes with parts of its
+  reverse sweep dropped (``K2_ABLATION``, ``csrc/bwd_probe.cu``), and the
+  main path's kernel under each sweep CTA height, without and with dtau.
 
 It prints one JSON line per kernel and shape:
 
@@ -48,8 +60,7 @@ It prints one JSON line per kernel and shape:
   beforehand (f32 planes: f32 B and vectors; K6a-bf: the bf16-formed B as
   f32 with the f32 vectors, or bf16 with the bf16 vectors); K4's four bf16
   cuBLAS products ``A g``, ``dA g``, ``A^T g``, ``dA^T g``; K10's ``A_csr @
-  M`` (``library_*``, with its cuSPARSE kernels' names). K1, K2 and K11
-  have none;
+  M`` (``library_*``, with its cuSPARSE kernels' names). K11 has none;
 * ``splits``: K3, K4 and K6a at genre shapes with the reduce extent split in
   S parts (``ops.tiled.fwd2_splits`` or ``mma_splits`` replaced by the
   constant S for the run), where the checkout's kernel has that plan.
@@ -361,6 +372,9 @@ def megakernel_lines(cs, torch, names, saved):
                 trace = {}
                 mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, trace=trace)
                 saved[f"{name}-recompute-M/{label}"] = [m.cpu() for m in trace["M"]]
+                yardstick = cs.k2_yardstick(torch, planes, idx, tau, layers, G, trace)
+                yname = "yardstick_two_bmm_per_layer_ms"
+                extra["plan"] = cs.k2_bwd_plans(s)
             extra["launch_device_ms"] = cs.launch_device_ms(torch, kernel)
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain, bms, by,
                     yardstick, yname, saved=saved, extra=extra)
@@ -380,22 +394,134 @@ def megakernel_lines(cs, torch, names, saved):
                     *cs.k1_bound(s, True), saved=saved)
             del planes, Z, layers
             torch.cuda.empty_cache()
-    for name in ("K11", "K11bf"):
+    for name in ("K11", "K11d", "K11bf", "K11dbf"):
         if name not in names:
             continue
         tab = get_tableau("tsit5")
+        bf, nbasis = name.endswith("bf"), 11 if name.startswith("K11d") else 8
         for label, s in cs.STEP_SHAPES.items():
-            planes, ts, t, y, h, f0, layers = cs.make_step_inputs(torch, **s)
-            if name == "K11bf":
+            planes, ts, t, y, h, f0, layers = cs.make_step_inputs(torch, **s, nbasis=nbasis)
+            if bf:
                 planes = tuple(p.to(torch.bfloat16) for p in planes)
-            bf = name == "K11bf"
             kernel = lambda: tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab, bf)[:3]  # noqa: E731
             plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, bf)[:3]  # noqa: E731
+            # The step's own kernel (one launch a call at these shapes).
+            extra = {"step_kernel_device_ms": cs.named_device_ms(torch, kernel, r"\bfs::step", 1)}
+            if not bf:  # what K11 must beat: six K1 (K1d) launches and the stage glue
+                extra.update(per_stage_route(cs, torch, lambda: tfs._step_reference(
+                    planes, ts, t, y, h, f0, layers, tab, stage=mk.megakernel_vf_eval)[:3],
+                    len(layers)))
+                plans = getattr(tfs, "step_plans", None)
+                extra["plan"] = plans and [p._asdict() for p in plans(s["n"], s["B"],
+                                                                      s["widths"])]
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
                     *cs.step_bound(s["n"], s["B"], s["widths"], 6, bf),
-                    saved=saved)
+                    saved=saved, extra=extra)
             del planes, y, f0, layers
             torch.cuda.empty_cache()
+
+
+def per_stage_route(cs, torch, route, L):
+    """The per-stage route of one step at K11's inputs (six K1 or K1d
+    launches on the same stage inputs and the torch glue between them):
+    its device ms, and the device ms of its 6 (1 + L) K1 launches alone
+    (the kernels of namespace ``mk``)."""
+    dev, by_name = time_both(cs, torch, route)[1:]
+    return {"per_stage_route_device_ms": dev,
+            "per_stage_k1_device_ms": cs.named_device_ms(torch, route, r"\bmk::", 6 * (1 + L)),
+            "per_stage_route_device_by_name": by_name}
+
+
+def bf16_bwd_lines(cs, torch, names, saved):
+    """K2bf and K2dbf at the flagship and trade shapes on bf16 planes: the
+    wrapper and device ms (their error is the free-running one against the
+    plain bf16 version; chip_smoke.py phase 21 holds them layer by
+    layer)."""
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    for name in ("K2bf", "K2dbf"):
+        if name not in names:
+            continue
+        for label in ("flagship", "trade"):
+            s = cs.SHAPES[label]
+            planes, idx, tau, Z, layers, G = cs.make_inputs(
+                torch, **s, nbasis=11 if name == "K2dbf" else 8)
+            planes = tuple(p.to(torch.bfloat16) for p in planes)
+            kernel = lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False,  # noqa: E731
+                                                   True)[1:2]
+            plain = lambda: mkb.plain_vf_bwd_bf16(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
+            line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                    *cs.k2_bound(s, True), saved=saved)
+            del planes, Z, layers, G
+            torch.cuda.empty_cache()
+
+
+#: K6b's and K7's shapes: genre-H128 (phases 9, 24) and trade-H512 (phases
+#: 23, 25); K7 does not depend on H.
+K6B_SHAPES = ("genre-H128", "trade-H512")
+
+
+def enc_idx_lines(cs, torch, names, saved):
+    """K6b, K6b-bf (bf16 planes and vectors), K7 and K7bf (bf16 output) at
+    :data:`K6B_SHAPES`, and K12, K13 at phase 14's apply shapes: wrapper
+    and device ms beside their plain versions and bounds (chip_smoke.py
+    phases 8, 14 and 22 give only their wrapper ms)."""
+    import numpy as np
+
+    from gncde_tpu_torch.ops import fused_basis as tfb
+    from gncde_tpu_torch.ops import modulate as tmod
+    from gncde_tpu_torch.ops import pair as tp
+    from gncde_tpu_torch.ops import pipeline as tpl
+
+    bf = torch.bfloat16
+    for label in K6B_SHAPES:
+        s = PAIR_SHAPES[label]
+        n, H, B = s["n"], s["H"], s["B"]
+        x = cs.make_pair_inputs(torch, n, H, B)
+        ma, md = x["mlps"]
+        for name in ("K6b", "K6b-bf"):
+            if name not in names:
+                continue
+            low = name == "K6b-bf"
+            args = tuple(x[k].to(bf) if low else x[k]
+                         for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+            kernel = lambda: (tp.pair_dw_call(*args),)  # noqa: E731
+            plain = lambda: (tp.plain_pair_dw(*args),)  # noqa: E731
+            sizes = dict(plane_bytes=2, vec_bytes=2) if low else {}
+            with torch.no_grad():
+                line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                        *cs.pair_bound(name, n, H, B, **sizes), saved=saved)
+        for name in ("K7", "K7bf"):
+            if name not in names:
+                continue
+            out = bf if name == "K7bf" else torch.float32
+            kernel = lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"], out)  # noqa: E731
+            plain = lambda: tmod.plain_modulate_pair(x["A"], x["dA"], ma, md, x["emb"], out)  # noqa: E731
+            sizes = dict(plane_bytes=2) if name == "K7bf" else {}
+            with torch.no_grad():
+                line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                        *cs.pair_bound(name, n, H, B, **sizes), saved=saved)
+        del x
+        torch.cuda.empty_cache()
+    for label, s in cs.APPLY_SHAPES.items():
+        n, H, B = s["n"], s["H"], s["B"]
+        rng = np.random.default_rng(2)
+        f = lambda *shape, sc=1.0: torch.tensor(  # noqa: E731
+            (sc * rng.normal(size=shape)).astype(np.float32), device="cuda")
+        A, dA, M = f(B, n, n, sc=0.1), f(B, n, n, sc=0.1), f(B, n, H)
+        dvec, u, sv, w, q = f(B, n), f(B, n), f(B, H), f(B, H), f(2, 2)
+        calls = {
+            "K12": (lambda: (tfb._pallas_forward(A, dA, M, q, dvec, u, sv, w),),
+                    lambda: (tfb.plain_pallas_forward(A, dA, M, q, dvec, u, sv, w),)),
+            "K13": (lambda: (tpl.fused_conv_stream(A, dA, M, dvec, u, sv, w, q),),
+                    lambda: (tpl.plain_conv_stream(A, dA, M, dvec, u, sv, w, q),)),
+        }
+        for name, (kernel, plain) in calls.items():
+            if name in names:
+                with torch.no_grad():
+                    line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
+                            *cs.apply_bound(n, H, B), saved=saved)
+        torch.cuda.empty_cache()
 
 
 def sparse_cases(cs, torch, cache):
@@ -578,6 +704,98 @@ def k1_ablation_lines(cs, torch):
             torch.cuda.empty_cache()
 
 
+#: K2's reverse-sweep probes (``gncde_mk_bwd_probe`` in csrc/bwd_probe.cu,
+#: csrc/bwd_sweep.cuh BwdProbe bits), every sweep launch of a call with the
+#: same bits, undirected, without dtau. ``full`` is the main path's kernel
+#: through its own entry point.
+K2_ABLATION = {"full": 0, "no_plane_reads": 1, "no_forming": 2, "no_products": 4,
+               "no_ring": 8, "no_column_sums": 16, "ring_only": 2 | 4 | 16, "skeleton": 31}
+
+
+def k2_probe_call(torch, planes, idx, tau, Z, layers, G, probe):
+    """One K2 call (f32 planes, undirected, no dtau) with every sweep launch
+    on the probe bits ``probe`` (the wrapper's operands, plans and buffers);
+    bits 0 are the main path's wrapper itself."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    if probe == 0:
+        return lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False)
+    fn = _build.load("bwd_probe").gncde_mk_bwd_probe
+    P, L, I = _build.P, _build.L, _build.I
+    fn.argtypes = [P, P, P, P, L, P, P, P, P, I, I, I, P, P, P, P, P, P, P, P, I, P, P, L, P, L,
+                   I, P, I, P]
+    fn.restype = ctypes.c_int
+    B, n, hin0 = Z.shape
+    nl = len(layers)
+    bstride, idx32, tau32, dims, ptrs, keep = mk.launch_args(planes, idx, tau, layers)
+    lay = mkb.bwd_layout(n, B, layers, 8, False)
+    ptot = sum(2 * hi + ho * hi + ho + 17 for hi, ho in mkb._layer_sizes(layers))
+    ldm = mk.scratch_width(layers)
+    f32 = dict(device=Z.device)
+    stats = torch.empty((B, mk.NSTAT, n), **f32)
+    bufs = [torch.empty((nl, B, n, ldm), **f32) for _ in range(3)]
+    dZ = torch.empty((B, n, hin0), **f32)
+    part = torch.empty((lay.part_floats,), **f32)
+    work = torch.empty((max(lay.work_floats, 1),), **f32)
+    red = torch.empty((B, ptot), **f32)
+    plan = mk.plan_array(n, B, layers)
+
+    def call():
+        _ = keep  # the parameter copies the pointers point into
+        _build.check(fn(*[_build.ptr(p) for p in planes], bstride, _build.ptr(idx32),
+                        _build.ptr(tau32), _build.ptr(Z), _build.ptr(G), B, n, nl,
+                        ctypes.cast(dims, P), ctypes.cast(ptrs, P), ctypes.cast(plan, P),
+                        ctypes.cast(lay.plans, P), _build.ptr(stats),
+                        *[_build.ptr(x) for x in bufs], ldm, _build.ptr(dZ),
+                        _build.ptr(part), part.numel(), _build.ptr(work), work.numel(), ptot,
+                        _build.ptr(red), probe, _build.stream()), "K2 probe")
+    return call
+
+
+def k2_ablation_lines(cs, torch):
+    """K2 at the flagship, trade and n=640 shapes (undirected, no dtau): the
+    device ms of each :data:`K2_ABLATION` variant, in total and per launch,
+    and of the main path's kernel on its own plans and under each sweep CTA
+    height (``BWD_BMS`` forced), without and with dtau."""
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
+                     **cs.K1_EDGE}.items():
+        planes, idx, tau, Z, layers, G = cs.make_inputs(torch, **s)
+        line = {"kernel": "K2-ablation", "shape": label,
+                "plan": [p._asdict() for p in mkb.bwd_row_plans(s["n"], s["B"], s["widths"],
+                                                                 False)]}
+        for var, bits in K2_ABLATION.items():
+            call = k2_probe_call(torch, planes, idx, tau, Z, layers, G, bits)
+            call()
+            line[f"{var}_device_ms"] = cs.device_ms(torch, call)[0]
+            launches = cs.launch_device_ms(torch, call)
+            line[f"{var}_launch_ms"] = launches and [round(x["ms"], 5) for x in launches]
+        bms = mkb.BWD_BMS
+        try:
+            for bm in (None, 16, 8, 4):
+                mkb.BWD_BMS = bms if bm is None else (bm,)
+                for need_tau in (False, True):
+                    key = ("default" if bm is None else f"bm{bm}") + ("_tau" if need_tau else "")
+                    try:  # None where no plan of this height fits the layer
+                        mkb.bwd_row_plans(s["n"], s["B"], s["widths"], need_tau)
+                    except ValueError:
+                        line[f"{key}_device_ms"] = None
+                        continue
+                    line[f"{key}_device_ms"] = cs.device_ms(
+                        torch, lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G,
+                                                             need_tau))[0]
+        finally:
+            mkb.BWD_BMS = bms
+        cs.emit(line)
+        del planes, Z, layers, G
+        torch.cuda.empty_cache()
+
+
 def k10_lines(cs, torch, saved):
     from gncde_tpu_torch.ops import ell_spmm as tell
 
@@ -641,6 +859,10 @@ def kernel_lines(cs, torch, only, splits, saved):
     if "K10" in only:
         k10_lines(cs, torch, saved)
     megakernel_lines(cs, torch, only, saved)
+    bf16_bwd_lines(cs, torch, only, saved)
+    enc_idx_lines(cs, torch, only, saved)
+    if "K2-ablation" in only:
+        k2_ablation_lines(cs, torch)
 
 
 def main() -> int:
@@ -648,7 +870,9 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--only", default="K3,K4,K6a,K6a-bf,K10",
                     help="comma-separated: K3, K4, K6a, K6a-bf, K8, K10, K1, K2, K1d, K2d, "
-                         "K11, K1bf, K1dbf, K11bf, K6a-ablation, K8-ablation, K1-ablation")
+                         "K11, K11d, K1bf, K1dbf, K2bf, K2dbf, K11bf, K11dbf, K6b, K6b-bf, "
+                         "K7, K7bf, K12, K13, K6a-ablation, K8-ablation, K1-ablation, "
+                         "K2-ablation")
     ap.add_argument("--splits", default="",
                     help="K3, K4, K6a: split counts to time at the genre shapes, e.g. 1,2,4")
     ap.add_argument("--root", default=str(HERE), help="checkout whose gncde_tpu_torch runs")
@@ -686,7 +910,9 @@ def main() -> int:
     if any(k in only for k in ("K4", "K6a", "K6a-bf")):
         ptx["plane_mma"] = ptxas_lines(root, "plane_mma", r".")
     for lib, ks in (("megakernel_fwd", ("K1", "K1d", "K1bf", "K1dbf")),
-                    ("megakernel_bwd", ("K2", "K2d")), ("fused_step", ("K11", "K11bf"))):
+                    ("megakernel_bwd", ("K2", "K2d", "K2bf", "K2dbf")),
+                    ("bwd_probe", ("K2-ablation",)),
+                    ("fused_step", ("K11", "K11d", "K11bf", "K11dbf"))):
         if any(k in only for k in ks):
             ptx[lib] = ptxas_lines(root, lib, r".")
     if "K8" in only:
