@@ -5,9 +5,11 @@
 Phases, each printing one line before the last:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build every kernel from gncde_tpu_torch/csrc (K1, K2, the tiled kernels
-     K3-K6b, K7, K8/K9, K10, K11, K12/K13, and their directed and bf16
-     instantiations), one nvcc per source, all started together (nvcc
-     seconds per source);
+     K3-K6b, K7, K8/K9, K10, K11, K12/K13, their directed and bf16
+     instantiations, and the design probes P1-P6), one nvcc per source, all
+     started together (nvcc seconds per source); not the ablation probes'
+     libraries (:data:`ABLATION_PROBES`), which only
+     tools/kernel_times_torch.py loads;
   3. K1 (forward vf kernel) against its plain PyTorch version at the
      flagship shape (n=400, B=4, widths 16 -> 16 -> 16), the bench shape
      (widths 32 x 4), the trade shape (n=255, B=4, widths 32 -> 32 -> 32
@@ -48,10 +50,14 @@ Phases, each printing one line before the last:
      must be finite and K3 and K4 must have launched;
   8. the enc_idx kernels K7 (modulate_pair), K6a (pair) and K6b (pair_dw)
      against their plain versions at the tgbn-genre shape (n=1505, H 8 and
-     128, B=1) and n=300, H=5, B=2; max abs err <= 1e-5 * max|ref| for K7
-     (no reductions), <= 1e-4 for K6a/K6b (f32 sums in another order); for
-     K6a also the time of two cuBLAS f32 products on pre-formed B1, B2 as a
-     yardstick;
+     128, B=1), n=300, H=5, B=2 and (K6a, K6b) 300 x 211 planes, H=13,
+     B=2; max abs err <= 1e-5 * max|ref| for K7 (no reductions), <= 1e-4
+     for K6a/K6b (f32 sums in another order); for K6a also the time of two
+     cuBLAS f32 products on pre-formed B1, B2 as a yardstick, for K6b at
+     genre-H128 its plan, device time, the time of one ``torch.einsum``
+     that computes its function on stacked operands (the kernels line's
+     library_ms) and that of one cuBLAS bmm of [A; dA] with [Mk | Gc] and
+     the multiply-sum with [Gr | Mi];
   9. the enc_idx main path: ``gncde_tpu_torch.run.tgb.main`` trains
      configs/tgb/genre_perm_equiv_enc_idx_gncde.yaml for one epoch at full
      width (n=1505, vf hidden 8, 3 layers, idx_dim 8, two modulation MLPs of
@@ -157,7 +163,9 @@ Phases, each printing one line before the last:
      eval each at the stage input formed from the kernel's own, y1 and err
      formed from them (1e-4), every K2bf launch of its backward layer by
      layer (1e-3; a single stage's basis cotangents 5e-3);
-     two launches bitwise equal; the free-running errors beside them.
+     two launches bitwise equal; the free-running errors beside them;
+     K2bf and K2dbf at the flagship shape also with the sweep's plan,
+     device time and two-cuBLAS-bf16 yardstick.
      Then the flagship field at init and its gradients (state and every
      field parameter) through K1bf/K2bf on phase 5's data, both
      bases: bitwise equal to a K1bf and a K2bf launch on the same inputs,
@@ -174,7 +182,11 @@ Phases, each printing one line before the last:
      one bf16 ulp per element beyond K7's f32 bound and bitwise K7's f32
      output rounded once; K6a-bf on bf16 planes with f32 vectors (the
      forward) and with bf16 vectors (the backward) and K6b-bf on bf16
-     operands within 1e-4 * max|ref|; each timed beside the f32 kernel;
+     operands within 1e-4 * max|ref| (K6b-bf also on phase 8's
+     rectangular planes, and the f32 K6b held to the same bound at each
+     shape, the trade width's only check); each timed beside the f32
+     kernel, K6b-bf at the trade width with its plan, device time, library
+     time and yardstick as phase 8's (and the f32 K6b's device time);
  23. configs/tgb/trade_perm_equiv_dir_enc_idx_gncde.yaml (the directed
      enc_idx field: n=255, hidden 32, 4 layers, last layer 512, an mlp
      index encoder of width 512) through ``gncde_tpu_torch.run.tgb.main``
@@ -426,14 +438,20 @@ PROBE_DMA_TOL = 1e-5
 PROBE_TIMER_ARGS = ("--evals", "10", "--steps", "2", "--blocks", "3")
 #: The device entry points of the kernels whose design changed since their
 #: port (the kernels line names them): K1's and K2's forward (the prep pass
-#: and the f32 row pass on its plan; K2's reverse sweep and reduction) and K8.
+#: and the f32 row pass on its plan; K2's reverse sweep and reduction), K2bf's
+#: (K1bf's passes, the bf16 sweep), K6b's (K6b-bf: T = bf16), K8 and K11.
 ENTRY_POINTS = {
     "K1": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (plan: "
            "ops.megakernel.row_plan)"],
     "K2": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (K1's plan)",
            "mk::bwd_sweep_kernel<DIR, CC, 0> (plan: ops.megakernel_bwd.bwd_row_plan)",
-           "mk::bwd_finish_kernel<DIR> (layers of several column groups)",
+           "mk::bwd_finish_kernel<DIR, false> (layers of several column groups)",
            "mk::bwd_reduce_kernel"],
+    "K2bf": ["mk::prep_kernel<DIR, true>", "mk::fwd_rows_kernel<DIR, true> (K1bf's passes)",
+             "mk::bwd_sweep_bf_kernel<DIR, 0> (plan: ops.megakernel_bwd.bwd_row_plan, bf16)",
+             "mk::bwd_finish_kernel<DIR, true> (layers of several column groups)",
+             "mk::bwd_reduce_kernel"],
+    "K6b": ["pk::pair_dw_kernel<T, 0> (plan: ops.pair.pair_dw_plan)", "pk::sum_blocks_kernel"],
     "K8": ["bcsr::spmm_kernel<RT, CT> (plan: ops.bcsr.spmm_plan)"],
     "K11": ["fs::step_rows_kernel<DIR> (cooperative; each stage's layers "
             "mk::rows_body<DIR, 1, 0> on ops.fused_step.step_plans)"],
@@ -442,6 +460,11 @@ ENTRY_POINTS = {
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+#: Products of f32 accuracy on the tensor cores: 3xTF32 (both operands f32)
+#: or 2xTF32 (one of them bf16, exact in TF32) passes at the 495 TFLOP/s
+#: TF32 peak, the least time such products take on the card.
+TF32X3_FLOPS = 495e12 / 3
+TF32X2_FLOPS = 495e12 / 2
 
 
 def bound(nbytes, *ops):
@@ -475,11 +498,17 @@ def phase_device(torch):
     return smi
 
 
+#: The libraries of the kernels' ablation probes (parts of a kernel's work
+#: dropped, for tools/kernel_times_torch.py): no phase runs them, and they
+#: took about a third of phase 2's nvcc time, so phase 2 leaves them out.
+ABLATION_PROBES = ("bwd_bf_probe", "bwd_probe", "plane_probe", "row_probe")
+
+
 def phase_build():
     from gncde_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = _build.sources()
+    names = [n for n in _build.sources() if n not in ABLATION_PROBES]
     _build.build(names)
     emit({"phase": 2, "sources": names, "build_s": time.perf_counter() - t0,
           "nvcc_s": dict(_build.BUILD_SECONDS)})
@@ -814,18 +843,19 @@ def k1_yardstick(torch, planes, idx, tau, layers, Ms):
     return lambda: [torch.bmm(C, M) for C, M in zip(Cs, Ms)]
 
 
-def k2_yardstick(torch, planes, idx, tau, layers, G, trace):
+def k2_yardstick(torch, planes, idx, tau, layers, G, trace, bf16=False):
     """The products of K2's reverse sweep, ranked on their own: per layer
-    two cuBLAS f32 calls, ``torch.bmm(C_l^T, g_l)`` on C^T formed
-    beforehand by the plain version and ``torch.bmm([A; dA], [M_l | g_l])``
-    (the basis dots' four products in one), with the kernel's own M_l and
-    output cotangent g_l (``trace``: G for the last layer, the masked
-    cotangent of the next layer's input before it). Not one call for K2's
-    function: it leaves out the recompute, the Hermite, the column sums,
-    the rank terms and the transforms' backward."""
+    two cuBLAS f32 calls (``bf16``, K2bf's: bf16 calls on its operands
+    rounded to bf16), ``torch.bmm(C_l^T, g_l)`` on C^T formed beforehand by
+    the plain version and ``torch.bmm([A; dA], [M_l | g_l])`` (the basis
+    dots' four products in one), with the kernel's own M_l and output
+    cotangent g_l (``trace``: G for the last layer, the masked cotangent of
+    the next layer's input before it). Not one call for K2's function: it
+    leaves out the recompute, the Hermite, the column sums, the rank terms
+    and the transforms' backward."""
     from gncde_tpu_torch.ops import megakernel as mk
 
-    A, dA = mk.hermite(planes, idx, tau)
+    A, dA = mk.hermite(tuple(p.float() for p in planes), idx, tau)
     At, dAt = A.transpose(-2, -1), dA.transpose(-2, -1)
     L = len(layers)
     Cts = [((1 + lp["basis"][0, 0]) * A + (1 + lp["basis"][0, 1]) * dA
@@ -834,18 +864,20 @@ def k2_yardstick(torch, planes, idx, tau, layers, G, trace):
     gs = [(G if l == L - 1 else trace["g"][l + 1]).contiguous() for l in range(L)]
     AdA = torch.cat([A, dA], 1).contiguous()
     Mg = [torch.cat([m, g], -1).contiguous() for m, g in zip(trace["M"], gs)]
+    if bf16:
+        bf = torch.bfloat16
+        Cts, gs, Mg, AdA = ([x.to(bf) for x in Cts], [x.to(bf) for x in gs],
+                            [x.to(bf) for x in Mg], AdA.to(bf))
     return lambda: [(torch.bmm(C, g), torch.bmm(AdA, mg)) for C, g, mg in zip(Cts, gs, Mg)]
 
 
-def k2_bwd_plans(s, need_tau=False):
-    """K2's f32 reverse sweep's launch plan per layer at shape ``s``
-    (``ops.megakernel_bwd.bwd_row_plans``), or None for a package without
-    one."""
+def k2_bwd_plans(s, need_tau=False, bf16=False):
+    """K2's reverse sweep's launch plan per layer at shape ``s``
+    (``ops.megakernel_bwd.bwd_row_plans``; ``bf16``: K2bf's)."""
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
 
-    plans = getattr(mkb, "bwd_row_plans", None)
-    return None if plans is None else [p._asdict() for p in plans(s["n"], s["B"],
-                                                                   s["widths"], need_tau)]
+    return [p._asdict() for p in mkb.bwd_row_plans(s["n"], s["B"], s["widths"], need_tau,
+                                                   bf16=bf16)]
 
 
 def k1_row_plans(s):
@@ -972,16 +1004,19 @@ def phase_k2(torch, results, name="K2", phase=4, shapes=SHAPES, nbasis=8, bf16=F
                 planes, idx, tau, Z, layers, G, need_tau))
             bms, by = k2_bound(s, bf16)
             dev = {}
-            if not bf16:  # the reverse sweep's plan, device ms and yardstick
+            # The reverse sweep's plan, device ms and yardstick (bf16: at the
+            # kernels line's shape only; the timer takes the others).
+            if not bf16 or (label == "flagship" and not need_tau):
                 kernel = lambda: mkb.megakernel_vf_bwd(  # noqa: E731
-                    planes, idx, tau, Z, layers, G, need_tau)
-                dev = {"plan": k2_bwd_plans(s, need_tau),
+                    planes, idx, tau, Z, layers, G, need_tau, bf16)
+                dev = {"plan": k2_bwd_plans(s, need_tau, bf16),
                        "device_ms": device_ms(torch, kernel)[0]}
                 if not need_tau:
                     trace = {}
-                    mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, trace=trace)
+                    mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, bf16,
+                                          trace=trace)
                     dev["yardstick_two_bmm_device_ms"] = device_ms(torch, k2_yardstick(
-                        torch, planes, idx, tau, layers, G, trace))[0]
+                        torch, planes, idx, tau, layers, G, trace, bf16))[0]
                 extra.update(dev)
             emit({"phase": phase, "kernel": name, "shape": label, **s,
                   "need_tau": need_tau, "max_rel_err": worst,
@@ -1278,12 +1313,16 @@ def pair_bound(name, n, H, B, w=8, depth=2, plane_bytes=4, vec_bytes=4, nc=None)
     """(bound_ms, bound_by) of one enc_idx kernel call on (B, n, nc) planes
     (nc = n by default): each input read once, each output written once (f32
     sums, the planes and vectors at their sizes), and the operations the
-    function needs at the peak for their operands' type: f32 at 67 TFLOP/s,
-    the products of bf16 planes and bf16 vectors (K6a-bf's backward form,
+    function needs at the peak for their operands' type: elementwise f32 at
+    67 TFLOP/s; the products of f32 planes and vectors (K6a, K6b) at the
+    3xTF32 rate, of bf16 planes and f32 vectors (K6a-bf's forward form) at
+    the 2xTF32 rate (:data:`TF32X3_FLOPS`: the f32 products run so on the
+    tensor cores), of bf16 planes and bf16 vectors (K6a-bf's backward form,
     K6b-bf) at the bf16 989 TFLOP/s."""
     nc = n if nc is None else nc
     nn, nh = n * nc * B, (n + nc) * H * B / 2
-    peak = BF16_FLOPS if plane_bytes == vec_bytes == 2 else F32_FLOPS
+    peak = (BF16_FLOPS if plane_bytes == vec_bytes == 2 else
+            TF32X3_FLOPS if plane_bytes == vec_bytes == 4 else TF32X2_FLOPS)
     if name.startswith("K6a"):  # A, dA, Mk, Mi -> rowpart, colpart: B1, B2, two products
         return bound(2 * plane_bytes * nn + 2 * vec_bytes * nh + 2 * 4 * nh + 16,
                      (6 * nn, F32_FLOPS), (4 * nn * H, peak))
@@ -1296,6 +1335,45 @@ def pair_bound(name, n, H, B, w=8, depth=2, plane_bytes=4, vec_bytes=4, nc=None)
     per = 4 * w + (depth - 1) * (2 * w * w + w) + 2 * w
     return bound(2 * 4 * nn + 2 * plane_bytes * nn + 2 * 2 * 4 * n * w,
                  (2 * per * nn, F32_FLOPS))
+
+
+def k6b_yardstick(torch, A, dA, Gr, Mk, Mi, Gc):
+    """K6b's yardstick on operands formed beforehand, in the planes' dtype:
+    one cuBLAS ``torch.bmm`` of the stacked planes [A; dA] with [Mk | Gc]
+    (A Mk, A Gc, dA Mk, dA Gc), then the multiply-sum with [Gr | Mi], per
+    element (B, 2, 2). Two calls, not one for K6b's function."""
+    B, nr, nc = A.shape
+    H = Gr.shape[-1]
+    X = torch.cat([A, dA], 1).contiguous()
+    Y = torch.cat([Mk, Gc], -1).contiguous()
+    W = torch.cat([Gr, Mi], -1).view(B, 1, nr, 2, H).contiguous()
+    return lambda: (torch.bmm(X, Y).view(B, 2, nr, 2, H) * W).sum((2, 4))
+
+
+def k6b_library(torch, A, dA, Gr, Mk, Mi, Gc):
+    """One PyTorch call that computes K6b's function on operands stacked
+    beforehand, in the planes' dtype: ``torch.einsum`` of [A; dA] with
+    [Gr; Mi] and [Mk; Gc], (B, 2, 2) = <A | dA, Gr Mk^T | Mi Gc^T>, in
+    K6b's order (P's two dots, then Q's) when flattened."""
+    X = torch.stack([A, dA], 1)
+    V = torch.stack([Gr, Mi], 1)
+    W = torch.stack([Mk, Gc], 1)
+    return lambda: torch.einsum("bxik,byih,bykh->byx", X, V, W)
+
+
+def k6b_timing(torch, kernel, args, ref, n, nc, H, B):
+    """K6b's device ms and plan, the one-call library time
+    (:func:`k6b_library`, its error against the plain version ``ref``
+    beside it) and the yardstick (:func:`k6b_yardstick`) timed both ways."""
+    from gncde_tpu_torch.ops import pair as tp
+
+    lib, yard = k6b_library(torch, *args), k6b_yardstick(torch, *args)
+    return {"device_ms": device_ms(torch, kernel)[0],
+            "plan": tp.pair_dw_plan(B, n, nc, H)._asdict(),
+            "library_ms": time_ms(torch, lib),
+            "library_max_rel_err": rel_err(torch, lib().reshape(B, 4).float(), ref)[0],
+            "yardstick_bmm_and_multiply_sum_ms": time_ms(torch, yard),
+            "yardstick_device_ms": device_ms(torch, yard)[0]}
 
 
 def phase_pair(torch, results):
@@ -1312,9 +1390,8 @@ def phase_pair(torch, results):
             "K6a": (lambda: tp.pair_call(*pair_args), lambda: tp.plain_pair(*pair_args),
                     PAIR_TOL),
         }
-        if label in TILED_SHAPES:  # K6a alone on the rectangular planes
-            calls["K6b"] = (lambda: (tp.pair_dw_call(*dw_args),),
-                            lambda: (tp.plain_pair_dw(*dw_args),), PAIR_TOL)
+        calls["K6b"] = (lambda: (tp.pair_dw_call(*dw_args),),
+                        lambda: (tp.plain_pair_dw(*dw_args),), PAIR_TOL)
         if label in ("genre-H128", "odd"):  # K7 does not depend on H
             calls["K7"] = (
                 lambda: tmod.modulate_pair(x["A"], x["dA"], ma, md, x["emb"]),
@@ -1349,6 +1426,8 @@ def phase_pair(torch, results):
                 extra["device_ms"] = device_ms(torch, kernel)[0]
                 extra["yardstick_two_cublas_f32_products_ms"] = time_ms(torch, two)
                 extra["yardstick_device_ms"] = device_ms(torch, two)[0]
+            if name == "K6b" and label == "genre-H128":  # the kernels line's shape
+                extra.update(k6b_timing(torch, kernel, dw_args, ref[0], n, nc, H, B))
             if name == "K7":
                 # The wrapper's input preparation is a dozen small torch ops;
                 # the launch alone on prepared inputs, for comparison.
@@ -2728,12 +2807,11 @@ def phase_pair_bf16(torch, results):
                                     tp.plain_pair, lambda: tp.pair_call(*f32_pair),
                                     dict(plane_bytes=2, vec_bytes=2)),
         }
-        if label in PAIR_BF16_SHAPES:  # K6a-bf alone on the rectangular planes
-            calls["K6b-bf"] = ((A, dA, vb["Gr"], vb["Mk"], vb["Mi"], vb["Gc"]),
-                               lambda *a: (tp.pair_dw_call(*a),),
-                               lambda *a: (tp.plain_pair_dw(*a),),
-                               lambda: tp.pair_dw_call(*f32_dw),
-                               dict(plane_bytes=2, vec_bytes=2))
+        calls["K6b-bf"] = ((A, dA, vb["Gr"], vb["Mk"], vb["Mi"], vb["Gc"]),
+                           lambda *a: (tp.pair_dw_call(*a),),
+                           lambda *a: (tp.plain_pair_dw(*a),),
+                           lambda: tp.pair_dw_call(*f32_dw),
+                           dict(plane_bytes=2, vec_bytes=2))
         if label in ("genre-H128", "odd", "trade-H512"):  # K7 does not depend on H
             calls["K7bf"] = ((x["A"], x["dA"], ma, md, x["emb"], bf), tmod.modulate_pair,
                              tmod.plain_modulate_pair,
@@ -2775,6 +2853,17 @@ def phase_pair_bf16(torch, results):
                 extra["device_ms"] = device_ms(torch, lambda: kernel(*args))[0]
                 extra["yardstick_two_cublas_products_ms"] = time_ms(torch, two)
                 extra["yardstick_device_ms"] = device_ms(torch, two)[0]
+            if name == "K6b-bf":
+                # The f32 K6b on the same shape (trade-H512 is phase 22's
+                # alone), held to the same bound.
+                f32_got = f32_kernel()
+                extra["f32_kernel_max_rel_err"] = rel_err(
+                    torch, f32_got, tp.plain_pair_dw(*f32_dw))[0]
+                errs.append(extra["f32_kernel_max_rel_err"])
+                if label == "trade-H512":  # the kernels line's shape
+                    extra.update(k6b_timing(torch, lambda: kernel(*args), args, ref[0], n, nc,
+                                            H, B))
+                    extra["f32_kernel_device_ms"] = device_ms(torch, f32_kernel)[0]
             emit({"phase": 22, "kernel": name, "shape": label, **s, "max_abs_err": worst_abs,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "tol": tol, **extra})
@@ -3093,18 +3182,21 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None, "shape": "genre-H128", **extra})
     for name, src, rep, label in (
-        ("K6a", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:572",
+        ("K6a", "gncde_tpu_torch/csrc/plane_mma.cu", "gncde_tpu/ops/pallas/tiled.py:572",
          "genre-H128"),
-        ("K6b", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:638",
+        ("K6b", "gncde_tpu_torch/csrc/plane_mma.cu", "gncde_tpu/ops/pallas/tiled.py:638",
          "genre-H128"),
         ("K7", "gncde_tpu_torch/csrc/modulate.cu", "gncde_tpu/ops/pallas/modulate.py:146",
          "genre-H128"),
     ):
         err, ms, plain_ms, bms, by, extra = results[name][label]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **({"entry_points": ENTRY_POINTS[name]} if name == "K6b" else {}),
                         "launches": enc_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": None, "shape": "genre (n=1505, B=1)" if name == "K7"
+                        # K6b: one einsum on stacked operands (k6b_library)
+                        "library_ms": extra.get("library_ms"),
+                        "shape": "genre (n=1505, B=1)" if name == "K7"
                         else label, **extra})
     for name, src, rep, launches in (
         ("K8", "gncde_tpu_torch/csrc/bcsr.cu", "gncde_tpu/ops/bcsr.py:244", bcsr_launches),
@@ -3151,20 +3243,22 @@ def main() -> int:
         ("K1bf", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
          "gncde_tpu/ops/pallas/megakernel.py:81", k1_bound(flagship, True),
          per_stage["K1bf"]),
-        ("K2bf", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
+        ("K2bf", "gncde_tpu_torch/csrc/megakernel_bwd_bf.cu",
          "gncde_tpu/ops/pallas/megakernel_bwd.py:65", k2_bound(flagship, True),
          per_stage["K2bf"]),
         ("K1dbf", "gncde_tpu_torch/csrc/megakernel_fwd.cu",
          "gncde_tpu/ops/pallas/megakernel.py:81", k1_bound(flagship, True), dfused["K1bf"]),
-        ("K2dbf", "gncde_tpu_torch/csrc/megakernel_bwd.cu",
+        ("K2dbf", "gncde_tpu_torch/csrc/megakernel_bwd_bf.cu",
          "gncde_tpu/ops/pallas/megakernel_bwd.py:65", k2_bound(flagship, True),
          dfused["K2bf"]),
     ):
-        _, err, ms, plain_ms, *_ = results[name][0]  # flagship shape
+        _, err, ms, plain_ms, dev = results[name][0]  # flagship shape, no dtau
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **({"entry_points": ENTRY_POINTS["K2bf"]} if name.startswith("K2")
+                           else {}),
                         "launches": launches, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": None, "shape": "flagship"})
+                        "library_ms": None, "shape": "flagship", **dev})
     for name, launches in (("K11bf", fused["K11bf"]), ("K11dbf", dfused["K11bf"])):
         err, ms, plain_ms, bms, by, extra = results[name]["flagship"]
         kernels.append({"name": name, "route": "cuda",
@@ -3177,13 +3271,15 @@ def main() -> int:
     # config's last layer); their launches are phase 25's training window's.
     for name, src, rep in (
         ("K7bf", "gncde_tpu_torch/csrc/modulate.cu", "gncde_tpu/ops/pallas/modulate.py:146"),
-        ("K6a-bf", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:572"),
-        ("K6b-bf", "gncde_tpu_torch/csrc/tiled.cu", "gncde_tpu/ops/pallas/tiled.py:638"),
+        ("K6a-bf", "gncde_tpu_torch/csrc/plane_mma.cu", "gncde_tpu/ops/pallas/tiled.py:572"),
+        ("K6b-bf", "gncde_tpu_torch/csrc/plane_mma.cu", "gncde_tpu/ops/pallas/tiled.py:638"),
     ):
         err, ms, plain_ms, bms, by, extra = results[name]["trade-H512"]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               **({"entry_points": ENTRY_POINTS["K6b"]} if name == "K6b-bf" else {}),
                "launches": enc_bf16_launches[name], "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "library_ms": extra.get("library_ms"),  # K6b-bf: k6b_library in bf16
                "shape": "trade (n=255, B=1)" if name == "K7bf" else "trade-H512", **extra}
         if name == "K6a-bf":  # the backward's form: bf16 vectors
             err, ms, plain_ms, bms, by, extra = results["K6a-bf-bf16-vectors"]["trade-H512"]

@@ -24,9 +24,9 @@ extern "C" int gncde_mk_bwd_probe(const void* d, const void* c, const void* b, c
                         plane_bstride};
 #define GNCDE_BWD_PROBE(BITS)                                                                \
   case BITS:                                                                                 \
-    return mk_bwd_f32<false, BITS>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, bplan, 0,   \
-                                   stats, Mbuf, Xbuf, gbuf, ldm, dZ, part, part_floats,      \
-                                   work, work_floats, ptot, red, stream);
+    return mk_bwd<false, false, BITS>(P, idx, tau, Z, G, B, n, L, dims, ptrs, plan, bplan,  \
+                                      0, stats, Mbuf, Xbuf, gbuf, ldm, dZ, part,            \
+                                      part_floats, work, work_floats, ptot, red, stream);
   switch (probe) {
     GNCDE_BWD_PROBE(BP_NO_PLANES)
     GNCDE_BWD_PROBE(BP_NO_FORM)

@@ -1,9 +1,10 @@
-// K2's f32 reverse sweep (K2 and K2d: bwd_sweep_kernel<DIR, CC, PROBE>
-// and bwd_finish_kernel, then bwd_reduce_kernel), on a launch plan of its
-// own per layer (ops/megakernel_bwd.py bwd_row_plan). It computes what the
-// f32 instantiation of megakernel_bwd.cu's first sweep computed, in another
-// summation order: for layer l with input x (n x hin), M = Linear(RMSNorm(x))
-// (n x H) and the output cotangent g (n x H),
+// K2's reverse sweep (K2 and K2d: bwd_sweep_kernel<DIR, CC, PROBE>; K2bf
+// and K2dbf: bwd_sweep_bf_kernel<DIR, PROBE>; each with bwd_finish_kernel,
+// then bwd_reduce_kernel), on a launch plan of its own per layer
+// (ops/megakernel_bwd.py bwd_row_plan). The f32 instantiation computes what
+// _make_bwd_kernel computes, in another summation order: for layer l with
+// input x (n x hin), M = Linear(RMSNorm(x)) (n x H) and the output cotangent
+// g (n x H),
 //
 //   dM = C^T g + dvec g + 1 (u^T g) + (v + c7) (1^T g)          (the dM rows)
 //   <A|dA|ddA, g M^T>, <A|dA|ddA, M g^T>                     (basis dots)
@@ -13,9 +14,9 @@
 // The plan: grid (ceil(n / bm), groups, B); a CTA owns bm rows (16, 8 or 4)
 // and one group of cw = 512 CC / bm output columns (32, 64 or 128).
 //  * It forms its bm rows of C^T and of A, dA (ddA for dtau) at (i, k) and
-//    at (k, i) over all n columns once, into dynamic shared memory (the
-//    first sweep regenerated its row and column tiles from the planes for
-//    every 64-column chunk: 8 times a layer at the trade's 512-wide layer).
+//    at (k, i) over all n columns once, into dynamic shared memory (a sweep
+//    of row tiles would regenerate them from the planes for every 64-column
+//    chunk: 8 times a layer at the trade's 512-wide layer).
 //  * M's and g's tiles of KT = 32 rows and the group's columns come through
 //    a ring of three stages, two tiles ahead (16-byte cp.async; 4-byte where
 //    a row is not 16-byte aligned). The column sums s = 1^T M, gcol = 1^T g
@@ -27,8 +28,8 @@
 //    the tile's 32 rows (each thread 2 rows x 4 k over a slice of the
 //    group's columns, the slices summed by shuffles). The basis dots are
 //    <A, P>, <dA, P>, <A^T, P>, <dA^T, P> (and ddA's) of the CTA's rows: two
-//    products where the first sweep took five (seven), A M, dA M, A g, dA g
-//    (ddA M, ddA g) beside C^T g.
+//    products where row dots take five (seven), A M, dA M, A g, dA g (ddA
+//    M, ddA g) beside C^T g.
 //  * Where a layer spans several groups, each CTA writes its rows' partial
 //    dz and row dots and its partial basis dots; bwd_finish_kernel sums them
 //    in group order and finishes the rows (RMSNorm backward, g_prev, dnorm,
@@ -41,8 +42,31 @@
 // against 32 n^2 bytes of planes per group read mostly from L2; in practice
 // each CTA's serial chain (forming, ring, products), as in rows_kernel.
 //
-// The ablation (tools/kernel_times_torch.py K2-ablation, csrc/bwd_probe.cu
-// gncde_mk_bwd_probe): PROBE bits, 0 on every launch of the main path.
+// The bf16 instantiation (BF, megakernel_bwd_bf.cu) computes what
+// _make_bwd_kernel(bf16=True) computes (ops/megakernel_bwd.py
+// plain_vf_bwd_bf16), on the same plan and the same shared code:
+//  * the planes are bf16 and A(t), dA(t) (ddA) are evaluated from them in f32
+//    with every product and sum rounded once (megakernel_common.cuh herm3);
+//    the basis dots take these f32 values;
+//  * C^T = ((b1_0 Ah^T + b1_1 dAh^T) + b2_0 Ah) + b2_1 dAh is formed in bf16
+//    in that order (the coefficients and each product and sum rounded) and
+//    kept as bf16 (its rows take half the f32 sweep's bytes);
+//  * M's and g's tiles still arrive as f32 (the column sums and the dM rows'
+//    rank terms are f32) and are rounded to bf16 once as they land, as are
+//    the CTA's rows of g;
+//  * both products run as bf16 mma.sync m16n8k16 with f32 accumulation
+//    (products of bf16 values are exact in f32): C^T gb as (gb^T C)^T, its
+//    16-column blocks of the group by 8-row blocks of the CTA's rows, each
+//    block one warp's over the whole reduce extent; P = Mb gb^T, the tile's
+//    32 rows by the CTA's rows, each tile's P dotted with the row operands
+//    at once (never stored).
+// Everything else is the f32 sweep's code. What bounds it: each CTA's
+// serial chain (forming, ring, conversion); its products are a few
+// mma.sync a warp per tile.
+//
+// The ablation (tools/kernel_times_torch.py K2-ablation and K2bf-ablation;
+// csrc/bwd_probe.cu gncde_mk_bwd_probe, csrc/bwd_bf_probe.cu
+// gncde_mk_bwd_bf16_probe): PROBE bits, 0 on every launch of the main path.
 #pragma once
 
 #include "megakernel_common.cuh"
@@ -52,14 +76,14 @@ namespace mk {
 enum BwdProbe {
   BP_NO_PLANES = 1,   // form the row operands from their indices, no plane reads
   BP_NO_FORM = 2,     // no forming of the row operands at all
-  BP_NO_PRODUCT = 4,  // no C^T g and no P products
+  BP_NO_PRODUCT = 4,  // no C^T g and no P products (BF: nor the tiles' rounding)
   BP_NO_RING = 8,     // no copies of M's and g's tiles
   BP_NO_COLSUM = 16   // no column sums
 };
 
 constexpr int BSTAGES = 3;              // ring stages
 constexpr int BWD_SMEM_MAX = 204800;    // dynamic shared memory a plan may take
-constexpr int BWD_LMAX = 16;            // most layers of one f32 K2 call
+constexpr int BWD_LMAX = 16;            // most layers of one K2 call
 
 // Row operands a CTA forms: C^T, A, dA at (i, k) and (k, i), and ddA at
 // both for dtau (tau).
@@ -75,15 +99,29 @@ __host__ __device__ constexpr int bwd_smem_floats(int n, int bm, int rw, bool ta
   return rows_npad(n) + bwd_nrow(tau) * bm * (rows_npad(n) + 4) + bm * bwd_gstride(rw, bm) +
          BSTAGES * 2 * RKT * rw;
 }
+// The bf16 sweep's bf16 tiles: the group's columns rounded up to the MMA's
+// 16 (bwd_hw), rows of hw + 8 halves (an odd number of 16-byte units, so
+// ldmatrix rows fall on distinct banks); the row operands' bf16 rows are at
+// least one 8-row block (bwd_nbr; rows past bm zero).
+__host__ __device__ constexpr int bwd_hw(int rw) { return (rw + 15) / 16 * 16; }
+__host__ __device__ constexpr int bwd_nbr(int bm) { return bm < 8 ? 8 : bm; }
+// Dynamic shared memory of one bf16 sweep CTA, in bytes: the f32 sweep's
+// minus its f32 C^T rows, then C^T's rows in bf16 (npad + 8 halves), the
+// CTA's rows of gb, and the bf16 M and g tiles of the current ring tile.
+__host__ __device__ constexpr int bwd_smem_bytes_bf(int n, int bm, int rw, bool tau) {
+  return 4 * (bwd_smem_floats(n, bm, rw, tau) - bm * (rows_npad(n) + 4)) +
+         2 * (bwd_nbr(bm) * (rows_npad(n) + 8) + (bwd_nbr(bm) + 2 * RKT) * (bwd_hw(rw) + 8));
+}
 
-// One layer's sweep arguments. part: the layer's partial blocks, (B, nrb,
+// One layer's sweep arguments (BF: bf16 planes). part: the layer's partial blocks, (B, nrb,
 // ptot) with nrb = ceil(n / bm), each [dnorm_w (hin) | dnorm_b (hin) | dW
 // (H hin) | dlin_b (H) | dbasis (2 nbasis) | dtau]; work (groups > 1): the
 // groups' partial rows (B, groups, n, hin + 3) [dz | g.m, g.s, m.gcol], then
 // their partial sums (B, nrb, groups, 8) [<A,P>, <dA,P>, <A^T,P>, <dA^T,P>,
 // <ddA,P>, <ddA^T,P>, gcol.s, 0].
-struct BwdArgs {
-  Planes<false> P;
+template <bool BF>
+struct BwdArgsT {
+  Planes<BF> P;
   const int* idx;
   const float* tau;
   const float* stats;
@@ -96,7 +134,9 @@ struct BwdArgs {
   float* work;
   int n, ldx, ldm, ldg, ldgp, mask_prev, ptot, bm, groups, vec;
   int tau_on;  // dtau wanted: ddA's operands and dots (a runtime flag: one build for both)
+  int cc;      // the plan's cc (BF: the group's width 512 cc / bm; f32: the template's CC)
 };
+using BwdArgs = BwdArgsT<false>;
 
 // Statically allocated shared memory of the sweep and the finish.
 struct BwdShared {
@@ -113,8 +153,8 @@ struct BwdShared {
 
 // The element's global sums sA, sdA (sddA for dtau) and its layer's basis
 // q; the CTA's rows' 1 / rms and normalised inputs zn. Every thread.
-template <bool DIR>
-__device__ __forceinline__ void bwd_rows_prologue(const BwdArgs& a, BwdShared& sh, int b,
+template <bool DIR, bool BF>
+__device__ __forceinline__ void bwd_rows_prologue(const BwdArgsT<BF>& a, BwdShared& sh, int b,
                                                   int r0, float* q, float& sA, float& sdA,
                                                   float& sddA) {
   const bool need_dd = a.tau_on;
@@ -155,10 +195,10 @@ __device__ __forceinline__ void bwd_rows_prologue(const BwdArgs& a, BwdShared& s
 // basis dots tp[0 .. 5] and gcol . s (dc7) are whole: the rank-term dots,
 // the RMSNorm backward and g_prev, and the row block's partial block's
 // dnorm and dbasis / dtau entries (dW, dlin_b are the sweep's). The
-// expressions of the first sweep's tail (megakernel_bwd.py:249-302 for the
+// expressions of _make_bwd_kernel's tail (megakernel_bwd.py:249-302 for the
 // directed rank terms and dtau). Every thread.
-template <bool DIR>
-__device__ __forceinline__ void bwd_finish_rows(const BwdArgs& a, BwdShared& sh, int b, int rb,
+template <bool DIR, bool BF>
+__device__ __forceinline__ void bwd_finish_rows(const BwdArgsT<BF>& a, BwdShared& sh, int b, int rb,
                                                 const float* q, float sA, float sdA,
                                                 float sddA, const float* tp, float dc7) {
   const bool need_dd = a.tau_on;
@@ -319,16 +359,26 @@ __device__ __forceinline__ void bwd_finish_rows(const BwdArgs& a, BwdShared& sh,
   }
 }
 
-template <bool DIR, int CC, int PROBE>
-__global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) float dyn[];
-  __shared__ BwdShared sh;
+// ldmatrix .x2 (no transpose): two 8 x 8 bf16 matrices, lanes 0-15 giving
+// the row addresses (lane l of matrix l / 8).
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
+// One sweep CTA: rows blockIdx.x bm .., column group blockIdx.y, element
+// blockIdx.z; dyn the plan's dynamic shared memory. BF: the bf16 sweep
+// (its plan's width from a.cc; CC unused).
+template <bool DIR, int CC, int PROBE, bool BF>
+__device__ __forceinline__ void bwd_sweep_body(const BwdArgsT<BF>& a, float* __restrict__ dyn,
+                                               BwdShared& sh) {
   const bool need_dd = a.tau_on;
   const int b = blockIdx.z, rb = blockIdx.x, gr = blockIdx.y;
   const int n = a.n, bm = a.bm, r0 = rb * bm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int H = a.lp.hout, hin = a.lp.hin;
-  const int cw = 512 * CC / bm, g0 = gr * cw, wg = min(cw, H - g0);  // the group's columns
+  const int cw = 512 * (BF ? a.cc : CC) / bm, g0 = gr * cw, wg = min(cw, H - g0);  // the group's columns
   const int rw = rows_width(cw, H), gs = bwd_gstride(rw, bm);
   const int npad = rows_npad(n), ldc = npad + 4;
   const long long base = plane_base(a.P, a.idx, b, n);
@@ -338,8 +388,8 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   const float* Mb = a.Mc + (long long)b * n * a.ldm;
   const float* Gb = a.G + (long long)b * n * a.ldg;
   float* uvec = dyn;                            // [npad] u
-  float* Ct = uvec + npad;                      // [bm][ldc] C^T[i, k]
-  float* Ar = Ct + bm * ldc;                    // A[i, k]
+  float* Ct = uvec + npad;                      // [bm][ldc] C^T[i, k] (f32 only)
+  float* Ar = Ct + (BF ? 0 : bm * ldc);         // A[i, k]
   float* dAr = Ar + bm * ldc;                   // dA[i, k]
   float* Ac = dAr + bm * ldc;                   // A[k, i]
   float* dAc = Ac + bm * ldc;                   // dA[k, i]
@@ -347,6 +397,13 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   float* ddAc = ddAr + (need_dd ? bm * ldc : 0);    // dtau: ddA[k, i]
   float* grow = ddAc + (need_dd ? bm * ldc : 0);    // [bm][gs] g[r0 + i, g0 + c]
   float* ring = grow + bm * gs;                 // [BSTAGES][2][RKT][rw]: M, g tiles
+  // BF: C^T's rows [nbr][ldcb], the rows of gb [nbr][hwp], and the current
+  // tile's Mb and gb [RKT][hwp], bf16 bit patterns.
+  const int nbr = bwd_nbr(bm), ldcb = npad + 8, hw = bwd_hw(rw), hwp = hw + 8;
+  unsigned short* Ctb = reinterpret_cast<unsigned short*>(ring + BSTAGES * 2 * RKT * rw);
+  unsigned short* growb = Ctb + nbr * ldcb;
+  unsigned short* Mtb = growb + nbr * hwp;
+  unsigned short* gtb = Mtb + RKT * hwp;
   constexpr bool ring_on = !(PROBE & BP_NO_RING);
 
   // Tile t of M and g: rows t RKT .., the group's columns, into stage t %
@@ -429,14 +486,24 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
     const int i = e / gs, c = e - i * gs, gi = r0 + i;
     grow[e] = (gi < n && c < wg) ? Gb[(long long)gi * a.ldg + g0 + c] : 0.f;
   }
+  if constexpr (BF) {  // gb's rows, and C^T's rows past bm, zero past their extents
+    for (int e = tid; e < nbr * hwp; e += NT) {
+      const int i = e / hwp, c = e - i * hwp, gi = r0 + i;
+      growb[e] = (i < bm && gi < n && c < wg) ? bf16_bits(Gb[(long long)gi * a.ldg + g0 + c])
+                                              : (unsigned short)0;
+    }
+    for (int e = bm * ldcb + tid; e < nbr * ldcb; e += NT) Ctb[e] = 0;
+  }
 
   // The row operands, once: at (i, k) from plane row r0 + i (coalesced
   // along k), then at (k, i) from plane column r0 + i (coalesced along i),
-  // C^T = b2_0 A[i, k] + b2_1 dA[i, k] + b1_0 A[k, i] + b1_1 dA[k, i]. Each
+  // C^T = b2_0 A[i, k] + b2_1 dA[i, k] + b1_0 A[k, i] + b1_1 dA[k, i] (BF:
+  // formed in pass 1 from both, in bf16 in _make_bwd_kernel's order). Each
   // thread loads RU elements' four plane values before it evaluates any
   // (32 loads in flight: the pass is bound by their latency). Zero past n,
   // so the products need no masks.
   constexpr bool form = !(PROBE & BP_NO_FORM), planes = !(PROBE & BP_NO_PLANES);
+  const float cb0 = rbf(b10), cb1 = rbf(b11), cb2 = rbf(b20), cb3 = rbf(b21);  // BF
   for (int pass = 0; pass < 2 && form; ++pass) {
     for (int e0 = tid; e0 < bm * npad; e0 += NT * RU) {
       float pd[RU], pc[RU], pb[RU], pa[RU];
@@ -455,10 +522,10 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
         const bool ok = e < bm * npad && gi < n && k < n;
         const long long off =
             pass == 0 ? base + (long long)gi * n + k : base + (long long)k * n + gi;
-        pd[u] = ok && planes ? __ldg(a.P.d + off) : 1e-3f * e;
-        pc[u] = ok && planes ? __ldg(a.P.c + off) : 0.f;
-        pb[u] = ok && planes ? __ldg(a.P.b + off) : 0.f;
-        pa[u] = ok && planes ? __ldg(a.P.a + off) : 0.f;
+        pd[u] = ok && planes ? ldp(a.P.d + off) : 1e-3f * e;
+        pc[u] = ok && planes ? ldp(a.P.c + off) : 0.f;
+        pb[u] = ok && planes ? ldp(a.P.b + off) : 0.f;
+        pa[u] = ok && planes ? ldp(a.P.a + off) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < RU; ++u) {
@@ -475,21 +542,37 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
         float A = 0.f, dA = 0.f, ddA = 0.f;
         if (r0 + i < n && k < n) {
           const float tt = t;
-          A = ((pd[u] * tt + pc[u]) * tt + pb[u]) * tt + pa[u];
-          dA = (3.0f * pd[u] * tt + 2.0f * pc[u]) * tt + pb[u];
-          if (need_dd) ddA = 6.0f * pd[u] * tt + 2.0f * pc[u];
+          if constexpr (BF) {  // each product and sum rounded once (herm3)
+            const float d = pd[u], c = pc[u];
+            A = __fadd_rn(
+                __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(d, tt), c), tt), pb[u]), tt),
+                pa[u]);
+            dA = __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(3.0f, d), tt),
+                                               __fmul_rn(2.0f, c)), tt), pb[u]);
+            if (need_dd) ddA = __fadd_rn(__fmul_rn(__fmul_rn(6.0f, d), tt), __fmul_rn(2.0f, c));
+          } else {
+            A = ((pd[u] * tt + pc[u]) * tt + pb[u]) * tt + pa[u];
+            dA = (3.0f * pd[u] * tt + 2.0f * pc[u]) * tt + pb[u];
+            if (need_dd) ddA = 6.0f * pd[u] * tt + 2.0f * pc[u];
+          }
         }
         const int o = i * ldc + k;
         if (pass == 0) {
           Ar[o] = A;
           dAr[o] = dA;
           if (need_dd) ddAr[o] = ddA;
-          Ct[o] = b20 * A + b21 * dA;
+          if constexpr (!BF) Ct[o] = b20 * A + b21 * dA;
         } else {
           Ac[o] = A;
           dAc[o] = dA;
           if (need_dd) ddAc[o] = ddA;
-          Ct[o] += b10 * A + b11 * dA;
+          if constexpr (BF) {
+            float v = rbf(__fadd_rn(bmul(cb0, A), bmul(cb1, dA)));
+            v = rbf(__fadd_rn(v, bmul(cb2, Ar[o])));
+            Ctb[i * ldcb + k] = bf16_bits(__fadd_rn(v, bmul(cb3, dAr[o])));
+          } else {
+            Ct[o] += b10 * A + b11 * dA;
+          }
         }
       }
     }
@@ -510,7 +593,7 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   // of n / 8 terms, not one of n (phase 17's K11d backward at the bench
   // shape: 3.7e-4 of its scale against 1.4e-3). Wider (wide): each thread
   // owns rows rg, rg + bm / 2 and columns cb .. cb + CC - 1 over every k.
-  const bool narrow = wg <= 32;
+  const bool narrow = !BF && wg <= 32;
   int lw = 1;
   while (lw < wg) lw <<= 1;
   const int nh = lane % lw, nr0 = lane / lw, nrs = 32 / lw;
@@ -533,6 +616,12 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   const float* gA = grow + rp * gs;
   const float* gB = grow + (rp + rgw) * gs;
   float tp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // BF: C^T g's blocks, (16 columns of the group) x (8 of the CTA's rows),
+  // nb1 of them, block j on warp j % NW (two a warp at most); P's blocks,
+  // (16 of the tile's rows) x (8 of the CTA's rows), block j on warp NW - 1
+  // - j.
+  const int nnb = (bm + 7) / 8, nb1 = hw / 16 * nnb;
+  float acc1[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_wait1();
@@ -548,7 +637,63 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
       g_ += g;
       u_ += uvec[knext] * g;
     }
-    if constexpr (!(PROBE & BP_NO_PRODUCT)) {
+    if constexpr ((PROBE & BP_NO_PRODUCT) != 0) {
+    } else if constexpr (BF) {
+      // The tile's M and g rounded to bf16 once (columns past rw zero).
+      const int hp2 = hw / 2;
+      for (int e = tid; e < 2 * RKT * hp2; e += NT) {
+        const int wh = e >= RKT * hp2, e2 = e - wh * RKT * hp2, kk = e2 / hp2;
+        const int c = 2 * (e2 - kk * hp2);
+        const float* src = (wh ? TG : TM) + kk * rw + c;
+        *reinterpret_cast<__nv_bfloat162*>((wh ? gtb : Mtb) + kk * hwp + c) =
+            __floats2bfloat162_rn(c < rw ? src[0] : 0.f, c + 1 < rw ? src[1] : 0.f);
+      }
+      __syncthreads();
+      const int m = lane >> 3, r = lane & 7, gid = lane >> 2, q4 = lane & 3;
+      // C^T g += (gb^T C)^T over the tile's 32 rows: A = gb^T (the tile,
+      // transposed by ldmatrix), B = C^T's rows ([n][k] as stored).
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = warp + jj * NW;
+        if (j >= nb1) break;
+        const int mb = j / nnb, nb = j - mb * nnb;
+#pragma unroll
+        for (int ks = 0; ks < RKT; ks += 16) {
+          uint32_t a0, a1, a2, a3, b0, b1;
+          ldsm_x4_t(a0, a1, a2, a3, gtb + (ks + (m >> 1) * 8 + r) * hwp + mb * 16 + (m & 1) * 8);
+          ldsm_x2(b0, b1, Ctb + (nb * 8 + r) * ldcb + k0 + ks + (m & 1) * 8);
+          mma_bf16(acc1[jj], a0, a1, a2, a3, b0, b1);
+        }
+      }
+      // P = Mb gb^T for the tile's rows (A = Mb, B = gb's rows), then its
+      // inner products with the row operands: entry f is tile row mb 16 +
+      // gid + 8 (f >> 1), CTA row nb 8 + 2 q4 + (f & 1).
+      const int j2 = NW - 1 - warp;
+      if (j2 < 2 * nnb) {
+        const int mb = j2 / nnb, nb = j2 - mb * nnb;
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int hs = 0; hs < hw; hs += 16) {
+          uint32_t a0, a1, a2, a3, b0, b1;
+          ldsm_x4(a0, a1, a2, a3, Mtb + (mb * 16 + (m & 1) * 8 + r) * hwp + hs + (m >> 1) * 8);
+          ldsm_x2(b0, b1, growb + (nb * 8 + r) * hwp + hs + (m & 1) * 8);
+          mma_bf16(pv, a0, a1, a2, a3, b0, b1);
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int i = nb * 8 + 2 * q4 + (f & 1);
+          if (i >= bm) continue;
+          const int o = i * ldc + k0 + mb * 16 + gid + 8 * (f >> 1);
+          tp[0] = fmaf(Ar[o], pv[f], tp[0]);
+          tp[1] = fmaf(dAr[o], pv[f], tp[1]);
+          tp[2] = fmaf(Ac[o], pv[f], tp[2]);
+          tp[3] = fmaf(dAc[o], pv[f], tp[3]);
+          if (need_dd) {
+            tp[4] = fmaf(ddAr[o], pv[f], tp[4]);
+            tp[5] = fmaf(ddAc[o], pv[f], tp[5]);
+          }
+        }
+      }
+    } else {
       if (narrow) {
         if (nh < wg) {
           const int kq = k0 + 4 * warp;
@@ -648,12 +793,26 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   __syncthreads();
 
   // C^T g into the ring (done with): the warps' parts [NW][bm][rw] (narrow)
-  // or the one whole product [bm][rw] (wide); then the group's dM rows
-  // after them.
+  // or the one whole product [bm][rw] (wide; BF: from its blocks'
+  // accumulators, entry f at column mb 16 + gid + 8 (f >> 1), row nb 8 + 2
+  // q4 + (f & 1)); then the group's dM rows after them.
   float* cg = ring;
   const int nparts = narrow ? NW : 1;
   float* dMs = ring + nparts * bm * rw;  // [bm][rw]
-  if (narrow) {
+  if constexpr (BF) {
+    const int gid = lane >> 2, q4 = lane & 3;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = warp + jj * NW;
+      if (j >= nb1) break;
+      const int mb = j / nnb, nb = j - mb * nnb;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int h = mb * 16 + gid + 8 * (f >> 1), i = nb * 8 + 2 * q4 + (f & 1);
+        if (i < bm && h < rw) cg[i * rw + h] = acc1[jj][f];
+      }
+    }
+  } else if (narrow) {
 #pragma unroll
     for (int m = 0; m < 16; ++m)
       if (nr0 + nrs * m < bm && nh < wg) cg[(warp * bm + nr0 + nrs * m) * rw + nh] = nacc[m];
@@ -752,10 +911,26 @@ __global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
   }
 }
 
+template <bool DIR, int CC, int PROBE>
+__global__ void __launch_bounds__(NT) bwd_sweep_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ BwdShared sh;
+  bwd_sweep_body<DIR, CC, PROBE, false>(a, dyn, sh);
+}
+
+// The bf16 sweep (K2bf, K2dbf): at most 128 registers, two CTAs an SM
+// (ops/megakernel_bwd.py BWD_CTAS_BY_REGISTERS).
+template <bool DIR, int PROBE>
+__global__ void __launch_bounds__(NT, 2) bwd_sweep_bf_kernel(const BwdArgsT<true> a) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ BwdShared sh;
+  bwd_sweep_body<DIR, 1, PROBE, true>(a, dyn, sh);
+}
+
 // A layer of several groups: the groups' partial rows and sums added in
 // group order, then the rows' finish. Grid (ceil(n / bm), B).
-template <bool DIR>
-__global__ void __launch_bounds__(NT) bwd_finish_kernel(const BwdArgs a, int B) {
+template <bool DIR, bool BF>
+__global__ void __launch_bounds__(NT) bwd_finish_kernel(const BwdArgsT<BF> a, int B) {
   __shared__ BwdShared sh;
   const int b = blockIdx.y, rb = blockIdx.x, n = a.n, bm = a.bm, r0 = rb * bm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, hin = a.lp.hin;
@@ -818,55 +993,85 @@ __global__ void __launch_bounds__(NT) bwd_reduce_kernel(const float* __restrict_
 // One sweep launch (and, for several groups, its finish) on the layer's
 // plan; the shared-memory allowance (BWD_SMEM_MAX) is set once per device
 // and instantiation.
-template <bool DIR, int CC, int PROBE>
-static int launch_sweep_cc(const BwdArgs& a, int B, int smem, cudaStream_t stream) {
+template <bool DIR, int CC, int PROBE, bool BF>
+static int launch_sweep_cc(const BwdArgsT<BF>& a, int B, int smem, cudaStream_t stream) {
   static bool allowed[64];
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err != 0) return err;
   if (dev >= 64 || !allowed[dev]) {
-    err = (int)cudaFuncSetAttribute(bwd_sweep_kernel<DIR, CC, PROBE>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_MAX);
+    if constexpr (BF)
+      err = (int)cudaFuncSetAttribute(bwd_sweep_bf_kernel<DIR, PROBE>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      BWD_SMEM_MAX);
+    else
+      err = (int)cudaFuncSetAttribute(bwd_sweep_kernel<DIR, CC, PROBE>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      BWD_SMEM_MAX);
     if (err != 0) return err;
     if (dev < 64) allowed[dev] = true;
   }
   const int nrb = (a.n + a.bm - 1) / a.bm;
-  bwd_sweep_kernel<DIR, CC, PROBE><<<dim3(nrb, a.groups, B), NT, smem, stream>>>(a);
+  if constexpr (BF)
+    bwd_sweep_bf_kernel<DIR, PROBE><<<dim3(nrb, a.groups, B), NT, smem, stream>>>(a);
+  else
+    bwd_sweep_kernel<DIR, CC, PROBE><<<dim3(nrb, a.groups, B), NT, smem, stream>>>(a);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   if (a.groups > 1) {
-    bwd_finish_kernel<DIR><<<dim3(nrb, B), NT, 0, stream>>>(a, B);
+    bwd_finish_kernel<DIR, BF><<<dim3(nrb, B), NT, 0, stream>>>(a, B);
     err = (int)cudaGetLastError();
   }
   return err;
 }
 
-// A probe takes no plan of cc = 2 (none of the ablation's shapes has one).
-template <bool DIR, int PROBE>
-static int launch_sweep(const BwdArgs& a, int B, int cc, int smem, cudaStream_t stream) {
-  switch (cc) {
-    case 1:
-      return launch_sweep_cc<DIR, 1, PROBE>(a, B, smem, stream);
-    case 2:
-      if constexpr (PROBE == 0) return launch_sweep_cc<DIR, 2, 0>(a, B, smem, stream);
-      return (int)cudaErrorInvalidValue;
-    default:
-      return launch_sweep_cc<DIR, 4, PROBE>(a, B, smem, stream);
+// A probe takes no plan of cc = 2 (none of the ablation's shapes has one);
+// the bf16 sweep takes cc at run time (one instantiation for every plan).
+template <bool DIR, int PROBE, bool BF>
+static int launch_sweep(const BwdArgsT<BF>& a, int B, int cc, int smem, cudaStream_t stream) {
+  if constexpr (BF) {
+    return launch_sweep_cc<DIR, 1, PROBE, true>(a, B, smem, stream);
+  } else {
+    switch (cc) {
+      case 1:
+        return launch_sweep_cc<DIR, 1, PROBE, false>(a, B, smem, stream);
+      case 2:
+        if constexpr (PROBE == 0) return launch_sweep_cc<DIR, 2, 0, false>(a, B, smem, stream);
+        return (int)cudaErrorInvalidValue;
+      default:
+        return launch_sweep_cc<DIR, 4, PROBE, false>(a, B, smem, stream);
+    }
   }
 }
 
-// The f32 K2 (K2d): the forward recompute on K1's row pass and plan (plan +
-// 3 l), then the reverse sweep on bplan + 3 l (bm, cc, groups) and the
-// reduction. part: the layers' partial blocks in order, part_floats of them;
-// work: the several-group layers' scratch, work_floats. The rest as
-// megakernel_bwd.cu's gncde_mk_bwd. PROBE: the sweep's BwdProbe bits.
-template <bool DIR, int PROBE = 0>
-static int mk_bwd_f32(const Planes<false>& P, const int* idx, const float* tau, const float* Z,
-                      const float* G, int B, int n, int L, const int* dims,
-                      const void* const* ptrs, const int* plan, const int* bplan, int need_tau,
-                      float* stats, float* Mbuf, float* Xbuf, float* gbuf, int ldm, float* dZ,
-                      float* part, long long part_floats, float* work, long long work_floats,
-                      int ptot, float* red, cudaStream_t stream) {
-  if (L > BWD_LMAX || n > MAXN || plan == nullptr || bplan == nullptr)
+// The entry points' shape checks: positive extents, the layer stack's
+// widths (megakernel_common.cuh dims_ok), and ptot the sum of the layers'
+// partial blocks, 2 hin + hout hin + hout + 2 nbasis + 1 floats each
+// (dnorm_w, dnorm_b, dW, dlin_b, dbasis, dtau).
+inline bool bwd_dims_ok(int B, int n, int L, const int* dims, int ldm, int directed, int ptot) {
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm)) return false;
+  const int nb = directed ? NBASIS_D : NBASIS_U;
+  int want = 0;
+  for (int l = 0; l < L; ++l)
+    want += 2 * dims[2 * l] + dims[2 * l + 1] * dims[2 * l] + dims[2 * l + 1] + 2 * nb + 1;
+  return want == ptot;
+}
+
+// K2 (K2d; BF: K2bf, K2dbf): the forward recompute, then the reverse sweep
+// on bplan + 3 l (bm, cc, groups) and the reduction. The f32 recompute runs
+// K1's row pass on K1's plan (plan + 3 l), so M_l and x_l are K1's bit for
+// bit; the bf16 one K1bf's passes (prep_kernel, fwd_rows_kernel; plan
+// unread), K1bf's bit for bit. part: the layers' partial blocks in order,
+// part_floats of them; work: the several-group layers' scratch,
+// work_floats. The rest as megakernel_bwd.cu's gncde_mk_bwd. PROBE: the
+// sweep's BwdProbe bits.
+template <bool DIR, bool BF, int PROBE = 0>
+static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
+                  const float* G, int B, int n, int L, const int* dims, const void* const* ptrs,
+                  const int* plan, const int* bplan, int need_tau, float* stats, float* Mbuf,
+                  float* Xbuf, float* gbuf, int ldm, float* dZ, float* part,
+                  long long part_floats, float* work, long long work_floats, int ptot,
+                  float* red, cudaStream_t stream) {
+  if (L > BWD_LMAX || n > MAXN || (!BF && plan == nullptr) || bplan == nullptr)
     return (int)cudaErrorInvalidValue;
   const int nb = DIR ? NBASIS_D : NBASIS_U;
   // The plans, each layer's partial blocks and scratch, checked first.
@@ -879,10 +1084,11 @@ static int mk_bwd_f32(const Planes<false>& P, const int* idx, const float* tau, 
     const int bm = bplan[3 * l], cc = bplan[3 * l + 1], groups = bplan[3 * l + 2];
     if ((bm != 4 && bm != 8 && bm != 16) || (cc != 1 && cc != 2 && cc != 4))
       return (int)cudaErrorInvalidValue;
-    const int cw = 512 * cc / bm;
+    const int cw = 512 * cc / bm, rw = rows_width(cw, hout);
+    const long long smem = BF ? bwd_smem_bytes_bf(n, bm, rw, need_tau != 0)
+                              : 4LL * bwd_smem_floats(n, bm, rw, need_tau != 0);
     if (cw < 32 || cw > 128 || groups < 1 || (long long)groups * cw < hout ||
-        (long long)(groups - 1) * cw >= hout ||
-        bwd_smem_floats(n, bm, rows_width(cw, hout), need_tau != 0) * 4 > BWD_SMEM_MAX)
+        (long long)(groups - 1) * cw >= hout || smem > BWD_SMEM_MAX)
       return (int)cudaErrorInvalidValue;
     const int pl = 2 * hin + hout * hin + hout + 2 * nb + 1;  // dnorm, dW, dlin_b, dbasis, dtau
     const int nrb = (n + bm - 1) / bm;
@@ -900,22 +1106,30 @@ static int mk_bwd_f32(const Planes<false>& P, const int* idx, const float* tau, 
 
   const dim3 grid((n + BM - 1) / BM, B);
   const long long lstride = (long long)B * n * ldm;
-  prep_kernel<DIR, false><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
-                                                   layer_from(ptrs, dims, 0), Mbuf, ldm, stats);
+  prep_kernel<DIR, BF><<<grid, NT, 0, stream>>>(P, idx, tau, n, Z, dims[0],
+                                                layer_from(ptrs, dims, 0), Mbuf, ldm, stats);
   cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int l = 0; l + 1 < L; ++l) {  // K1's row pass on K1's plan: M_l, x_l bitwise K1's
-    const int e = launch_rows<DIR>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
-                                   Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride, ldm, 1, 1,
-                                   layer_from(ptrs, dims, l + 1), Mbuf + (l + 1) * lstride, ldm,
-                                   plan + 3 * l, stream);
-    if (e != 0) return e;
+  for (int l = 0; l + 1 < L; ++l) {  // M_l, x_l bitwise the forward kernel's
+    if constexpr (BF) {
+      fwd_rows_kernel<DIR, true><<<grid, NT, 0, stream>>>(
+          P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride, ldm,
+          Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
+          Mbuf + (l + 1) * lstride, ldm);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    } else {
+      const int e = launch_rows<DIR>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
+                                     Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride, ldm, 1,
+                                     1, layer_from(ptrs, dims, l + 1),
+                                     Mbuf + (l + 1) * lstride, ldm, plan + 3 * l, stream);
+      if (e != 0) return e;
+    }
   }
 
   const float* g_in = G;
   int ldg = dims[2 * (L - 1) + 1];
   for (int l = L - 1; l >= 0; --l) {
-    BwdArgs a;
+    BwdArgsT<BF> a;
     a.P = P;
     a.idx = idx;
     a.tau = tau;
@@ -939,10 +1153,12 @@ static int mk_bwd_f32(const Planes<false>& P, const int* idx, const float* tau, 
     a.vec = ldm % 4 == 0 && ldg % 4 == 0 && ((uintptr_t)a.Mc & 15) == 0 &&
             ((uintptr_t)g_in & 15) == 0;
     const int cc = bplan[3 * l + 1], hout = dims[2 * l + 1];
-    const int smem = bwd_smem_floats(n, a.bm, rows_width(512 * cc / a.bm, hout), need_tau != 0) *
-                     (int)sizeof(float);
+    const int rw = rows_width(512 * cc / a.bm, hout);
+    const int smem = BF ? bwd_smem_bytes_bf(n, a.bm, rw, need_tau != 0)
+                        : bwd_smem_floats(n, a.bm, rw, need_tau != 0) * (int)sizeof(float);
     a.tau_on = need_tau != 0;
-    const int e = launch_sweep<DIR, PROBE>(a, B, cc, smem, stream);
+    a.cc = cc;
+    const int e = launch_sweep<DIR, PROBE, BF>(a, B, cc, smem, stream);
     if (e != 0) return e;
     g_in = a.Gp;
     ldg = a.ldgp;

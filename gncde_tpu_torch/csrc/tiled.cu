@@ -1,6 +1,6 @@
 // K3, K5a, K5b: the plane sweeps of the tiled regime (n > 640); K5c: the
-// 4-slab apply behind tiled_abar_apply; K6b: the plane-pair cotangent sweep
-// of the enc_idx path. K4 and K6a run on the tensor cores in plane_mma.cu.
+// 4-slab apply behind tiled_abar_apply. K4, K6a and K6b run on the tensor
+// cores in plane_mma.cu.
 //
 // Replace the TPU kernels of gncde_tpu/ops/pallas/tiled.py:
 //   K3  _fwd2_kernel / _fwd2_call   rowpart = B1 M, colpart = B2^T M (its own
@@ -10,22 +10,16 @@
 //                                   over the four Hermite slabs (d, c, b, a)
 //   K5a _dw2_kernel / _dw2_call     <A|dA, G M^T>, <A|dA, M G^T>
 //   K5b _dw_kernel / _dw_call       <slab_j, G M^T>, <slab_j, M G^T>
-//   K6b _pair_dw_kernel / _pair_dw_call
-//                                   <A|dA, Gr Mk^T>, <A|dA, Mi Gc^T>
 // K5c: B(w) formed in f32 from the f32 or bf16 slabs, each product and sum
 // rounded once in _fwd_kernel's order ((w0 d + w1 c) + w2 b) + w3 a, entries
 // beyond n zero, then rounded to bf16 (the matmul operand), M in bf16.
 // K3: B1 = cr0 A + cr1 dA and B2 = cc0 A + cc1 dA formed in bf16 from the
 // bf16 interval planes A = A(t), dA = dA(t) (the coefficients rounded to
 // bf16, every product and sum rounded to bf16, as _fwd2_kernel does).
-// K6b: f32 planes (the modulated A(t), dA(t), functions of trainable
-// parameters) and f32 vectors, rectangular (nr, nc) extents (the enc_idx
-// path passes square ones); K6b-bf (fusion_precision bf16) bf16 planes and
-// bf16 vectors (_ppa_bwd's mm_dtype). Every product is accumulated in f32.
+// Every product is accumulated in f32.
 //
 // Layout (every kernel but K3, which has its own below). Planes are
-// (B, n, n) and vectors M, G (B, n, H) bf16 (K6b: f32 or bf16 as above,
-// (B, nr, nc) and (B, nr | nc, H)), unpadded:
+// (B, n, n) and vectors M, G (B, n, H) bf16, unpadded:
 // every tile load is bound-checked against n, and a tile's overhang is
 // staged as zero. One CTA owns BO indices of one batch element and sweeps
 // the whole reduce extent in BR-deep tiles staged in shared memory as f32:
@@ -38,7 +32,7 @@
 // CTA, summed in one fixed order, with no float atomics, so results are
 // bitwise repeatable. The price is a second read of the planes (by the col
 // pass), which mostly hits the 50 MB L2 (two bf16 planes at n = 1505 are
-// 9.1 MB). Scalar cotangents (K5a, K5b, K6b) are per-CTA partials, reduced
+// 9.1 MB). Scalar cotangents (K5a, K5b) are per-CTA partials, reduced
 // in a fixed order by a second kernel.
 //
 // What bounds it on the card: bytes. One sweep must read the planes
@@ -101,9 +95,9 @@ __device__ float block_sum(float v, float* red) {
 }
 
 struct Sweep {
-  const void* p[4];   // NPL plane pointers (bf16; f32 for K5b's slabs and K6b)
-  int nr, nc;         // planes (B, nr, nc); K3-K5b are square, nr = nc = n
-  const void* v[2];   // NV vector operands (bf16; f32 for K6b): (B, nc, H) in
+  const void* p[4];   // NPL plane pointers (bf16; f32 for K5b's slabs)
+  int nr, nc;         // planes (B, nr, nc); all square here, nr = nc = n
+  const void* v[2];   // NV vector operands (bf16): (B, nc, H) in
                       // the row pass, (B, nr, H) in the column pass
   int H;
   float w[4];         // the four slab weights of a COMBO_SLAB4 tile (K5c)
@@ -364,47 +358,6 @@ __global__ void __launch_bounds__(NT) dw_kernel(Sweep g, float* part) {
   }
 }
 
-// ---- K6b -----------------------------------------------------------------
-// The c cotangents of K6a, per element: (<A, Gr Mk^T>, <dA, Gr Mk^T>,
-// <A, Mi Gc^T>, <dA, Mi Gc^T>) = sum_i (Gr . A Mk, Gr . dA Mk, Mi . A Gc,
-// Mi . dA Gc)[i]. Row pass only, vectors (Mk, Gc) over the nc columns, so
-// the rank-H products Gr Mk^T and Mi Gc^T are never formed. Planes of type
-// PT and all four vectors of type T (K6b-bf: both bf16, read as the exact
-// f32 values of their bf16 entries). part: (B, gridDim.x, 4) per-CTA
-// partials.
-template <int HC, typename PT, typename T>
-__global__ void __launch_bounds__(NT) pair_dw_kernel(Sweep g, const T* Gr, const T* Mi,
-                                                     float* part) {
-  constexpr int BO = bo_for(4, HC), PPT = (BO * HC + NT - 1) / NT;
-  __shared__ Smem<2, 2, BO, HC> sm;
-  const int b = blockIdx.z;
-  const int o0 = blockIdx.x * BO;
-  const T* Grb = Gr + (long long)b * g.nr * g.H;
-  const T* Mib = Mi + (long long)b * g.nr * g.H;
-  float acc[4][PPT];  // (A Mk, A Gc, dA Mk, dA Gc)
-  float dot[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int h0 = 0; h0 < g.H; h0 += HC) {
-    const int hc = min(HC, g.H - h0);
-    sweep<2, 2, 2, BO, HC, RAW, PT, T>(g, sm, b, false, o0, h0, hc, acc);
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      int a, h;
-      if (!pair(j, hc, BO, a, h) || o0 + a >= g.nr) continue;
-      const long long o = (long long)(o0 + a) * g.H + h0 + h;
-      const float gr = ldf(Grb, o), mi = ldf(Mib, o);
-      dot[0] = fmaf(acc[0][j], gr, dot[0]);
-      dot[1] = fmaf(acc[2][j], gr, dot[1]);
-      dot[2] = fmaf(acc[1][j], mi, dot[2]);
-      dot[3] = fmaf(acc[3][j], mi, dot[3]);
-    }
-  }
-  float* pp = part + ((long long)b * gridDim.x + blockIdx.x) * 4;
-  for (int q = 0; q < 4; ++q) {
-    const float s = block_sum(dot[q], sm.red);
-    if (threadIdx.x == 0) pp[q] = s;
-  }
-}
-
 // out[b, q] = sum over blocks of part[b, blk, q], in block order.
 __global__ void reduce_parts_kernel(const float* part, int nblk, int nq,
                                     float* out) {
@@ -422,9 +375,6 @@ inline int launch_reduce(const float* part, int B, int nblk, int nq, float* out,
 }
 
 inline bool dims_ok(int B, int n, int H) { return B >= 1 && n >= 1 && H >= 1; }
-inline bool dims_ok(int B, int nr, int nc, int H) {
-  return dims_ok(B, nr, H) && nc >= 1;
-}
 
 inline Sweep make_sweep(const void* p0, const void* p1, const void* p2,
                         const void* p3, int nr, int nc, const void* v0,
@@ -883,28 +833,5 @@ extern "C" int gncde_tiled_dw(const float* d, const float* c, const float* b,
     dw_kernel<HC><<<dim3(nb, 1, B), NT, 0, stream>>>(g, part);
     const int err = (int)cudaGetLastError();
     return err != 0 ? err : launch_reduce(part, B, nb, 8, dw, stream);
-  });
-}
-
-// K6b and K6b-bf. A, dA: (B, nr, nc); Gr, Mi: (B, nr, H); Mk, Gc: (B, nc,
-// H); all f32 (bf16 = 0) or all bf16 (1); part: at least
-// B * ceil(nr / 8) * 4 floats; dw: (B, 4) f32.
-extern "C" int gncde_pair_dw(const void* A, const void* dA, int nr, int nc,
-                             const void* Gr, const void* Mk, const void* Mi,
-                             const void* Gc, int B, int H, int bf16_in, float* part,
-                             float* dw, cudaStream_t stream) {
-  if (!dims_ok(B, nr, nc, H)) return (int)cudaErrorInvalidValue;
-  const Sweep g = make_sweep(A, dA, nullptr, nullptr, nr, nc, Mk, Gc, H);
-  return by_width(H, [&](auto hc) {
-    constexpr int HC = decltype(hc)::value, BO = bo_for(4, HC);
-    const int nb = (nr + BO - 1) / BO;
-    if (bf16_in)
-      pair_dw_kernel<HC, bf16, bf16><<<dim3(nb, 1, B), NT, 0, stream>>>(
-          g, static_cast<const bf16*>(Gr), static_cast<const bf16*>(Mi), part);
-    else
-      pair_dw_kernel<HC, float, float><<<dim3(nb, 1, B), NT, 0, stream>>>(
-          g, static_cast<const float*>(Gr), static_cast<const float*>(Mi), part);
-    const int err = (int)cudaGetLastError();
-    return err != 0 ? err : launch_reduce(part, B, nb, 4, dw, stream);
   });
 }

@@ -22,10 +22,11 @@ with P = 8 for the undirected basis and 11 for the directed one
   and M for its products, and reads the unrounded planes for the basis
   cotangents).
 * :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` (f32: the
-  forward recompute on K1's row pass, then the reverse sweep of
-  ``csrc/bwd_sweep.cuh`` on :func:`bwd_row_plan`'s plan per layer; with
-  ``bf16``, its tensor-core instantiation on bf16 planes) for CUDA tensors
-  and raises if it cannot.
+  forward recompute on K1's row pass) or, with ``bf16``,
+  ``csrc/megakernel_bwd_bf.cu`` (K1bf's passes), then the reverse sweep of
+  ``csrc/bwd_sweep.cuh`` on :func:`bwd_row_plan`'s plan per layer (bf16:
+  its tensor-core instantiation on bf16 planes) for CUDA tensors and
+  raises if it cannot.
 """
 
 from __future__ import annotations
@@ -230,13 +231,13 @@ def plain_vf_bwd_bf16(planes: Planes, idx, tau, Z, layers: tp.Sequence[LayerPara
 
 
 # ---------------------------------------------------------------------------
-# The f32 reverse sweep's launch plan (csrc/bwd_sweep.cuh)
+# The reverse sweep's launch plan (csrc/bwd_sweep.cuh)
 # ---------------------------------------------------------------------------
 
 #: Ring stages of the sweep's M and g tiles (``BSTAGES``), the dynamic shared
 #: memory a plan may take (``BWD_SMEM_MAX``: with the sweep's static shared
-#: memory it stays inside an H100 CTA's 227 KB) and the most layers one f32
-#: K2 call takes (``BWD_LMAX``).
+#: memory it stays inside an H100 CTA's 227 KB) and the most layers one K2
+#: call takes (``BWD_LMAX``).
 BWD_STAGES = 3
 BWD_SMEM_MAX = 204_800
 BWD_MAX_LAYERS = 16
@@ -253,10 +254,11 @@ BWD_STATIC_BYTES = 4 * (3 * 128 + 3 * 256 + 8 + 2 * 16 * 64 + 16 + 16 * 3 + 16 *
 
 
 class BwdPlan(tp.NamedTuple):
-    """One layer's plan of the f32 reverse sweep: ``bm`` rows per CTA, ``cc``
-    output columns per thread, ``cw = 512 cc / bm`` columns per CTA,
-    ``groups`` CTAs across the output's width; the grid's CTAs and each
-    CTA's dynamic shared memory."""
+    """One layer's plan of the reverse sweep: ``bm`` rows per CTA, ``cc``
+    output columns per thread (f32; the bf16 sweep's products are warps'
+    tensor-core blocks, and cc only sets its width), ``cw = 512 cc / bm``
+    columns per CTA, ``groups`` CTAs across the output's width; the grid's
+    CTAs and each CTA's dynamic shared memory."""
 
     bm: int
     cc: int
@@ -266,18 +268,26 @@ class BwdPlan(tp.NamedTuple):
     smem_bytes: int
 
 
-def bwd_smem_bytes(n: int, bm: int, cw: int, H: int, tau: bool) -> int:
+def bwd_smem_bytes(n: int, bm: int, cw: int, H: int, tau: bool, bf16: bool = False) -> int:
     """Dynamic shared memory of one sweep CTA (``bwd_smem_floats``): u over
     n rounded up to the ring tile; the row operands C^T, A, dA at (i, k) and
     (k, i) (and ddA at both under ``tau``), bm rows of npad + 4; the CTA's
     rows of g (ring width + 64 / bm); the ring of M and g tiles, rows of
     ``cw`` columns, or of H rounded up to 4 where one group holds the
-    layer."""
-    npad = -(-n // megakernel.ROW_KT) * megakernel.ROW_KT
+    layer. With ``bf16`` (``bwd_smem_bytes_bf``) C^T's rows are bf16 (npad +
+    8 halves, at least 8 rows), beside bf16 copies of the CTA's rows of g
+    and of one ring tile of M and g (the ring width rounded up to 16, plus
+    8 halves). A card test holds it to the library's own count
+    (``gncde_bwd_smem_bytes``)."""
+    kt = megakernel.ROW_KT
+    npad = -(-n // kt) * kt
     rw = min(cw, -(-H // 4) * 4)
     nrow = 7 if tau else 5
-    return 4 * (npad + nrow * bm * (npad + 4) + bm * (rw + 64 // bm)
-                + BWD_STAGES * 2 * megakernel.ROW_KT * rw)
+    f32 = npad + nrow * bm * (npad + 4) + bm * (rw + 64 // bm) + BWD_STAGES * 2 * kt * rw
+    if not bf16:
+        return 4 * f32
+    nbr, hw = max(bm, 8), -(-rw // 16) * 16
+    return 4 * (f32 - bm * (npad + 4)) + 2 * (nbr * (npad + 8) + (nbr + 2 * kt) * (hw + 8))
 
 
 def bwd_waves(p: BwdPlan) -> int:
@@ -288,9 +298,10 @@ def bwd_waves(p: BwdPlan) -> int:
     return -(-p.ctas // (_build.SMS * per_sm))
 
 
-def bwd_row_plan(n: int, B: int, H: int, tau: bool, bms=None) -> BwdPlan:
+def bwd_row_plan(n: int, B: int, H: int, tau: bool, bms=None, bf16: bool = False) -> BwdPlan:
     """The sweep's plan for an ``H``-wide layer at ``n`` nodes and batch
-    ``B`` (``tau``: the dtau operands too). Per CTA height ``bm`` of ``bms``
+    ``B`` (``tau``: the dtau operands too; ``bf16``: the bf16 sweep's shared
+    memory, :func:`bwd_smem_bytes`). Per CTA height ``bm`` of ``bms``
     (by default :data:`BWD_BMS`: 16, 8, 4 rows), the fewest columns per
     thread whose CTA holds the whole layer (``cw`` up to 128; wider layers
     take ``ceil(H / cw)`` groups), narrowed where its shared memory would
@@ -304,7 +315,7 @@ def bwd_row_plan(n: int, B: int, H: int, tau: bool, bms=None) -> BwdPlan:
         first = next((i for i, c in enumerate(ccs) if 512 * c // bm >= H), len(ccs) - 1)
         for cc in reversed(ccs[:first + 1]):
             cw = 512 * cc // bm
-            smem = bwd_smem_bytes(n, bm, cw, H, tau)
+            smem = bwd_smem_bytes(n, bm, cw, H, tau, bf16)
             if smem <= BWD_SMEM_MAX:
                 groups = -(-H // cw)
                 cands.append(BwdPlan(bm, cc, cw, groups, -(-n // bm) * groups * B, smem))
@@ -314,13 +325,14 @@ def bwd_row_plan(n: int, B: int, H: int, tau: bool, bms=None) -> BwdPlan:
     return min(cands, key=lambda p: (bwd_waves(p), -p.ctas))
 
 
-def bwd_row_plans(n: int, B: int, widths, tau: bool, bms=None) -> tp.List[BwdPlan]:
+def bwd_row_plans(n: int, B: int, widths, tau: bool, bms=None,
+                  bf16: bool = False) -> tp.List[BwdPlan]:
     """:func:`bwd_row_plan` of every layer of a stack of ``widths``."""
-    return [bwd_row_plan(n, B, h, tau, bms) for h in widths[1:]]
+    return [bwd_row_plan(n, B, h, tau, bms, bf16) for h in widths[1:]]
 
 
 class BwdLayout(tp.NamedTuple):
-    """What one f32 K2 call launches and allocates: the sweep's plans as
+    """What one K2 call launches and allocates: the sweep's plans as
     the C entry point takes them (a host array of (bm, cc, groups) per
     layer), the floats of the layers' partial blocks (B, ceil(n / bm),
     ptot_l) and of the scratch of its layers of several groups."""
@@ -332,9 +344,9 @@ class BwdLayout(tp.NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def _bwd_layout(n: int, B: int, sizes: tp.Tuple[tp.Tuple[int, int], ...], nbasis: int,
-                tau: bool, bms: tp.Tuple[int, ...]) -> BwdLayout:
+                tau: bool, bms: tp.Tuple[int, ...], bf16: bool) -> BwdLayout:
     widths = (sizes[0][0],) + tuple(ho for _, ho in sizes)
-    plans = bwd_row_plans(n, B, widths, tau, bms)
+    plans = bwd_row_plans(n, B, widths, tau, bms, bf16)
     part = work = 0
     for (hi, ho), p in zip(sizes, plans):
         nrb = -(-n // p.bm)
@@ -345,10 +357,11 @@ def _bwd_layout(n: int, B: int, sizes: tp.Tuple[tp.Tuple[int, int], ...], nbasis
     return BwdLayout((ctypes.c_int * len(flat))(*flat), part, work)
 
 
-def bwd_layout(n: int, B: int, layers, nbasis: int, tau: bool) -> BwdLayout:
-    """The f32 K2 call's :class:`BwdLayout` (cached per shape, basis, tau and
-    :data:`BWD_BMS`)."""
-    return _bwd_layout(n, B, tuple(_layer_sizes(layers)), nbasis, bool(tau), tuple(BWD_BMS))
+def bwd_layout(n: int, B: int, layers, nbasis: int, tau: bool, bf16: bool = False) -> BwdLayout:
+    """The K2 call's :class:`BwdLayout` (cached per shape, basis, tau,
+    :data:`BWD_BMS` and precision)."""
+    return _bwd_layout(n, B, tuple(_layer_sizes(layers)), nbasis, bool(tau), tuple(BWD_BMS),
+                       bool(bf16))
 
 
 _BWD_ARGTYPES = [
@@ -356,9 +369,8 @@ _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
     _build.P, _build.P,  # dims, ptrs (host arrays)
-    _build.P, _build.P,  # K1's row plans, the sweep's plans (host arrays)
-    _build.I, _build.I,  # directed, bf16
-    _build.I,  # need_tau
+    _build.P, _build.P,  # K1's row plans (f32 only), the sweep's plans (host arrays)
+    _build.I, _build.I,  # directed, need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
     _build.P, _build.L, _build.P, _build.L,  # part, its floats, work, its floats
@@ -367,9 +379,11 @@ _BWD_ARGTYPES = [
 ]
 
 
-def _bwd_lib():
-    lib = _build.load("megakernel_bwd")
-    fn = lib.gncde_mk_bwd
+def _bwd_lib(bf16: bool):
+    if bf16:
+        fn = _build.load("megakernel_bwd_bf").gncde_mk_bwd_bf16
+    else:
+        fn = _build.load("megakernel_bwd").gncde_mk_bwd
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
@@ -384,7 +398,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
     nbasis = _check_inputs(planes, idx, tau, Z, layers, extra=(G,), bf16=bf16)
     if G.shape != Z.shape[:2] + (layers[-1]["W"].shape[0],):
         raise ValueError(f"G {tuple(G.shape)} does not match the output shape")
-    fn = _bwd_lib()
+    fn = _bwd_lib(bf16)
     B, n, hin0 = Z.shape
     L = len(layers)
     dev = Z.device
@@ -393,7 +407,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
     bstride, idx32, tau32, dims, ptrs, keep = launch_args(planes, idx, tau, layers)
     sizes = _layer_sizes(layers)
     ptot = sum(2 * hi + ho * hi + ho + 2 * nbasis + 1 for hi, ho in sizes)
-    if not bf16 and L > BWD_MAX_LAYERS:
+    if L > BWD_MAX_LAYERS:
         raise ValueError(f"K2 takes up to {BWD_MAX_LAYERS} layers; got {L}")
     f32 = dict(device=dev, dtype=torch.float32)
     stats = torch.empty((B, NSTAT, n), **f32)
@@ -402,22 +416,16 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
     xbuf = torch.empty((L, B, n, ldm), **f32)
     gbuf = torch.empty((L, B, n, ldm), **f32)
     dZ = torch.empty((B, n, hin0), **f32)
-    if bf16:  # K2bf: one 16-row block a CTA, every layer
-        lay, work = None, None
-        part = torch.empty((B * -(-n // 16) * ptot,), **f32)
-    else:
-        lay = bwd_layout(n, B, layers, nbasis, need_tau)
-        part = torch.empty((lay.part_floats,), **f32)
-        work = torch.empty((lay.work_floats,), **f32) if lay.work_floats else None
+    lay = bwd_layout(n, B, layers, nbasis, need_tau, bf16)
+    part = torch.empty((lay.part_floats,), **f32)
+    work = torch.empty((lay.work_floats,), **f32) if lay.work_floats else None
     red = torch.empty((B, ptot), **f32)
     err = fn(
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
         None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
-        None if bf16 else ctypes.cast(lay.plans, _build.P),
-        int(nbasis == NBASIS_DIRECTED),
-        int(bool(bf16)), int(bool(need_tau)),
+        ctypes.cast(lay.plans, _build.P), int(nbasis == NBASIS_DIRECTED), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
         ldm, _build.ptr(dZ), _build.ptr(part), part.numel(), _build.ptr(work),
         0 if work is None else work.numel(), ptot, _build.ptr(red),

@@ -10,10 +10,9 @@ node embedding, so their cotangents flow back through the rank-H products
 ``c . (g_r Mk^T, Mi g_c^T)``.
 
 Each kernel wrapper (:func:`pair_call`, :func:`pair_dw_call`) launches
-``csrc/plane_mma.cu`` (K6a) or ``csrc/tiled.cu`` (K6b) for CUDA tensors,
-counts the launch, and raises on what the kernel does not take; on CPU
-tensors it runs its plain version
-(``plain_pair``, ``plain_pair_dw``). Precision follows the planes, as in
+``csrc/plane_mma.cu`` (K6a, K6b) for CUDA tensors, counts the launch, and
+raises on what the kernel does not take; on CPU tensors it runs its plain
+version (``plain_pair``, ``plain_pair_dw``). Precision follows the planes, as in
 the JAX package: f32 planes (``fusion_precision: f32``) form B1/B2 in f32
 with f32 vectors; bf16 planes (``bf16``: K7bf's output) form B1/B2 in
 bf16 (K6a-bf, the coefficients and every product and sum rounded to bf16)
@@ -30,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import types
+import typing as tp
 
 import torch
 
@@ -61,17 +61,46 @@ def plain_pair_dw(A, dA, Gr, Mk, Mi, Gc):
     return torch.stack([(X.float() * Y).sum((1, 2)) for Y in (P, Q) for X in (A, dA)], -1)
 
 
+#: K6b's plane tile (rows and columns a CTA owns) and the columns of H one
+#: stage of its ring holds (``csrc/plane_mma.cuh`` ``pk::DT``, ``pk::DHK``;
+#: a card test holds them to the library's ``gncde_pair_dw_dims``).
+DW_TILE = 64
+DW_HK = 32
+
+
+class PairDwPlan(tp.NamedTuple):
+    """K6b's launch plan: ``tiles`` DW_TILE x DW_TILE plane tiles an element,
+    the H extent's ``ceil(H / DW_HK)`` column chunks in ``splits`` parts (one
+    CTA a tile and part), and ``parts = tiles * splits`` partial sums an
+    element."""
+
+    tiles: int
+    splits: int
+    parts: int
+
+
+def pair_dw_plan(B: int, nr: int, nc: int, H: int) -> PairDwPlan:
+    """K6b's plan for ``B`` elements of (nr, nc) planes and width H: one CTA
+    a plane tile, and where those are fewer than two CTAs for each of the
+    card's SMs (``_build.SMS``), H split across CTAs into as many parts as
+    make up the difference (at most one a column chunk). The four inner
+    products are linear in P and Q, so the parts' sums add."""
+    tiles = -(-nr // DW_TILE) * -(-nc // DW_TILE)
+    chunks = -(-H // DW_HK)
+    splits = min(chunks, -(-2 * _build.SMS // (tiles * B)))
+    return PairDwPlan(tiles, splits, tiles * splits)
+
+
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
     "gncde_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "gncde_pair_dw": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "gncde_pair_dw": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
 def _fn(name: str):
-    # K6a runs on the tensor cores (csrc/plane_mma.cu), K6b on the shared
-    # sweep of csrc/tiled.cu.
-    fn = getattr(_build.load("plane_mma" if name == "gncde_pair" else "tiled"), name)
+    # Both run on the tensor cores (csrc/plane_mma.cu).
+    fn = getattr(_build.load("plane_mma"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -145,18 +174,19 @@ def pair_dw_call(A, dA, Gr, Mk, Mi, Gc):
     """K6b: per-element ``(B, 4)`` f32 = (<A, Gr Mk^T>, <dA, Gr Mk^T>,
     <A, Mi Gc^T>, <dA, Mi Gc^T>) for planes ``(B, nr, nc)``, ``Gr``, ``Mi``
     ``(B, nr, H)`` and ``Mk``, ``Gc`` ``(B, nc, H)``, all f32 or (K6b-bf)
-    all bf16."""
+    all bf16, on :func:`pair_dw_plan`'s plan."""
     if not A.is_cuda:
         return plain_pair_dw(A, dA, Gr, Mk, Mi, Gc)
     bf16 = A.dtype == BF16
     what = "K6b-bf" if bf16 else "K6b"
     B, nr, nc, H = _check(what, A, dA, (Gr, Mi), (Mk, Gc), (A.dtype,))
-    part = torch.empty((B, -(-nr // 8), 4), device=A.device, dtype=F32)  # least BO is 8
+    plan = pair_dw_plan(B, nr, nc, H)
+    part = torch.empty((B, plan.parts, 4), device=A.device, dtype=F32)
     dw = torch.empty((B, 4), device=A.device, dtype=F32)
     err = _fn("gncde_pair_dw")(
         _build.ptr(A), _build.ptr(dA), nr, nc, _build.ptr(Gr), _build.ptr(Mk),
-        _build.ptr(Mi), _build.ptr(Gc), B, H, int(bf16), _build.ptr(part), _build.ptr(dw),
-        _build.stream())
+        _build.ptr(Mi), _build.ptr(Gc), B, H, int(bf16), plan.splits, _build.ptr(part),
+        _build.ptr(dw), _build.stream())
     _build.check(err, f"{what} pair_dw")
     (pair_dw_call.bf16 if bf16 else pair_dw_call).launches += 1
     return dw

@@ -96,13 +96,13 @@ def vf_call_split(events):
     """``{"K1": ms, "K2": ms}``: the device time of the K1 and K2 calls of a
     trace's device events. Both launch the prep pass and the row passes
     (``csrc/megakernel_common.cuh``) back to back on one stream; a K2 call
-    goes on with its reverse sweep (``bwd_sweep_kernel`` and ``bwd_finish_kernel``;
-    K2bf: ``bwd_rows_kernel``) and its reduction,
+    goes on with its reverse sweep (``bwd_sweep_kernel``, K2bf's
+    ``bwd_sweep_bf_kernel``, and ``bwd_finish_kernel``) and its reduction,
     a K1 call does not."""
     prep = re.compile(r"\bmk::prep_kernel")
     rows = re.compile(r"\bmk::(fwd_rows_kernel|rows_kernel)")
-    bwd = re.compile(r"\b(bwd_rows_kernel|bwd_sweep_kernel|bwd_finish_kernel|bwd_reduce_kernel"
-                     r"|reduce_blocks_kernel)\b")
+    bwd = re.compile(r"\b(bwd_sweep_kernel|bwd_sweep_bf_kernel|bwd_finish_kernel"
+                     r"|bwd_reduce_kernel)\b")
     ev = sorted(events, key=lambda e: e[1])
     out = {"K1": 0.0, "K2": 0.0}
     i = 0

@@ -249,6 +249,64 @@ def test_plain_pair_kernels_match_pallas(kernel, nr, nc):
             _close(got[b], np.asarray(dw)[0], 1e-5, "dw")
 
 
+def _dw_ctas(plan, nr, nc, H):
+    """K6b's CTAs as csrc/plane_mma.cuh ``pair_dw_kernel`` walks them: per
+    (tile, part) its rows [i0, i1), columns [k0, k1), H columns [h0, h1) and
+    the slot its sums take in an element's parts."""
+    T, HK = tp.DW_TILE, tp.DW_HK
+    ntk, chunks = -(-nc // T), -(-H // HK)
+    for tile in range(plan.tiles):
+        i0, k0 = tile // ntk * T, tile % ntk * T
+        for s in range(plan.splits):
+            c0, c1 = s * chunks // plan.splits, (s + 1) * chunks // plan.splits
+            yield ((i0, min(i0 + T, nr)), (k0, min(k0 + T, nc)),
+                   (c0 * HK, min(c1 * HK, H)), tile * plan.splits + s)
+
+
+@pytest.mark.parametrize("B,nr,nc,H", [(1, 1505, 1505, 128), (1, 255, 255, 512),
+                                       (2, 300, 300, 5), (2, 300, 211, 13)],
+                         ids=["genre-H128", "trade-H512", "ragged-n300-H5-B2", "rect-300x211"])
+def test_k6b_plan_covers_every_plane_entry_and_column_once(B, nr, nc, H):
+    """K6b's plan (``pair_dw_plan``, plain Python): its CTAs' row, column
+    and H ranges are non-empty and tile the (nr, nc, H) box exactly once;
+    each CTA's sums take their own slot of the (B, parts, 4) buffer the
+    wrapper allocates; the grid splits H only where the plane tiles are
+    fewer than two CTAs an SM, and then fills about two of them."""
+    plan = tp.pair_dw_plan(B, nr, nc, H)
+    ctas = list(_dw_ctas(plan, nr, nc, H))
+    assert len(ctas) == plan.parts == plan.tiles * plan.splits
+    assert sorted(slot for *_, slot in ctas) == list(range(plan.parts))
+    rows, cols, hs = (sorted({c[j] for c in ctas}) for j in range(3))
+    for ranges, extent in ((rows, nr), (cols, nc), (hs, H)):
+        assert all(a < b for a, b in ranges)
+        assert [a for a, _ in ranges] == [0] + [b for _, b in ranges[:-1]]
+        assert ranges[-1][1] == extent
+    assert len(ctas) == len(rows) * len(cols) * len(hs)  # every (rows, cols, H) box once
+    assert sum((i1 - i0) * (k1 - k0) * (h1 - h0) for (i0, i1), (k0, k1), (h0, h1), _ in ctas) \
+        == nr * nc * H
+    tiles, chunks = plan.tiles * B, -(-H // tp.DW_HK)
+    if tiles >= 2 * 132:
+        assert plan.splits == 1
+    else:  # as many parts as make two CTAs an SM, at most one a ring stage
+        assert plan.splits == min(chunks, -(-2 * 132 // tiles))
+
+
+@pytest.mark.parametrize("nr,nc,H,B", [(20, 20, 5, 2), (20, 13, 40, 1)], ids=["square", "rect"])
+def test_k6b_library_call_is_k6b_function(nr, nc, H, B):
+    """The one PyTorch call that chip_smoke.py times as K6b's library_ms
+    (``k6b_library``: one einsum on stacked operands) computes K6b's
+    function: plain_pair_dw's four sums, in its order when flattened,
+    within 1e-5 of their scale (f32, another summation order)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    x = _pair_inputs(nr, nc, H, B, 8)
+    args = tuple(torch.tensor(x[k]) for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+    got = chip_smoke.k6b_library(torch, *args)().reshape(B, 4)
+    ref = tp.plain_pair_dw(*args)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k6a_wrapper_on_cpu_runs_its_plain_version(dtype, monkeypatch):
     """On CPU tensors pair_call is plain_pair, on rectangular planes of

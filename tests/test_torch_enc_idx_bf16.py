@@ -173,6 +173,29 @@ def _pair_inputs(nr, nc, H, B, tile, seed=23):
                 pad_r=lambda x, dt=jnp.float32: pad(x, NPr, dt))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_pair_dw_matches_pallas_beyond_128_columns(dtype):
+    """K6b's plain version (through the wrapper on CPU tensors) against
+    ``_pair_dw_call`` in interpret mode on a ragged rectangular shape (20 x
+    13, tile 8) with H = 130, over the 128 columns a K6b ring stage
+    never held at once and the width whose chunks the card's plan splits:
+    f32 planes and vectors within 1e-5, bf16 ones within 1e-5 (the same bf16
+    operands; only the order of the f32 sums differs)."""
+    nr, nc, H, B, tile = 20, 13, 130, 2, 8
+    x = _pair_inputs(nr, nc, H, B, tile, seed=31)
+    jdt, tdt = (jnp.bfloat16, BF16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    keys = ("Gr", "Mk", "Mi", "Gc")
+    pads = {"Gr": x["pad_r"], "Mk": x["pad_c"], "Mi": x["pad_r"], "Gc": x["pad_c"]}
+    got = tp.pair_dw_call(*(torch.tensor(x[k]).to(tdt) for k in ("A", "dA") + keys))
+    f = _jcompile(lambda a, da, gr, mk, mi, gc: jt._pair_dw_call(
+        a, da, gr, mk, mi, gc, nr=nr, nc=nc, tile=tile, interpret=True),
+        *[jnp.zeros((nr, nc), jdt)] * 2, *(pads[k](x[k][0], jdt) for k in keys))
+    for b in range(B):
+        dw = f(*(jnp.asarray(x[k][b]).astype(jdt) for k in ("A", "dA")),
+               *(pads[k](x[k][b], jdt) for k in keys))
+        assert _rel(got[b], _np(dw)[0]) <= 1e-5
+
+
 @pytest.mark.parametrize("nr,nc", PAIR_SHAPES, ids=PAIR_IDS)
 @pytest.mark.parametrize("kernel", ["K6a-bf-f32-vectors", "K6a-bf-bf16-vectors", "K6b-bf"])
 def test_plain_pair_bf16_matches_pallas(kernel, nr, nc):

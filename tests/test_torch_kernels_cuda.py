@@ -2,8 +2,8 @@
 (the vector-field kernels, n <= 640), K3, K4, K5a, K5b, K5c (the tiled
 regime's plane sweeps and the 4-slab apply, ``csrc/tiled.cu``; K4 on the
 tensor cores, ``csrc/plane_mma.cu``), the enc_idx path's K7 (modulation,
-``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/plane_mma.cu`` and
-``csrc/tiled.cu``), the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
+``csrc/modulate.cu``), K6a and K6b (plane pair, ``csrc/plane_mma.cu``),
+the sparse controls' K8 and K9 (BCSR SpMM and SDDMM,
 ``csrc/bcsr.cu``) and K10 (ELL SpMM, ``csrc/ell_spmm.cu``), the fused RK
 step K11 (``csrc/fused_step.cu``), the per-layer fused applies K12 and
 K13 (``csrc/fused_apply.cu``), K1, K2 and K11 on the directed 11-term
@@ -32,7 +32,7 @@ form B1/B2 with the same roundings; only the order of the f32 sums differs,
 so they are held to 1e-4 of each output's scale, and the field's tiled path
 (kernels on the card against the plain versions on the CPU) to 1e-3. K7 has
 no reductions (1e-5); K6a/K6b take f32 planes and vectors on both sides and
-sum in another order (1e-4; K6a multiplies as 3xTF32, whose split leaves
+sum in another order (1e-4; both multiply as 3xTF32, whose split leaves
 about 2^-21 of each product, far inside that bound); the enc_idx field on its kernels against its
 dense path 1e-4 for values and 1e-3 for gradients, as K1/K2. K8, K9 and
 K10 are f32 on both sides and sum in another order (1e-4); their autograd
@@ -659,9 +659,9 @@ def test_cuda_plane_grads_launch_k1_and_k11(cuda, directed):
 # ---------------------------------------------------------------------------
 
 # Ragged against K6's owned blocks and reduce tiles and K7's 256-column
-# CTAs; H reaches each compiled chunk width (csrc/plane_mma.cu K6a: 8, 32,
-# 64 with three chunks at 130; csrc/tiled.cu K6b: 8, 32, 128 with two
-# sweeps at 130); (n70, n45) is a rectangular pair.
+# CTAs; H reaches each compiled chunk width of K6a (csrc/plane_mma.cu: 8,
+# 32, 64 with three chunks at 130) and K6b's ring stages of 32 columns
+# (five at 130, the last ragged); (n70, n45) is a rectangular pair.
 PAIR_CASES = [(70, 70, 5, 2), (300, 300, 16, 1), (100, 100, 130, 1), (70, 45, 8, 2)]
 PAIR_IDS = ["n70-H5-B2", "n300-H16", "n100-H130", "rect-70x45-H8-B2"]
 
@@ -698,6 +698,83 @@ def test_cuda_pair_kernel_matches_plain(cuda, kernel, nr, nc, H, B):
         assert torch.isfinite(a).all()
         _assert_close(a, b, 1e-4)
         assert torch.equal(a, c)  # no atomics: bitwise repeatable
+
+
+# K6b's and K6b-bf's main-path shapes (chip_smoke.py phases 8 and 22):
+# genre-H128 (one CTA a 64 x 64 plane tile, four ring stages), trade-H512
+# (16 tiles: the plan splits H in 16 parts), a ragged small shape with two
+# elements and a rectangular one whose H takes the scalar vector copies.
+K6B_SHAPES = [(1505, 1505, 128, 1), (255, 255, 512, 1), (300, 300, 5, 2), (300, 211, 13, 2)]
+K6B_IDS = ["genre-H128", "trade-H512", "n300-H5-B2", "rect-300x211-H13-B2"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nr,nc,H,B", K6B_SHAPES, ids=K6B_IDS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["K6b", "K6b-bf"])
+def test_cuda_k6b_main_shapes_match_plain_and_repeat(cuda, nr, nc, H, B, bf16):
+    """K6b (3xTF32) and K6b-bf (bf16 mma.sync) on their plan within 1e-4 of
+    the plain version, two launches bitwise equal, each counted once on its
+    own counter."""
+    x = _pair_inputs(cuda, nr, nc, H, B)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    args = tuple(x[k].to(dt) for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+    mine, other = ((tp.pair_dw_call.bf16, tp.pair_dw_call) if bf16
+                   else (tp.pair_dw_call, tp.pair_dw_call.bf16))
+    before = (mine.launches, other.launches)
+    got, again = tp.pair_dw_call(*args), tp.pair_dw_call(*args)
+    ref = tp.plain_pair_dw(*args)
+    torch.cuda.synchronize()
+    assert (mine.launches, other.launches) == (before[0] + 2, before[1])
+    assert got.shape == (B, 4) and torch.isfinite(got).all()
+    _assert_close(got, ref, 1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("bf16", [False, True], ids=["K6b", "K6b-bf"])
+def test_cuda_k6b_every_split_of_h_matches_plain(cuda, bf16, splits, monkeypatch):
+    """Every split of the H extent (n=100 x 70, H=130: five ring stages of
+    32 columns in 1, 2 or 5 parts, ``pair_dw_plan`` forced) gives the plain
+    version's sums within 1e-4."""
+    nr, nc, H, B = 100, 70, 130, 2
+    plan = tp.pair_dw_plan(B, nr, nc, H)
+    monkeypatch.setattr(tp, "pair_dw_plan", lambda *a: tp.PairDwPlan(
+        plan.tiles, splits, plan.tiles * splits))
+    x = _pair_inputs(cuda, nr, nc, H, B)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    args = tuple(x[k].to(dt) for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+    got = tp.pair_dw_call(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, tp.plain_pair_dw(*args), 1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k6b_refuses_a_split_beyond_its_column_chunks(cuda, monkeypatch):
+    """No fallback: a plan that splits H into more parts than it has ring
+    stages (H=40: two) is refused by the launch, and nothing is counted."""
+    x = _pair_inputs(cuda, 70, 70, 40, 1)
+    args = tuple(x[k] for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc"))
+    monkeypatch.setattr(tp, "pair_dw_plan", lambda *a: tp.PairDwPlan(4, 3, 12))
+    before = tp.pair_dw_call.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tp.pair_dw_call(*args)
+    assert tp.pair_dw_call.launches == before
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k6b_plan_tile_matches_the_c_side(cuda):
+    """The plane tile and ring width that ``pair_dw_plan`` counts tiles and
+    column chunks with (``DW_TILE``, ``DW_HK``, which size the parts
+    buffer) are the kernel's own (``pk::DT``, ``pk::DHK``)."""
+    import ctypes
+
+    fn = _build.load("plane_mma").gncde_pair_dw_dims
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    assert fn(out) == 0
+    assert (out[0], out[1]) == (tp.DW_TILE, tp.DW_HK)
 
 
 def _mlp_pair(width, depth, d, dev):
@@ -1537,6 +1614,71 @@ def test_cuda_fused_step_bf16_matches_plain_and_repeats(cuda, n, B, widths, meth
         _assert_close(a, b, 1e-4)
 
 
+# K2bf's and K2dbf's main-path shapes: the flagship (phase 21), the trade
+# field (its 512-wide layer in four column groups of 16-row CTAs) and the
+# largest n the vector-field kernels serve.
+K2BF_SHAPES = {"flagship": (400, 4, (16, 16, 16)), "trade": (255, 4, (32, 32, 32, 32, 512)),
+               "n640": (640, 1, (64, 64, 64))}
+
+
+def _flat_bwd(out):
+    dtau, dZ, per_layer = out
+    return [dtau, dZ] + [x for layer in per_layer for x in layer]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("need_tau", [False, True])
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["K2bf", "K2dbf"])
+@pytest.mark.parametrize("shape", list(K2BF_SHAPES))
+def test_cuda_k2bf_main_shapes_match_plain_layer_by_layer(cuda, shape, nbasis, need_tau):
+    """K2bf and K2dbf on the bf16 sweep's plan at the main paths' shapes,
+    with and without dtau: every output and every layer's M, x and g within
+    1e-3 of the plain bf16 version run layer by layer, two launches bitwise
+    equal."""
+    n, B, widths = K2BF_SHAPES[shape]
+    planes, idx, tau, Z, layers, G = chip_smoke.make_inputs(torch, n, B, widths, seed=5,
+                                                            nbasis=nbasis)
+    planes = _bf16(planes)
+    got, (errs, _) = chip_smoke.bf16_k2_stepwise(torch, planes, idx, tau, Z, layers, G,
+                                                 need_tau)
+    again = mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, need_tau, bf16=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got), _flat_bwd(again)))
+    assert ("dtau" in errs) == need_tau
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bm", [16, 8, 4])
+def test_cuda_k2bf_every_sweep_plan_matches_plain(cuda, bm, monkeypatch):
+    """Every CTA height of the bf16 sweep (the directed trade field, with
+    dtau; 4-row CTAs fill half of the MMA's 8-row blocks) within K2's bound
+    layer by layer."""
+    monkeypatch.setattr(mkb, "BWD_BMS", (bm,))
+    planes, idx, tau, Z, layers, G = chip_smoke.make_inputs(torch, *K2_WIDE[0], seed=3,
+                                                            nbasis=11)
+    _, (errs, _) = chip_smoke.bf16_k2_stepwise(torch, _bf16(planes), idx, tau, Z, layers, G,
+                                               True)
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
+def test_cuda_k2bf_recompute_is_bitwise_k1bf(cuda, nbasis):
+    """K2bf recomputes the forward with K1bf's own passes: its M_l and x_l
+    are K1bf's bit for bit."""
+    n, B, widths = K2BF_SHAPES["trade"]
+    planes, idx, tau, Z, layers, G = chip_smoke.make_inputs(torch, n, B, widths,
+                                                            nbasis=nbasis)
+    planes = _bf16(planes)
+    t1, t2 = {}, {}
+    mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True, trace=t1)
+    mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, bf16=True, trace=t2)
+    torch.cuda.synchronize()
+    assert len(t1["M"]) == len(t2["M"]) == len(layers)
+    assert all(torch.equal(a, b) for a, b in zip(t1["M"], t2["M"]))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("nbasis", [8, 11], ids=["undirected", "directed"])
 def test_cuda_fused_step_bf16_backward_matches_plain_chain(cuda, nbasis):
@@ -1915,6 +2057,28 @@ def test_cuda_k2_largest_sweep_plan_launches_at_n640(cuda, monkeypatch):
     for nbasis in (8, 11):
         inputs = chip_smoke.make_inputs(torch, n, 1, widths, nbasis=nbasis)
         _check_k2(inputs, True, nbasis)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["K2", "K2bf"])
+def test_cuda_sweep_shared_memory_matches_the_c_side(cuda, bf16):
+    """The planner's shared memory per sweep CTA (``bwd_smem_bytes``, which
+    picks the plan and its waves) is what the launch computes
+    (``gncde_bwd_smem_bytes``: ``bwd_smem_floats`` or, bf16,
+    ``bwd_smem_bytes_bf``) at every CTA height, group width and dtau flag,
+    for n and H off every tile multiple."""
+    import ctypes
+
+    fn = _build.load("megakernel_bwd").gncde_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    for n in (1, 40, 77, 255, 400, 640):
+        for bm in (4, 8, 16):
+            for cw in (32, 64, 128):
+                for H in (1, 5, 16, 33, 64, 130, 512):
+                    for tau in (False, True):
+                        assert mkb.bwd_smem_bytes(n, bm, cw, H, tau, bf16) == fn(
+                            n, bm, cw, H, int(tau), int(bf16)), (n, bm, cw, H, tau)
 
 
 @pytest.mark.requires_cuda

@@ -187,12 +187,12 @@ def test_k1_row_plan_fills_the_card_at_the_main_path_shapes(n, B, widths):
 BWD_STATIC_BYTES = 4 * (3 * 128 + 3 * 256 + 8 + 2 * 16 * 64 + 16 + 16 * 3 + 16 * 2 + 8 * 14)
 
 
-def _check_bwd_plan(p, n, B, H, tau):
+def _check_bwd_plan(p, n, B, H, tau, bf16=False):
     assert p.bm in (4, 8, 16) and p.cc in (1, 2, 4) and p.cw == 512 * p.cc // p.bm
     assert p.cw in (32, 64, 128)
     assert (p.groups - 1) * p.cw < H <= p.groups * p.cw  # no empty group
     assert p.ctas == -(-n // p.bm) * p.groups * B
-    assert p.smem_bytes == mkb.bwd_smem_bytes(n, p.bm, p.cw, H, tau) <= mkb.BWD_SMEM_MAX
+    assert p.smem_bytes == mkb.bwd_smem_bytes(n, p.bm, p.cw, H, tau, bf16) <= mkb.BWD_SMEM_MAX
     assert mkb.BWD_SMEM_MAX + BWD_STATIC_BYTES <= SMEM_LIMIT
     assert mkb.BWD_STATIC_BYTES == BWD_STATIC_BYTES
 
@@ -237,6 +237,34 @@ def test_k2_sweep_plan_visits_every_row_block_and_group_once(n, B, widths, tau):
     assert lay.part_floats == part
     assert list(lay.plans) == [x for p in plans for x in (p.bm, p.cc, p.groups)]
     assert (lay.work_floats > 0) == any(p.groups > 1 for p in plans)
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512)),
+                                        (640, 1, (64, 64, 64))],
+                         ids=["flagship", "trade", "n640"])
+@pytest.mark.parametrize("tau", [False, True])
+def test_k2bf_sweep_plan_fits_and_takes_the_fewest_waves(n, B, widths, tau):
+    """The bf16 sweep's plan (``bwd_row_plan(..., bf16=True)``) for every
+    layer of the main paths' stacks, with and without dtau: a CTA shape the
+    sweep is built for, its shared memory (``bwd_smem_bytes``, which a card
+    test holds to the C side's) within ``BWD_SMEM_MAX``, its grid the rows
+    and groups once, and no other CTA height taking fewer waves of resident
+    CTAs; the layout sized for it."""
+    plans = mkb.bwd_row_plans(n, B, widths, tau, bf16=True)
+    for p, H in zip(plans, widths[1:]):
+        _check_bwd_plan(p, n, B, H, tau, bf16=True)
+        others = []
+        for bm in (16, 8, 4):
+            try:  # n=640: no 16-row CTA fits
+                others.append(mkb.bwd_row_plan(n, B, H, tau, (bm,), bf16=True))
+            except ValueError:
+                pass
+        assert mkb.bwd_waves(p) == min(mkb.bwd_waves(o) for o in others)
+    layers = [dict(W=torch.zeros(ho, hi)) for hi, ho in zip(widths[:-1], widths[1:])]
+    lay = mkb.bwd_layout(n, B, layers, 8, tau, bf16=True)
+    assert list(lay.plans) == [x for p in plans for x in (p.bm, p.cc, p.groups)]
+    assert lay.part_floats == sum(B * -(-n // p.bm) * (2 * hi + ho * hi + ho + 17)
+                                  for p, hi, ho in zip(plans, widths[:-1], widths[1:]))
 
 
 @pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512))],

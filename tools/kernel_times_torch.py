@@ -37,14 +37,28 @@ Shapes:
   step kernel's device ms by name (``step_kernel_device_ms``) beside the
   per-stage route's on the same stage inputs (``per_stage_k1_device_ms``:
   its six K1 or K1d launches) and the stages' plans;
-* K1bf, K1dbf (flagship, trade), K2bf, K2dbf (flagship, trade), K11bf,
-  K11dbf (step shapes) on bf16 planes; K6b, K6b-bf (genre-H128,
+* K1bf, K1dbf (flagship, trade), K2bf, K2dbf (flagship, trade, n=640),
+  K11bf, K11dbf (step shapes) on bf16 planes; K6b, K6b-bf (genre-H128,
   trade-H512), K7, K7bf (genre and trade planes), K12, K13 (phase 14's
   apply shapes): device ms beside the wrapper ms that ``chip_smoke.py``
-  prints, and the outputs for ``--compare``;
-* K2-ablation: K2 at the flagship, trade and n=640 shapes with parts of its
-  reverse sweep dropped (``K2_ABLATION``, ``csrc/bwd_probe.cu``), and the
-  main path's kernel under each sweep CTA height, without and with dtau.
+  prints, and the outputs for ``--compare``; K2bf and K2dbf also each
+  launch's device ms (the recompute's prep and row passes, the sweep's
+  layers, the reduction: ``launch_device_ms``), the sweep's plan and, as
+  their yardstick, two cuBLAS bf16 calls a layer
+  (``chip_smoke.k2_yardstick``); K6b and K6b-bf their plan, the one
+  PyTorch call that computes their function (``chip_smoke.k6b_library``:
+  one ``torch.einsum`` on stacked operands, timed both ways) and, as their
+  yardstick, one ``torch.bmm`` of [A; dA] with [Mk | Gc] and the
+  multiply-sum with [Gr | Mi] (``chip_smoke.k6b_yardstick``); K11bf and
+  K11dbf also forward + backward (``FusedRKStep``: one K2bf a stage),
+  wrapper and device ms;
+* K2-ablation, K2bf-ablation: K2 (f32) and K2bf at the flagship, trade and
+  n=640 shapes with parts of their reverse sweep dropped (``K2_ABLATION``,
+  ``csrc/bwd_probe.cu``; ``K2BF_ABLATION``, ``csrc/bwd_bf_probe.cu``), and
+  the main path's kernel under each sweep CTA height, without and with
+  dtau;
+* K6b-ablation: K6b and K6b-bf at genre-H128 and trade-H512 with parts of
+  their work dropped (``K6B_ABLATION``, ``gncde_pair_dw_probe``).
 
 It prints one JSON line per kernel and shape:
 
@@ -128,6 +142,21 @@ def host_us(fn, calls=2000):
     for _ in range(calls):
         fn()
     return (time.perf_counter() - t0) / calls * 1e6
+
+
+def sweep_plans(s, need_tau=False, bf16=False):
+    """The reverse sweep's plan per layer at shape ``s`` (``bf16``: K2bf's)
+    from the timed checkout's ``ops.megakernel_bwd``, or None where that
+    checkout has none (no ``bwd_row_plans``, or one without ``bf16``)."""
+    import inspect
+
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    plans = getattr(mkb, "bwd_row_plans", None)
+    if plans is None or (bf16 and "bf16" not in inspect.signature(plans).parameters):
+        return None
+    kw = {"bf16": True} if bf16 else {}
+    return [p._asdict() for p in plans(s["n"], s["B"], s["widths"], need_tau, **kw)]
 
 
 def time_both(cs, torch, fn):
@@ -280,7 +309,7 @@ def k6a_lines(cs, torch, saved, bf16, splits=()):
         torch.cuda.empty_cache()
 
 
-#: The variants of ``gncde_pair_probe`` (csrc/plane_mma.cu, flag D): K6a's
+#: The variants of ``gncde_pair_probe`` (csrc/plane_probe.cu, flag D): K6a's
 #: f32 sweep with one part of its work dropped.
 K6A_ABLATION = {"full": 0, "no_mma": 1, "no_form": 2, "no_plane_copies": 4,
                 "no_vector_copies": 8, "copies_only": 3, "loop_only": 15,
@@ -295,7 +324,7 @@ def k6a_ablation_lines(cs, torch):
     from gncde_tpu_torch.ops import _build
     from gncde_tpu_torch.ops import tiled as tt
 
-    fn = _build.load("plane_mma").gncde_pair_probe
+    fn = _build.load("plane_probe").gncde_pair_probe
     P, I = _build.P, _build.I
     fn.argtypes = [P, P, I, I, P, P, P, I, I, P, P, P, I, I, P]
     fn.restype = ctypes.c_int
@@ -374,7 +403,7 @@ def megakernel_lines(cs, torch, names, saved):
                 saved[f"{name}-recompute-M/{label}"] = [m.cpu() for m in trace["M"]]
                 yardstick = cs.k2_yardstick(torch, planes, idx, tau, layers, G, trace)
                 yname = "yardstick_two_bmm_per_layer_ms"
-                extra["plan"] = cs.k2_bwd_plans(s)
+                extra["plan"] = sweep_plans(s)
             extra["launch_device_ms"] = cs.launch_device_ms(torch, kernel)
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain, bms, by,
                     yardstick, yname, saved=saved, extra=extra)
@@ -407,6 +436,9 @@ def megakernel_lines(cs, torch, names, saved):
             plain = lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, bf)[:3]  # noqa: E731
             # The step's own kernel (one launch a call at these shapes).
             extra = {"step_kernel_device_ms": cs.named_device_ms(torch, kernel, r"\bfs::step", 1)}
+            if bf:  # forward + backward (one K2bf a stage): what K2bf's sweep moves
+                extra.update(fwd_bwd_times(cs, torch, tab, nbasis, planes, ts, t, y, h, f0,
+                                           layers))
             if not bf:  # what K11 must beat: six K1 (K1d) launches and the stage glue
                 extra.update(per_stage_route(cs, torch, lambda: tfs._step_reference(
                     planes, ts, t, y, h, f0, layers, tab, stage=mk.megakernel_vf_eval)[:3],
@@ -421,6 +453,39 @@ def megakernel_lines(cs, torch, names, saved):
             torch.cuda.empty_cache()
 
 
+def fwd_bwd_times(cs, torch, tab, nbasis, planes, ts, t, y, h, f0, layers):
+    """The bf16 fused step forward and backward (``FusedRKStep``: one K11bf
+    launch, then one K2bf a stage) on the gradients of sum(y1 W0 + err W1
+    + f1 W2), as ``chip_smoke.check_k11`` takes them: wrapper ms, device
+    ms (by name), and the device ms of the backward's K2bf launches alone
+    (the kernels of namespace ``mk``)."""
+    import numpy as np
+
+    from gncde_tpu_torch.ops import fused_step as tfs
+
+    flat = [p for lp in layers for p in
+            (lp["norm_w"], lp["norm_b"], lp["W"], lp["lin_b"], *lp["basis"])]
+    rng = np.random.default_rng(1)
+    W = [torch.tensor(rng.normal(size=y.shape).astype(np.float32), device=y.device)
+         for _ in range(3)]
+
+    def fwd_bwd():
+        leaves = [x.detach().clone().requires_grad_(True) for x in (y, f0, *flat)]
+        outs = tfs.FusedRKStep.apply(tab, nbasis, True, ts, t, leaves[0], h, leaves[1],
+                                     *planes, *leaves[2:])
+        torch.autograd.backward(outs[:3], W)
+        return [x.grad for x in leaves]
+
+    try:
+        ms, dev, by_name = time_both(cs, torch, fwd_bwd)
+    except RuntimeError as e:  # a graph capture of autograd may be refused
+        ms, dev, by_name = cs.time_ms(torch, fwd_bwd), None, {"not measured": str(e)[:80]}
+    return {"fwd_bwd_ms": ms, "fwd_bwd_device_ms": dev,
+            "fwd_bwd_mk_device_ms": sum(v for k, v in by_name.items()
+                                        if re.search(r"\bmk::", k)) if dev is not None else None,
+            "fwd_bwd_device_by_name": by_name}
+
+
 def per_stage_route(cs, torch, route, L):
     """The per-stage route of one step at K11's inputs (six K1 or K1d
     launches on the same stage inputs and the torch glue between them):
@@ -433,25 +498,32 @@ def per_stage_route(cs, torch, route, L):
 
 
 def bf16_bwd_lines(cs, torch, names, saved):
-    """K2bf and K2dbf at the flagship and trade shapes on bf16 planes: the
-    wrapper and device ms (their error is the free-running one against the
-    plain bf16 version; chip_smoke.py phase 21 holds them layer by
-    layer)."""
+    """K2bf and K2dbf at the flagship, trade and n=640 shapes on bf16 planes:
+    the wrapper and device ms (their error is the free-running one against
+    the plain bf16 version; chip_smoke.py phase 21 holds them layer by
+    layer), each launch's device ms, the sweep's plan and the yardstick."""
     from gncde_tpu_torch.ops import megakernel_bwd as mkb
 
     for name in ("K2bf", "K2dbf"):
         if name not in names:
             continue
-        for label in ("flagship", "trade"):
-            s = cs.SHAPES[label]
+        for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
+                         **cs.K1_EDGE}.items():
             planes, idx, tau, Z, layers, G = cs.make_inputs(
                 torch, **s, nbasis=11 if name == "K2dbf" else 8)
             planes = tuple(p.to(torch.bfloat16) for p in planes)
             kernel = lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False,  # noqa: E731
                                                    True)[1:2]
             plain = lambda: mkb.plain_vf_bwd_bf16(planes, idx, tau, Z, layers, G, False)[1:2]  # noqa: E731
+            trace = {}
+            mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, True, trace=trace)
+            saved[f"{name}-recompute-M/{label}"] = [m.cpu() for m in trace["M"]]
+            extra = {"plan": sweep_plans(s, False, True),
+                     "launch_device_ms": cs.launch_device_ms(torch, kernel)}
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
-                    *cs.k2_bound(s, True), saved=saved)
+                    *cs.k2_bound(s, True),
+                    cs.k2_yardstick(torch, planes, idx, tau, layers, G, trace, True),
+                    "yardstick_two_bf16_bmm_per_layer_ms", saved=saved, extra=extra)
             del planes, Z, layers, G
             torch.cuda.empty_cache()
 
@@ -488,9 +560,15 @@ def enc_idx_lines(cs, torch, names, saved):
             kernel = lambda: (tp.pair_dw_call(*args),)  # noqa: E731
             plain = lambda: (tp.plain_pair_dw(*args),)  # noqa: E731
             sizes = dict(plane_bytes=2, vec_bytes=2) if low else {}
+            plan = getattr(tp, "pair_dw_plan", None)  # None in a checkout before it
             with torch.no_grad():
+                lib = cs.k6b_library(torch, *args)
+                l_ms, l_dev, _ = time_both(cs, torch, lib)
                 line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
-                        *cs.pair_bound(name, n, H, B, **sizes), saved=saved)
+                        *cs.pair_bound(name, n, H, B, **sizes), cs.k6b_yardstick(torch, *args),
+                        "yardstick_bmm_and_multiply_sum_ms", saved,
+                        {"plan": plan and plan(B, n, n, H)._asdict(), "library_einsum_ms": l_ms,
+                         "library_device_ms": l_dev})
         for name in ("K7", "K7bf"):
             if name not in names:
                 continue
@@ -796,6 +874,139 @@ def k2_ablation_lines(cs, torch):
         torch.cuda.empty_cache()
 
 
+#: K2bf's reverse-sweep probes (``gncde_mk_bwd_bf16_probe`` in
+#: csrc/bwd_bf_probe.cu, the same BwdProbe bits; ``no_products`` also drops
+#: the tiles' rounding to bf16), undirected, without dtau. ``full`` is the
+#: main path's kernel through its own entry point.
+K2BF_ABLATION = {"full": 0, "no_plane_reads": 1, "no_forming": 2, "no_products": 4,
+                 "no_ring": 8, "no_column_sums": 16, "skeleton": 31}
+
+
+def k2bf_probe_call(torch, planes, idx, tau, Z, layers, G, probe):
+    """One K2bf call (bf16 planes, undirected, no dtau) with every sweep
+    launch on the probe bits ``probe``; bits 0 are the main path's wrapper."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import megakernel as mk
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    if probe == 0:
+        return lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, True)
+    fn = _build.load("bwd_bf_probe").gncde_mk_bwd_bf16_probe
+    P, L, I = _build.P, _build.L, _build.I
+    fn.argtypes = [P, P, P, P, L, P, P, P, P, I, I, I, P, P, P, P, P, P, P, I, P, P, L, P, L,
+                   I, P, I, P]
+    fn.restype = ctypes.c_int
+    B, n, hin0 = Z.shape
+    nl = len(layers)
+    bstride, idx32, tau32, dims, ptrs, keep = mk.launch_args(planes, idx, tau, layers)
+    lay = mkb.bwd_layout(n, B, layers, 8, False, True)
+    ptot = sum(2 * hi + ho * hi + ho + 17 for hi, ho in mkb._layer_sizes(layers))
+    ldm = mk.scratch_width(layers)
+    f32 = dict(device=Z.device)
+    stats = torch.empty((B, mk.NSTAT, n), **f32)
+    bufs = [torch.empty((nl, B, n, ldm), **f32) for _ in range(3)]
+    dZ = torch.empty((B, n, hin0), **f32)
+    part = torch.empty((lay.part_floats,), **f32)
+    work = torch.empty((max(lay.work_floats, 1),), **f32)
+    red = torch.empty((B, ptot), **f32)
+
+    def call():
+        _ = keep  # the parameter copies the pointers point into
+        _build.check(fn(*[_build.ptr(p) for p in planes], bstride, _build.ptr(idx32),
+                        _build.ptr(tau32), _build.ptr(Z), _build.ptr(G), B, n, nl,
+                        ctypes.cast(dims, P), ctypes.cast(ptrs, P), ctypes.cast(lay.plans, P),
+                        _build.ptr(stats), *[_build.ptr(x) for x in bufs], ldm, _build.ptr(dZ),
+                        _build.ptr(part), part.numel(), _build.ptr(work), work.numel(), ptot,
+                        _build.ptr(red), probe, _build.stream()), "K2bf probe")
+    return call
+
+
+def k2bf_ablation_lines(cs, torch):
+    """K2bf at the flagship, trade and n=640 shapes (undirected, no dtau): the
+    device ms of each :data:`K2BF_ABLATION` variant, in total and per
+    launch, and of the main path's kernel under each sweep CTA height
+    (``BWD_BMS`` forced), without and with dtau."""
+    from gncde_tpu_torch.ops import megakernel_bwd as mkb
+
+    for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
+                     **cs.K1_EDGE}.items():
+        planes, idx, tau, Z, layers, G = cs.make_inputs(torch, **s)
+        planes = tuple(p.to(torch.bfloat16) for p in planes)
+        line = {"kernel": "K2bf-ablation", "shape": label,
+                "plan": sweep_plans(s, False, True)}
+        for var, bits in K2BF_ABLATION.items():
+            call = k2bf_probe_call(torch, planes, idx, tau, Z, layers, G, bits)
+            call()
+            line[f"{var}_device_ms"] = cs.device_ms(torch, call)[0]
+            launches = cs.launch_device_ms(torch, call)
+            line[f"{var}_launch_ms"] = launches and [round(x["ms"], 5) for x in launches]
+        bms = mkb.BWD_BMS
+        try:
+            for bm in (None, 16, 8, 4):
+                mkb.BWD_BMS = bms if bm is None else (bm,)
+                for need_tau in (False, True):
+                    key = ("default" if bm is None else f"bm{bm}") + ("_tau" if need_tau else "")
+                    try:  # None where no plan of this height fits the layer
+                        mkb.bwd_row_plans(s["n"], s["B"], s["widths"], need_tau, bf16=True)
+                    except ValueError:
+                        line[f"{key}_device_ms"] = None
+                        continue
+                    line[f"{key}_device_ms"] = cs.device_ms(
+                        torch, lambda: mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G,
+                                                             need_tau, True))[0]
+        finally:
+            mkb.BWD_BMS = bms
+        cs.emit(line)
+        del planes, Z, layers, G
+        torch.cuda.empty_cache()
+
+
+#: K6b's probes (``gncde_pair_dw_probe``, csrc/plane_probe.cu DwDrop flags):
+#: the kernel with its products, its vector copies or its plane reads
+#: dropped; ``full`` is the main path's kernel.
+K6B_ABLATION = {"full": 0, "no_mma": 1, "no_vector_copies": 2, "no_plane_reads": 4,
+                "skeleton": 7}
+
+
+def k6b_ablation_lines(cs, torch):
+    """K6b and K6b-bf at genre-H128 and trade-H512 on their plan: the device
+    ms of each :data:`K6B_ABLATION` variant (the kernel and the slots'
+    sum)."""
+    import ctypes
+
+    from gncde_tpu_torch.ops import _build
+    from gncde_tpu_torch.ops import pair as tp
+
+    fn = _build.load("plane_probe").gncde_pair_dw_probe
+    P, I = _build.P, _build.I
+    fn.argtypes = [P, P, I, I, P, P, P, P, I, I, I, I, P, P, I, P]
+    fn.restype = ctypes.c_int
+    for label in K6B_SHAPES:
+        s = PAIR_SHAPES[label]
+        n, H, B = s["n"], s["H"], s["B"]
+        x = cs.make_pair_inputs(torch, n, H, B)
+        plan = tp.pair_dw_plan(B, n, n, H)
+        part = torch.empty((B, plan.parts, 4), device="cuda")
+        dw = torch.empty((B, 4), device="cuda")
+        for bf16 in (False, True):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            a = [x[k].to(dt) for k in ("A", "dA", "Gr", "Mk", "Mi", "Gc")]
+            line = {"kernel": "K6b-ablation", "shape": label, **s, "bf16": bf16,
+                    "plan": plan._asdict()}
+            for name, drop in K6B_ABLATION.items():
+                def call(drop=drop):
+                    _build.check(fn(a[0].data_ptr(), a[1].data_ptr(), n, n, a[2].data_ptr(),
+                                    a[3].data_ptr(), a[4].data_ptr(), a[5].data_ptr(), B, H,
+                                    int(bf16), plan.splits, part.data_ptr(), dw.data_ptr(),
+                                    drop, _build.stream()), "K6b probe")
+                line[f"{name}_device_ms"] = cs.device_ms(torch, call)[0]
+            cs.emit(line)
+        del x
+        torch.cuda.empty_cache()
+
+
 def k10_lines(cs, torch, saved):
     from gncde_tpu_torch.ops import ell_spmm as tell
 
@@ -863,6 +1074,10 @@ def kernel_lines(cs, torch, only, splits, saved):
     enc_idx_lines(cs, torch, only, saved)
     if "K2-ablation" in only:
         k2_ablation_lines(cs, torch)
+    if "K2bf-ablation" in only:
+        k2bf_ablation_lines(cs, torch)
+    if "K6b-ablation" in only:
+        k6b_ablation_lines(cs, torch)
 
 
 def main() -> int:
@@ -872,7 +1087,7 @@ def main() -> int:
                     help="comma-separated: K3, K4, K6a, K6a-bf, K8, K10, K1, K2, K1d, K2d, "
                          "K11, K11d, K1bf, K1dbf, K2bf, K2dbf, K11bf, K11dbf, K6b, K6b-bf, "
                          "K7, K7bf, K12, K13, K6a-ablation, K8-ablation, K1-ablation, "
-                         "K2-ablation")
+                         "K2-ablation, K2bf-ablation, K6b-ablation")
     ap.add_argument("--splits", default="",
                     help="K3, K4, K6a: split counts to time at the genre shapes, e.g. 1,2,4")
     ap.add_argument("--root", default=str(HERE), help="checkout whose gncde_tpu_torch runs")
@@ -907,11 +1122,16 @@ def main() -> int:
                                      ("K6a-bf", "pair")) if k in only)
     if tiled:  # a parent checkout may still hold K4 and K6a in tiled.cu
         ptx["tiled"] = ptxas_lines(root, "tiled", tiled)
-    if any(k in only for k in ("K4", "K6a", "K6a-bf")):
+    if any(k in only for k in ("K4", "K6a", "K6a-bf", "K6b", "K6b-bf", "K6b-ablation")):
         ptx["plane_mma"] = ptxas_lines(root, "plane_mma", r".")
+    if any(k in only for k in ("K6b", "K6b-bf")):  # a parent checkout's K6b
+        ptx["tiled_pair_dw"] = ptxas_lines(root, "tiled", "pair_dw")
     for lib, ks in (("megakernel_fwd", ("K1", "K1d", "K1bf", "K1dbf")),
                     ("megakernel_bwd", ("K2", "K2d", "K2bf", "K2dbf")),
+                    ("megakernel_bwd_bf", ("K2bf", "K2dbf")),
                     ("bwd_probe", ("K2-ablation",)),
+                    ("bwd_bf_probe", ("K2bf-ablation",)),
+                    ("plane_probe", ("K6a-ablation", "K6b-ablation")),
                     ("fused_step", ("K11", "K11d", "K11bf", "K11dbf"))):
         if any(k in only for k in ks):
             ptx[lib] = ptxas_lines(root, lib, r".")
