@@ -164,8 +164,11 @@ Phases, each printing one line before the last:
      formed from them (1e-4), every K2bf launch of its backward layer by
      layer (1e-3; a single stage's basis cotangents 5e-3);
      two launches bitwise equal; the free-running errors beside them;
-     K2bf and K2dbf at the flagship shape also with the sweep's plan,
-     device time and two-cuBLAS-bf16 yardstick.
+     K1bf and K1dbf with the bf16 row pass's plan, at the flagship and
+     trade shapes with their device time (K1bf also per launch and beside
+     its yardstick, one cuBLAS bf16 bmm a layer of [B1 | B2^T] formed
+     beforehand with [Mh; Mh]); K2bf and K2dbf at the flagship shape also
+     with the sweep's plan, device time and two-cuBLAS-bf16 yardstick.
      Then the flagship field at init and its gradients (state and every
      field parameter) through K1bf/K2bf on phase 5's data, both
      bases: bitwise equal to a K1bf and a K2bf launch on the same inputs,
@@ -215,9 +218,11 @@ Phases, each printing one line before the last:
      own shape (n=400, H=32, L=3, B=16, T=12, bf16 planes): the probe timer
      ``gncde_tpu_torch.run.mk_probe`` (10 chained evals, 2 Tsit5 steps, 3
      blocks) launches every variant -- K1-4mm (P1, P5 v4mm, v4mm_mt,
-     v4mm_bf16), K1bf with the probe flags (P3 red, notr, red_notr; P4's
-     nine ablations), K1bf (P2's arrangements, P3 current, P4 full, P5
-     full, P6 seq) and K11bf (P6 fusedstep); then each eval variant against
+     v4mm_bf16), K1bf's first row pass ``fwd_rows`` with the probe flags
+     (P3 current, red, notr, red_notr; P4 full and its nine ablations),
+     K1bf (P2's arrangements, P5 full, P6 seq) and K11bf (P6 fusedstep);
+     P4 full's line also carries K1bf's own time on the same inputs (the
+     redesigned row pass beside the first); then each eval variant against
      its plain version layer by layer from its own M within 1e-4 * max|ref|
      (P4 dma_only 1e-5), P2 fixedslice bitwise P2 current, P6 seq and
      fusedstep each stage by stage against the plain step on their own
@@ -259,6 +264,9 @@ SHAPES = {
 #: (errors, wrapper ms, plan and device ms; its per-launch times and
 #: yardstick are the timer's, tools/kernel_times_torch.py).
 K1_EDGE = {"edge-640": dict(n=640, B=1, widths=(64, 64, 64))}
+#: Phase 21 traces K1bf and K1dbf on the device at these shapes (their
+#: device ms; K1bf's also per launch and beside its yardstick).
+K1BF_TRACED = ("flagship", "trade")
 K1_TOL = 1e-4
 K2_TOL = 1e-3
 #: The bf16 kernels (phase 21) against their plain versions, layer by layer.
@@ -438,8 +446,9 @@ PROBE_DMA_TOL = 1e-5
 PROBE_TIMER_ARGS = ("--evals", "10", "--steps", "2", "--blocks", "3")
 #: The device entry points of the kernels whose design changed since their
 #: port (the kernels line names them): K1's and K2's forward (the prep pass
-#: and the f32 row pass on its plan; K2's reverse sweep and reduction), K2bf's
-#: (K1bf's passes, the bf16 sweep), K6b's (K6b-bf: T = bf16), K8 and K11.
+#: and the f32 row pass on its plan; K2's reverse sweep and reduction),
+#: K1bf's (the bf16 row pass on its plan) and K2bf's (K1bf's passes, the
+#: bf16 sweep), K6b's (K6b-bf: T = bf16), K8 and K11 (K11bf: BF = true).
 ENTRY_POINTS = {
     "K1": ["mk::prep_kernel<DIR, false>", "mk::rows_kernel<DIR, CC> (plan: "
            "ops.megakernel.row_plan)"],
@@ -447,14 +456,16 @@ ENTRY_POINTS = {
            "mk::bwd_sweep_kernel<DIR, CC, 0> (plan: ops.megakernel_bwd.bwd_row_plan)",
            "mk::bwd_finish_kernel<DIR, false> (layers of several column groups)",
            "mk::bwd_reduce_kernel"],
-    "K2bf": ["mk::prep_kernel<DIR, true>", "mk::fwd_rows_kernel<DIR, true> (K1bf's passes)",
+    "K1bf": ["mk::prep_kernel<DIR, true>", "mk::rows_bf_kernel<DIR, 0> (plan: "
+             "ops.megakernel.row_plan, bf16)"],
+    "K2bf": ["mk::prep_kernel<DIR, true>", "mk::rows_bf_kernel<DIR, 0> (K1bf's plan)",
              "mk::bwd_sweep_bf_kernel<DIR, 0> (plan: ops.megakernel_bwd.bwd_row_plan, bf16)",
              "mk::bwd_finish_kernel<DIR, true> (layers of several column groups)",
              "mk::bwd_reduce_kernel"],
     "K6b": ["pk::pair_dw_kernel<T, 0> (plan: ops.pair.pair_dw_plan)", "pk::sum_blocks_kernel"],
     "K8": ["bcsr::spmm_kernel<RT, CT> (plan: ops.bcsr.spmm_plan)"],
-    "K11": ["fs::step_rows_kernel<DIR> (cooperative; each stage's layers "
-            "mk::rows_body<DIR, 1, 0> on ops.fused_step.step_plans)"],
+    "K11": ["fs::step_rows_kernel<DIR, BF> (cooperative; each stage's layers "
+            "mk::rows_body<DIR, 1, 0, BF> on ops.fused_step.step_plans)"],
 }
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
@@ -843,6 +854,28 @@ def k1_yardstick(torch, planes, idx, tau, layers, Ms):
     return lambda: [torch.bmm(C, M) for C, M in zip(Cs, Ms)]
 
 
+def k1_bf16_yardstick(torch, planes, idx, tau, layers, Ms):
+    """The products of K1bf's row passes, ranked on their own: per layer
+    one cuBLAS bf16 ``torch.bmm([B1_l | B2^T_l], [Mh_l; Mh_l])``, B1 and
+    B2^T formed beforehand in bf16 by the plain version (JAX's rounding
+    points) and Mh_l the kernel's own M_l (``trace``) rounded. Not one call
+    for K1bf's function: it leaves out the Hermite, the statistics, the
+    rank terms and the transforms."""
+    from gncde_tpu_torch.ops import megakernel as mk
+
+    st = mk.bf16_stats(*mk.hermite(planes, idx, tau))
+    Aht, dAht = st.Ah.transpose(-2, -1), st.dAh.transpose(-2, -1)
+    ops = []
+    for lp, M in zip(layers, Ms):
+        c = mk.bf16_coeffs(lp["basis"])
+        B1 = mk.rbf(mk.rbf(c[0] * st.Ah) + mk.rbf(c[1] * st.dAh))
+        B2t = mk.rbf(mk.rbf(c[2] * Aht) + mk.rbf(c[3] * dAht))
+        Mh = M.to(torch.bfloat16)
+        ops.append((torch.cat([B1, B2t], -1).to(torch.bfloat16).contiguous(),
+                    torch.cat([Mh, Mh], -2).contiguous()))
+    return lambda: [torch.bmm(Bc, MM) for Bc, MM in ops]
+
+
 def k2_yardstick(torch, planes, idx, tau, layers, G, trace, bf16=False):
     """The products of K2's reverse sweep, ranked on their own: per layer
     two cuBLAS f32 calls (``bf16``, K2bf's: bf16 calls on its operands
@@ -880,14 +913,19 @@ def k2_bwd_plans(s, need_tau=False, bf16=False):
                                                    bf16=bf16)]
 
 
-def k1_row_plans(s):
-    """The f32 row pass's launch plan per layer at shape ``s``
-    (``ops.megakernel.row_plans``), or None for a package without one."""
+def k1_row_plans(s, bf16=False):
+    """The row pass's launch plan per layer at shape ``s``
+    (``ops.megakernel.row_plans``; ``bf16``: K1bf's), or None for a package
+    without one (no ``row_plans``, or one without ``bf16``)."""
+    import inspect
+
     from gncde_tpu_torch.ops import megakernel as mk
 
     plans = getattr(mk, "row_plans", None)
-    return None if plans is None else [p._asdict() for p in plans(s["n"], s["B"],
-                                                                   s["widths"])]
+    if plans is None or (bf16 and "bf16" not in inspect.signature(plans).parameters):
+        return None
+    kw = {"bf16": True} if bf16 else {}
+    return [p._asdict() for p in plans(s["n"], s["B"], s["widths"], **kw)]
 
 
 def trace_kernel_counts(path):
@@ -949,8 +987,16 @@ def phase_k1(torch, results, name="K1", phase=3, shapes=SHAPES, nbasis=8, bf16=F
         plain_ms = time_ms(torch, lambda: plain_eval(planes, idx, tau, Z, layers))
         bms, by = k1_bound(s, bf16)
         dev = {}
-        if not bf16:
-            extra["plan"] = k1_row_plans(s)
+        extra["plan"] = k1_row_plans(s, bf16)
+        if bf16 and label in K1BF_TRACED:  # the bf16 row pass's device times
+            dev = {"device_ms": device_ms(torch, kernel)[0]}
+            if nbasis != NBASIS_DIRECTED:
+                trace = {}
+                mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16, trace=trace)
+                dev.update(launch_device_ms=launch_device_ms(torch, kernel),
+                           yardstick_bmm_device_ms=device_ms(torch, k1_bf16_yardstick(
+                               torch, planes, idx, tau, layers, trace["M"]))[0])
+            extra.update(dev)
         if not bf16 and label in K1_EDGE:
             dev = {"device_ms": device_ms(torch, kernel)[0]}
             extra.update(dev)
@@ -1955,6 +2001,14 @@ def phase_probes(torch, results):
             free = rel_err(torch, got, v.plain(p_, i_, tau, y, layers, rvec=rvec))[0]
             extra = dict(stepwise_rel_errs=errs, free_running_rel_err=free,
                          bitwise_k1bf=key != "P2/fixedslice" and torch.equal(got, k1bf))
+            if key == "P4/full":  # the first row pass beside K1bf's redesigned one
+                extra["device_ms"] = device_ms(torch, lambda: v(p_, i_, tau, y, layers))[0]
+                extra["k1bf"] = {
+                    "ms": time_ms(torch, lambda: mk.megakernel_vf_eval(p_, i_, tau, y, layers,
+                                                                       bf16=True)),
+                    "device_ms": device_ms(torch, lambda: mk.megakernel_vf_eval(
+                        p_, i_, tau, y, layers, bf16=True))[0],
+                    "plan": k1_row_plans(shape, bf16=True)}
             if key == "P2/fixedslice":
                 current = mk.megakernel_vf_eval(planes, idx3, tau, y, layers, bf16=True)
                 extra["bitwise_current"] = torch.equal(got, current)
@@ -2001,10 +2055,13 @@ def phase_probes(torch, results):
                                iters=5, warmup=1)
             extra = dict(stepwise_rel_errs=errs, free_running_rel_errs=free)
             if name == "fusedstep":
-                extra.update(rel_errs_vs_seq=route, ctas=B * -(-n // 16),
+                smem = tfs.step_smem_bytes(n, B, layers, True)
+                extra.update(rel_errs_vs_seq=route, smem_bytes=smem,
+                             row_pass_ctas=[p.ctas for p in tfs.step_plans(
+                                 n, B, shape["widths"], True)],
                              bitwise_seq=all(torch.equal(a, b) for a, b in
                                              zip(step["fusedstep"], step["seq"])),
-                             resident_ctas=tfs.capacity(y.device, False, True))
+                             resident_ctas=tfs.capacity(y.device, False, True, smem))
             emit({"phase": 26, "variant": key, "family": v.family, **shape, "method": "tsit5",
                   "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": sbms,
                   "bound_by": sby, "timer": timings[key], **extra})
@@ -2152,16 +2209,23 @@ def check_k11(torch, label, s, name, phase, nbasis=8, bf16=False):
     fwd_bwd_ms, plain_fwd_bwd_ms = time_ms(torch, fused_grads), time_ms(torch, plain_grads)
     bms, by = step_bound(s["n"], s["B"], s["widths"], S, bf16)
     dev = {"device_ms": named_device_ms(torch, kernel, r"\bfs::step", 1)}
-    if not bf16:  # what it replaces: six K1 (K1d) launches on the same stage inputs
-        dev["per_stage_k1_device_ms"] = named_device_ms(
-            torch, lambda: tfs._step_reference(planes, ts, t, y, h, f0, layers, tab,
-                                               stage=mk.megakernel_vf_eval),
-            r"\bmk::", S * (1 + len(layers)))
-        dev["plan"] = [p._asdict() for p in tfs.step_plans(s["n"], s["B"], s["widths"])]
+    # What it replaces: six K1 (K1d; bf16 K1bf) launches on the same stage
+    # inputs, whose results it equals bit for bit (any plan gives a row
+    # pass's bits).
+    route = lambda: tfs._step_reference(  # noqa: E731
+        planes, ts, t, y, h, f0, layers, tab, bf16,
+        stage=lambda *a: mk.megakernel_vf_eval(*a, bf16=bf16))
+    with torch.no_grad():
+        if bf16 and not all(torch.equal(a, b) for a, b in zip(got, route())):
+            raise RuntimeError(f"{name} {label}: not bitwise the per-stage K1bf route")
+    dev["per_stage_k1bf_device_ms" if bf16 else "per_stage_k1_device_ms"] = named_device_ms(
+        torch, route, r"\bmk::", S * (1 + len(layers)))
+    dev["plan"] = [p._asdict() for p in tfs.step_plans(s["n"], s["B"], s["widths"], bf16)]
     extra.update(dev)
+    smem = tfs.step_smem_bytes(s["n"], s["B"], layers, bf16)
     emit({"phase": phase, "kernel": name, "shape": label, **s, "method": "tsit5",
-          "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED, bf16),
-          "ctas": s["B"] * -(-s["n"] // 16),
+          "resident_ctas": tfs.capacity(y.device, nbasis == NBASIS_DIRECTED, bf16, smem),
+          "smem_bytes": smem,
           "max_abs_err": worst_abs, "rel_errs": errs, "ms": ms, "plain_ms": plain_ms,
           "bound_ms": bms, "bound_by": by, "bwd_max_rel_err": max(bwd_errs),
           "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms, **extra})
@@ -3253,18 +3317,22 @@ def main() -> int:
          dfused["K2bf"]),
     ):
         _, err, ms, plain_ms, dev = results[name][0]  # flagship shape, no dtau
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        **({"entry_points": ENTRY_POINTS["K2bf"]} if name.startswith("K2")
-                           else {}),
-                        "launches": launches, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": None, "shape": "flagship", **dev})
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "entry_points": ENTRY_POINTS[name[:2] + "bf"], "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+               "bound_by": by, "library_ms": None, "shape": "flagship", **dev}
+        if name.startswith("K1"):  # the trade field's widths
+            _, t_err, t_ms, t_plain, t_dev = next(r for r in results[name] if r[0] == "trade")
+            t_bms, t_by = k1_bound(SHAPES["trade"], True)
+            row["trade"] = {"max_abs_err": t_err, "ms": t_ms, "plain_ms": t_plain,
+                            "bound_ms": t_bms, "bound_by": t_by, **t_dev}
+        kernels.append(row)
     for name, launches in (("K11bf", fused["K11bf"]), ("K11dbf", dfused["K11bf"])):
         err, ms, plain_ms, bms, by, extra = results[name]["flagship"]
         kernels.append({"name": name, "route": "cuda",
                         "source": "gncde_tpu_torch/csrc/fused_step.cu",
                         "replaces": "gncde_tpu/ops/pallas/fused_step.py:86",
-                        "launches": launches, "max_abs_err": err, "ms": ms,
+                        "entry_points": ENTRY_POINTS["K11"], "launches": launches, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None, "shape": "flagship", **extra})
     # The bf16 enc_idx kernels at the trade width (n=255, H=512: the trade

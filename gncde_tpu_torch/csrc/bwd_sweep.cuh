@@ -99,18 +99,14 @@ __host__ __device__ constexpr int bwd_smem_floats(int n, int bm, int rw, bool ta
   return rows_npad(n) + bwd_nrow(tau) * bm * (rows_npad(n) + 4) + bm * bwd_gstride(rw, bm) +
          BSTAGES * 2 * RKT * rw;
 }
-// The bf16 sweep's bf16 tiles: the group's columns rounded up to the MMA's
-// 16 (bwd_hw), rows of hw + 8 halves (an odd number of 16-byte units, so
-// ldmatrix rows fall on distinct banks); the row operands' bf16 rows are at
-// least one 8-row block (bwd_nbr; rows past bm zero).
-__host__ __device__ constexpr int bwd_hw(int rw) { return (rw + 15) / 16 * 16; }
-__host__ __device__ constexpr int bwd_nbr(int bm) { return bm < 8 ? 8 : bm; }
+// The bf16 sweep's bf16 tiles: megakernel_common.cuh mma_hw and mma_rows.
 // Dynamic shared memory of one bf16 sweep CTA, in bytes: the f32 sweep's
 // minus its f32 C^T rows, then C^T's rows in bf16 (npad + 8 halves), the
 // CTA's rows of gb, and the bf16 M and g tiles of the current ring tile.
 __host__ __device__ constexpr int bwd_smem_bytes_bf(int n, int bm, int rw, bool tau) {
   return 4 * (bwd_smem_floats(n, bm, rw, tau) - bm * (rows_npad(n) + 4)) +
-         2 * (bwd_nbr(bm) * (rows_npad(n) + 8) + (bwd_nbr(bm) + 2 * RKT) * (bwd_hw(rw) + 8));
+         2 * (mma_rows(bm) * (rows_npad(n) + 8) +
+              (mma_rows(bm) + 2 * RKT) * (mma_hw(rw) + 8));
 }
 
 // One layer's sweep arguments (BF: bf16 planes). part: the layer's partial blocks, (B, nrb,
@@ -359,14 +355,6 @@ __device__ __forceinline__ void bwd_finish_rows(const BwdArgsT<BF>& a, BwdShared
   }
 }
 
-// ldmatrix .x2 (no transpose): two 8 x 8 bf16 matrices, lanes 0-15 giving
-// the row addresses (lane l of matrix l / 8).
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
 // One sweep CTA: rows blockIdx.x bm .., column group blockIdx.y, element
 // blockIdx.z; dyn the plan's dynamic shared memory. BF: the bf16 sweep
 // (its plan's width from a.cc; CC unused).
@@ -399,7 +387,7 @@ __device__ __forceinline__ void bwd_sweep_body(const BwdArgsT<BF>& a, float* __r
   float* ring = grow + bm * gs;                 // [BSTAGES][2][RKT][rw]: M, g tiles
   // BF: C^T's rows [nbr][ldcb], the rows of gb [nbr][hwp], and the current
   // tile's Mb and gb [RKT][hwp], bf16 bit patterns.
-  const int nbr = bwd_nbr(bm), ldcb = npad + 8, hw = bwd_hw(rw), hwp = hw + 8;
+  const int nbr = mma_rows(bm), ldcb = npad + 8, hw = mma_hw(rw), hwp = hw + 8;
   unsigned short* Ctb = reinterpret_cast<unsigned short*>(ring + BSTAGES * 2 * RKT * rw);
   unsigned short* growb = Ctb + nbr * ldcb;
   unsigned short* Mtb = growb + nbr * hwp;
@@ -1057,10 +1045,10 @@ inline bool bwd_dims_ok(int B, int n, int L, const int* dims, int ldm, int direc
 }
 
 // K2 (K2d; BF: K2bf, K2dbf): the forward recompute, then the reverse sweep
-// on bplan + 3 l (bm, cc, groups) and the reduction. The f32 recompute runs
-// K1's row pass on K1's plan (plan + 3 l), so M_l and x_l are K1's bit for
-// bit; the bf16 one K1bf's passes (prep_kernel, fwd_rows_kernel; plan
-// unread), K1bf's bit for bit. part: the layers' partial blocks in order,
+// on bplan + 3 l (bm, cc, groups) and the reduction. The recompute runs
+// K1's row pass on K1's plan (plan + 3 l; BF: K1bf's prep and bf16 row pass
+// on K1bf's plan), so M_l and x_l are K1's (K1bf's) bit for bit, and would
+// be on any plan. part: the layers' partial blocks in order,
 // part_floats of them; work: the several-group layers' scratch,
 // work_floats. The rest as megakernel_bwd.cu's gncde_mk_bwd. PROBE: the
 // sweep's BwdProbe bits.
@@ -1071,7 +1059,7 @@ static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const f
                   float* Xbuf, float* gbuf, int ldm, float* dZ, float* part,
                   long long part_floats, float* work, long long work_floats, int ptot,
                   float* red, cudaStream_t stream) {
-  if (L > BWD_LMAX || n > MAXN || (!BF && plan == nullptr) || bplan == nullptr)
+  if (L > BWD_LMAX || n > MAXN || plan == nullptr || bplan == nullptr)
     return (int)cudaErrorInvalidValue;
   const int nb = DIR ? NBASIS_D : NBASIS_U;
   // The plans, each layer's partial blocks and scratch, checked first.
@@ -1111,19 +1099,11 @@ static int mk_bwd(const Planes<BF>& P, const int* idx, const float* tau, const f
   cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int l = 0; l + 1 < L; ++l) {  // M_l, x_l bitwise the forward kernel's
-    if constexpr (BF) {
-      fwd_rows_kernel<DIR, true><<<grid, NT, 0, stream>>>(
-          P, idx, tau, n, stats, layer_from(ptrs, dims, l), Mbuf + l * lstride, ldm,
-          Xbuf + (l + 1) * lstride, ldm, 1, 1, layer_from(ptrs, dims, l + 1),
-          Mbuf + (l + 1) * lstride, ldm);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    } else {
-      const int e = launch_rows<DIR>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
-                                     Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride, ldm, 1,
-                                     1, layer_from(ptrs, dims, l + 1),
-                                     Mbuf + (l + 1) * lstride, ldm, plan + 3 * l, stream);
-      if (e != 0) return e;
-    }
+    const int e = launch_rows<DIR, 0, BF>(P, idx, tau, B, n, stats, layer_from(ptrs, dims, l),
+                                          Mbuf + l * lstride, ldm, Xbuf + (l + 1) * lstride,
+                                          ldm, 1, 1, layer_from(ptrs, dims, l + 1),
+                                          Mbuf + (l + 1) * lstride, ldm, plan + 3 * l, stream);
+    if (e != 0) return e;
   }
 
   const float* g_in = G;

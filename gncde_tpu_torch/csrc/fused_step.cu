@@ -27,15 +27,16 @@
 // pass: the directed prep also writes the column sums of the stage's
 // planes, before the grid barrier that already follows it.
 //
-// The f32 step (K11, K11d: step_rows_kernel) has G CTAs, at most the
-// resident capacity, and each phase is a list of virtual CTAs that they
-// walk in order: the 16-row blocks for the stage input and the prep, and
-// for each layer the (row block, column group) CTAs of its row-pass plan
-// (ops/fused_step.py step_plans: K1's row_plan on CTAs of 8 or 4 rows),
-// each running rows_kernel's own device function (megakernel_common.cuh
-// rows_body). So each stage derivative is one K1 eval's arithmetic on its
-// plan, bit for bit (any plan gives the same bits), and the dynamic shared
-// memory is the largest of the layers' plans.
+// The step (K11, K11d; under fusion_precision bf16 K11bf, K11dbf:
+// step_rows_kernel<DIR, BF>) has G CTAs, at most the resident capacity, and
+// each phase is a list of virtual CTAs that they walk in order: the 16-row
+// blocks for the stage input and the prep, and for each layer the (row
+// block, column group) CTAs of its row-pass plan (ops/fused_step.py
+// step_plans: K1's row_plan on CTAs of 8 or 4 rows), each running
+// rows_kernel's own device function (megakernel_common.cuh rows_body). So
+// each stage derivative is one K1 eval's arithmetic on its plan, bit for
+// bit (any plan gives the same bits), and the dynamic shared memory is the
+// largest of the layers' plans.
 //
 // The stage combinations are formed in the per-stage solver's order (terms
 // in stage order, every product and sum rounded once: __fmul_rn / __fadd_rn,
@@ -58,11 +59,12 @@
 // with the plans' shared memory, and the wrapper launches the batch in
 // chunks of whole elements' 16-row blocks that do.
 //
-// K11bf (BF, fusion_precision bf16, _make_step_kernel(bf16=True):
-// step_kernel): the same step on bfloat16 planes, grid (ceil(n / BM), B),
-// each CTA owning BM rows of one element, each stage's eval K1bf's device
-// code (fwd_rows: the n x n products on the tensor cores); the stage
-// combinations stay f32. Its backward is one K2bf per stage.
+// K11bf (BF, fusion_precision bf16, _make_step_kernel(bf16=True)): the same
+// step on bfloat16 planes, each stage's eval K1bf's device code (prep_rows
+// and the bf16 rows_body: B1 and B2^T formed in bf16 once a layer, the n x
+// n products on the tensor cores), so bit for bit the per-stage K1bf route
+// on any plan; the stage combinations stay f32. Its backward is one K2bf
+// per stage.
 #include <cooperative_groups.h>
 
 #include "megakernel_common.cuh"
@@ -75,8 +77,8 @@ namespace fs {
 constexpr int SMAX = 8;  // most evaluated stages (Tsit5, Dopri5: 6; Bosh3: 3)
 constexpr int LMAX = 8;  // most layers
 
-// The f32 stages' row-pass plan per layer (ops/megakernel.py row_plan):
-// CTA height bm, columns per thread cc, column groups.
+// The stages' row-pass plan per layer (ops/megakernel.py row_plan): CTA
+// height bm, columns per thread cc, column groups.
 struct StepPlan {
   int bm[LMAX], cc[LMAX], groups[LMAX];
 };
@@ -104,39 +106,43 @@ struct StepArgs {
   float* err;
   float* f1;
   int nb;        // batch elements of this launch
-  StepPlan plan; // f32: each layer's row-pass plan
+  StepPlan plan; // each layer's row-pass plan
 };
 
-// The f32 stages' dynamic shared memory: the largest of the layers' row-pass
-// plans (rows_smem_floats), in bytes.
-inline int step_smem_bytes(const int* dims, int L, int n, const StepPlan& pl) {
+// The stages' dynamic shared memory: the largest of the layers' row-pass
+// plans (megakernel_common.cuh rows_smem_bytes), in bytes.
+inline int step_smem_bytes(bool bf, const int* dims, int L, int n, const StepPlan& pl) {
   int most = 0;
   for (int l = 0; l < L; ++l) {
-    const int H = dims[2 * l + 1], cw = 512 * pl.cc[l] / pl.bm[l];
-    const int f = rows_smem_floats(n, pl.bm[l], rows_stride(cw, H, false), H);
+    const int f = rows_smem_bytes(bf, n, pl.bm[l], 512 * pl.cc[l] / pl.bm[l], dims[2 * l + 1]);
     most = f > most ? f : most;
   }
-  return most * (int)sizeof(float);
+  return most;
 }
 // The most any plan can ask for (n = MAXN, CTAs of 8 rows, 64 columns: the
 // stages' plans take CTAs of 8 or 4 rows, one column a thread, which hold
-// any layer of the step, at most MAXIN wide, in one group).
-constexpr int STEP_SMEM_MOST =
-    rows_smem_floats(MAXN, 8, rows_stride(64, MAXIN, false), MAXIN) * (int)sizeof(float);
+// any layer of the step, at most MAXIN wide, in one group; the bf16 pass's
+// 4-row CTAs take 8 rows of B1 and B2^T and 128 columns, so both heights
+// are counted).
+constexpr int step_smem_most(bool bf) {
+  return rows_smem_bytes(bf, MAXN, 8, 64, MAXIN) > rows_smem_bytes(bf, MAXN, 4, 128, MAXIN)
+             ? rows_smem_bytes(bf, MAXN, 8, 64, MAXIN)
+             : rows_smem_bytes(bf, MAXN, 4, 128, MAXIN);
+}
 
-// K11 and K11d (f32): the grid is G CTAs, at most the resident capacity,
-// fixed for the launch. Each phase's work is a list of virtual CTAs that
-// the G CTAs walk in order (v = blockIdx.x, + G, ...): the stage input, the
-// prep and the step's outputs in 16-row blocks of each element, each layer
-// in its row-pass plan's (row block, column group) CTAs -- rows_kernel's
-// arithmetic (rows_body), so every stage derivative is the per-stage K1
-// route's bit for bit, and the grid syncs fall where fwd_rows's did. Its
-// plans take CTAs of 8 or 4 rows (ops/fused_step.py STEP_BMS), one column
-// a thread, so one instantiation of the row pass serves every layer; two
-// CTAs an SM (at most 128 registers a thread, as rows_kernel takes), so
-// the flagship's 200 row-pass CTAs a layer are all resident.
-template <bool DIR>
-__global__ void __launch_bounds__(NT, 2) step_rows_kernel(const StepArgs<false> A) {
+// K11 and K11d (BF: K11bf, K11dbf): the grid is G CTAs, at most the
+// resident capacity, fixed for the launch. Each phase's work is a list of
+// virtual CTAs that the G CTAs walk in order (v = blockIdx.x, + G, ...): the
+// stage input, the prep and the step's outputs in 16-row blocks of each
+// element, each layer in its row-pass plan's (row block, column group) CTAs
+// -- the row pass's arithmetic (rows_body), so every stage derivative is the
+// per-stage K1 (K1bf) route's bit for bit. Its plans take CTAs of 8 or 4
+// rows (ops/fused_step.py STEP_BMS), one column a thread, so one
+// instantiation of the row pass serves every layer; two CTAs an SM (at most
+// 128 registers a thread), so the flagship's 200 row-pass CTAs a layer are
+// all resident.
+template <bool DIR, bool BF>
+__global__ void __launch_bounds__(NT, 2) step_rows_kernel(const StepArgs<BF> A) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float dyn[];
   __shared__ RowShared sh;
@@ -166,8 +172,8 @@ __global__ void __launch_bounds__(NT, 2) step_rows_kernel(const StepArgs<false> 
       __syncthreads();
       const long long base =
           (long long)b * A.P.bstride + (long long)__ldg(A.idx + b * S + s) * n * n;
-      prep_rows<DIR, false>(A.P, base, __ldg(A.tau + b * S + s), b, r0, n, A.Yi, H,
-                            A.layers[0], A.Mbuf, A.ldm, A.stats);
+      prep_rows<DIR, BF>(A.P, base, __ldg(A.tau + b * S + s), b, r0, n, A.Yi, H,
+                         A.layers[0], A.Mbuf, A.ldm, A.stats);
     }
     grid.sync();
     // 3. The layer stack, each layer on its plan; rows_body stores row gi
@@ -183,11 +189,12 @@ __global__ void __launch_bounds__(NT, 2) step_rows_kernel(const StepArgs<false> 
             (long long)b * A.P.bstride + (long long)__ldg(A.idx + b * S + s) * n * n;
         float* F = last ? A.ks + ((long long)b * (S - 1) + s) * nH : nullptr;
         __syncthreads();  // the previous CTA's reads of the shared memory done
-        rows_body<DIR, 1, 0>(sh, dyn, A.P, base, __ldg(A.tau + b * S + s), b, w / groups,
-                             w % groups, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
-                             A.ldm, F, H, last ? 0 : 1, last ? 0 : 1,
-                             A.layers[last ? l : l + 1], A.Mbuf + ((l + 1) % 2) * mhalf, A.ldm,
-                             bm, A.ldm % 4 == 0);
+        rows_body<DIR, 1, 0, BF>(sh, dyn, A.P, base, __ldg(A.tau + b * S + s), b, w / groups,
+                                 w % groups, n, A.stats, A.layers[l],
+                                 A.Mbuf + (l % 2) * mhalf, A.ldm, F, H, last ? 0 : 1,
+                                 last ? 0 : 1, A.layers[last ? l : l + 1],
+                                 A.Mbuf + ((l + 1) % 2) * mhalf, A.ldm, bm, A.ldm % 4 == 0,
+                                 A.plan.cc[l]);
       }
       grid.sync();
     }
@@ -215,95 +222,22 @@ __global__ void __launch_bounds__(NT, 2) step_rows_kernel(const StepArgs<false> 
   }
 }
 
-// K11bf, K11dbf: grid (ceil(n / BM), B), the stages' evals fwd_rows.
-template <bool DIR, bool BF>
-__global__ void __launch_bounds__(NT) step_kernel(const StepArgs<BF> A) {
-  static_assert(BF, "the f32 step is step_rows_kernel");
-  cg::grid_group grid = cg::this_grid();
-  const int b = A.b0 + blockIdx.y, r0 = blockIdx.x * BM;
-  const int n = A.n, H = A.H, S = A.S, L = A.L;
-  const long long nH = (long long)n * H;
-  const long long mhalf = (long long)A.Btot * n * A.ldm;  // one M buffer
-  // This CTA's rows of the (n, H) operands of element b: elements
-  // own .. own + cnt - 1 of each.
-  const long long own = (long long)b * nH + (long long)r0 * H;
-  const int cnt = (min(r0 + BM, n) - r0) * H;
-  const float* y = A.y + own;
-  const float* f0 = A.f0 + own;
-  float* Yi = A.Yi + own;
-  float* kown = A.ks + (long long)b * S * nH + (long long)r0 * H;  // slot 0
-  const float hb = __ldg(A.h + b);
-
-  for (int s = 0; s < S; ++s) {
-    // 1. The stage input, own rows.
-    for (int e = threadIdx.x; e < cnt; e += NT) {
-      float acc = __fmul_rn(A.a[s][0], f0[e]);
-      for (int j = 1; j <= s; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(A.a[s][j], kown[(j - 1) * nH + e]));
-      Yi[e] = __fadd_rn(y[e], __fmul_rn(hb, acc));
-    }
-    __syncthreads();
-    // 2. Statistics and layer 0's M rows at the stage's node.
-    const long long base =
-        (long long)b * A.P.bstride + (long long)__ldg(A.idx + b * S + s) * n * n;
-    const float t = __ldg(A.tau + b * S + s);
-    prep_rows<DIR, BF>(A.P, base, t, b, r0, n, A.Yi, H, A.layers[0], A.Mbuf, A.ldm,
-                       A.stats);
-    grid.sync();
-    // 3. The layer stack. fwd_rows stores row gi of element b at
-    // F + (b n + gi) ldf, so F is shifted to land in slot s of ks.
-    for (int l = 0; l < L; ++l) {
-      const bool last = l == L - 1;
-      float* F = last ? A.ks + ((long long)b * (S - 1) + s) * nH : nullptr;
-      fwd_rows<DIR, BF>(A.P, base, t, b, r0, n, A.stats, A.layers[l], A.Mbuf + (l % 2) * mhalf,
-               A.ldm, F, H, last ? 0 : 1, last ? 0 : 1, A.layers[last ? l : l + 1],
-               A.Mbuf + ((l + 1) % 2) * mhalf, A.ldm);
-      grid.sync();
-    }
-  }
-
-  // The step's outputs, own rows; k_S is slot S - 1.
-  float* y1 = A.y1 + own;
-  float* err = A.err + own;
-  float* f1 = A.f1 + own;
-  for (int e = threadIdx.x; e < cnt; e += NT) {
-    const float k0 = f0[e];
-    float bacc = __fmul_rn(A.bw[0], k0), eacc = __fmul_rn(A.ew[0], k0);
-    for (int j = 1; j <= S; ++j) {
-      const float kj = kown[(j - 1) * nH + e];
-      bacc = __fadd_rn(bacc, __fmul_rn(A.bw[j], kj));
-      eacc = __fadd_rn(eacc, __fmul_rn(A.ew[j], kj));
-    }
-    y1[e] = __fadd_rn(y[e], __fmul_rn(hb, bacc));
-    err[e] = __fmul_rn(hb, eacc);
-    f1[e] = kown[(S - 1) * nH + e];
-  }
-}
-
 }  // namespace fs
 
 using namespace fs;
 
-// The step's kernel of a basis and precision.
+// The kernels' shared-memory allowance (step_smem_most), set once per
+// device, basis and precision; 0 or a CUDA error.
 template <bool DIR, bool BF>
-static const void* step_fn() {
-  if constexpr (BF)
-    return (const void*)step_kernel<DIR, true>;
-  else
-    return (const void*)step_rows_kernel<DIR>;
-}
-
-// The f32 kernels' shared-memory allowance (STEP_SMEM_MOST), set once per
-// device and basis; 0 or a CUDA error.
-template <bool DIR>
 static int allow_step_smem() {
   static bool allowed[64];
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err != 0) return err;
   if (dev < 64 && allowed[dev]) return 0;
-  err = (int)cudaFuncSetAttribute(step_rows_kernel<DIR>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, STEP_SMEM_MOST);
+  err = (int)cudaFuncSetAttribute(step_rows_kernel<DIR, BF>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  step_smem_most(BF));
   if (err == 0 && dev < 64) allowed[dev] = true;
   return err;
 }
@@ -317,19 +251,17 @@ static int capacity_of(int smem) {
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  if constexpr (!BF) {
-    if (allow_step_smem<DIR>() != 0) return 0;
-  }
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_fn<DIR, BF>(), NT,
-                                                    BF ? 0 : smem) != cudaSuccess)
+  if (allow_step_smem<DIR, BF>() != 0) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_rows_kernel<DIR, BF>, NT,
+                                                    smem) != cudaSuccess)
     return 0;
   return per_sm * sms;
 }
 
-// smem: the f32 kernels' dynamic shared memory in bytes (unread for bf16).
+// smem: the kernel's dynamic shared memory in bytes.
 extern "C" int gncde_fused_step_capacity(int directed, int bf16, int smem) {
-  if (smem < 0 || smem > STEP_SMEM_MOST) return 0;
-  if (bf16) return directed ? capacity_of<true, true>(0) : capacity_of<false, true>(0);
+  if (smem < 0 || smem > step_smem_most(bf16 != 0)) return 0;
+  if (bf16) return directed ? capacity_of<true, true>(smem) : capacity_of<false, true>(smem);
   return directed ? capacity_of<true, false>(smem) : capacity_of<false, false>(smem);
 }
 
@@ -375,41 +307,36 @@ static int launch_step(const void* d, const void* c, const void* b, const void* 
   A.nb = nb;
   void* args[] = {&A};
   cudaError_t e;
-  if constexpr (BF) {
-    const dim3 grid((n + BM - 1) / BM, nb);
-    e = cudaLaunchCooperativeKernel(directed ? step_fn<true, true>() : step_fn<false, true>(),
-                                    grid, dim3(NT), args, 0, stream);
-  } else {
-    // The plans: CTAs of 8 or 4 rows, one column a thread (cw = 64 or 128
-    // columns, one group: every layer of the step is at most MAXIN wide).
-    int most = (n + BM - 1) / BM;  // virtual CTAs an element: prep and outputs
-    for (int l = 0; l < L; ++l) {
-      const int bm = plan[3 * l], cc = plan[3 * l + 1], groups = plan[3 * l + 2];
-      if ((bm != 4 && bm != 8) || cc != 1 || groups != 1) return (int)cudaErrorInvalidValue;
-      A.plan.bm[l] = bm;
-      A.plan.cc[l] = cc;
-      A.plan.groups[l] = groups;
-      const int per = (n + bm - 1) / bm * groups;
-      most = per > most ? per : most;
-    }
-    const int smem = step_smem_bytes(dims, L, n, A.plan);
-    const int cap = directed ? capacity_of<true, false>(smem) : capacity_of<false, false>(smem);
-    if (cap < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long want = (long long)most * nb;
-    const int G = want < cap ? (int)want : cap;
-    e = cudaLaunchCooperativeKernel(directed ? step_fn<true, false>() : step_fn<false, false>(),
-                                    dim3(G), dim3(NT), args, (size_t)smem, stream);
+  // The plans: CTAs of 8 or 4 rows, one column a thread (cw = 64 or 128
+  // columns, one group: every layer of the step is at most MAXIN wide).
+  int most = (n + BM - 1) / BM;  // virtual CTAs an element: prep and outputs
+  for (int l = 0; l < L; ++l) {
+    const int bm = plan[3 * l], cc = plan[3 * l + 1], groups = plan[3 * l + 2];
+    if ((bm != 4 && bm != 8) || cc != 1 || groups != 1) return (int)cudaErrorInvalidValue;
+    A.plan.bm[l] = bm;
+    A.plan.cc[l] = cc;
+    A.plan.groups[l] = groups;
+    const int per = (n + bm - 1) / bm * groups;
+    most = per > most ? per : most;
   }
+  const int smem = step_smem_bytes(BF, dims, L, n, A.plan);
+  const int cap = directed ? capacity_of<true, BF>(smem) : capacity_of<false, BF>(smem);
+  if (cap < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long want = (long long)most * nb;
+  const int G = want < cap ? (int)want : cap;
+  const void* fn = directed ? (const void*)step_rows_kernel<true, BF>
+                            : (const void*)step_rows_kernel<false, BF>;
+  e = cudaLaunchCooperativeKernel(fn, dim3(G), dim3(NT), args, (size_t)smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// One step for batch elements b0 .. b0 + nb - 1 (one cooperative launch:
-// f32, G CTAs, at most the resident capacity; bf16, grid (ceil(n / BM),
-// nb)). Buffers are sized for the whole batch Btot. amat: host (S, S)
+// One step for batch elements b0 .. b0 + nb - 1 (one cooperative launch of
+// G CTAs, at most the resident capacity). Buffers are sized for the whole
+// batch Btot. amat: host (S, S)
 // row-major; bvec, berr: host (S + 1); dims, ptrs: host arrays as for K1;
-// plan: host (bm, cc, groups) per layer, the f32 stages' row-pass plans
-// (ops/megakernel.py row_plan; unread for bf16); directed: the layers' basis
+// plan: host (bm, cc, groups) per layer, the stages' row-pass plans
+// (ops/fused_step.py step_plans); directed: the layers' basis
 // is the (11, 2) directed stack; planes float32, or bfloat16 when bf16
 // (K11bf). Returns the first CUDA error.
 extern "C" int gncde_fused_step(const void* d, const void* c, const void* b,
@@ -426,7 +353,7 @@ extern "C" int gncde_fused_step(const void* d, const void* c, const void* b,
     return (int)cudaErrorInvalidValue;
   const int H = dims[0];
   if (dims[2 * L - 1] != H) return (int)cudaErrorInvalidValue;  // k and y alike
-  if (!bf16 && (plan == nullptr || n > MAXN)) return (int)cudaErrorInvalidValue;
+  if (plan == nullptr || n > MAXN) return (int)cudaErrorInvalidValue;
   if (bf16)
     return launch_step<true>(d, c, b, a, plane_bstride, idx, tau, h, y, f0, Btot, b0, nb, n,
                              S, amat, bvec, berr, L, dims, ptrs, plan, directed, stats, Mbuf,

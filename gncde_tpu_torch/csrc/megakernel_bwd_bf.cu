@@ -10,8 +10,10 @@
 // bf16-rounded g and M on the tensor cores, the basis dots against the
 // planes' f32 values; everything else f32.
 //
-// Launches: K1bf's prep pass and its row pass fwd_rows_kernel per layer
-// (megakernel_common.cuh), so M_l and x_l are K1bf's bit for bit; then per
+// Launches: K1bf's prep pass and its bf16 row pass rows_bf_kernel per layer
+// but the last, on K1bf's plan (megakernel_common.cuh rows_body,
+// ops/megakernel.py row_plan with bf16), so M_l and x_l are K1bf's bit for
+// bit; then per
 // layer in reverse the bf16 instantiation of bwd_sweep.cuh's sweep
 // (bwd_sweep_bf_kernel) on the layer's plan (ops/megakernel_bwd.py
 // bwd_row_plan with bf16), its finish for a layer of several column groups,
@@ -23,8 +25,8 @@
 
 using namespace mk;
 
-// gncde_mk_bwd's arguments on bf16 planes; plan (K1's f32 row plan) is
-// unread and may be NULL.
+// gncde_mk_bwd's arguments on bf16 planes; plan: K1bf's row plans (the
+// recompute's).
 extern "C" int gncde_mk_bwd_bf16(const void* d, const void* c, const void* b, const void* a,
                                  long long plane_bstride, const int* idx, const float* tau,
                                  const float* Z, const float* G, int B, int n, int L,

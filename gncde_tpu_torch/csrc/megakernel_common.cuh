@@ -20,16 +20,18 @@
 // operands by sum(A)). The undirected instantiation computes bit for bit
 // what it computed before the directed basis existed.
 //
-// Layout: CTAs own BM rows of one batch element (grid
-// (ceil(n/BM), B)); the n x n operands never reach device memory -- each
-// CTA of fwd_rows regenerates its (BM x BK) tiles of C from the planes, in
-// shared memory, once per layer and chunk of HC output columns. K1's and
-// K2's f32 row pass is rows_kernel (below): the same arithmetic bit for
-// bit on a launch plan of its own, C's rows formed once per layer; K11's f32
-// stages run its device function rows_body inside their cooperative launch;
-// fwd_rows serves the bf16 kernels (K1bf, K2bf's recompute, K11bf). All
-// reductions are in a fixed order, so results are bitwise reproducible run
-// to run.
+// Layout: the n x n operands never reach device memory. The row pass of
+// every vector-field kernel is rows_body (below), on a launch plan of its
+// own per layer (ops/megakernel.py row_plan): a CTA forms its rows of C (or
+// of B1 and B2^T in bf16) over all n columns once a layer, in shared
+// memory, and M streams through a cp.async ring. rows_kernel runs it for
+// K1's and K2's f32 passes, rows_bf_kernel for K1bf's and K2bf's (BF), and
+// K11's and K11bf's stages run it inside their cooperative launch. The
+// first row pass, fwd_rows (CTAs of BM rows regenerating their (BM x BK)
+// tiles of C from the planes for every chunk of HC output columns), stays
+// only for the design probes (csrc/mk_probe.cu), whose flags are ablations
+// of it. All reductions are in a fixed order, so results are bitwise
+// reproducible run to run.
 //
 // Widths: a layer's input is at most MAXIN = 64 wide; its output any width
 // up to MAXOUT, swept in chunks of HC = 64 columns (one chunk, and the
@@ -48,16 +50,15 @@
 // b1_1 dAh and B2^T = b2_0 Ah^T + b2_1 dAh^T are formed in bf16 (the
 // coefficients rounded, each product and the sum rounded), separately --
 // their sum would round again -- and multiplied with M rounded to bf16 on
-// the tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation):
-// each of the CTA's 8 warps owns one 16 x 8 block of the 16 x 64 output
-// chunk, and both products feed its one accumulator. The rank terms are
-// f32 on the unrounded M. The f32 instantiations (BF = false) compute bit
-// for bit what they computed before BF existed.
+// the tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation),
+// both products into one accumulator per output. The rank terms are f32 on
+// the unrounded M. The f32 instantiations (BF = false) compute bit for bit
+// what they computed before BF existed.
 //
 // The design probes (csrc/mk_probe.cu, benchmarks/mk_probe4.py and
-// mk_probe5.py) are K1bf with three more compile-time parameters of
-// prep_rows / fwd_rows, all off by default (the instantiations of K1, K2,
-// K11 and their bf16 and directed forms): D, one of mk_probe5.py's
+// mk_probe5.py) run K1bf's first row pass, fwd_rows, with three more
+// compile-time parameters of prep_rows / fwd_rows, all off by default (the
+// instantiations of the main path's prep passes): D, one of mk_probe5.py's
 // ablations (enum Drop), replaces one component; RED takes the statistics
 // from a (B, n, 4) operand [rA, rdA, diagA, diagdA] made outside, and the
 // prep pass then only transforms layer 0's rows; NOTR stages B2 in its
@@ -161,6 +162,14 @@ __device__ __forceinline__ void herm_vals(float d, float c, float b, float a, fl
                                           float& A, float& dA) {
   A = ((d * t + c) * t + b) * t + a;
   dA = (3.0f * d * t + 2.0f * c) * t + b;
+}
+// The same of bf16 plane values, each product and sum rounded once (herm's
+// BF chain).
+__device__ __forceinline__ void herm_vals_bf(float d, float c, float b, float a, float t,
+                                             float& A, float& dA) {
+  A = __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(d, t), c), t), b), t), a);
+  dA = __fadd_rn(
+      __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(3.0f, d), t), __fmul_rn(2.0f, c)), t), b);
 }
 
 // A(t), dA(t) (and d(dA)/dt) at one plane element. BF: each product and sum
@@ -301,6 +310,21 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void
                : "=r"(r0), "=r"(r1)
                : "r"(smem_u32(p)));
 }
+// ldmatrix .x2 (no transpose): two 8 x 8 bf16 matrices, lanes 0-15 giving
+// the row addresses (lane l of matrix l / 8).
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
+// The bf16 passes' tiles (rows_body's and bwd_sweep.cuh's): a group's
+// columns rounded up to the MMA's 16 (mma_hw), in rows of hw + 8 halves (an
+// odd number of 16-byte units, so ldmatrix rows fall on distinct banks); a
+// CTA's bf16 row operands are at least one 8-row block (mma_rows; rows past
+// bm zero).
+__host__ __device__ constexpr int mma_hw(int rw) { return (rw + 15) / 16 * 16; }
+__host__ __device__ constexpr int mma_rows(int bm) { return bm < 8 ? 8 : bm; }
 
 // 16-byte cp.async of src_bytes (0-16) from global memory; the rest of the
 // 16 bytes is zero-filled.
@@ -534,9 +558,11 @@ prep_kernel(Planes<BF> P, const int* __restrict__ idx, const float* __restrict__
 // Pass 2 of one CTA (one per layer): out rows = C M + rank terms (+ relu),
 // optionally stored to F, and -- when a next layer exists (then H <= HC) --
 // that layer's M rows; rows r0 .. r0+BM-1 of element b, planes at ``base``,
-// offset t. The output columns are swept in chunks of HC. Shared by K1
-// (fwd_rows_kernel) and K11. The probe flags (BF, undirected; see the top
-// of this file) read ``stats`` as the (B, n, 4) operand under RED.
+// offset t. The output columns are swept in chunks of HC. The first row
+// pass (fwd_rows_kernel), which the main path no longer runs: the design
+// probes' P3 and P4 (csrc/mk_probe.cu run_probe) ablate it. The probe flags
+// (BF, undirected; see the top of this file) read ``stats`` as the (B, n,
+// 4) operand under RED.
 template <bool DIR, bool BF, int D = FULL, bool RED = false, bool NOTR = false>
 __device__ __forceinline__ void fwd_rows(const Planes<BF>& P, long long base, float t,
                                          int b, int r0, int n,
@@ -851,6 +877,28 @@ fwd_rows_kernel(Planes<BF> P, const int* __restrict__ idx,
 // Its device time is the CTA's serial chain (plane loads, ring, products),
 // not the card's throughput: the trade's 316 MFLOP are 4.7 us at an H100's
 // f32 peak, and the planes 2 MB an element read twice, mostly from L2.
+//
+// The bf16 instantiation (BF: rows_bf_kernel, K1bf and K1dbf, K2bf's
+// recompute, K11bf's stages) computes what fwd_rows<DIR, true> computes
+// (_make_vf_body(bf16=True), ops/megakernel.py plain_vf_eval_bf16) on the
+// same plans and the same code but for three parts:
+//  * the CTA forms its bm rows of B1 = b1_0 Ah + b1_1 dAh and of B2^T = b2_0
+//    Ah^T + b2_1 dAh^T over all n columns once a layer, in bf16 (JAX's
+//    rounding points), into two arrays of dynamic shared memory, zero past
+//    n and past bm; B2^T's half reads the planes at (k, i) once a layer,
+//    where fwd_rows read them, 16 elements wide, once a 64-column chunk;
+//  * each ring tile of M, whose column sums are taken from its f32 values
+//    as in the f32 pass, is then rounded to bf16 once;
+//  * the products run as bf16 mma.sync m16n8k16 on the output's transpose,
+//    out^T = Mh^T [B1 | B2^T]^T: blocks of 16 of the group's columns by 8 of
+//    the CTA's rows (Mh^T the A operand through ldmatrix .trans, the CTA's
+//    bf16 rows the 8-wide B operand, so 8- and 4-row CTAs fill the
+//    fragment), at most two blocks a warp, each over the whole reduce
+//    extent. Every output's f32 accumulator takes B1's then B2^T's
+//    fragment at k16 step 0, 16, ..., npad - 16, whatever the plan: any bm,
+//    cc or column group gives the same bits. The accumulators go through
+//    shared memory to an epilogue of one (row, column) a thread, coalesced.
+// Its cc is a launch argument (one instantiation serves every plan).
 constexpr int RKT = 32;     // rows of M per ring tile
 constexpr int RSTAGES = 3;  // ring stages
 constexpr int RWCH = 128;   // rows of the next layer's W per staged chunk
@@ -863,10 +911,11 @@ constexpr int RU = 8;       // plane elements a thread loads before it forms the
 // takes the products as 3xTF32 on the tensor cores (mma.sync m16n8k8 on
 // big/small TF32 splits, K6a's arithmetic in csrc/plane_mma.cu) in place of
 // the f32 FMA loop: an f32-accurate product in another summation order.
+// The bf16 pass takes bits 1-32 (K1bf-ablation, gncde_mk_fwd_bf16_probe).
 enum RowProbe {
   RP_NO_PLANES = 1,   // form C from its indices, without the plane reads
   RP_NO_FORM = 2,     // no forming of C at all
-  RP_NO_PRODUCT = 4,  // no C M products
+  RP_NO_PRODUCT = 4,  // no C M products (BF: nor the tiles' rounding)
   RP_NO_RING = 8,     // no copies of M's tiles
   RP_NO_COLSUM = 16,  // no column sums
   RP_NO_NEXT = 32,    // no transform of the next layer's M
@@ -910,9 +959,28 @@ __host__ __device__ constexpr int rows_smem_floats(int n, int bm, int rs, int H)
                              ? bm * (rows_npad(n) + 4) + RSTAGES * RKT * rs
                              : rows_wchunk_floats(H));
 }
+// The bf16 pass's, in bytes: v, then B1's and B2^T's bf16 rows (mma_rows(bm)
+// x (npad + 8) halves each), the f32 ring (rows of rw = rows_width(cw, H))
+// and one bf16 tile of it (RKT x (mma_hw(rw) + 8) halves), or the W chunks.
+__host__ __device__ constexpr int rows_smem_bytes_bf(int n, int bm, int rw, int H) {
+  return 4 * rows_npad(n) +
+         (4 * mma_rows(bm) * (rows_npad(n) + 8) + 4 * RSTAGES * RKT * rw +
+                      2 * RKT * (mma_hw(rw) + 8) > 4 * rows_wchunk_floats(H)
+              ? 4 * mma_rows(bm) * (rows_npad(n) + 8) + 4 * RSTAGES * RKT * rw +
+                    2 * RKT * (mma_hw(rw) + 8)
+              : 4 * rows_wchunk_floats(H));
+}
+// Dynamic shared memory of one row-pass CTA on plan (bm, cw) of an H-wide
+// layer, in bytes (mma: RP_TF32's padded ring).
+__host__ __device__ constexpr int rows_smem_bytes(bool bf, int n, int bm, int cw, int H,
+                                                  bool mma = false) {
+  return bf ? rows_smem_bytes_bf(n, bm, rows_width(cw, H), H)
+            : rows_smem_floats(n, bm, rows_stride(cw, H, mma), H) * 4;
+}
 
 // The row pass's static shared memory, declared once by each kernel that
-// runs it (rows_kernel; K11's step_kernel for every layer and plan).
+// runs it (rows_kernel, rows_bf_kernel; K11's step_rows_kernel for every
+// layer and plan).
 struct RowShared {
   float colS[128], colW[128];
   float red[2][2][NT];
@@ -923,18 +991,21 @@ struct RowShared {
 
 // One CTA of the row pass: rows rb bm .. of element b (planes at ``base``,
 // offset t), column group gr; dyn the plan's dynamic shared memory. A
-// device function so that rows_kernel and K11 (fused_step.cu) run the same
-// arithmetic; every thread of the CTA must reach it.
-template <bool DIR, int CC, int PROBE>
+// device function so that rows_kernel, rows_bf_kernel and K11 (fused_step.cu)
+// run the same arithmetic; every thread of the CTA must reach it. BF: the
+// bf16 pass, its plan's cc the argument cc (CC unused).
+template <bool DIR, int CC, int PROBE, bool BF = false>
 __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn,
-                                          const Planes<false>& P, long long base, float t,
+                                          const Planes<BF>& P, long long base, float t,
                                           int b, int rb, int gr, int n,
                                           const float* __restrict__ stats, const Layer& lp,
                                           const float* __restrict__ Mc, int ldm,
                                           float* __restrict__ F, int ldf, int relu,
                                           int has_next, const Layer& ln,
-                                          float* __restrict__ Mn, int ldmn, int bm, int vec_m) {
+                                          float* __restrict__ Mn, int ldmn, int bm, int vec_m,
+                                          int cc = CC) {
   constexpr bool MMA = (PROBE & RP_TF32) != 0;
+  static_assert(!(BF && MMA), "the bf16 pass's products are bf16 mma.sync");
   float* colS = sh.colS;
   float* colW = sh.colW;
   float(*red)[2][NT] = sh.red;
@@ -945,13 +1016,20 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
   const int r0 = rb * bm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int H = lp.hout;
-  const int cw = 512 * CC / bm;
+  const int cw = 512 * (BF ? cc : CC) / bm;
   const int g0 = gr * cw, wg = min(cw, H - g0);  // the group's columns
   const int rw = rows_width(cw, H), rs = rows_stride(cw, H, MMA);
   const int npad = rows_npad(n), ldc = npad + 4;
   float* vsh = dyn;               // [npad]
   float* Cs = vsh + npad;         // [bm][ldc]
-  float* ring = Cs + bm * ldc;    // [RSTAGES][RKT][rs]
+  // BF: B1's and B2^T's rows [nbr][ldcb] as bf16 bit patterns where Cs
+  // would be, then the ring, then the current tile rounded, [RKT][hwp].
+  const int nbr = mma_rows(bm), ldcb = npad + 8, hw = mma_hw(rw), hwp = hw + 8;
+  unsigned short* B1b = reinterpret_cast<unsigned short*>(Cs);
+  unsigned short* B2b = B1b + nbr * ldcb;
+  float* ring = BF ? reinterpret_cast<float*>(B2b + nbr * ldcb)
+                   : Cs + bm * ldc;  // [RSTAGES][RKT][rs]
+  unsigned short* Mtb = reinterpret_cast<unsigned short*>(ring + RSTAGES * RKT * rs);
   const float fn = (float)n, fn2 = fn * fn;
   const float* st = stats + (long long)b * NSTAT * n;
   const float* Mb = Mc + (long long)b * n * ldm;
@@ -1018,51 +1096,93 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
   // elements' four plane values before it evaluates any (4 RU loads in
   // flight: the pass is bound by their latency).
   constexpr bool form = !(PROBE & RP_NO_FORM), planes = !(PROBE & RP_NO_PLANES);
-  for (int e0 = tid; form && e0 < bm * npad; e0 += NT * RU) {
-    float pd[RU], pc[RU], pb[RU], pa[RU];
+  if constexpr (BF) {
+    // B1[i, k] from plane row r0 + i (pass 0, coalesced along k) and B2^T[i,
+    // k] = B2[k, i] from plane column r0 + i (pass 1, coalesced along i),
+    // each in bf16 (fwd_rows's chain), into arrays of their own; zero past n
+    // and (bm < 8) past bm. No barrier between: the tile loop's first one.
+    const float cb0 = rbf(b10), cb1 = rbf(b11), cb2 = rbf(b20), cb3 = rbf(b21);
+    for (int e = bm * ldcb + tid; e < nbr * ldcb; e += NT) B1b[e] = B2b[e] = 0;
+    for (int pass = 0; pass < 2 && form; ++pass) {
+      unsigned short* Bb = pass == 0 ? B1b : B2b;
+      const float c0 = pass == 0 ? cb0 : cb2, c1 = pass == 0 ? cb1 : cb3;
+      for (int e0 = tid; e0 < bm * npad; e0 += NT * RU) {
+        float pd[RU], pc[RU], pb[RU], pa[RU];
 #pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
-      const bool ok = e < bm * npad && gi < n && k < n;
-      const long long off = base + (long long)gi * n + k;
-      pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
-      pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
-      pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
-      pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
+        for (int u = 0; u < RU; ++u) {
+          const int e = e0 + u * NT;
+          const int i = pass == 0 ? e / npad : e % bm, k = pass == 0 ? e - i * npad : e / bm;
+          const int gi = r0 + i;
+          const bool ok = e < bm * npad && gi < n && k < n;
+          const long long off =
+              pass == 0 ? base + (long long)gi * n + k : base + (long long)k * n + gi;
+          pd[u] = ok && planes ? ldp(P.d + off) : 1e-3f * e;
+          pc[u] = ok && planes ? ldp(P.c + off) : 0.f;
+          pb[u] = ok && planes ? ldp(P.b + off) : 0.f;
+          pa[u] = ok && planes ? ldp(P.a + off) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          const int e = e0 + u * NT;
+          if (e >= bm * npad) continue;
+          const int i = pass == 0 ? e / npad : e % bm, k = pass == 0 ? e - i * npad : e / bm;
+          float v = 0.f;
+          if (r0 + i < n && k < n) {
+            float A, dA;
+            herm_vals_bf(pd[u], pc[u], pb[u], pa[u], t, A, dA);
+            v = __fadd_rn(bmul(c0, A), bmul(c1, dA));
+          }
+          Bb[i * ldcb + k] = bf16_bits(v);
+        }
+      }
     }
+  } else {
+    for (int e0 = tid; form && e0 < bm * npad; e0 += NT * RU) {
+      float pd[RU], pc[RU], pb[RU], pa[RU];
 #pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
-      if (e >= bm * npad) continue;
-      float v = 0.f;
-      if (gi < n && k < n) {
+      for (int u = 0; u < RU; ++u) {
+        const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
+        const bool ok = e < bm * npad && gi < n && k < n;
+        const long long off = base + (long long)gi * n + k;
+        pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
+        pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
+        pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
+        pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int e = e0 + u * NT, i = e / npad, k = e - i * npad, gi = r0 + i;
+        if (e >= bm * npad) continue;
+        float v = 0.f;
+        if (gi < n && k < n) {
+          float A, dA;
+          herm_vals(pd[u], pc[u], pb[u], pa[u], t, A, dA);
+          v = b10 * A + b11 * dA;
+        }
+        Cs[i * ldc + k] = v;
+      }
+    }
+    __syncthreads();
+    for (int e0 = tid; form && e0 < bm * n; e0 += NT * RU) {
+      float pd[RU], pc[RU], pb[RU], pa[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
+        const bool ok = e < bm * n && gi < n;
+        const long long off = base + (long long)k * n + gi;
+        pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
+        pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
+        pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
+        pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
+        if (e >= bm * n || gi >= n) continue;
         float A, dA;
         herm_vals(pd[u], pc[u], pb[u], pa[u], t, A, dA);
-        v = b10 * A + b11 * dA;
+        Cs[i * ldc + k] += b20 * A + b21 * dA;
       }
-      Cs[i * ldc + k] = v;
-    }
-  }
-  __syncthreads();
-  for (int e0 = tid; form && e0 < bm * n; e0 += NT * RU) {
-    float pd[RU], pc[RU], pb[RU], pa[RU];
-#pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
-      const bool ok = e < bm * n && gi < n;
-      const long long off = base + (long long)k * n + gi;
-      pd[u] = ok && planes ? __ldg(P.d + off) : 1e-3f * e;
-      pc[u] = ok && planes ? __ldg(P.c + off) : 0.f;
-      pb[u] = ok && planes ? __ldg(P.b + off) : 0.f;
-      pa[u] = ok && planes ? __ldg(P.a + off) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      const int e = e0 + u * NT, k = e / bm, i = e - k * bm, gi = r0 + i;
-      if (e >= bm * n || gi >= n) continue;
-      float A, dA;
-      herm_vals(pd[u], pc[u], pb[u], pa[u], t, A, dA);
-      Cs[i * ldc + k] += b20 * A + b21 * dA;
     }
   }
 
@@ -1135,6 +1255,41 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
     }
   };
 
+  // BF: the output's transpose in blocks of (16 of the group's columns) x
+  // (8 of the CTA's rows), nblk of them, block j on warp j % NW (two a warp
+  // at most); entry f of a block's accumulator is column mb 16 + gid + 8 (f
+  // >> 1), row nb 8 + 2 q4 + (f & 1).
+  const int nnb = (bm + 7) / 8, nblk = hw / 16 * nnb;
+  float bacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  auto bf16_tile = [&](const float* T, int k0) {
+    // The tile rounded to bf16 once (columns past rw zero).
+    const int hp2 = hw / 2;
+    for (int e = tid; e < RKT * hp2; e += NT) {
+      const int kk = e / hp2, c = 2 * (e - kk * hp2);
+      const float* src = T + kk * rs + c;
+      *reinterpret_cast<__nv_bfloat162*>(Mtb + kk * hwp + c) =
+          __floats2bfloat162_rn(c < rw ? src[0] : 0.f, c + 1 < rw ? src[1] : 0.f);
+    }
+    __syncthreads();
+    const int m = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = warp + jj * NW;
+      if (j >= nblk) break;  // warp-uniform
+      const int mb = j / nnb, nb = j - mb * nnb;
+#pragma unroll
+      for (int ks = 0; ks < RKT; ks += 16) {
+        uint32_t a0, a1, a2, a3, b0, b1;
+        ldsm_x4_t(a0, a1, a2, a3, Mtb + (ks + (m >> 1) * 8 + r) * hwp + mb * 16 + (m & 1) * 8);
+        const int o = (nb * 8 + r) * ldcb + k0 + ks + (m & 1) * 8;
+        ldsm_x2(b0, b1, B1b + o);
+        mma_bf16(bacc[jj], a0, a1, a2, a3, b0, b1);
+        ldsm_x2(b0, b1, B2b + o);
+        mma_bf16(bacc[jj], a0, a1, a2, a3, b0, b1);
+      }
+    }
+  };
+
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_wait1();
     __syncthreads();  // tile's stage landed; C and v complete (first tile)
@@ -1151,7 +1306,9 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
         w_[c] += vsh[knext[c]] * m;
       }
     }
-    if constexpr (MMA) {
+    if constexpr (BF) {
+      if constexpr (!(PROBE & RP_NO_PRODUCT)) bf16_tile(T, k0);
+    } else if constexpr (MMA) {
       tf32_tile(T, k0);
     } else if (cb < wg && !(PROBE & RP_NO_PRODUCT)) {
 #pragma unroll
@@ -1210,6 +1367,23 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
       for (int c = 0; c < CC; ++c)
         if (cb + c < wg) acc[r][c] = Pm[(rg + r * rgw) * rs + cb + c];
   }
+  if constexpr (BF) {
+    // The blocks' accumulators to shared memory over the ring (done with),
+    // [bm][rs], for the epilogue.
+    cp_wait0();
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = warp + jj * NW;
+      if (j >= nblk) break;
+      const int mb = j / nnb, nb = j - mb * nnb;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int h = mb * 16 + gid + 8 * (f >> 1), i = nb * 8 + 2 * q4 + (f & 1);
+        if (i < bm && h < rw) ring[i * rs + h] = bacc[jj][f];
+      }
+    }
+  }
 
   // The slices' sums, in slice order.
 #pragma unroll
@@ -1233,7 +1407,7 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
   __syncthreads();
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
+  for (int r = 0; !BF && r < 2; ++r) {
     const int i = rg + r * rgw, gi = r0 + i;
     if (gi >= n || cb >= wg) continue;
     float dvec, u;
@@ -1255,6 +1429,25 @@ __device__ __forceinline__ void rows_body(RowShared& sh, float* __restrict__ dyn
       if (F != nullptr) F[((long long)b * n + gi) * ldf + h] = val;
       if (has_next) Fs[i][hl] = val;
     }
+  }
+  // BF: one (row, column) a thread, the f32 epilogue's expression.
+  for (int e = tid; BF && e < bm * wg; e += NT) {
+    const int i = e / wg, hl = e - i * wg, gi = r0 + i, h = g0 + hl;
+    if (gi >= n) continue;
+    float dvec, u;
+    if constexpr (DIR) {
+      dvec = dir_dvec(q, st, n, gi, fn, c8);
+      u = dir_u(q, st, n, gi, fn);
+    } else {
+      dvec = q[4] * st[DGA * n + gi] + q[5] * st[DGDA * n + gi] +
+             (q[10] * (st + RA * n)[gi] + q[11] * (st + RDA * n)[gi]) / fn + c8 + 1.f;
+      u = (q[6] * (st + RA * n)[gi] + q[7] * (st + RDA * n)[gi]) / fn;
+    }
+    const float m = Mb[(long long)gi * ldm + h];
+    float val = ring[i * rs + hl] + dvec * m + u * colS[hl] + (colW[hl] + c7 * colS[hl]);
+    if (relu) val = fmaxf(val, 0.f);
+    if (F != nullptr) F[((long long)b * n + gi) * ldf + h] = val;
+    if (has_next) Fs[i][hl] = val;
   }
   if (has_next && !(PROBE & RP_NO_NEXT)) {  // then H <= MAXIN: one group a row
     __syncthreads();
@@ -1312,45 +1505,71 @@ rows_kernel(Planes<false> P, const int* __restrict__ idx, const float* __restric
                             has_next, ln, Mn, ldmn, bm, vec_m);
 }
 
+// The bf16 row pass (K1bf, K1dbf, K2bf's recompute): the plan's cc an
+// argument; at most 128 registers, two CTAs an SM where shared memory
+// allows.
+template <bool DIR, int PROBE>
+__global__ void __launch_bounds__(NT, 2)
+rows_bf_kernel(Planes<true> P, const int* __restrict__ idx, const float* __restrict__ tau,
+               int n, const float* __restrict__ stats, Layer lp,
+               const float* __restrict__ Mc, int ldm, float* __restrict__ F, int ldf,
+               int relu, int has_next, Layer ln, float* __restrict__ Mn, int ldmn, int bm,
+               int vec_m, int cc) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ RowShared sh;
+  const int b = blockIdx.z;
+  rows_body<DIR, 1, PROBE, true>(sh, dyn, P, plane_base(P, idx, b, n), __ldg(tau + b), b,
+                                 blockIdx.x, blockIdx.y, n, stats, lp, Mc, ldm, F, ldf, relu,
+                                 has_next, ln, Mn, ldmn, bm, vec_m, cc);
+}
+
 // One row pass of layer l on plan (bm, cc, groups): rows_kernel<DIR, cc,
-// PROBE> on grid (ceil(n / bm), groups, B). The shared-memory allowance (the
-// largest plan's, n = MAXN, with RP_TF32's padded ring) is set once per
-// device and instantiation.
-template <bool DIR, int CC, int PROBE>
-static int launch_rows_cc(const Planes<false>& P, const int* idx, const float* tau, int B,
+// PROBE> (BF: rows_bf_kernel<DIR, PROBE>) on grid (ceil(n / bm), groups,
+// B). The shared-memory allowance (the largest plan's, n = MAXN, with
+// RP_TF32's padded ring) is set once per device and instantiation.
+template <bool DIR, int CC, int PROBE, bool BF>
+static int launch_rows_cc(const Planes<BF>& P, const int* idx, const float* tau, int B,
                           int n, const float* stats, const Layer& lp, const float* Mc,
                           int ldm, float* F, int ldf, int relu, int has_next,
-                          const Layer& ln, float* Mn, int ldmn, int bm, int groups,
+                          const Layer& ln, float* Mn, int ldmn, int bm, int cc, int groups,
                           cudaStream_t stream) {
   static bool allowed[64];
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err != 0) return err;
   if (dev >= 64 || !allowed[dev]) {
-    constexpr int most =
-        rows_smem_floats(MAXN, BM, rows_stride(128, MAXOUT, true), MAXIN) * (int)sizeof(float);
-    err = (int)cudaFuncSetAttribute(rows_kernel<DIR, CC, PROBE>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    constexpr int most = rows_smem_bytes(BF, MAXN, BM, 128, MAXOUT, !BF);
+    if constexpr (BF)
+      err = (int)cudaFuncSetAttribute(rows_bf_kernel<DIR, PROBE>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    else
+      err = (int)cudaFuncSetAttribute(rows_kernel<DIR, CC, PROBE>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != 0) return err;
     if (dev < 64) allowed[dev] = true;
   }
-  const int cw = 512 * CC / bm;
+  const int cw = 512 * cc / bm;
   const int vec_m = ldm % 4 == 0 && ((uintptr_t)Mc & 15) == 0;
-  const int bytes =
-      rows_smem_floats(n, bm, rows_stride(cw, lp.hout, (PROBE & RP_TF32) != 0), lp.hout) *
-      (int)sizeof(float);
-  rows_kernel<DIR, CC, PROBE><<<dim3((n + bm - 1) / bm, groups, B), NT, bytes, stream>>>(
-      P, idx, tau, n, stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn, bm, vec_m);
+  const int bytes = rows_smem_bytes(BF, n, bm, cw, lp.hout, (PROBE & RP_TF32) != 0);
+  const dim3 grid((n + bm - 1) / bm, groups, B);
+  if constexpr (BF)
+    rows_bf_kernel<DIR, PROBE><<<grid, NT, bytes, stream>>>(
+        P, idx, tau, n, stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn, bm, vec_m,
+        cc);
+  else
+    rows_kernel<DIR, CC, PROBE><<<grid, NT, bytes, stream>>>(
+        P, idx, tau, n, stats, lp, Mc, ldm, F, ldf, relu, has_next, ln, Mn, ldmn, bm, vec_m);
   return (int)cudaGetLastError();
 }
 
 // plan: (bm, cc, groups) of this layer; refused unless cw = 512 cc / bm is
 // 32, 64 or 128, the groups cover H, and a layer that feeds another is one
-// group. PROBE: RowProbe bits, 0 on the main path; a probe takes no plan of
-// cc = 2 (none of the ablation's shapes has one).
-template <bool DIR, int PROBE = 0>
-static int launch_rows(const Planes<false>& P, const int* idx, const float* tau, int B,
-                       int n, const float* stats, const Layer& lp, const float* Mc, int ldm,
+// group. PROBE: RowProbe bits, 0 on the main path; an f32 probe takes no
+// plan of cc = 2 (none of the ablation's shapes has one). BF: the bf16 pass,
+// one instantiation for every cc.
+template <bool DIR, int PROBE = 0, bool BF = false>
+static int launch_rows(const Planes<BF>& P, const int* idx, const float* tau, int B, int n,
+                       const float* stats, const Layer& lp, const float* Mc, int ldm,
                        float* F, int ldf, int relu, int has_next, const Layer& ln, float* Mn,
                        int ldmn, const int* plan, cudaStream_t stream) {
   const int bm = plan[0], cc = plan[1], groups = plan[2];
@@ -1361,18 +1580,27 @@ static int launch_rows(const Planes<false>& P, const int* idx, const float* tau,
   if (cw < 32 || cw > 128 || (long long)groups * cw < lp.hout ||
       (long long)(groups - 1) * cw >= lp.hout || (has_next && groups != 1))
     return (int)cudaErrorInvalidValue;
-  switch (cc) {
-    case 1:
-      return launch_rows_cc<DIR, 1, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf,
-                                           relu, has_next, ln, Mn, ldmn, bm, groups, stream);
-    case 2:
-      if constexpr (PROBE == 0)
-        return launch_rows_cc<DIR, 2, 0>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf, relu,
-                                         has_next, ln, Mn, ldmn, bm, groups, stream);
-      return (int)cudaErrorInvalidValue;
-    default:
-      return launch_rows_cc<DIR, 4, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf,
-                                           relu, has_next, ln, Mn, ldmn, bm, groups, stream);
+  if constexpr (BF) {
+    return launch_rows_cc<DIR, 1, PROBE, true>(P, idx, tau, B, n, stats, lp, Mc, ldm, F, ldf,
+                                               relu, has_next, ln, Mn, ldmn, bm, cc, groups,
+                                               stream);
+  } else {
+    switch (cc) {
+      case 1:
+        return launch_rows_cc<DIR, 1, PROBE, false>(P, idx, tau, B, n, stats, lp, Mc, ldm, F,
+                                                    ldf, relu, has_next, ln, Mn, ldmn, bm, cc,
+                                                    groups, stream);
+      case 2:
+        if constexpr (PROBE == 0)
+          return launch_rows_cc<DIR, 2, 0, false>(P, idx, tau, B, n, stats, lp, Mc, ldm, F,
+                                                  ldf, relu, has_next, ln, Mn, ldmn, bm, cc,
+                                                  groups, stream);
+        return (int)cudaErrorInvalidValue;
+      default:
+        return launch_rows_cc<DIR, 4, PROBE, false>(P, idx, tau, B, n, stats, lp, Mc, ldm, F,
+                                                    ldf, relu, has_next, ln, Mn, ldmn, bm, cc,
+                                                    groups, stream);
+    }
   }
 }
 
@@ -1401,10 +1629,10 @@ inline bool dims_ok(const int* dims, int L, int ldm) {
   return true;
 }
 
-// K1's passes: the prep pass, then one row pass per layer (f32: on the
-// layer's plan, plan + 3 l; bf16: fwd_rows), layer l's M in Mbuf's l-th
-// (B, n, ldm) buffer, the last layer's output in out. PROBE: the f32 row
-// passes' RowProbe bits (0 on the main path). Returns the first CUDA error.
+// K1's passes: the prep pass, then one row pass per layer on the layer's
+// plan, plan + 3 l (BF: the bf16 row pass), layer l's M in Mbuf's l-th (B,
+// n, ldm) buffer, the last layer's output in out. PROBE: the row passes'
+// RowProbe bits (0 on the main path). Returns the first CUDA error.
 template <bool DIR, bool BF, int PROBE = 0>
 static int mk_fwd(const Planes<BF>& P, const int* idx, const float* tau, const float* Z,
                   int B, int n, int L, const int* dims, const void* const* ptrs,
@@ -1423,19 +1651,11 @@ static int mk_fwd(const Planes<BF>& P, const int* idx, const float* tau, const f
     Layer ln = last ? lp : layer_from(ptrs, dims, l + 1);
     float* Mc = Mbuf + l * mstride;
     float* Mn = last ? nullptr : Mbuf + (l + 1) * mstride;
-    if constexpr (BF) {
-      fwd_rows_kernel<DIR, BF><<<grid, NT, 0, stream>>>(
-          P, idx, tau, n, stats, lp, Mc, ldm, last ? out : nullptr,
-          dims[2 * l + 1], last ? 0 : 1, last ? 0 : 1, ln, Mn, ldm);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    } else {
-      const int e = launch_rows<DIR, PROBE>(P, idx, tau, B, n, stats, lp, Mc, ldm,
-                                            last ? out : nullptr, dims[2 * l + 1],
-                                            last ? 0 : 1, last ? 0 : 1, ln, Mn, ldm,
-                                            plan + 3 * l, stream);
-      if (e != 0) return e;
-    }
+    const int e = launch_rows<DIR, PROBE, BF>(P, idx, tau, B, n, stats, lp, Mc, ldm,
+                                              last ? out : nullptr, dims[2 * l + 1],
+                                              last ? 0 : 1, last ? 0 : 1, ln, Mn, ldm,
+                                              plan + 3 * l, stream);
+    if (e != 0) return e;
   }
   return 0;
 }

@@ -23,18 +23,20 @@
 // at n = 400, fit in the 50 MB L2). A, dA and A_bar never reach device
 // memory; the matmuls are f32 FMA on a register micro-tile, M streamed
 // through a cp.async ring. The first version of the row pass (fwd_rows,
-// which K11 and the bf16 kernels still run) regenerated C's tiles for
-// every 64-column chunk, on 16-row CTAs, with no copy pipeline: 0.69 ms a
-// trade eval (NVIDIA H100 80GB HBM3, 700.00 W). The directed basis adds
+// which only the design probes still run) regenerated C's tiles for every
+// 64-column chunk, on 16-row CTAs, with no copy pipeline: 0.69 ms a trade
+// eval (NVIDIA H100 80GB HBM3, 700.00 W). The directed basis adds
 // one sweep over the planes in the prep pass, for the column sums (each
 // CTA owns the columns with its rows' indices), and O(n) work per row.
 //
 // K1bf (``bf16``): the same passes on bfloat16 planes (half the bytes of
-// the only O(n^2) reads), the two n x n products per layer on the tensor
-// cores with JAX's bf16 rounding points (megakernel_common.cuh, BF). It is
-// bound by bytes: 4 n H bf16 FLOPs per element of C are far below
-// the card's 295 FLOP per byte, and the tile regeneration, not the
-// products, takes its time.
+// the only O(n^2) reads) and the same plans (row_plan with bf16, its own
+// shared memory), each layer's rows_bf_kernel forming B1 and B2^T in bf16
+// once and running the two n x n products on the tensor cores with JAX's
+// bf16 rounding points (megakernel_common.cuh, BF). It is bound by bytes:
+// 4 n H bf16 FLOPs per element of C are far below the card's 295 FLOP per
+// byte; in practice, like K1, by each CTA's serial chain (the plane reads
+// and forming, the ring).
 #include "megakernel_common.cuh"
 
 using namespace mk;
@@ -62,8 +64,8 @@ static int mk_fwd_basis(const void* d, const void* c, const void* b, const void*
 // holds L (B, n, ldm) buffers, layer l's M in the l-th (ldm >= every
 // layer's width), so the caller can read each layer's M back (mk::mk_fwd).
 // Planes d, c, b, a: float32, or bfloat16 when bf16 (K1bf). plan: host
-// array of (bm, cc, groups) per layer, the f32 row pass's launch plan
-// (ops/megakernel.py row_plan; unread by K1bf).
+// array of (bm, cc, groups) per layer, the row pass's launch plan
+// (ops/megakernel.py row_plan).
 extern "C" int gncde_mk_fwd(const void* d, const void* c, const void* b,
                             const void* a, long long plane_bstride,
                             const int* idx, const float* tau, const float* Z,
@@ -71,11 +73,19 @@ extern "C" int gncde_mk_fwd(const void* d, const void* c, const void* b,
                             const void* const* ptrs, const int* plan, int directed, int bf16,
                             float* stats, float* Mbuf, int ldm, float* out,
                             cudaStream_t stream) {
-  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm) || (!bf16 && plan == nullptr))
+  if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm) || plan == nullptr)
     return (int)cudaErrorInvalidValue;
   if (bf16)
     return mk_fwd_basis<true>(d, c, b, a, plane_bstride, idx, tau, Z, B, n, L, dims, ptrs,
                               plan, directed, stats, Mbuf, ldm, out, stream);
   return mk_fwd_basis<false>(d, c, b, a, plane_bstride, idx, tau, Z, B, n, L, dims, ptrs,
                              plan, directed, stats, Mbuf, ldm, out, stream);
+}
+
+// Dynamic shared memory of one row-pass CTA on plan (bm, cw) of an H-wide
+// layer, in bytes (megakernel_common.cuh rows_smem_bytes; bf16: the bf16
+// pass's): the planner's formula (ops/megakernel.py row_smem_bytes, same
+// arguments) must agree with it (a card test checks).
+extern "C" int gncde_row_smem_bytes(int n, int bm, int cw, int H, int bf16) {
+  return rows_smem_bytes(bf16 != 0, n, bm, cw, H);
 }

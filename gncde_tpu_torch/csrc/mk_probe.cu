@@ -34,14 +34,17 @@
 // (8 plane reads and the Hermite per element of C) for one evaluation per
 // eval and two bf16 reads per layer.
 //
-// K1bf with the probe flags (P3 red / notr, P4's ablations): no code of its
-// own. run_probe launches K1bf's prep_kernel and fwd_rows_kernel
-// (megakernel_common.cuh) instantiated with the compile-time flags RED, NOTR
-// and D there, which are off in K1bf itself; only those instantiations and
+// K1bf's first row pass with the probe flags (P3 red / notr, P4's
+// ablations): no code of its own. run_probe launches K1bf's prep_kernel and
+// the first row pass, fwd_rows_kernel (megakernel_common.cuh), instantiated
+// with the compile-time flags RED, NOTR and D there; P3 current and P4 full
+// are the same launches with every flag off, so each ablation reads against
+// the pass it ablates (K1bf itself runs the redesigned row pass, rows_body;
+// P2, P5 full and P6 follow it). Only those instantiations and
 // dma_only's kernel (the plane reads alone) are compiled here, so K1bf's
-// build does not grow. P3 current, P4 full and P5 full are K1bf's own
-// launch. It is bound by bytes as K1bf is; the flags move work, not bytes,
-// except no_hermite (two planes read) and dma_only (no Z, no products).
+// build does not grow. It is bound by bytes as K1bf is; the flags move
+// work, not bytes, except no_hermite (two planes read) and dma_only (no Z,
+// no products).
 #include "megakernel_common.cuh"
 
 using namespace mk;
@@ -355,9 +358,10 @@ dma_only_kernel(Planes<true> P, const int* __restrict__ idx, int n, int hout,
   }
 }
 
-// One eval of K1bf (megakernel_common.cuh prep_kernel, fwd_rows_kernel at
-// BF, undirected) with the flags D, RED and NOTR: K1bf's own launches,
-// under RED the (B, n, 4) operand rvec in place of the stats buffer.
+// One eval of K1bf's first passes (megakernel_common.cuh prep_kernel,
+// fwd_rows_kernel at BF, undirected) with the flags D, RED and NOTR (all off:
+// P3 current, P4 full), under RED the (B, n, 4) operand rvec in place of the
+// stats buffer.
 template <int D, bool RED, bool NOTR>
 int run_probe(const Planes<true>& P, const int* idx, const float* tau, const float* Z, int B,
               int n, int L, const int* dims, const void* const* ptrs, const float* rvec,
@@ -419,10 +423,10 @@ extern "C" int gncde_mk4mm(const void* d, const void* c, const void* b, const vo
                               ldm, out, stream);
 }
 
-// K1bf with the probe flags: planes bf16; drop one of mk_probe5.py's
-// ablations (DMA_ONLY launches only dma_only_kernel); red (rvec (B, n, 4))
-// and notr only with FULL, and FULL only with one of them (FULL alone is
-// K1bf, gncde_mk_fwd); no_norm needs square layers. stats (B, NSTAT, n);
+// K1bf's first passes with the probe flags: planes bf16; drop one of
+// mk_probe5.py's ablations (DMA_ONLY launches only dma_only_kernel); red
+// (rvec (B, n, 4)) and notr only with FULL (FULL alone: every flag off, P3
+// current and P4 full); no_norm needs square layers. stats (B, NSTAT, n);
 // Mbuf as for K1bf. Returns the first CUDA error.
 extern "C" int gncde_mkprobe(const void* d, const void* c, const void* b, const void* a,
                              long long plane_bstride, const int* idx, const float* tau,
@@ -432,7 +436,7 @@ extern "C" int gncde_mkprobe(const void* d, const void* c, const void* b, const 
                              float* out, cudaStream_t stream) {
   if (L < 1 || B < 1 || n < 1 || !dims_ok(dims, L, ldm) || drop < FULL || drop > DMA_ONLY)
     return (int)cudaErrorInvalidValue;
-  if ((red || notr) != (drop == FULL)) return (int)cudaErrorInvalidValue;
+  if ((red || notr) && drop != FULL) return (int)cudaErrorInvalidValue;
   if (red && rvec == nullptr) return (int)cudaErrorInvalidValue;
   if (drop == NO_NORM)
     for (int l = 0; l < L; ++l)
@@ -445,6 +449,7 @@ extern "C" int gncde_mkprobe(const void* d, const void* c, const void* b, const 
   if (red) RUN(FULL, true, false);
   if (notr) RUN(FULL, false, true);
   switch (drop) {
+    case FULL: RUN(FULL, false, false);
     case NO_HERMITE: RUN(NO_HERMITE, false, false);
     case NO_REDUCE: RUN(NO_REDUCE, false, false);
     case NO_TRANSPOSE: RUN(NO_TRANSPOSE, false, false);

@@ -13,9 +13,10 @@ glue between them. Off by default (``ops.set_fused_step``), as in JAX.
   ``plain_vf_eval_bf16``) stage by stage. CPU tensors take it.
 * :func:`fused_step_call` launches K11 for CUDA tensors (raising on what the
   kernel does not take) and returns the stage derivatives ``ks`` too. Its
-  f32 stages run K1's row pass on :func:`step_plans` (``rows_body`` in one
+  stages run K1's row pass on :func:`step_plans` (``rows_body`` in one
   grid of resident CTAs that walk each phase's virtual CTAs,
-  :func:`step_walk`), so a step is the per-stage K1 route's bit for bit.
+  :func:`step_walk`; with ``bf16`` the bf16 row pass), so a step is the
+  per-stage K1 (K1bf) route's bit for bit.
 * :class:`FusedRKStep` is the differentiable step: forward K11, backward the
   explicit-RK chain rule written out (``_fused_step_vjp._bwd``): per stage,
   in reverse, one K2 (:func:`~gncde_tpu_torch.ops.megakernel_bwd.megakernel_vf_bwd`)
@@ -197,12 +198,12 @@ _CAPACITY: tp.Dict[tp.Tuple[int, bool, bool, int], int] = {}
 
 def capacity(device, directed: bool = False, bf16: bool = False, smem: int = 0) -> int:
     """How many K11 CTAs (of the directed basis's build or not, the bf16
-    one or not; the f32 kernel with ``smem`` bytes of dynamic shared memory,
+    one or not, with ``smem`` bytes of dynamic shared memory,
     :func:`step_smem_bytes`) can be resident at once on ``device`` (a
     cooperative launch needs them all resident)."""
     dev = torch.device(device).index
     dev = torch.cuda.current_device() if dev is None else dev
-    key = (dev, bool(directed), bool(bf16), 0 if bf16 else int(smem))
+    key = (dev, bool(directed), bool(bf16), int(smem))
     if key not in _CAPACITY:
         with torch.cuda.device(dev):
             _CAPACITY[key] = int(_lib().gncde_fused_step_capacity(
@@ -210,28 +211,29 @@ def capacity(device, directed: bool = False, bf16: bool = False, smem: int = 0) 
     return _CAPACITY[key]
 
 
-#: The CTA heights of the f32 kernel's stage plans: 8 or 4 rows, whose
+#: The CTA heights of the kernel's stage plans: 8 or 4 rows, whose
 #: plans take one column a thread for any layer of the step (at most
 #: ``MAX_IN`` wide), so one instantiation of the row pass serves them all.
 STEP_BMS = (8, 4)
 
 
-def step_plans(n: int, B: int, widths):
-    """The f32 kernel's row-pass plan per layer
+def step_plans(n: int, B: int, widths, bf16: bool = False):
+    """The kernel's row-pass plan per layer
     (:func:`~gncde_tpu_torch.ops.megakernel.row_plans` on :data:`STEP_BMS`;
-    any plan gives the per-stage K1 route's bits)."""
-    return row_plans(n, B, widths, STEP_BMS)
+    any plan gives the per-stage K1 (K1bf) route's bits)."""
+    return row_plans(n, B, widths, STEP_BMS, bf16)
 
 
-def step_smem_bytes(n: int, B: int, layers) -> int:
-    """The f32 kernel's dynamic shared memory at ``n`` nodes and batch
-    ``B``: the largest of its layers' row-pass plans (:func:`step_plans`)."""
+def step_smem_bytes(n: int, B: int, layers, bf16: bool = False) -> int:
+    """The kernel's dynamic shared memory at ``n`` nodes and batch ``B``
+    (``bf16``: K11bf's): the largest of its layers' row-pass plans
+    (:func:`step_plans`)."""
     widths = (layers[0]["W"].shape[1],) + tuple(lp["W"].shape[0] for lp in layers)
-    return max(p.smem_bytes for p in step_plans(n, B, widths))
+    return max(p.smem_bytes for p in step_plans(n, B, widths, bf16))
 
 
 def step_walk(n: int, B: int, plans) -> tp.List[tp.List[tp.Tuple[int, int, int]]]:
-    """The virtual CTAs of one stage of the f32 kernel, phase by phase, in
+    """The virtual CTAs of one stage of the kernel, phase by phase, in
     the order its grid walks them: the prep's (element, 16-row block, 0),
     then each layer's (element, row block, column group) of its plan. CTA
     ``g`` of a grid of ``G`` takes entries ``g, g + G, ...`` of each phase."""
@@ -264,11 +266,10 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays, bf16: b
         raise ValueError("K11: the layer stack must map the state width to itself")
     lib = _lib()
     nrb = -(-n // 16)  # csrc/megakernel_common.cuh BM
-    # f32: every chunk's stages run on the whole batch's row plans (any plan
-    # gives the same bits); the kernel walks them with at most the resident
-    # CTAs.
-    plans = None if bf16 else plan_array(n, B, layers, STEP_BMS)
-    smem = 0 if bf16 else step_smem_bytes(n, B, layers)
+    # Every chunk's stages run on the whole batch's row plans (any plan gives
+    # the same bits); the kernel walks them with at most the resident CTAs.
+    plans = plan_array(n, B, layers, STEP_BMS)
+    smem = step_smem_bytes(n, B, layers, bf16)
     per_launch = capacity(y.device, directed, bf16, smem) // nrb
     if per_launch < 1:
         raise RuntimeError(f"K11: not even one batch element ({nrb} CTAs) fits a "
@@ -292,7 +293,7 @@ def _launch(planes: Planes, idx, tau, y, h, f0, layers, tabs: TabArrays, bf16: b
             _build.ptr(tau32), _build.ptr(h32), _build.ptr(y), _build.ptr(f0),
             B, b0, nb, n, S, *[ctypes.cast(a, _build.P) for a in host],
             len(layers), ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-            None if bf16 else ctypes.cast(plans, _build.P),
+            ctypes.cast(plans, _build.P),
             int(directed), int(bool(bf16)), _build.ptr(stats), _build.ptr(mbuf), ldm,
             _build.ptr(yi), _build.ptr(ks), _build.ptr(y1), _build.ptr(err), _build.ptr(f1),
             _build.stream())

@@ -17,8 +17,9 @@ basis for the whole stack.
   rounded where JAX rounds them, with f32 sums; everything else f32.
 * :func:`megakernel_vf_eval` launches the CUDA kernel
   (``csrc/megakernel_fwd.cu``: the prep pass, then one row pass per layer
-  on that layer's :func:`row_plan`; with ``bf16`` its tensor-core
-  instantiation on bf16 planes) for CUDA tensors and raises if it cannot.
+  on that layer's :func:`row_plan`; with ``bf16`` the bf16 row pass on
+  bf16 planes, its products on the tensor cores) for CUDA tensors and
+  raises if it cannot.
 * :class:`MegakernelVF` is the ``autograd.Function`` the vector field
   calls: forward is K1, backward is K2 (``ops/megakernel_bwd.py``), or,
   where a coefficient plane needs a gradient, autograd of the plain
@@ -319,17 +320,18 @@ def scratch_width(layers) -> int:
     return max(max(lp["W"].shape) for lp in layers)
 
 
-#: The f32 row pass (``csrc/megakernel_common.cuh`` ``rows_kernel``): rows of
-#: M per ring tile (``RKT``) and ring stages (``RSTAGES``).
+#: The row pass (``csrc/megakernel_common.cuh`` ``rows_body``): rows of M
+#: per ring tile (``RKT``) and ring stages (``RSTAGES``).
 ROW_KT = 32
 ROW_STAGES = 3
 
 
 class RowPlan(tp.NamedTuple):
-    """One layer's launch plan of the f32 row pass: ``bm`` rows per CTA,
-    ``cc`` output columns per thread, ``cw = 512 cc / bm`` columns per CTA,
-    ``groups`` CTAs across the output's width; the grid's CTAs and each
-    CTA's dynamic shared memory."""
+    """One layer's launch plan of the row pass: ``bm`` rows per CTA, ``cc``
+    output columns per thread (f32; the bf16 pass's products are warps'
+    tensor-core blocks, and cc only sets its width), ``cw = 512 cc / bm``
+    columns per CTA, ``groups`` CTAs across the output's width; the grid's
+    CTAs and each CTA's dynamic shared memory."""
 
     bm: int
     cc: int
@@ -343,16 +345,24 @@ class RowPlan(tp.NamedTuple):
 ROW_WCH = 128
 
 
-def row_smem_bytes(n: int, bm: int, cw: int, H: int) -> int:
-    """Dynamic shared memory of one row-pass CTA (``rows_smem_floats``): v;
+def row_smem_bytes(n: int, bm: int, cw: int, H: int, bf16: bool = False) -> int:
+    """Dynamic shared memory of one row-pass CTA (``rows_smem_bytes``): v;
     its rows of C over n rounded up to the ring tile and the ring (rows of
     ``cw`` columns, or of H rounded up to 4 where one group holds the
     layer), or, where they need more, the next layer's W chunks
     (``ROW_WCH`` rows of H + 1; only a layer at most ``MAX_IN`` wide feeds
-    another)."""
+    another). With ``bf16`` (``rows_smem_bytes_bf``) the rows of B1 and of
+    B2^T in bf16 (npad + 8 halves, at least 8 rows each) take C's place,
+    and one ring tile rounded to bf16 (the ring's width rounded up to 16,
+    plus 8 halves) follows the ring. A card test holds it to the library's
+    own count (``gncde_row_smem_bytes``)."""
     npad = -(-n // ROW_KT) * ROW_KT
     rs = min(cw, -(-H // 4) * 4)
     wchunk = ROW_WCH * (H + 1) if H <= MAX_IN else 0
+    if bf16:
+        rows, hw = max(bm, 8), -(-rs // 16) * 16
+        return 4 * npad + max(4 * rows * (npad + 8) + 4 * ROW_STAGES * ROW_KT * rs
+                              + 2 * ROW_KT * (hw + 8), 4 * wchunk)
     return 4 * (npad + max(bm * (npad + 4) + ROW_STAGES * ROW_KT * rs, wchunk))
 
 
@@ -361,14 +371,15 @@ def row_smem_bytes(n: int, bm: int, cw: int, H: int) -> int:
 ROW_BMS = (16, 8, 4)
 
 
-def row_plan(n: int, B: int, H: int, bms=None) -> RowPlan:
+def row_plan(n: int, B: int, H: int, bms=None, bf16: bool = False) -> RowPlan:
     """The row pass's plan for an ``H``-wide layer at ``n`` nodes and batch
     ``B``: the tallest CTA (``bm`` of ``bms``, by default :data:`ROW_BMS`:
     16, 8, then 4 rows) whose grid still runs at least ``_build.SMS`` CTAs
     (else the last); per
     ``bm``, the fewest columns per thread whose CTA holds the whole layer
     (``cw`` up to 128; wider layers take ``ceil(H / 128)`` groups). Every
-    plan gives the same bits: only the work's partition changes."""
+    plan gives the same bits: only the work's partition changes. ``bf16``:
+    the bf16 pass's plan, the same CTAs with its own shared memory."""
     for bm in ROW_BMS if bms is None else bms:
         ccs = [cc for cc in (1, 2, 4) if 32 <= 512 * cc // bm <= 128]
         cc = next((c for c in ccs if 512 * c // bm >= H), ccs[-1])
@@ -377,13 +388,13 @@ def row_plan(n: int, B: int, H: int, bms=None) -> RowPlan:
         ctas = -(-n // bm) * groups * B
         if ctas >= _build.SMS:
             break
-    return RowPlan(bm, cc, cw, groups, ctas, row_smem_bytes(n, bm, cw, H))
+    return RowPlan(bm, cc, cw, groups, ctas, row_smem_bytes(n, bm, cw, H, bf16))
 
 
-def row_plans(n: int, B: int, widths, bms=None) -> tp.List[RowPlan]:
+def row_plans(n: int, B: int, widths, bms=None, bf16: bool = False) -> tp.List[RowPlan]:
     """:func:`row_plan` of every layer of a stack of ``widths`` (input, then
     each layer's output)."""
-    return [row_plan(n, B, h, bms) for h in widths[1:]]
+    return [row_plan(n, B, h, bms, bf16) for h in widths[1:]]
 
 
 @functools.lru_cache(maxsize=256)
@@ -396,7 +407,8 @@ def plan_array(n: int, B: int, layers, bms=None):
     """The row plans of ``layers`` (CTA heights ``bms``, by default
     :data:`ROW_BMS`) as the C entry points take them: a host array of (bm,
     cc, groups) per layer, built once per shape, stack of widths and heights
-    (the C side only reads it)."""
+    (the C side only reads it). The f32 and the bf16 pass take the same
+    array."""
     widths = (layers[0]["W"].shape[1],) + tuple(lp["W"].shape[0] for lp in layers)
     return _plan_array(n, B, widths, tuple(ROW_BMS if bms is None else bms))
 
@@ -437,7 +449,7 @@ def _launch_fwd(planes: Planes, idx, tau, Z, layers, bf16: bool, trace=None):
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z),
         B, n, len(layers), ctypes.cast(dims, _build.P),
         ctypes.cast(ptrs, _build.P),
-        None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
+        ctypes.cast(plan_array(n, B, layers), _build.P),
         int(nbasis == NBASIS_DIRECTED), int(bool(bf16)),
         _build.ptr(stats), _build.ptr(mbuf), ldm, _build.ptr(out),
         _build.stream(),

@@ -23,10 +23,10 @@ with P = 8 for the undirected basis and 11 for the directed one
   cotangents).
 * :func:`megakernel_vf_bwd` launches ``csrc/megakernel_bwd.cu`` (f32: the
   forward recompute on K1's row pass) or, with ``bf16``,
-  ``csrc/megakernel_bwd_bf.cu`` (K1bf's passes), then the reverse sweep of
-  ``csrc/bwd_sweep.cuh`` on :func:`bwd_row_plan`'s plan per layer (bf16:
-  its tensor-core instantiation on bf16 planes) for CUDA tensors and
-  raises if it cannot.
+  ``csrc/megakernel_bwd_bf.cu`` (K1bf's prep and bf16 row pass), then the
+  reverse sweep of ``csrc/bwd_sweep.cuh`` on :func:`bwd_row_plan`'s plan
+  per layer (bf16: its tensor-core instantiation on bf16 planes) for CUDA
+  tensors and raises if it cannot.
 """
 
 from __future__ import annotations
@@ -369,7 +369,7 @@ _BWD_ARGTYPES = [
     _build.P, _build.P, _build.P, _build.P,  # idx, tau, Z, G
     _build.I, _build.I, _build.I,  # B, n, L
     _build.P, _build.P,  # dims, ptrs (host arrays)
-    _build.P, _build.P,  # K1's row plans (f32 only), the sweep's plans (host arrays)
+    _build.P, _build.P,  # K1's row plans (the recompute's), the sweep's plans (host arrays)
     _build.I, _build.I,  # directed, need_tau
     _build.P, _build.P, _build.P, _build.P, _build.I,  # stats, M, X, g, ldm
     _build.P,  # dZ
@@ -424,7 +424,7 @@ def _launch_bwd(planes: Planes, idx, tau, Z, layers, G, need_tau, bf16, trace=No
         *[_build.ptr(p) for p in planes], bstride,
         _build.ptr(idx32), _build.ptr(tau32), _build.ptr(Z), _build.ptr(G),
         B, n, L, ctypes.cast(dims, _build.P), ctypes.cast(ptrs, _build.P),
-        None if bf16 else ctypes.cast(plan_array(n, B, layers), _build.P),
+        ctypes.cast(plan_array(n, B, layers), _build.P),
         ctypes.cast(lay.plans, _build.P), int(nbasis == NBASIS_DIRECTED), int(bool(need_tau)),
         _build.ptr(stats), _build.ptr(mbuf), _build.ptr(xbuf), _build.ptr(gbuf),
         ldm, _build.ptr(dZ), _build.ptr(part), part.numel(), _build.ptr(work),

@@ -20,16 +20,20 @@ counts its own launches and a plain PyTorch version:
   K1bf's own launch (one launch per eval, each element gathering its
   interval's planes); ``fixedslice`` is K1bf on ``(B, 1, n, n)`` stacks
   sliced once (the caller slices; ``idx`` is then 0).
-* P3 ``current`` (K1bf), ``red`` (the statistics pass replaced by a
+* P3 ``current``, ``red`` (the statistics pass replaced by a
   ``(B, n, 4)`` operand ``[rA, rdA, diagA, diagdA]`` made in torch from
   :func:`~gncde_tpu_torch.ops.tiled.cubic_plane_reductions`, see
   :func:`red_operand`), ``notr`` (B2 staged in its natural layout and fed
   transposed to the product), ``red_notr``: compile-time flags on K1bf's
-  own device code (``csrc/megakernel_common.cuh``, instantiated with them
-  only in ``csrc/mk_probe.cu``).
-* P4 the ablation :data:`DROPS`: each drops one component of K1bf through
-  the flag ``D`` of the same device code (the math is wrong on purpose, as
-  in ``mk_probe5.py:52-129``); ``full`` is K1bf's own launch.
+  first row pass, ``fwd_rows`` (``csrc/megakernel_common.cuh``,
+  instantiated with them only in ``csrc/mk_probe.cu``); ``current`` is
+  that pass with every flag off.
+* P4 the ablation :data:`DROPS`: each drops one component of the same pass
+  through its flag ``D`` (the math is wrong on purpose, as in
+  ``mk_probe5.py:52-129``); ``full`` is that pass with every flag off. P3
+  and P4 ablate ``fwd_rows``, not K1bf's redesigned row pass, so that each
+  variant reads against the pass it changes; P2, P5 ``full`` and P6
+  follow K1bf and K11bf onto the redesigned pass.
 * P6 ``seq`` (six K1bf launches and the torch stage combinations of one
   Tsit5 step) and ``fusedstep`` (one K11bf launch per step,
   ``ops/fused_step.py``).
@@ -282,15 +286,14 @@ def launch_4mm(planes: Planes, idx, tau, Z, layers, mt: bool = False, herm_bf16:
 
 def launch_k1bf_probe(planes: Planes, idx, tau, Z, layers, drop: str = "full", notr=False,
                       rvec=None, trace=None):
-    """One eval of K1bf with the probe flags on the card (P3 ``red`` with
-    ``rvec``, ``notr``; P4 ``drop``): K1bf's passes instantiated with them.
-    Without a flag it is K1bf itself:
-    :func:`~gncde_tpu_torch.ops.megakernel.megakernel_vf_eval`."""
+    """One eval of K1bf's first passes with the probe flags on the card (P3
+    ``red`` with ``rvec``, ``notr``; P4 ``drop``): the prep pass and
+    ``fwd_rows`` instantiated with them; without a flag (P3 ``current``,
+    P4 ``full``) the same passes with every flag off."""
     if drop not in DROPS:
         raise ValueError(f"unknown ablation {drop!r}; one of {DROPS}")
-    if (notr or rvec is not None) != (drop == "full"):
-        raise ValueError("red and notr are variants of the full body, and the full body "
-                         "alone is K1bf (megakernel_vf_eval)")
+    if (notr or rvec is not None) and drop != "full":
+        raise ValueError("red and notr are variants of the full body")
     _check(planes, idx, tau, Z, layers, square=drop == "no_norm")
     B, n, _ = Z.shape
     if rvec is not None and (rvec.shape != (B, n, 4) or rvec.dtype != torch.float32
@@ -412,18 +415,15 @@ def _registry() -> tp.Dict[str, Variant]:
          dict(source=_K1BF_SRC)),
         ("P2", "batchgrid", "K1bf", "benchmarks/mk_probe2.py:99", *k1bf,
          dict(source=_K1BF_SRC)),
-        ("P3", "current", "K1bf", "benchmarks/mk_probe4.py:183", *k1bf,
-         dict(source=_K1BF_SRC)),
+        ("P3", "current", "K1bf-probe", "benchmarks/mk_probe4.py:183", *_probe(), {}),
         ("P3", "red", "K1bf-probe", "benchmarks/mk_probe4.py:183", *_probe(red=True),
          dict(needs_red=True)),
         ("P3", "notr", "K1bf-probe", "benchmarks/mk_probe4.py:183", *_probe(notr=True), {}),
         ("P3", "red_notr", "K1bf-probe", "benchmarks/mk_probe4.py:183",
          *_probe(red=True, notr=True), dict(needs_red=True)),
     ]
-    rows += [("P4", "full", "K1bf", "benchmarks/mk_probe5.py:177", *k1bf,
-              dict(source=_K1BF_SRC))]
     rows += [("P4", drop, "K1bf-ablation", "benchmarks/mk_probe5.py:177", *_probe(drop), {})
-             for drop in DROPS[1:]]
+             for drop in DROPS]
     rows += [
         ("P5", "full", "K1bf", "benchmarks/mk_probe6.py:175", *k1bf, dict(source=_K1BF_SRC)),
         ("P5", "v4mm", "K1-4mm", "benchmarks/mk_probe6.py:175", *_4mm(), {}),

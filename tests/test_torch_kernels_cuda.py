@@ -1710,6 +1710,145 @@ def test_cuda_fused_step_bf16_backward_matches_plain_chain(cuda, nbasis):
         assert "dtau" in errs and max(errs.values()) <= 1e-3, errs
 
 
+# The bf16 row pass (rows_body's bf16 instantiation: K1bf, K1dbf, K2bf's
+# recompute, K11bf's stages) at the main paths' shapes: the flagship, the
+# bench field (32 x 4), the trade field (its 512-wide last layer in four
+# column groups), the largest n (640, one element) and an odd n whose rows
+# fill no CTA height (300: a partial last CTA, npad 320) with odd widths
+# (4-byte M copies).
+K1BF_ROW_SHAPES = {"flagship": (400, 4, (16, 16, 16)), "bench": (400, 4, (32, 32, 32, 32)),
+                   "trade": (255, 4, (32, 32, 32, 32, 512)), "n640": (640, 1, (64, 64, 64)),
+                   "odd-n300": (300, 2, (13, 37, 70))}
+
+
+def _bf16_inputs(shape, nbasis, seed=0):
+    n, nb, widths = K1BF_ROW_SHAPES[shape]
+    planes, idx, tau, Z, layers, G = chip_smoke.make_inputs(torch, n, nb, widths, seed=seed,
+                                                            nbasis=nbasis)
+    return _bf16(planes), idx, tau, Z, layers, G
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["K1bf", "K1dbf"])
+@pytest.mark.parametrize("shape", list(K1BF_ROW_SHAPES))
+def test_cuda_k1bf_row_pass_main_shapes_match_plain_layer_by_layer(cuda, shape, nbasis):
+    """K1bf and K1dbf on the bf16 row pass: the output and every layer's M
+    within 1e-4 of the plain bf16 version run layer by layer from the
+    kernel's own M; two launches bitwise equal."""
+    planes, idx, tau, Z, layers, _ = _bf16_inputs(shape, nbasis, seed=31)
+    got, (errs, _) = chip_smoke.bf16_k1_stepwise(torch, planes, idx, tau, Z, layers)
+    again = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True)
+    torch.cuda.synchronize()
+    assert got.shape == (Z.shape[0], Z.shape[1], layers[-1]["W"].shape[0])
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bm", [16, 8, 4])
+@pytest.mark.parametrize("shape", ["trade", "odd-n300", "n640"])
+def test_cuda_k1bf_every_row_plan_gives_the_same_bits(cuda, shape, bm, monkeypatch):
+    """The bf16 pass's plan only partitions the work: every CTA height (and
+    so every cc and column group it takes) gives the default plan's output
+    and per-layer M bit for bit, on the directed basis."""
+    planes, idx, tau, Z, layers, _ = _bf16_inputs(shape, 11, seed=32)
+    t0, t1 = {}, {}
+    default = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True, trace=t0)
+    monkeypatch.setattr(mk, "ROW_BMS", (bm,))
+    got = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True, trace=t1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, default)
+    assert all(torch.equal(a, b) for a, b in zip(t0["M"], t1["M"]))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["K2bf", "K2dbf"])
+@pytest.mark.parametrize("shape", ["flagship", "n640", "odd-n300"])
+def test_cuda_k2bf_recompute_is_bitwise_k1bf_at_the_row_pass_shapes(cuda, shape, nbasis):
+    """K2bf's forward recompute runs K1bf's bf16 row pass on K1bf's plan:
+    its M_l are K1bf's bit for bit at the flagship, n=640 and odd shapes
+    (the trade's in test_cuda_k2bf_recompute_is_bitwise_k1bf)."""
+    planes, idx, tau, Z, layers, G = _bf16_inputs(shape, nbasis, seed=33)
+    t1, t2 = {}, {}
+    mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True, trace=t1)
+    mkb.megakernel_vf_bwd(planes, idx, tau, Z, layers, G, False, bf16=True, trace=t2)
+    torch.cuda.synchronize()
+    assert len(t1["M"]) == len(t2["M"]) == len(layers)
+    assert all(torch.equal(a, b) for a, b in zip(t1["M"], t2["M"]))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nbasis", [8, 11], ids=["K11bf", "K11dbf"])
+@pytest.mark.parametrize("shape", ["flagship", "bench"])
+def test_cuda_fused_step_bf16_is_bitwise_the_per_stage_route(cuda, shape, nbasis):
+    """K11bf (K11dbf) runs each stage on the bf16 row pass and the step's
+    plans: y1, err, f1 and every stage derivative bit for bit the per-stage
+    K1bf route's (six K1bf launches on K1bf's plans and the solver's stage
+    combinations)."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    tab = get_tableau("tsit5")
+    s = chip_smoke.STEP_SHAPES[shape]
+    planes, ts, t, y, h, f0, layers = chip_smoke.make_step_inputs(torch, **s, nbasis=nbasis)
+    planes = _bf16(planes)
+    got = tfs.fused_step_call(planes, ts, t, y, h, f0, layers, tab, bf16=True)
+    ref = tfs._step_reference(planes, ts, t, y, h, f0, layers, tab, True,
+                              stage=lambda *a: mk.megakernel_vf_eval(*a, bf16=True))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_k1bf_and_k11bf_largest_row_plans_launch_at_n640(cuda, monkeypatch):
+    """The largest shared memory the bf16 row pass's plans ask for (n=640,
+    CTAs of 16 rows, 128-column groups: 101,888 bytes; K11bf's stage plans,
+    CTAs of 8 rows: 52,480 bytes) within the kernels' own allowances, on
+    both bases: K1bf layer by layer within 1e-4 of its plain version, K11bf
+    bitwise its per-stage route."""
+    from gncde_tpu_torch.solve.tableaus import get_tableau
+
+    n, widths = 640, (64, 64, 512)
+    monkeypatch.setattr(mk, "ROW_BMS", (16,))
+    assert max(p.smem_bytes for p in mk.row_plans(n, 1, widths, bf16=True)) == 101_888
+    for nbasis in (8, 11):
+        planes, idx, tau, Z, layers, _ = chip_smoke.make_inputs(torch, n, 1, widths,
+                                                                nbasis=nbasis)
+        _, (errs, _) = chip_smoke.bf16_k1_stepwise(torch, _bf16(planes), idx, tau, Z, layers)
+        assert max(errs.values()) <= 1e-4, errs
+    monkeypatch.setattr(tfs, "STEP_BMS", (8,))
+    planes, ts, t, y, h, f0, layers = chip_smoke.make_step_inputs(torch, 640, 1, (64, 64, 64))
+    assert tfs.step_smem_bytes(640, 1, layers, bf16=True) == 52_480
+    tab = get_tableau("bosh3")
+    got = tfs.fused_step_call(_bf16(planes), ts, t, y, h, f0, layers, tab, bf16=True)
+    ref = tfs._step_reference(_bf16(planes), ts, t, y, h, f0, layers, tab, True,
+                              stage=lambda *a: mk.megakernel_vf_eval(*a, bf16=True))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["K1", "K1bf"])
+def test_cuda_row_shared_memory_matches_the_c_side(cuda, bf16):
+    """The planner's shared memory per row-pass CTA (``row_smem_bytes``) is
+    what the launch computes (``gncde_row_smem_bytes``: ``rows_smem_floats``
+    or, bf16, ``rows_smem_bytes_bf``) at every CTA height, group width and
+    layer width, for n off every tile multiple."""
+    import ctypes
+
+    fn = _build.load("megakernel_fwd").gncde_row_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    for n in (1, 40, 77, 255, 300, 400, 640):
+        for bm in (4, 8, 16):
+            for cw in (32, 64, 128):
+                for H in (1, 5, 16, 33, 64, 65, 130, 512, 1024):
+                    assert mk.row_smem_bytes(n, bm, cw, H, bf16) == fn(
+                        n, bm, cw, H, int(bf16)), (n, bm, cw, H)
+
+
 @pytest.mark.requires_cuda
 def test_cuda_bf16_kernels_take_only_bf16_planes(cuda):
     """No fallback: K1bf, K2bf and K11bf refuse f32 planes (and K1, K2, K11
@@ -1837,13 +1976,15 @@ def test_cuda_bf16_enc_idx_wrappers_raise_instead_of_falling_back(cuda):
 
 # ---------------------------------------------------------------------------
 # The megakernel design probes (ops/mk_probe.py): K1-4mm (P1, P5 v4mm*),
-# K1bf with the probe flags (P3 red/notr, P4's ablations), and the variants that
-# are K1bf (P2, P3 current, P5 full) or K11bf (P6 fusedstep)
+# K1bf's first row pass, fwd_rows, with the probe flags (P3 current, red,
+# notr; P4's ablations and full), and the variants that are K1bf (P2, P5
+# full) or K11bf (P6 fusedstep)
 # ---------------------------------------------------------------------------
 # Each eval variant against its plain version on the same bf16 planes, layer
 # by layer from the kernel's own M (chip_smoke.probe_stepwise), at K1bf's
-# bound (1e-4; P4 dma_only, f32 row sums, 1e-5). P4 full is K1bf's own
-# launch, and P3 notr computes K1bf's arithmetic: both bitwise K1bf.
+# bound (1e-4; P4 dma_only, f32 row sums, 1e-5). P4 full is P3 current's
+# launch, and P3 notr computes its arithmetic: both bitwise P3 current (the
+# first row pass with every flag off); P2 current and P5 full bitwise K1bf.
 
 PROBE_WIDTHS = [(8, 8, 8), (32, 32, 32, 32)]
 PROBE_IDS = ["8x3", "32x4"]
@@ -1866,6 +2007,8 @@ def test_cuda_probe_variant_matches_plain(cuda, key, widths):
     assert torch.isfinite(got).all() and torch.equal(got, again)
     assert max(errs.values()) <= (1e-5 if key == "P4/dma_only" else 1e-4), errs
     if key in ("P4/full", "P3/notr"):
+        assert torch.equal(got, mp.launch_k1bf_probe(planes, idx, tau, Z, layers))
+    if key in ("P2/current", "P5/full"):
         assert torch.equal(got, mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16=True))
 
 
@@ -1911,8 +2054,8 @@ def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda):
     dplanes, didx, dtau, dZ, dlayers, _ = _inputs(cuda, (8, 8), True, seed=24, nbasis=11)
     with pytest.raises(ValueError):  # the directed basis
         v4(_bf16(dplanes), didx, dtau, dZ, dlayers)
-    with pytest.raises(ValueError):  # no flag: that is K1bf itself
-        mp.launch_k1bf_probe(bf, idx, tau, Z, layers[:1])
+    with pytest.raises(ValueError):  # notr is a variant of the full body, not of a drop
+        mp.launch_k1bf_probe(bf, idx, tau, Z, layers[:1], drop="no_reduce", notr=True)
     assert (v4.launches, nonorm.launches) == before
 
 

@@ -181,6 +181,80 @@ def test_k1_row_plan_fills_the_card_at_the_main_path_shapes(n, B, widths):
         assert (plans[-1].bm, plans[-1].groups, plans[-1].ctas) == (16, 4, 256)
 
 
+# The bf16 row pass (K1bf, K2bf's recompute, K11bf's stages) takes the f32
+# pass's CTAs with shared memory of its own (``row_plan(..., bf16=True)``).
+# Its launch allows 101,888 bytes (the 16-row, 128-column plan at n = 640);
+# K11bf's plans (8 or 4 rows, one column a thread, layers up to 64 wide)
+# 52,480 (csrc/fused_step.cu step_smem_most).
+ROW_BF16_ALLOWANCE = 101_888
+STEP_BF16_ALLOWANCE = 52_480
+BF16_WIDTHS = [w for w in WIDTHS if w <= 1024]
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_k1bf_row_plan_fits_the_card_at_every_n_and_width(B):
+    """The bf16 row pass's plan at every n up to 640 and every width up to
+    england's 1024: the f32 plan's CTA shape (bm, cc, groups: the same
+    partition, so the same tests of it hold), its shared memory (a card
+    test holds it to the C side's) within the launch's allowance and, with
+    the static shared memory, within the card's 227 KB."""
+    for n in range(1, mk.MEGAKERNEL_MAX_N + 1):
+        for H in BF16_WIDTHS:
+            p, f = mk.row_plan(n, B, H, bf16=True), mk.row_plan(n, B, H)
+            _check_plan(p, n, B, H)
+            assert (p.bm, p.cc, p.cw, p.groups, p.ctas) == (f.bm, f.cc, f.cw, f.groups, f.ctas)
+            assert p.smem_bytes == mk.row_smem_bytes(n, p.bm, p.cw, H, True)
+            assert p.smem_bytes <= ROW_BF16_ALLOWANCE
+    for bm in mk.ROW_BMS:
+        assert max(mk.row_plan(640, 1, H, (bm,), bf16=True).smem_bytes
+                   for H in BF16_WIDTHS) <= ROW_BF16_ALLOWANCE
+    assert mk.row_smem_bytes(640, 16, 128, 512, bf16=True) == ROW_BF16_ALLOWANCE
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (255, 4, (32, 32, 32, 32, 512)),
+                                        (640, 1, (64, 64, 64)), (129, 2, (64, 64, 64, 1024)),
+                                        (300, 2, (13, 37, 70))],
+                         ids=["flagship", "trade", "n640", "england-n129", "odd-n300"])
+@pytest.mark.parametrize("bm", [None, 16, 8, 4])
+def test_k1bf_row_plan_visits_every_row_block_and_group_once(n, B, widths, bm):
+    """The bf16 pass's grid (row blocks, column groups) of every layer, on
+    the default plan and on each forced CTA height, covers each (row,
+    output column) exactly once, and the plan array the launch takes is
+    the plans' (bm, cc, groups)."""
+    bms = None if bm is None else (bm,)
+    plans = mk.row_plans(n, B, widths, bms, bf16=True)
+    for p, H in zip(plans, widths[1:]):
+        seen = np.zeros((n, H), np.int64)
+        for rb in range(p.ctas // (p.groups * B)):
+            for gr in range(p.groups):
+                seen[rb * p.bm:(rb + 1) * p.bm, gr * p.cw:(gr + 1) * p.cw] += 1
+        assert (seen == 1).all()
+    layers = [dict(W=torch.zeros(ho, hi)) for hi, ho in zip(widths[:-1], widths[1:])]
+    assert list(mk.plan_array(n, B, layers, bms)) == [x for p in plans
+                                                      for x in (p.bm, p.cc, p.groups)]
+
+
+@pytest.mark.parametrize("n,B,widths", [(400, 4, (16, 16, 16)), (400, 4, (32, 32, 32, 32)),
+                                        (640, 1, (64, 64, 64)), (300, 2, (13, 13, 13))],
+                         ids=["flagship", "bench", "n640", "odd-n300"])
+def test_k11bf_step_plans_fit_one_instantiation(n, B, widths):
+    """K11bf's stage plans: CTAs of 8 or 4 rows, one column a thread, one
+    group a layer (the one instantiation of the row pass the step kernel
+    builds), their shared memory the bf16 pass's and within the step
+    kernel's allowance; their virtual CTAs cover each (row, column) once."""
+    from gncde_tpu_torch.ops import fused_step as fs
+
+    plans = fs.step_plans(n, B, widths, bf16=True)
+    for p, H in zip(plans, widths[1:]):
+        assert p.bm in fs.STEP_BMS and p.cc == 1 and p.groups == 1 and p.cw >= H
+        assert p.smem_bytes == mk.row_smem_bytes(n, p.bm, p.cw, H, True)
+        assert p.smem_bytes <= STEP_BF16_ALLOWANCE
+    layers = [dict(W=torch.zeros(ho, hi)) for hi, ho in zip(widths[:-1], widths[1:])]
+    assert fs.step_smem_bytes(n, B, layers, bf16=True) == max(p.smem_bytes for p in plans)
+    for phase, p in zip(fs.step_walk(n, B, plans)[1:], plans):
+        assert sorted(phase) == [(b, r, 0) for b in range(B) for r in range(-(-n // p.bm))]
+
+
 # K2's f32 reverse sweep's static shared memory (csrc/bwd_sweep.cuh
 # BwdShared: colS, colG, colU, the slices' sums, scratch, zn, dz, inv, the
 # row dots, the rows' dvec and v, the warps' rank-term dots).

@@ -15,12 +15,13 @@ Shapes:
 * K6a, K6a-bf: genre-H8, genre-H128 (phases 9, 24), trade-H32,
   trade-H512 (phases 23, 25) and odd; K6a-bf with the forward's f32
   vectors and with the backward's bf16 ones;
-* K8-ablation, K1-ablation: K8 at the flagship and scaled shapes, and K1's
-  f32 row pass at the flagship, trade and n=640 shapes, with parts of
-  their work dropped or (K1) the products as 3xTF32 (``K8_ABLATION``,
-  ``K1_ABLATION``; the probe instantiations of ``csrc/bcsr.cu`` and
-  ``csrc/row_probe.cu``), and under each plan (K8's strip heights, the row
-  pass's CTA heights), device ms each;
+* K8-ablation, K1-ablation, K1bf-ablation: K8 at the flagship and scaled
+  shapes, and K1's f32 row pass and K1bf's bf16 one at the flagship, trade
+  and n=640 shapes, with parts of their work dropped or (K1) the products
+  as 3xTF32 (``K8_ABLATION``, ``K1_ABLATION``, ``K1BF_ABLATION``; the probe
+  instantiations of ``csrc/bcsr.cu`` and ``csrc/row_probe.cu``), and under
+  each plan (K8's strip heights, the row pass's CTA heights), device ms
+  each;
 * K6a-ablation: K6a's f32 sweep at genre-H128 and trade-H512 with one part
   of its work dropped at a time (``K6A_ABLATION``: the MMA, the forming of
   B1/B2, the plane copies, the vector copies, one pass), device ms each;
@@ -41,8 +42,13 @@ Shapes:
   K11bf, K11dbf (step shapes) on bf16 planes; K6b, K6b-bf (genre-H128,
   trade-H512), K7, K7bf (genre and trade planes), K12, K13 (phase 14's
   apply shapes): device ms beside the wrapper ms that ``chip_smoke.py``
-  prints, and the outputs for ``--compare``; K2bf and K2dbf also each
-  launch's device ms (the recompute's prep and row passes, the sweep's
+  prints, and the outputs for ``--compare``; K1bf and K1dbf also each
+  launch's device ms (the prep pass, then layer 1 .. L), the bf16 row
+  pass's plan, each layer's M for ``--compare`` and, as their yardstick,
+  one cuBLAS bf16 bmm a layer of [B1 | B2^T] formed beforehand with [Mh;
+  Mh] (``chip_smoke.k1_bf16_yardstick``); K11bf and K11dbf, as K11, the
+  per-stage route's device ms beside the step kernel's; K2bf and K2dbf
+  also each launch's device ms (the recompute's prep and row passes, the sweep's
   layers, the reduction: ``launch_device_ms``), the sweep's plan and, as
   their yardstick, two cuBLAS bf16 calls a layer
   (``chip_smoke.k2_yardstick``); K6b and K6b-bf their plan, the one
@@ -419,8 +425,15 @@ def megakernel_lines(cs, torch, names, saved):
             planes = tuple(p.to(torch.bfloat16) for p in planes)
             kernel = lambda: (mk.megakernel_vf_eval(planes, idx, tau, Z, layers, True),)  # noqa: E731
             plain = lambda: (mk.plain_vf_eval_bf16(planes, idx, tau, Z, layers),)  # noqa: E731
+            trace = {}
+            mk.megakernel_vf_eval(planes, idx, tau, Z, layers, True, trace=trace)
+            saved[f"{name}-M/{label}"] = [m.cpu() for m in trace["M"]]
+            extra = {"plan": cs.k1_row_plans(s, bf16=True),
+                     "launch_device_ms": cs.launch_device_ms(torch, kernel)}
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
-                    *cs.k1_bound(s, True), saved=saved)
+                    *cs.k1_bound(s, True),
+                    cs.k1_bf16_yardstick(torch, planes, idx, tau, layers, trace["M"]),
+                    "yardstick_bf16_bmm_per_layer_ms", saved=saved, extra=extra)
             del planes, Z, layers
             torch.cuda.empty_cache()
     for name in ("K11", "K11d", "K11bf", "K11dbf"):
@@ -439,13 +452,12 @@ def megakernel_lines(cs, torch, names, saved):
             if bf:  # forward + backward (one K2bf a stage): what K2bf's sweep moves
                 extra.update(fwd_bwd_times(cs, torch, tab, nbasis, planes, ts, t, y, h, f0,
                                            layers))
-            if not bf:  # what K11 must beat: six K1 (K1d) launches and the stage glue
-                extra.update(per_stage_route(cs, torch, lambda: tfs._step_reference(
-                    planes, ts, t, y, h, f0, layers, tab, stage=mk.megakernel_vf_eval)[:3],
-                    len(layers)))
-                plans = getattr(tfs, "step_plans", None)
-                extra["plan"] = plans and [p._asdict() for p in plans(s["n"], s["B"],
-                                                                      s["widths"])]
+            # What K11 must beat: six K1 (K1d; bf16 K1bf) launches and the
+            # stage glue.
+            extra.update(per_stage_route(cs, torch, lambda: tfs._step_reference(
+                planes, ts, t, y, h, f0, layers, tab, bf,
+                stage=lambda *a: mk.megakernel_vf_eval(*a, bf16=bf))[:3], len(layers)))
+            extra["plan"] = step_plans(s, bf)
             line_of(cs, torch, name, label, s, kernel(), plain(), kernel, plain,
                     *cs.step_bound(s["n"], s["B"], s["widths"], 6, bf),
                     saved=saved, extra=extra)
@@ -486,9 +498,24 @@ def fwd_bwd_times(cs, torch, tab, nbasis, planes, ts, t, y, h, f0, layers):
             "fwd_bwd_device_by_name": by_name}
 
 
+def step_plans(s, bf16=False):
+    """K11's stage plans at shape ``s`` (``bf16``: K11bf's) from the timed
+    checkout's ``ops.fused_step``, or None where that checkout has none (no
+    ``step_plans``, or one without ``bf16``)."""
+    import inspect
+
+    from gncde_tpu_torch.ops import fused_step as tfs
+
+    plans = getattr(tfs, "step_plans", None)
+    if plans is None or (bf16 and "bf16" not in inspect.signature(plans).parameters):
+        return None
+    kw = {"bf16": True} if bf16 else {}
+    return [p._asdict() for p in plans(s["n"], s["B"], s["widths"], **kw)]
+
+
 def per_stage_route(cs, torch, route, L):
-    """The per-stage route of one step at K11's inputs (six K1 or K1d
-    launches on the same stage inputs and the torch glue between them):
+    """The per-stage route of one step at K11's inputs (six K1, K1d, K1bf or
+    K1dbf launches on the same stage inputs and the torch glue between them):
     its device ms, and the device ms of its 6 (1 + L) K1 launches alone
     (the kernels of namespace ``mk``)."""
     dev, by_name = time_both(cs, torch, route)[1:]
@@ -705,11 +732,17 @@ def k8_ablation_lines(cs, torch):
             torch.cuda.empty_cache()
 
 
-def k1_probe_call(torch, planes, idx, tau, Z, layers, probe):
-    """``(call, out)``: one K1 eval (f32 planes, undirected) with every row
-    pass launched with the probe bits ``probe`` (the wrapper's operands,
-    plans and buffers), and the buffer it writes the output to; bits 0 are
-    the main path's wrapper itself."""
+#: The bf16 row pass's probes (``gncde_mk_fwd_bf16_probe``, the RowProbe
+#: bits of its bf16 instantiation; ``no_products`` also drops the tiles'
+#: rounding to bf16).
+K1BF_ABLATION = {k: v for k, v in K1_ABLATION.items() if k != "tf32_products"}
+
+
+def k1_probe_call(torch, planes, idx, tau, Z, layers, probe, bf16=False):
+    """``(call, out)``: one K1 eval (f32 planes, undirected; ``bf16``: K1bf
+    on bf16 planes) with every row pass launched with the probe bits
+    ``probe`` (the wrapper's operands, plans and buffers), and the buffer it
+    writes the output to; bits 0 are the main path's wrapper itself."""
     import ctypes
 
     from gncde_tpu_torch.ops import _build
@@ -719,10 +752,11 @@ def k1_probe_call(torch, planes, idx, tau, Z, layers, probe):
         out = [None]
 
         def wrapper():
-            out[0] = mk.megakernel_vf_eval(planes, idx, tau, Z, layers)
+            out[0] = mk.megakernel_vf_eval(planes, idx, tau, Z, layers, bf16)
         wrapper()
         return wrapper, out
-    fn = _build.load("row_probe").gncde_mk_fwd_probe
+    lib = _build.load("row_probe")
+    fn = lib.gncde_mk_fwd_bf16_probe if bf16 else lib.gncde_mk_fwd_probe
     P, L, I = _build.P, _build.L, _build.I
     fn.argtypes = [P, P, P, P, L, P, P, P, I, I, I, P, P, P, I, P, P, I, P, I, P]
     fn.restype = ctypes.c_int
@@ -747,22 +781,27 @@ def k1_probe_call(torch, planes, idx, tau, Z, layers, probe):
     return call, [out]
 
 
-def k1_ablation_lines(cs, torch):
-    """K1 at the flagship, trade and n=640 shapes: the device ms of each
-    :data:`K1_ABLATION` variant (in total and per launch), the 3xTF32
-    variant's error against the plain version beside the main path's, and
-    the default kernel's device ms under each CTA height (``ROW_BMS``
-    forced)."""
+def k1_ablation_lines(cs, torch, bf16=False):
+    """K1 (``bf16``: K1bf on bf16 planes) at the flagship, trade and n=640
+    shapes: the device ms of each :data:`K1_ABLATION` (:data:`K1BF_ABLATION`)
+    variant (in total and per launch), the 3xTF32 variant's error against
+    the plain version beside the main path's, and the default kernel's
+    device ms under each CTA height (``ROW_BMS`` forced)."""
     from gncde_tpu_torch.ops import megakernel as mk
 
-    for name, nbasis in (("K1", 8),):
+    name, variants = ("K1bf", K1BF_ABLATION) if bf16 else ("K1", K1_ABLATION)
+    for nbasis in (8,):
         for label, s in {**{k: cs.SHAPES[k] for k in ("flagship", "trade")},
                          **cs.K1_EDGE}.items():
             planes, idx, tau, Z, layers, _ = cs.make_inputs(torch, **s, nbasis=nbasis)
-            ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
+            if bf16:
+                planes = tuple(p.to(torch.bfloat16) for p in planes)
+                ref = mk.plain_vf_eval_bf16(planes, idx, tau, Z, layers)
+            else:
+                ref = mk.plain_vf_eval(planes, idx, tau, Z, layers)
             line = {"kernel": f"{name}-ablation", "shape": label}
-            for var, bits in K1_ABLATION.items():
-                call, out = k1_probe_call(torch, planes, idx, tau, Z, layers, bits)
+            for var, bits in variants.items():
+                call, out = k1_probe_call(torch, planes, idx, tau, Z, layers, bits, bf16)
                 if var in ("full", "tf32_products"):
                     torch.cuda.synchronize()
                     line[f"{var}_rel_err"] = cs.rel_err(torch, out[0], ref)[0]
@@ -774,7 +813,8 @@ def k1_ablation_lines(cs, torch):
                 for bm in (16, 8, 4):
                     mk.ROW_BMS = (bm,)
                     line[f"bm{bm}_device_ms"] = cs.device_ms(
-                        torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers))[0]
+                        torch, lambda: mk.megakernel_vf_eval(planes, idx, tau, Z, layers,
+                                                             bf16))[0]
             finally:
                 mk.ROW_BMS = bms
             cs.emit(line)
@@ -1067,6 +1107,8 @@ def kernel_lines(cs, torch, only, splits, saved):
         k8_ablation_lines(cs, torch)
     if "K1-ablation" in only:
         k1_ablation_lines(cs, torch)
+    if "K1bf-ablation" in only:
+        k1_ablation_lines(cs, torch, bf16=True)
     if "K10" in only:
         k10_lines(cs, torch, saved)
     megakernel_lines(cs, torch, only, saved)
@@ -1087,7 +1129,7 @@ def main() -> int:
                     help="comma-separated: K3, K4, K6a, K6a-bf, K8, K10, K1, K2, K1d, K2d, "
                          "K11, K11d, K1bf, K1dbf, K2bf, K2dbf, K11bf, K11dbf, K6b, K6b-bf, "
                          "K7, K7bf, K12, K13, K6a-ablation, K8-ablation, K1-ablation, "
-                         "K2-ablation, K2bf-ablation, K6b-ablation")
+                         "K1bf-ablation, K2-ablation, K2bf-ablation, K6b-ablation")
     ap.add_argument("--splits", default="",
                     help="K3, K4, K6a: split counts to time at the genre shapes, e.g. 1,2,4")
     ap.add_argument("--root", default=str(HERE), help="checkout whose gncde_tpu_torch runs")
@@ -1132,6 +1174,7 @@ def main() -> int:
                     ("bwd_probe", ("K2-ablation",)),
                     ("bwd_bf_probe", ("K2bf-ablation",)),
                     ("plane_probe", ("K6a-ablation", "K6b-ablation")),
+                    ("row_probe", ("K1-ablation", "K1bf-ablation")),
                     ("fused_step", ("K11", "K11d", "K11bf", "K11dbf"))):
         if any(k in only for k in ks):
             ptx[lib] = ptxas_lines(root, lib, r".")
